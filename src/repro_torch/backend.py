@@ -1,0 +1,47 @@
+"""Device policy of the port: where entry points run, and fp32 numerics.
+
+The reference picks its kernel mode from the platform it finds
+(``repro/kernels/ops.py:19-20`` and ``repro/kernels/attention.py:64-65``:
+compiled Pallas on a TPU, interpret mode elsewhere).  The port does not
+guess.  Its entry points (``LM.init``, ``LM.init_cache``, ``ServeEngine``)
+run on ``cuda`` unless the caller passes ``device="cpu"``; without a card
+and without that opt-in they raise instead of carrying on on the CPU.
+
+Importing this module turns TF32 off for matmuls and cuDNN, process-wide.
+The reference computes in full fp32 (``ServeEngine(cache_dtype=float32)``),
+and TF32 keeps about three decimal digits, which would break the parity
+tolerances (rtol 1e-4 for the GEMMs, 2e-4 for attention).
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def require_cuda() -> torch.device:
+    """The card, or an error that names the CPU opt-in."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``device`` as given, or the card when it is None."""
+    if device is None:
+        return require_cuda()
+    return torch.device(device)
+
+
+def make_generator(seed: int, device: Optional[torch.device]) -> torch.Generator:
+    """A seeded ``torch.Generator`` on ``device`` (CPU or CUDA)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g

@@ -1,0 +1,40 @@
+"""Public matmul entry points over the packed store (port of
+``repro/kernels/ops.py``).
+
+:func:`packed_mixed_matmul` is the serving contraction a searched
+mixed-QBN policy compiles to: one launch per non-empty bucket (K3 for
+int2 / int4, K2 for int8), a plain matmul for the bf16 ``full`` bucket,
+implicit zeros for pruned channels, and the per-bucket outputs scattered
+back into the policy's channel order.  The reference pads every operand
+to its block grid here; the CUDA kernels mask their ragged edges
+themselves, so nothing is padded.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.pack import STORE_BITS, PackedWeight
+from repro_torch.kernels.packed_matmul import packed_matmul
+from repro_torch.kernels.quant_matmul import quant_matmul
+
+__all__ = ["quant_matmul", "packed_matmul", "packed_mixed_matmul"]
+
+
+def packed_mixed_matmul(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """y = x @ dequant(w) for a 2-d PackedWeight.  x (M, K) f32."""
+    M, K = x.shape
+    if K != w.k:
+        raise ValueError(f"x has K={K}, weight has K={w.k}")
+    out = torch.zeros((M, w.n), dtype=torch.float32, device=x.device)
+    for (name, _), part in zip(w.buckets, w.parts):
+        if name == "pruned":
+            continue
+        if name == "full":
+            y = x.to(torch.float32) @ part[0].to(torch.float32)
+        elif name == "int8":
+            y = quant_matmul(x, part[0], part[1].reshape(-1))
+        else:
+            y = packed_matmul(x, part[0], part[1].reshape(-1),
+                              store_bits=STORE_BITS[name])
+        out.index_copy_(1, w.index(name), y)
+    return out.to(x.dtype)

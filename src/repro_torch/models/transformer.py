@@ -1,0 +1,362 @@
+"""Config-driven decoder LM, dense-attention families (port of
+``repro/models/transformer.py``).
+
+Covers what ``ServeEngine.generate`` runs: GQA attention with RoPE, the
+sliding window and the softcaps, dense SwiGLU FFNs, ``prefill`` and
+``decode_step`` over the dense KV cache (fp32 or int8 with per-(position,
+head) scales).  Parameters keep the reference's pytree: ``{"blocks": tuple
+per pattern position of dicts of (n_repeat, ...) stacked tensors,
+"final_norm", "unembed", "embed"}``.  A Python loop over the ``n_repeat``
+stacked repeats takes the place of ``lax.scan``.
+
+Unlike the reference, the cache is updated **in place**: ``prefill`` and
+``decode_step`` write into the tensors of the cache they are given and
+return that same cache, so a 26-layer cache is never copied per token.
+
+KV-cache convention: unwritten slots carry position ``POS_SENTINEL`` (int32
+max), which the attention masks reject; ``local_attn`` blocks keep a ring
+buffer of ``window`` slots.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import backend
+from repro_torch.kernels.pack import PackedWeight
+from repro_torch.models.api import BlockDef, LMConfig
+from repro_torch.models.layers import (POS_SENTINEL, attention, linear,
+                                       maybe_quant_act, rmsnorm, rope,
+                                       softcap, swiglu)
+from repro_torch.quant.linear_quant import FULL_BITS
+from repro_torch.quant.policy import LayerInfo, QuantizableGraph
+
+NOT_PORTED = {
+    "mamba": "ROADMAP.md A10 (mamba blocks)",
+    "cross_attn": "ROADMAP.md A10 (cross-attention memory cache)",
+    "moe": "ROADMAP.md A10 (MoE FFN)",
+    "paged": "ROADMAP.md A5 (paged KV pool, model_step, "
+             "paged_prefill_attention)",
+    "train": "ROADMAP.md A9 (training and QAT)",
+}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet: {NOT_PORTED[what]}")
+
+
+# ----------------------------------------------------- quantized KV caching
+def _kv_quant(x):
+    """(B, S, Hkv, hd) -> (int8 values, f32 scale (B, S, Hkv))."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _kv_deq(cache, key):
+    kq = cache[key]
+    if kq.dtype == torch.int8:
+        return kq.to(torch.float32) * cache[key + "_s"][..., None]
+    return kq
+
+
+def _kv_write(cache, k, v, pos, slot: int):
+    """Write (k, v, pos) into the cache window starting at ``slot``, in
+    place, quantizing per (position, head) when the cache stores int8."""
+    S = k.shape[1]
+    for key, val in (("k", k), ("v", v)):
+        if cache[key].dtype == torch.int8:
+            q, s = _kv_quant(val)
+            cache[key][:, slot:slot + S] = q
+            cache[key + "_s"][:, slot:slot + S] = s
+        else:
+            cache[key][:, slot:slot + S] = val.to(cache[key].dtype)
+    cache["pos"][:, slot:slot + S] = pos
+
+
+def _repeat(tree: Dict[str, Any], r: int) -> Dict[str, Any]:
+    """Repeat ``r`` of a dict of stacked tensors / PackedWeights (views)."""
+    return {k: (v.take(r) if isinstance(v, PackedWeight) else v[r])
+            for k, v in tree.items()}
+
+
+class LM:
+    """Stateless model object: config + init / forward functions."""
+
+    def __init__(self, cfg: LMConfig):
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator=0, device: backend.DeviceLike = None):
+        """Random parameters from the reference's distributions
+        (``normal / sqrt(fan_in)``, zero norms).  ``generator`` is a
+        ``torch.Generator`` on ``device`` or an int seed.  The numbers
+        differ from ``jax.random``'s; tests that compare the packages carry
+        the reference's parameters across with ``interop.params_from_numpy``.
+        All fp32.  Runs on the card unless ``device`` says otherwise."""
+        device = backend.resolve_device(device)
+        cfg = self.cfg
+        g = generator if isinstance(generator, torch.Generator) else \
+            backend.make_generator(generator, device)
+        R, d, hd = cfg.n_repeat, cfg.d_model, cfg.hdim
+
+        def lin(fan_in, *shape):
+            return torch.randn(shape, generator=g, device=device,
+                               dtype=torch.float32) / math.sqrt(fan_in)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        blocks = []
+        for bdef in cfg.pattern:
+            if bdef.kind not in ("attn", "local_attn"):
+                raise _not_ported(bdef.kind)
+            p = {"norm": zeros(R, d),
+                 "wq": lin(d, R, d, cfg.n_heads * hd),
+                 "wk": lin(d, R, d, cfg.n_kv_heads * hd),
+                 "wv": lin(d, R, d, cfg.n_kv_heads * hd),
+                 "wo": lin(cfg.n_heads * hd, R, cfg.n_heads * hd, d)}
+            if bdef.has_ffn:
+                if bdef.use_moe:
+                    raise _not_ported("moe")
+                p.update(ffn_norm=zeros(R, d), wg=lin(d, R, d, cfg.d_ff),
+                         wu=lin(d, R, d, cfg.d_ff),
+                         wd=lin(cfg.d_ff, R, cfg.d_ff, d))
+            blocks.append(p)
+        if cfg.frontend is not None:
+            raise _not_ported("cross_attn")
+        return {"blocks": tuple(blocks), "final_norm": zeros(d),
+                "unembed": lin(d, d, cfg.vocab_padded),
+                "embed": lin(d, cfg.vocab_padded, d)}
+
+    # ---------------------------------------------------------------- blocks
+    def _attn_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
+                    write_pos=None, act_bits=None, attn_impl=None):
+        """Self-attention + residual over the dense cache."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+        h = rmsnorm(x, bp["norm"], cfg.norm_eps)
+        h = maybe_quant_act(h, act_bits)
+        window = cfg.window if bdef.kind == "local_attn" else None
+        q = rope(linear(h, bp["wq"]).reshape(B, S, Hq, hd), q_pos,
+                 cfg.rope_theta)
+        k = rope(linear(h, bp["wk"]).reshape(B, S, Hkv, hd), q_pos,
+                 cfg.rope_theta)
+        v = linear(h, bp["wv"]).reshape(B, S, Hkv, hd).contiguous()
+        kv_pos = q_pos
+        if cache is not None:
+            W = cache["k"].shape[1]
+            if mode == "decode":
+                slot = write_pos % W if bdef.kind == "local_attn" \
+                    else write_pos
+                _kv_write(cache, k, v, q_pos, slot)
+                k, v = _kv_deq(cache, "k"), _kv_deq(cache, "v")
+                kv_pos = cache["pos"]
+            else:  # prefill: write the last W positions, ring-aligned
+                kw, vw, pw = k, v, q_pos
+                if W < S:
+                    # position p sits at ring slot p % W, so decode's write
+                    # at write_pos % W evicts exactly the oldest position
+                    sh = (S - W) % W
+                    kw = torch.roll(k[:, -W:], sh, dims=1)
+                    vw = torch.roll(v[:, -W:], sh, dims=1)
+                    pw = torch.roll(q_pos[:, -W:], sh, dims=1)
+                _kv_write(cache, kw, vw, pw, 0)
+                if cache["k"].dtype == torch.int8:
+                    # prompt tokens attend the int8 round trip of the
+                    # in-flight K/V: the values decode reads back
+                    kq, ks = _kv_quant(k)
+                    k = kq.to(torch.float32) * ks[..., None]
+                    vq, vs = _kv_quant(v)
+                    v = vq.to(torch.float32) * vs[..., None]
+        chunk = k.shape[1] if S == 1 else 1024
+        out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                        window=window, attn_cap=cfg.attn_softcap, chunk=chunk,
+                        impl=attn_impl)
+        return x + linear(out.reshape(B, S, Hq * hd), bp["wo"])
+
+    def _apply_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
+                     write_pos=None, act_bits=None, attn_impl=None):
+        if bdef.kind not in ("attn", "local_attn"):
+            raise _not_ported(bdef.kind)
+        x = self._attn_block(bp, bdef, x, q_pos=q_pos, mode=mode, cache=cache,
+                             write_pos=write_pos, act_bits=act_bits,
+                             attn_impl=attn_impl)
+        if bdef.has_ffn:
+            if bdef.use_moe:
+                raise _not_ported("moe")
+            h = rmsnorm(x, bp["ffn_norm"], self.cfg.norm_eps)
+            x = x + swiglu(h, bp, act_bits=act_bits)
+        return x
+
+    def _stack(self, params, x, cache, act_bits, **kw):
+        """Run every block: loop over repeats, then pattern positions."""
+        cfg = self.cfg
+        for r in range(cfg.n_repeat):
+            for p_idx, bdef in enumerate(cfg.pattern):
+                ab = None if act_bits is None else float(act_bits[r][p_idx])
+                x = self._apply_block(
+                    _repeat(params["blocks"][p_idx], r), bdef, x,
+                    cache=_repeat(cache[p_idx], r), act_bits=ab, **kw)
+        return x
+
+    # --------------------------------------------------------------- helpers
+    def logits_of(self, params, x):
+        cfg = self.cfg
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        lg = softcap(linear(x, params["unembed"]), cfg.logit_softcap)
+        if cfg.vocab_padded != cfg.vocab:   # mask padded vocab entries
+            valid = torch.arange(cfg.vocab_padded, device=lg.device) < cfg.vocab
+            lg = torch.where(valid, lg, torch.full_like(lg, -1e30))
+        return lg
+
+    def apply(self, *a, **kw):
+        raise _not_ported("train")
+
+    def model_step(self, *a, **kw):
+        raise _not_ported("paged")
+
+    def decode_step_paged(self, *a, **kw):
+        raise _not_ported("paged")
+
+    def init_paged_cache(self, *a, **kw):
+        raise _not_ported("paged")
+
+    # ---------------------------------------------------------------- caches
+    def init_cache(self, batch: int, max_len: int,
+                   kv_bits: Optional[int] = None,
+                   device: backend.DeviceLike = None):
+        """Per-pattern-position cache dicts with leading dim n_repeat:
+        ``k``/``v`` (R, B, W, Hkv, hd), ``pos`` (R, B, W) int32 starting at
+        the sentinel, and with ``kv_bits=8`` int8 K/V plus ``k_s``/``v_s``
+        (R, B, W, Hkv) f32 scales.  ``W`` is ``max_len``, or the window for
+        ``local_attn`` blocks.  K/V are fp32 (the reference also offers
+        bf16, which the port's kernels do not take).  Runs on the card
+        unless ``device`` says otherwise."""
+        device = backend.resolve_device(device)
+        cfg = self.cfg
+        if kv_bits not in (None, 8):
+            raise ValueError(f"unsupported kv_bits {kv_bits!r}")
+        kv_dt = torch.int8 if kv_bits == 8 else torch.float32
+        R, Hkv, hd = cfg.n_repeat, cfg.n_kv_heads, cfg.hdim
+        caches = []
+        for bdef in cfg.pattern:
+            if bdef.kind not in ("attn", "local_attn"):
+                raise _not_ported(bdef.kind)
+            W = max_len if (bdef.kind != "local_attn" or cfg.window is None) \
+                else min(max_len, cfg.window)
+            one = {
+                "k": torch.zeros((R, batch, W, Hkv, hd), dtype=kv_dt,
+                                 device=device),
+                "v": torch.zeros((R, batch, W, Hkv, hd), dtype=kv_dt,
+                                 device=device),
+                "pos": torch.full((R, batch, W), POS_SENTINEL,
+                                  dtype=torch.int32, device=device),
+            }
+            if kv_bits == 8:
+                one["k_s"] = torch.ones((R, batch, W, Hkv),
+                                        dtype=torch.float32, device=device)
+                one["v_s"] = torch.ones((R, batch, W, Hkv),
+                                        dtype=torch.float32, device=device)
+            caches.append(one)
+        return tuple(caches)
+
+    # ------------------------------------------------------------ prefill
+    def prefill(self, params, batch, cache, act_bits=None, attn_impl=None):
+        """Run the prompt ``batch["tokens"]`` (B, S), fill ``cache`` in
+        place, return (last-token logits (B, 1, V), cache).  act_bits:
+        optional (n_repeat, len(pattern)) activation QBNs; attn_impl:
+        layers.ATTN_IMPLS."""
+        tokens = batch["tokens"]
+        x = params["embed"][tokens]
+        B, S, _ = x.shape
+        q_pos = torch.arange(S, dtype=torch.int32,
+                             device=x.device).repeat(B, 1)
+        x = self._stack(params, x, cache, act_bits, q_pos=q_pos,
+                        mode="prefill", attn_impl=attn_impl)
+        return self.logits_of(params, x[:, -1:, :]), cache
+
+    # ------------------------------------------------------------- decode
+    def decode_step(self, params, tokens, cache, pos: int, act_bits=None,
+                    attn_impl=None):
+        """One decode step.  tokens: (B, 1) int; pos: the int position the
+        tokens occupy.  Updates ``cache`` in place; returns (logits
+        (B, 1, V), cache)."""
+        x = params["embed"][tokens]
+        B = x.shape[0]
+        q_pos = torch.full((B, 1), int(pos), dtype=torch.int32,
+                           device=x.device)
+        x = self._stack(params, x, cache, act_bits, q_pos=q_pos,
+                        mode="decode", write_pos=int(pos),
+                        attn_impl=attn_impl)
+        return self.logits_of(params, x), cache
+
+    # -------------------------------------------------- activation QBNs
+    def block_act_bits(self, graph: QuantizableGraph, values,
+                       default: float = None) -> np.ndarray:
+        """Collapse per-graph-site activation QBNs onto the per-(repeat,
+        pattern position) hook, as the reference does: the first site of
+        position ``p`` (its ``wq``) wins, positions without a site get
+        ``default`` (FULL_BITS pass-through).  Returns an
+        (n_repeat, len(pattern)) float32 array."""
+        if default is None:
+            default = float(FULL_BITS)
+        site_pos = [int(l.name[1:].split(".")[0])
+                    if l.name.startswith("p") else -1 for l in graph.layers]
+        row = []
+        for p in range(len(self.cfg.pattern)):
+            cand = [v for sp, v in zip(site_pos, values) if sp == p]
+            row.append(float(cand[0]) if cand else float(default))
+        return np.tile(np.asarray(row, np.float32)[None, :],
+                       (self.cfg.n_repeat, 1))
+
+    # ------------------------------------------------------- quant graph
+    def graph(self, seq_len: int, batch: int,
+              max_groups: int = 64) -> QuantizableGraph:
+        """Quantizable-layer graph (weights of every matmul site), one
+        LayerInfo per (pattern position, site) shared across the repeat
+        stack, as in the reference."""
+        cfg = self.cfg
+        R = cfg.n_repeat
+        toks = seq_len * batch
+        layers = []
+
+        def add(name, path, c_in, c_out, macs, numel, axis, kind="linear"):
+            layers.append(LayerInfo(
+                name=name, kind=kind, c_in=c_in, c_out=c_out, k=1, stride=1,
+                macs=float(macs), numel=int(numel), param_path=path,
+                channel_axis=axis, n_groups=min(max_groups, c_out)))
+
+        d, hd = cfg.d_model, cfg.hdim
+        for p_idx, bdef in enumerate(cfg.pattern):
+            if bdef.kind not in ("attn", "local_attn"):
+                raise _not_ported(bdef.kind)
+            pre, nm = ("blocks", p_idx), f"p{p_idx}"
+            qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+            add(f"{nm}.wq", pre + ("wq",), d, qd, R * toks * d * qd,
+                R * d * qd, -1)
+            add(f"{nm}.wk", pre + ("wk",), d, kvd, R * toks * d * kvd,
+                R * d * kvd, -1)
+            add(f"{nm}.wv", pre + ("wv",), d, kvd, R * toks * d * kvd,
+                R * d * kvd, -1)
+            add(f"{nm}.wo", pre + ("wo",), qd, d, R * toks * qd * d,
+                R * qd * d, -1)
+            if bdef.has_ffn:
+                if bdef.use_moe:
+                    raise _not_ported("moe")
+                add(f"{nm}.wg", pre + ("wg",), d, cfg.d_ff,
+                    R * toks * d * cfg.d_ff, R * d * cfg.d_ff, -1)
+                add(f"{nm}.wu", pre + ("wu",), d, cfg.d_ff,
+                    R * toks * d * cfg.d_ff, R * d * cfg.d_ff, -1)
+                add(f"{nm}.wd", pre + ("wd",), cfg.d_ff, d,
+                    R * toks * cfg.d_ff * d, R * cfg.d_ff * d, -1)
+        add("unembed", ("unembed",), d, cfg.vocab_padded,
+            toks * d * cfg.vocab_padded, d * cfg.vocab_padded, -1,
+            kind="unembed")
+        return QuantizableGraph(layers=layers)
