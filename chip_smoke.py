@@ -6,10 +6,10 @@
 Phases, each printing one JSON line per result; any failure raises and the
 run exits non-zero:
 
-1. build   -- nvcc-compiles the three CUDA kernels from ``src/repro_torch/
+1. build   -- nvcc-compiles the four CUDA kernels from ``src/repro_torch/
               csrc`` in parallel and prints the card's name and power limit.
 2. kernels -- holds each kernel against its plain PyTorch version on the
-              card at the shapes gemma2-2b's serving path gives it, and
+              card at the shapes gemma2-2b's serving paths give it, and
               times kernel, plain version, one library call and the bound
               (CUDA events, L2 flushed before each run, median of 10).
 3. serve   -- ServeEngine.generate on gemma2-2b at full width and depth
@@ -17,9 +17,18 @@ run exits non-zero:
               CUDA kernels) against engine B (fake-quant store, plain
               attention), both on the card.  Checks the prefill logits,
               the greedy streams (top-2 gap rule) and the launch counts.
+4. paged-model -- LM.model_step feeds one 4160-token prompt in 512-token
+              chunks into a fresh paged pool (K4); its last-token logits
+              must match LM.prefill's (K1).
+5. run     -- ServeEngine.run, continuous batching of 8 mixed-length
+              requests over the paged pool on engine A: overlap on ==
+              off bitwise, every stream against the same engine's
+              generate (top-2 gap rule), monolithic prefill on the first
+              4, launch counts, host syncs per step, and one profiled run.
 
-The line before the last lists every kernel with its launches on the main
-path and its times; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last lists every kernel with its launches on its path
+(K1-K3: generate; K4: run) and its times; the last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it prints no
 result and exits 2.  It imports neither JAX nor the reference package.
 """
@@ -33,6 +42,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -68,7 +78,15 @@ SOURCES = {
                      "src/repro/kernels/quant_matmul.py:25"),
     "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
                       "src/repro/kernels/packed_matmul.py:50"),
+    "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/attention.py:206"),
 }
+
+# phase run: 8 requests over 4 slots, so later requests reuse freed pages
+RUN_PROMPTS = (4160, 3100, 2050, 1030, 515, 260, 97, 33)
+RUN_NEW = (16, 12, 16, 8, 16, 12, 16, 10)
+RUN_SLOTS, PAGE, CHUNK = 4, 16, 512
+SENT = 2**31 - 1
 
 
 def emit(obj) -> None:
@@ -207,12 +225,124 @@ def _attn_library(torch, q, k, v, q_pos, kv_pos, window):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
 
+def _paged_pool(torch, g, rows, k, kv_bits=None):
+    """A pool of PAGE-slot pages (Hkv 4, D 256) in shuffled order and one q
+    tile of ``k`` columns per row.  rows: per row (L, c0, c): the row holds
+    positions 0..L-1 and its real columns are positions c0..c0+c-1 (the
+    chunk or token just written); L == 0 is an idle lane (all-trash table,
+    all-sentinel tile).  Returns (q, k, v, pos, bt, q_pos, k_s, v_s)."""
+    Hkv, G, D = 4, 2, 256
+    nb = MAX_LEN // PAGE
+    B, P = len(rows), 1 + len(rows) * nb
+    perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
+    bt = torch.zeros((B, nb), dtype=torch.int32, device="cuda")
+    pos = torch.full((P, PAGE), SENT, dtype=torch.int32, device="cuda")
+    qp = torch.full((B, k), SENT, dtype=torch.int32, device="cuda")
+    used = 0
+    for i, (L, c0, c) in enumerate(rows):
+        n = -(-L // PAGE)
+        pages = perm[used:used + n]
+        used += n
+        bt[i, :n] = pages.int()
+        ar = torch.arange(L, dtype=torch.int64, device="cuda")
+        pos[pages[ar // PAGE], ar % PAGE] = ar.int()
+        qp[i, :c] = torch.arange(c0, c0 + c, dtype=torch.int32, device="cuda")
+    kf = torch.randn((P, PAGE, Hkv, D), generator=g, device="cuda")
+    vf = torch.randn((P, PAGE, Hkv, D), generator=g, device="cuda")
+    q = torch.randn((B, k, Hkv * G, D), generator=g, device="cuda")
+    if kv_bits != 8:
+        return q, kf, vf, pos, bt, qp, None, None
+    from repro_torch.models.transformer import _kv_quant
+    (kq, ks), (vq, vs) = _kv_quant(kf), _kv_quant(vf)
+    return q, kq, vq, pos, bt, qp, ks, vs
+
+
+def _paged_cases():
+    """(label, rows, k, window, kv_bits) at the run phase's shapes: 512-token
+    chunks (a late chunk of a 4160-token prompt, a first chunk, a partial
+    chunk, an idle lane) and decode tokens at ~4175 positions."""
+    chunk = [(4160, 3648, 512), (512, 0, 512), (1254, 1024, 230), (0, 0, 0)]
+    dec = [(4176, 4175, 1), (4171, 4170, 1), (4161, 4160, 1),
+           (4101, 4100, 1)]
+    yield "chunk_global", chunk, CHUNK, None, None
+    yield "chunk_window4096", chunk, CHUNK, 4096, None
+    yield "decode_global", dec, 1, None, None
+    yield "decode_window4096", dec, 1, 4096, None
+    yield "decode_int8", dec, 1, None, 8
+
+
+def paged_rows(torch, timer, cap):
+    """K4 against paged_attention_ref on the real (non-sentinel) columns;
+    the idle lane must come back as exact zeros."""
+    from repro_torch.kernels import attention
+    from repro_torch.models.layers import paged_attention_ref, paged_gather
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    for label, spec, k, window, kv_bits in _paged_cases():
+        q, kp, vp, pos, bt, qp, ks, vs = _paged_pool(torch, g, spec, k,
+                                                     kv_bits)
+        args = (q, kp, vp, pos, bt)
+        kw = dict(q_pos=qp, window=window, attn_cap=cap, k_scale_pages=ks,
+                  v_scale_pages=vs)
+        kern = lambda: attention.paged_prefill_attention(*args, **kw)
+        plain = lambda: paged_attention_ref(*args, **kw)
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        real = [(i, c) for i, (_, _, c) in enumerate(spec) if c]
+        err, rel = compare(torch, torch.cat([got[i, :c] for i, c in real]),
+                           torch.cat([want[i, :c] for i, c in real]),
+                           ATTN_TOL, f"paged/{label}")
+        for i, (L, _, c) in enumerate(spec):
+            if not L and bool((got[i] != 0).any()):
+                raise AssertionError(f"paged/{label}: idle lane {i} is not "
+                                     "exact zeros")
+        # bound: the pages the walk must read (first block of the window of
+        # column 0 to the block of the last real position), q and o, and
+        # 4 D operations per allowed (query head, key) pair
+        Hkv, D = kp.shape[2], kp.shape[3]
+        page_bytes = PAGE * (2 * Hkv * D * kp.element_size() + 4)
+        if ks is not None:
+            page_bytes += 2 * PAGE * Hkv * 4
+        n_pages = 0
+        for L, c0, c in spec:
+            if c:
+                first = max(0, c0 - (window - 1)) // PAGE if window else 0
+                n_pages += (c0 + c - 1) // PAGE - first + 1
+        kvp = paged_gather(pos, bt)
+        qq, kk = qp[:, :, None].long(), kvp[:, None, :].long()
+        valid = (kk != SENT) & (qq != SENT) & (kk <= qq)
+        if window is not None:
+            valid &= kk > qq - window
+        pairs = float(valid.sum()) * q.shape[2]
+        nbytes = n_pages * page_bytes + 8 * q.numel() + \
+            4 * (bt.numel() + qp.numel())
+        b_ms, b_by = bound_ms(nbytes, 4 * D * pairs)
+        kg, vg = paged_gather(kp, bt), paged_gather(vp, bt)
+        if ks is not None:
+            kg = kg.float() * paged_gather(ks, bt)[..., None]
+            vg = vg.float() * paged_gather(vs, bt)[..., None]
+        rows.append(dict(
+            name="paged_attention", case=label,
+            shape=list(q.shape) + [bt.shape[1] * PAGE], max_abs_err=err,
+            max_rel_err=rel, tol=ATTN_TOL, ms=timer(kern),
+            plain_ms=timer(plain),
+            library_ms=timer(_attn_library(torch, q, kg, vg, qp, kvp,
+                                           window)),
+            device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by,
+            pages_walked=n_pages))
+        emit({"phase": "kernel", **rows[-1]})
+        del got, want, kg, vg, kp, vp
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(torch, timer):
     from repro_torch.kernels import attention, ops, pack
     from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
     from repro_torch.models.layers import attention_ref
-    rows = []
     cap = 50.0
+    rows = paged_rows(torch, timer, cap)
     for label, q, k, v, qp, kp, window, chunk in _attn_cases(torch):
         kern = lambda: attention.flash_attention(
             q, k, v, q_pos=qp, kv_pos=kp, window=window, attn_cap=cap)
@@ -395,9 +525,9 @@ def check_serve(torch, a, b, tol, n_layers, vocab, n_new=N_NEW):
     return rec
 
 
-def phase_serve(torch):
-    """The main path (policy with activation QBN 8), then the same pair
-    with activation quantization off, which the tight tolerance holds."""
+def init_model(torch):
+    """Full-width gemma2-2b with random weights from SEED, on the card, and
+    the seeded policy."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import LM
     cfg = ARCHS[ARCH].config
@@ -407,7 +537,12 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     emit({"phase": "init", "arch": cfg.name, "layers": cfg.n_layers,
           "seconds": time.perf_counter() - t0})
-    policy = make_policy(model.graph(seq_len=1, batch=1))
+    return cfg, model, params, make_policy(model.graph(seq_len=1, batch=1))
+
+
+def phase_serve(torch, cfg, model, params, policy):
+    """The main path (policy with activation QBN 8), then the same pair
+    with activation quantization off, which the tight tolerance holds."""
     tokens = np.random.default_rng(SEED).integers(0, cfg.vocab,
                                                   size=(B, PROMPT))
     recs, checks = {}, []
@@ -428,9 +563,197 @@ def phase_serve(torch):
     return recs[""][0], recs[""][1], checks
 
 
+# --------------------------------------------------------------- phase 4
+def phase_paged_model(torch, cfg, model, eng):
+    """LM.model_step over one PROMPT-token prompt in CHUNK-token chunks
+    into a fresh pool with shuffled pages, against LM.prefill on the same
+    packed store: last-token logits within LOGIT_ATOL with activation
+    quantization off and ACT_LOGIT_ATOL with the policy's QBN 8."""
+    from repro_torch.serve.paged_kv import pages_needed
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, PROMPT)),
+                           device="cuda")
+    n = pages_needed(PROMPT, PAGE)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    bt = (torch.randperm(n, generator=g, device="cuda") + 1).int()[None]
+    out = []
+    for act, tol in ((False, LOGIT_ATOL), (True, ACT_LOGIT_ATOL)):
+        ab = eng.act_bits if act else None
+        dense = model.init_cache(1, PROMPT, device="cuda")
+        want, _ = model.prefill(eng.params, {"tokens": toks}, dense, ab,
+                                attn_impl="cuda")
+        del dense
+        pool = model.init_paged_cache(1, n + 1, PAGE, device="cuda")
+        for c0 in range(0, PROMPT, CHUNK):
+            c = min(CHUNK, PROMPT - c0)
+            t = torch.zeros((1, CHUNK), dtype=torch.int64, device="cuda")
+            p = torch.full((1, CHUNK), SENT, dtype=torch.int32, device="cuda")
+            t[0, :c] = toks[0, c0:c0 + c]
+            p[0, :c] = torch.arange(c0, c0 + c, dtype=torch.int32,
+                                    device="cuda")
+            got, pool = model.model_step(
+                eng.params, t, p, torch.zeros(1, dtype=torch.int32,
+                                              device="cuda"),
+                pool, bt, torch.full((1,), c - 1, dtype=torch.int32,
+                                     device="cuda"), ab, attn_impl="cuda")
+        del pool
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("paged-model: non-finite logits")
+        diff = float((got[0, 0] - want[0, 0]).abs().max())
+        out.append(dict(act_bits=act, max_abs_diff=diff, tol=tol))
+        emit({"phase": "paged-model", **out[-1]})
+        if diff > tol:
+            raise AssertionError(f"paged-model: model_step logits differ "
+                                 f"from prefill by {diff} > {tol}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 5
+def _run_record(torch, label, res, wall, launches):
+    st = res["stats"]
+    rec = dict(run=label, wall_s=wall, steps=st.steps,
+               prefill_s=st.prefill_s, decode_s=st.decode_s,
+               decode_tok_per_s=st.decode_tok_per_s,
+               tokens_out=st.tokens_out,
+               ttft_s=st.ttft_percentiles((50, 99)),
+               peak_pages=st.peak_pages, requeues=st.requeues,
+               peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
+               launches=launches,
+               k4_per_step=launches["paged_attention"] / max(st.steps, 1))
+    emit({"phase": "run", **rec})
+    return rec
+
+
+def profile_run(torch, eng, reqs, kw):
+    """One profiled ``run()`` with the sync debug mode at "warn": device
+    time by kernel name, the device's busy share of the wall time, and the
+    host syncs the step loop made (each would stall the pipeline)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as seen, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = eng.run(reqs, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = [str(w.message)[:120] for w in seen
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    rows = sorted(((e.key[:90], e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    steps = res["stats"].steps
+    return res, dict(wall_s=wall, device_ms=device_ms,
+                     busy_share=device_ms / 1e3 / wall, steps=steps,
+                     host_syncs=len(syncs),
+                     host_syncs_per_step=len(syncs) / max(steps, 1),
+                     sync_examples=sorted(set(syncs))[:3],
+                     top=[dict(name=n, ms=ms, calls=c)
+                          for n, ms, c in rows[:12]])
+
+
+def _check_streams(name, got, want, gaps, tol, problems):
+    """Equal, or first different where generate's top-2 gap is below
+    ``tol``; returns the first difference (or None)."""
+    if got.shape != want.shape:
+        problems.append(f"{name}: stream shape {got.shape} != {want.shape}")
+        return None
+    bad = np.flatnonzero(got != want)
+    if not bad.size:
+        return None
+    t = int(bad[0])
+    first = dict(request=name, step=t, gap=float(gaps[t]))
+    if gaps[t] >= tol:
+        problems.append(f"{name}: differs from generate at step {t} where "
+                        f"its top-2 gap is {gaps[t]}")
+    return first
+
+
+def phase_run(torch, cfg, model, params, policy):
+    """Continuous batching on engine A: 8 requests over 4 slots."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine
+    rng = np.random.default_rng(SEED)
+    reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), k)
+            for n, k in zip(RUN_PROMPTS, RUN_NEW)]
+    eng = ServeEngine(model, params, policy=policy, max_len=MAX_LEN,
+                      weight_store="packed", attn_impl="cuda",
+                      device="cuda")
+    paged = phase_paged_model(torch, cfg, model, eng)
+    kw = dict(page_size=PAGE, max_slots=RUN_SLOTS, chunk_tokens=CHUNK)
+    problems, recs = [], {}
+    nl = cfg.n_layers
+    for label, extra, rq in (("sync", dict(overlap=False), reqs),
+                             ("overlap", dict(overlap=True), reqs),
+                             ("monolithic", dict(prefill="monolithic"),
+                              reqs[:4])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.run(rq, **kw, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        recs[label] = (res, _run_record(torch, label, res, wall, launches))
+        st = res["stats"]
+        if label == "monolithic":
+            want = {"flash_attention": nl * len(rq),
+                    "paged_attention": nl * st.steps}
+        else:
+            want = {"flash_attention": 0, "paged_attention": nl * st.steps}
+        for name, n in want.items():
+            if launches[name] != n:
+                problems.append(f"run {label}: {name} launched "
+                                f"{launches[name]} times, want {n}")
+        if launches["quant_matmul"] <= 0 or launches["packed_matmul"] <= 0:
+            problems.append(f"run {label}: GEMM kernels not on the path: "
+                            f"{launches}")
+    on, off = recs["overlap"][0]["outputs"], recs["sync"][0]["outputs"]
+    bitwise = all(np.array_equal(a, b) for a, b in zip(on, off))
+    if not bitwise:
+        problems.append("run: overlap on and off give different streams")
+    if eng.trace_counts["model_step"] > 2:
+        problems.append(f"run: model_step saw {eng.trace_counts} shapes")
+    firsts = []
+    for i, (toks, n_new) in enumerate(reqs):
+        gen = eng.generate(toks[None], n_new)
+        want, gaps = gen["tokens"][0], gen["top2_gap"][:, 0]
+        if not np.all((want >= 0) & (want < cfg.vocab)):
+            problems.append(f"request {i}: generate tokens out of range")
+        for label in ("overlap", "monolithic"):
+            outs = recs[label][0]["outputs"]
+            if i < len(outs):
+                f = _check_streams(f"{label}/{i}", outs[i], want, gaps,
+                                   ACT_LOGIT_ATOL, problems)
+                if f:
+                    firsts.append(f)
+    check = dict(overlap_bitwise=bitwise, first_differences=firsts,
+                 trace_counts=dict(eng.trace_counts), problems=problems)
+    emit({"phase": "run-check", **check})
+    res, prof = profile_run(torch, eng, reqs, dict(kw, overlap=True))
+    if not all(np.array_equal(a, b) for a, b in zip(res["outputs"], on)):
+        problems.append("run: the profiled run's streams differ")
+    emit({"phase": "run-profile", **prof})
+    if problems:
+        raise AssertionError("run checks failed: " + "; ".join(problems))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(paged_model=paged,
+                runs={k: v[1] for k, v in recs.items()}, check=check,
+                profile=prof)
+
+
 # ------------------------------------------------------------------ main
 def summarize(rows, launches):
-    """One entry per kernel: sums over its measured shapes."""
+    """One entry per kernel: sums over its measured shapes.  ``launches``
+    maps each kernel to its count on its own path's run."""
     out = []
     for name, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -473,11 +796,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     card = phase_build()
     rows = phase_kernels(torch, Timer(torch))
-    rec_a, rec_b, checks = phase_serve(torch)
-    kernels = summarize(rows, rec_a["launches"])
+    cfg, model, params, policy = init_model(torch)
+    rec_a, rec_b, checks = phase_serve(torch, cfg, model, params, policy)
+    run = phase_run(torch, cfg, model, params, policy)
+    launches = dict(rec_a["launches"])
+    launches["paged_attention"] = \
+        run["runs"]["overlap"]["launches"]["paged_attention"]
+    kernels = summarize(rows, launches)
     result = {"card": card, "kernel_rows": rows, "engine_a": rec_a,
-              "engine_b": rec_b, "checks": checks, "kernels": kernels,
-              "seconds": time.perf_counter() - t0}
+              "engine_b": rec_b, "checks": checks, "run": run,
+              "kernels": kernels, "seconds": time.perf_counter() - t0}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

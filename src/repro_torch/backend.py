@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -34,10 +35,25 @@ def require_cuda() -> torch.device:
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``device`` as given, or the card when it is None."""
+    """``device`` as given, or the card when it is None; a CUDA device
+    that is not there raises as the default does."""
     if device is None:
         return require_cuda()
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda":
+        require_cuda()
+    return device
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A host (numpy) array as a tensor of the same dtype on ``device``.
+    To the card it goes through pinned memory without blocking: a plain
+    host-to-device copy synchronises the stream, which would stall a
+    pipelined step loop behind the kernels already queued."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
 
 
 def make_generator(seed: int, device: Optional[torch.device]) -> torch.Generator:

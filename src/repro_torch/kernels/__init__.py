@@ -4,19 +4,24 @@ flash_attention  (K1, csrc/flash_attention.cu) -- flash forward for
                  prefill and dense-cache decode
 quant_matmul     (K2, csrc/quant_matmul.cu) -- int8 weight GEMM
 packed_matmul    (K3, csrc/packed_matmul.cu) -- int4 / int2 packed GEMM
+paged_prefill_attention (K4, csrc/paged_attention.cu) -- causal attention
+                 over the paged KV pool (chunks and decode tokens)
 packed_mixed_matmul -- one K2/K3 launch per bucket of a PackedWeight
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
-kernel on CUDA tensors, counting launches in ``COUNT``
+kernel on CUDA tensors, counting launches in its ``LaunchCount``
 (:func:`launch_counts`).  ``build.py`` compiles the sources with nvcc at
 first use; ``pack.py`` holds the byte format and the PackedWeight store.
 """
 from repro_torch.kernels import attention, packed_matmul, quant_matmul
-from repro_torch.kernels.attention import flash_attention
+from repro_torch.kernels.attention import (flash_attention,
+                                          paged_decode_attention,
+                                          paged_prefill_attention)
 from repro_torch.kernels.ops import packed_mixed_matmul
 from repro_torch.kernels.pack import PackedWeight, pack_sub8, unpack_sub8
 
-COUNTS = (attention.COUNT, quant_matmul.COUNT, packed_matmul.COUNT)
+COUNTS = (attention.COUNT, quant_matmul.COUNT, packed_matmul.COUNT,
+          attention.PAGED_COUNT)
 
 
 def launch_counts() -> dict:
@@ -29,6 +34,7 @@ def reset_launch_counts() -> None:
         c.launches = 0
 
 
-__all__ = ["flash_attention", "packed_mixed_matmul", "PackedWeight",
+__all__ = ["flash_attention", "paged_prefill_attention",
+           "paged_decode_attention", "packed_mixed_matmul", "PackedWeight",
            "pack_sub8", "unpack_sub8", "launch_counts",
            "reset_launch_counts"]

@@ -1,14 +1,21 @@
-"""Kernel K1: flash-attention forward (prefill and dense-cache decode).
+"""Attention kernels of the port.
 
-Port of ``repro/kernels/attention.py::flash_attention`` as a CUDA C++
-kernel (``csrc/flash_attention.cu``).  Same contract: q (B, Sq, Hq, D),
+K1 -- :func:`flash_attention`, the flash-attention forward for prefill and
+dense-cache decode: port of ``repro/kernels/attention.py::flash_attention``
+as a CUDA C++ kernel (``csrc/flash_attention.cu``).  q (B, Sq, Hq, D),
 k / v (B, Skv, Hkv, D), q_pos (B, Sq) and kv_pos (B, Skv) int32; causal and
 sliding-window validity come from comparing positions alone, so ring-buffer
 caches and sentinel tails (``POS_SENTINEL``) need no other argument.
 
-The wrapper runs the plain version, ``models.layers.attention_ref`` (the
-port of the reference's chunked jnp scan), for CPU tensors and the kernel
-for CUDA tensors; there is no fallback between them.
+K4 -- :func:`paged_prefill_attention` (and :func:`paged_decode_attention`,
+its k = 1 wrapper), causal attention for q tiles of k left-aligned tokens
+per sequence over the paged KV pool: port of the reference's function of
+the same name as ``csrc/paged_attention.cu``.  The kernel walks each
+sequence's block-table row itself; int8 pools are dequantized on load.
+
+Each wrapper runs its plain version (``models.layers.attention_ref``,
+``models.layers.paged_attention_ref``) for CPU tensors and its kernel for
+CUDA tensors; there is no fallback between them.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 from repro_torch.kernels import build
 
 COUNT = build.LaunchCount("flash_attention")
+PAGED_COUNT = build.LaunchCount("paged_attention")
 MAX_HEAD_DIM = 256      # csrc/flash_attention.cu: DMAX
 MAX_GROUP = 32          # query heads per kv head that fit one block
 
@@ -79,3 +87,117 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
     COUNT.launches += 1
     build.check(build.load(COUNT.name), err, COUNT.name)
     return o
+
+
+# --------------------------------------------------------------- paged (K4)
+@functools.lru_cache(maxsize=None)
+def _paged_fn():
+    return build.bind("paged_attention", "paged_attention_f32", 9, 10,
+                      tail=(ctypes.c_float, ctypes.c_float))
+
+
+def _check_paged(q, k_pages, v_pages, pos_pages, block_tables, q_pos,
+                 k_scale_pages, v_scale_pages):
+    dev = q.device
+    build.expect(q, "q", torch.float32, 4, dev)
+    kv_dt = k_pages.dtype
+    if kv_dt not in (torch.float32, torch.int8):
+        raise ValueError(f"k_pages: expected float32 or int8, got {kv_dt}")
+    build.expect(k_pages, "k_pages", kv_dt, 4, dev)
+    build.expect(v_pages, "v_pages", kv_dt, 4, dev)
+    build.expect(pos_pages, "pos_pages", torch.int32, 2, dev)
+    build.expect(block_tables, "block_tables", torch.int32, 2, dev)
+    build.expect(q_pos, "q_pos", torch.int32, 2, dev)
+    B, k, Hq, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    if (v_pages.shape != k_pages.shape or k_pages.shape[3] != D
+            or tuple(pos_pages.shape) != (P, ps)
+            or block_tables.shape[0] != B or tuple(q_pos.shape) != (B, k)):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, pages "
+            f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}, pos "
+            f"{tuple(pos_pages.shape)}, block_tables "
+            f"{tuple(block_tables.shape)}, q_pos {tuple(q_pos.shape)}")
+    for t, what in ((k_scale_pages, "k_scale_pages"),
+                    (v_scale_pages, "v_scale_pages")):
+        if t is not None:
+            build.expect(t, what, torch.float32, 3, dev)
+            if tuple(t.shape) != (P, ps, Hkv):
+                raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
+                                 f"{(P, ps, Hkv)}")
+    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"{Hq} query heads over {Hkv} kv heads: need a "
+                         f"whole group of at most {MAX_GROUP}")
+    for t, what in ((k_pages, "k_pages"), (v_pages, "v_pages")):
+        if t.data_ptr() % (4 * t.element_size()):  # 4-element vector loads
+            raise ValueError(f"{what}: data must be aligned to 4 elements")
+
+
+def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
+                            q_pos, window=None, attn_cap=None,
+                            k_scale_pages=None, v_scale_pages=None):
+    """Causal attention over the paged KV pool for q tiles of k tokens.
+
+    q: (B, k, Hq, D) f32; ``*_pages``: (P, page_size, Hkv, D) f32 or int8,
+    ``pos_pages`` (P, page_size) int32; block_tables: (B, nb) int32
+    physical page ids; q_pos: (B, k) int32, real tokens left-aligned in
+    ascending position order and padded columns ``POS_SENTINEL``.  int8
+    pools pass ``k_scale_pages`` / ``v_scale_pages`` (P, page_size, Hkv)
+    f32, and only they do.  Returns (B, k, Hq, D) f32.
+
+    Padded (sentinel) query columns are garbage the scheduler never reads,
+    and they differ between the two versions: the kernel returns exact
+    zeros for a row whose columns are all sentinel, the plain version lets
+    a sentinel query attend every written slot (as the reference does)."""
+    quant = k_pages.dtype == torch.int8
+    if quant != (k_scale_pages is not None) or \
+            quant != (v_scale_pages is not None):
+        raise AssertionError("int8 pools require scale pages (and float "
+                             "pools must not pass them)")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    B, k = q.shape[0], q.shape[1]
+    q_pos = q_pos.reshape(B, k)
+    if q.device.type == "cpu":
+        from repro_torch.models.layers import paged_attention_ref
+        return paged_attention_ref(
+            q, k_pages, v_pages, pos_pages, block_tables, q_pos=q_pos,
+            window=window, attn_cap=attn_cap, k_scale_pages=k_scale_pages,
+            v_scale_pages=v_scale_pages)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention: no kernel for {q.device}")
+    _check_paged(q, k_pages, v_pages, pos_pages, block_tables, q_pos,
+                 k_scale_pages, v_scale_pages)
+    _, _, Hq, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    if D > MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"head dim {D}: the kernel takes multiples of 8 up "
+                         f"to {MAX_HEAD_DIM}")
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    with torch.cuda.device(q.device):
+        err = _paged_fn()(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            pos_pages.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
+            k_scale_pages.data_ptr() if quant else None,
+            v_scale_pages.data_ptr() if quant else None, o.data_ptr(),
+            B, k, P, ps, Hq, Hkv, D, nb, int(quant), int(window or 0),
+            float(attn_cap or 0.0), 1.0 / math.sqrt(D), build.stream_of(q))
+    PAGED_COUNT.launches += 1
+    build.check(build.load(PAGED_COUNT.name), err, PAGED_COUNT.name)
+    return o
+
+
+def paged_decode_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
+                           q_pos, window=None, attn_cap=None,
+                           k_scale_pages=None, v_scale_pages=None):
+    """Single-token decode over the paged pool: the k = 1 q tile of
+    :func:`paged_prefill_attention` (same kernel, same launch count).
+    q: (B, 1, Hq, D); q_pos: (B, 1) or (B,) int32."""
+    B = q.shape[0]
+    return paged_prefill_attention(
+        q, k_pages, v_pages, pos_pages, block_tables,
+        q_pos=q_pos.reshape(B, 1), window=window, attn_cap=attn_cap,
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)

@@ -1,11 +1,13 @@
-"""Core LM layers (port of ``repro/models/layers.py``, the dense-attention
-and dense-FFN parts): RMSNorm, RoPE, softcap, per-token activation
-fake-quant, GQA attention, SwiGLU, and the ``linear`` that routes a
-weight to its store's contraction.
+"""Core LM layers (port of ``repro/models/layers.py``, the attention and
+dense-FFN parts): RMSNorm, RoPE, softcap, per-token activation fake-quant,
+GQA attention over a dense KV or the paged pool, SwiGLU, and the
+``linear`` that routes a weight to its store's contraction.
 
 Attention dispatches on ``impl``: ``"ref"`` is the chunked running-softmax
-scan (:func:`attention_ref`, the oracle), ``"cuda"`` the flash kernel K1
-(``kernels/attention.py``), in place of the reference's ``"pallas"``.
+scan (:func:`attention_ref`, the oracle; :func:`paged_attention_ref`
+gathers the pool's pages first), ``"cuda"`` the flash kernel K1 or the
+paged kernel K4 (``kernels/attention.py``), in place of the reference's
+``"pallas"``.
 The reference's sharding helpers ``wcol`` / ``wrow`` / ``constrain`` have
 no meaning on one card; with the reference's ``deq`` they become
 :func:`linear`, which contracts a packed weight without materializing it.
@@ -155,6 +157,61 @@ def attention_ref(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
         o = o * alpha.permute(0, 3, 1, 2)[..., None] + pv
         m = m_new
     return finish(o, l)
+
+
+# ----------------------------------------------------- paged-KV attention
+def paged_gather(pages: torch.Tensor,
+                 block_tables: torch.Tensor) -> torch.Tensor:
+    """Gather per-sequence KV through block tables.
+
+    pages: (P, page_size, ...) physical pool; block_tables: (B, nb) int
+    physical page ids in logical block order.  Returns (B, nb*page_size,
+    ...): each sequence's pages flattened back into logical position order.
+    Unmapped blocks point at the trash page (id 0), whose slots carry
+    sentinel positions, so the attention mask rejects them."""
+    g = pages[block_tables.long()]                       # (B, nb, ps, ...)
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+
+
+def paged_attention(q, k_pages, v_pages, pos_pages, block_tables, *, q_pos,
+                    window=None, attn_cap=None,
+                    k_scale_pages=None, v_scale_pages=None, impl=None):
+    """Causal attention over the paged KV pool, for decode tokens and prompt
+    chunks alike: ``impl="ref"`` (default) or ``"cuda"`` (kernel K4).
+
+    q: (B, Sq, Hq, D); ``*_pages``: (P, page_size, Hkv, D), ``pos_pages``
+    (P, page_size) int32; block_tables: (B, nb); q_pos: (B, Sq) int32, real
+    columns left-aligned and the rest sentinel.  int8 pools carry
+    per-(slot, head) ``*_scale_pages`` (P, page_size, Hkv) f32."""
+    impl = _check_impl(impl)
+    if impl == "cuda":
+        from repro_torch.kernels.attention import paged_prefill_attention
+        return paged_prefill_attention(
+            q, k_pages, v_pages, pos_pages, block_tables, q_pos=q_pos,
+            window=window, attn_cap=attn_cap, k_scale_pages=k_scale_pages,
+            v_scale_pages=v_scale_pages)
+    return paged_attention_ref(
+        q, k_pages, v_pages, pos_pages, block_tables, q_pos=q_pos,
+        window=window, attn_cap=attn_cap,
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+
+
+def paged_attention_ref(q, k_pages, v_pages, pos_pages, block_tables, *,
+                        q_pos, window=None, attn_cap=None,
+                        k_scale_pages=None, v_scale_pages=None):
+    """Plain version of kernel K4 and the oracle: gather each sequence's
+    pages into logical order (dequantizing int8 pools), then one
+    single-shot :func:`attention_ref` over the whole gathered window."""
+    k = paged_gather(k_pages, block_tables)
+    v = paged_gather(v_pages, block_tables)
+    kv_pos = paged_gather(pos_pages, block_tables)
+    if k_scale_pages is not None:
+        ks = paged_gather(k_scale_pages, block_tables)
+        vs = paged_gather(v_scale_pages, block_tables)
+        k = k.to(torch.float32) * ks[..., None]
+        v = v.to(torch.float32) * vs[..., None]
+    return attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                         window=window, attn_cap=attn_cap, chunk=k.shape[1])
 
 
 # ----------------------------------------------------------------------- FFN

@@ -1,21 +1,24 @@
 """Config-driven decoder LM, dense-attention families (port of
 ``repro/models/transformer.py``).
 
-Covers what ``ServeEngine.generate`` runs: GQA attention with RoPE, the
-sliding window and the softcaps, dense SwiGLU FFNs, ``prefill`` and
-``decode_step`` over the dense KV cache (fp32 or int8 with per-(position,
-head) scales).  Parameters keep the reference's pytree: ``{"blocks": tuple
-per pattern position of dicts of (n_repeat, ...) stacked tensors,
-"final_norm", "unembed", "embed"}``.  A Python loop over the ``n_repeat``
-stacked repeats takes the place of ``lax.scan``.
+Covers what ``ServeEngine.generate`` and ``run`` / ``serve`` run: GQA
+attention with RoPE, the sliding window and the softcaps, dense SwiGLU
+FFNs, ``prefill`` and ``decode_step`` over the dense KV cache (fp32 or int8
+with per-(position, head) scales), and ``decode_step_paged`` and
+``model_step`` over the paged pool (``init_paged_cache``).  Parameters
+keep the reference's pytree: ``{"blocks": tuple per pattern position of
+dicts of (n_repeat, ...) stacked tensors, "final_norm", "unembed",
+"embed"}``.  A Python loop over the ``n_repeat`` stacked repeats takes the
+place of ``lax.scan``.
 
-Unlike the reference, the cache is updated **in place**: ``prefill`` and
-``decode_step`` write into the tensors of the cache they are given and
-return that same cache, so a 26-layer cache is never copied per token.
+Unlike the reference, caches are updated **in place**: every entry point
+writes into the tensors of the cache or pool it is given and returns that
+same object, so a 26-layer cache is never copied per token.
 
 KV-cache convention: unwritten slots carry position ``POS_SENTINEL`` (int32
 max), which the attention masks reject; ``local_attn`` blocks keep a ring
-buffer of ``window`` slots.
+buffer of ``window`` slots.  In the paged pool, page ``TRASH_PAGE`` is
+never allocated: sentinel lanes write there.
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ from repro_torch import backend
 from repro_torch.kernels.pack import PackedWeight
 from repro_torch.models.api import BlockDef, LMConfig
 from repro_torch.models.layers import (POS_SENTINEL, attention, linear,
-                                       maybe_quant_act, rmsnorm, rope,
-                                       softcap, swiglu)
+                                       maybe_quant_act, paged_attention,
+                                       rmsnorm, rope, softcap, swiglu)
 from repro_torch.quant.linear_quant import FULL_BITS
 from repro_torch.quant.policy import LayerInfo, QuantizableGraph
 
@@ -38,10 +41,14 @@ NOT_PORTED = {
     "mamba": "ROADMAP.md A10 (mamba blocks)",
     "cross_attn": "ROADMAP.md A10 (cross-attention memory cache)",
     "moe": "ROADMAP.md A10 (MoE FFN)",
-    "paged": "ROADMAP.md A5 (paged KV pool, model_step, "
-             "paged_prefill_attention)",
     "train": "ROADMAP.md A9 (training and QAT)",
 }
+
+
+# physical page 0 of every paged pool is the never-allocated trash page
+# (serve/paged_kv.py owns the lifecycle; defined here because the paged
+# write below routes sentinel lanes to it)
+TRASH_PAGE = 0
 
 
 def _not_ported(what: str):
@@ -77,6 +84,29 @@ def _kv_write(cache, k, v, pos, slot: int):
         else:
             cache[key][:, slot:slot + S] = val.to(cache[key].dtype)
     cache["pos"][:, slot:slot + S] = pos
+
+
+def _kv_write_paged(cache, k, v, wp, block_tables):
+    """Write (k, v, wp) through the block tables into the pool, in place.
+    k, v: (B, S, Hkv, hd); wp: (B, S) int32 positions; block_tables
+    (B, nb).  Sentinel lanes (idle decode slots, chunk padding) go to the
+    trash page *explicitly*: an active row's clipped block index would
+    land in one of its own pages and corrupt a live KV slot."""
+    ps = cache["k"].shape[1]
+    nb = block_tables.shape[1]
+    blk = torch.clamp(wp // ps, max=nb - 1).long()
+    phys = torch.gather(block_tables.long(), 1, blk)
+    phys = torch.where(wp == POS_SENTINEL, TRASH_PAGE, phys)
+    fp, fs = phys.reshape(-1), (wp % ps).reshape(-1).long()
+    for key, val in (("k", k), ("v", v)):
+        val = val.reshape((-1,) + val.shape[2:])
+        if cache[key].dtype == torch.int8:
+            q, s = _kv_quant(val)
+            cache[key][fp, fs] = q
+            cache[key + "_s"][fp, fs] = s
+        else:
+            cache[key][fp, fs] = val.to(cache[key].dtype)
+    cache["pos"][fp, fs] = wp.reshape(-1).to(torch.int32)
 
 
 def _repeat(tree: Dict[str, Any], r: int) -> Dict[str, Any]:
@@ -136,8 +166,12 @@ class LM:
 
     # ---------------------------------------------------------------- blocks
     def _attn_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
-                    write_pos=None, act_bits=None, attn_impl=None):
-        """Self-attention + residual over the dense cache."""
+                    write_pos=None, act_bits=None, attn_impl=None,
+                    block_tables=None):
+        """Self-attention + residual over the dense cache, or, given
+        ``block_tables`` (B, nb), over the paged pool: each row's S tokens
+        (a decode token or a prompt chunk) are written through its table,
+        then attended with causal masking by each token's own position."""
         cfg = self.cfg
         B, S, _ = x.shape
         Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
@@ -150,6 +184,15 @@ class LM:
                  cfg.rope_theta)
         v = linear(h, bp["wv"]).reshape(B, S, Hkv, hd).contiguous()
         kv_pos = q_pos
+        if block_tables is not None:
+            wp = write_pos if write_pos.ndim == 2 else write_pos[:, None]
+            _kv_write_paged(cache, k, v, wp, block_tables)
+            out = paged_attention(
+                q, cache["k"], cache["v"], cache["pos"], block_tables,
+                q_pos=q_pos, window=window,
+                attn_cap=cfg.attn_softcap, k_scale_pages=cache.get("k_s"),
+                v_scale_pages=cache.get("v_s"), impl=attn_impl)
+            return x + linear(out.reshape(B, S, Hq * hd), bp["wo"])
         if cache is not None:
             W = cache["k"].shape[1]
             if mode == "decode":
@@ -182,12 +225,13 @@ class LM:
         return x + linear(out.reshape(B, S, Hq * hd), bp["wo"])
 
     def _apply_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
-                     write_pos=None, act_bits=None, attn_impl=None):
+                     write_pos=None, act_bits=None, attn_impl=None,
+                     block_tables=None):
         if bdef.kind not in ("attn", "local_attn"):
             raise _not_ported(bdef.kind)
         x = self._attn_block(bp, bdef, x, q_pos=q_pos, mode=mode, cache=cache,
                              write_pos=write_pos, act_bits=act_bits,
-                             attn_impl=attn_impl)
+                             attn_impl=attn_impl, block_tables=block_tables)
         if bdef.has_ffn:
             if bdef.use_moe:
                 raise _not_ported("moe")
@@ -218,15 +262,6 @@ class LM:
 
     def apply(self, *a, **kw):
         raise _not_ported("train")
-
-    def model_step(self, *a, **kw):
-        raise _not_ported("paged")
-
-    def decode_step_paged(self, *a, **kw):
-        raise _not_ported("paged")
-
-    def init_paged_cache(self, *a, **kw):
-        raise _not_ported("paged")
 
     # ---------------------------------------------------------------- caches
     def init_cache(self, batch: int, max_len: int,
@@ -267,6 +302,46 @@ class LM:
             caches.append(one)
         return tuple(caches)
 
+    def init_paged_cache(self, n_slots: int, num_pages: int, page_size: int,
+                         kv_bits: Optional[int] = None,
+                         n_repeat: Optional[int] = None,
+                         device: backend.DeviceLike = None):
+        """Paged KV pool for the continuous-batching engine, per pattern
+        position (all ``"paged"``: attention kinds only): ``k``/``v``
+        (R, P, page_size, Hkv, hd) fp32, or int8 with ``kv_bits=8`` plus
+        ``k_s``/``v_s`` (R, P, page_size, Hkv) f32 per-(slot, head)
+        scales, and ``pos`` (R, P, page_size) int32 starting at the
+        sentinel.  Page 0 is the trash page.  ``n_slots`` is the decode
+        width, which the attention kinds' pool does not depend on (the
+        reference sizes its non-paged kinds by it).  ``n_repeat``
+        overrides the stack depth.  Runs on the card unless ``device``
+        says otherwise."""
+        device = backend.resolve_device(device)
+        cfg = self.cfg
+        R = cfg.n_repeat if n_repeat is None else n_repeat
+        if not 1 <= R <= cfg.n_repeat:
+            raise ValueError(f"n_repeat override {R} outside 1.."
+                             f"{cfg.n_repeat}")
+        if kv_bits not in (None, 8):
+            raise ValueError(f"unsupported kv_bits {kv_bits!r}")
+        kv_dt = torch.int8 if kv_bits == 8 else torch.float32
+        shape = (R, num_pages, page_size, cfg.n_kv_heads, cfg.hdim)
+        caches = []
+        for bdef in cfg.pattern:
+            if bdef.kind not in ("attn", "local_attn"):
+                raise _not_ported(bdef.kind)
+            one = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
+                   "v": torch.zeros(shape, dtype=kv_dt, device=device),
+                   "pos": torch.full(shape[:3], POS_SENTINEL,
+                                     dtype=torch.int32, device=device)}
+            if kv_bits == 8:
+                one["k_s"] = torch.ones(shape[:4], dtype=torch.float32,
+                                        device=device)
+                one["v_s"] = torch.ones(shape[:4], dtype=torch.float32,
+                                        device=device)
+            caches.append(one)
+        return tuple(caches)
+
     # ------------------------------------------------------------ prefill
     def prefill(self, params, batch, cache, act_bits=None, attn_impl=None):
         """Run the prompt ``batch["tokens"]`` (B, S), fill ``cache`` in
@@ -296,6 +371,47 @@ class LM:
                         mode="decode", write_pos=int(pos),
                         attn_impl=attn_impl)
         return self.logits_of(params, x), cache
+
+    # ------------------------------------------------------ paged decode
+    def decode_step_paged(self, params, tokens, cache, block_tables, pos,
+                          act_bits=None, attn_impl=None):
+        """One decode step over the paged pool at per-sequence positions.
+        tokens: (B, 1) int; block_tables: (B, nb) int32; pos: (B,) int32,
+        the position each sequence's token occupies (``POS_SENTINEL`` for
+        idle lanes, whose writes land in the trash page).  Updates the
+        pool in place; returns (logits (B, 1, V), cache)."""
+        x = params["embed"][tokens.long()]
+        pos = pos.to(torch.int32)
+        x = self._stack(params, x, cache, act_bits, q_pos=pos[:, None],
+                        mode="decode", write_pos=pos,
+                        block_tables=block_tables, attn_impl=attn_impl)
+        return self.logits_of(params, x), cache
+
+    # ------------------------------------------- unified token-budget step
+    def model_step(self, params, tokens, positions, slot_map, cache,
+                   block_tables, logit_cols, act_bits=None, attn_impl=None):
+        """One token-budget step: prompt chunks and decode tokens together.
+
+        Row r of the (R, k) batch carries slot ``slot_map[r]``'s tokens
+        this step: a prompt chunk of up to k tokens, one decode token, or
+        nothing; real tokens are left-aligned in ascending position order
+        and padded columns carry ``POS_SENTINEL``.  K/V go straight into
+        block-table pages (in place).  tokens / positions: (R, k) int;
+        slot_map: (R,) int; block_tables: (n_slots, nb) int32;
+        logit_cols: (R,) -- each row's last real column, returns
+        (R, 1, V) -- or (R, C), one logits row per listed column, returns
+        (R, C, V).  Returns (logits, cache)."""
+        x = params["embed"][tokens.long()]
+        q_pos = positions.to(torch.int32)
+        bt_rows = block_tables.index_select(0, slot_map.long())
+        x = self._stack(params, x, cache, act_bits, q_pos=q_pos,
+                        mode="decode", write_pos=q_pos, block_tables=bt_rows,
+                        attn_impl=attn_impl)
+        cols = logit_cols.long()
+        if cols.ndim == 1:
+            cols = cols[:, None]
+        idx = cols[:, :, None].expand(-1, -1, x.shape[-1])
+        return self.logits_of(params, torch.gather(x, 1, idx)), cache
 
     # -------------------------------------------------- activation QBNs
     def block_act_bits(self, graph: QuantizableGraph, values,

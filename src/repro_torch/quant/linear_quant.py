@@ -64,7 +64,9 @@ def fake_quant_per_token(x: torch.Tensor, bits) -> torch.Tensor:
     dtype = x.dtype
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    b = torch.as_tensor(bits, dtype=torch.float32, device=x.device)
+    # filled on the device: a host scalar copied to the card would sync it
+    # at every block of every serving step
+    b = torch.full((), float(bits), dtype=torch.float32, device=x.device)
     return _quant_dequant(xf, amax, b).to(dtype)
 
 

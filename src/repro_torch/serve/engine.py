@@ -1,6 +1,6 @@
-"""Serving engine: batch-at-a-time ``generate`` over the dense KV cache
-(port of ``repro/serve/engine.py``, its ``__init__``, ``weight_hbm_bytes``
-and ``generate``).
+"""Serving engine (port of ``repro/serve/engine.py``): batch-at-a-time
+``generate`` over the dense KV cache, and continuous batching over the
+paged pool through ``run`` and ``serve``.
 
 The engine deploys a searched :class:`QuantPolicy` at load time into one of
 two weight stores:
@@ -11,17 +11,29 @@ two weight stores:
   (``quant.apply.apply_policy_packed``), whose matmuls run one CUDA kernel
   per bucket on the card (K3 for int2 / int4, K2 for int8).
 
-Attention runs on the flash kernel K1 by default (``attn_impl="cuda"``);
-``attn_impl="ref"`` is the escape hatch to the plain chunked scan.  The
-engine runs on the card unless constructed with ``device="cpu"``.
+Attention runs on the CUDA kernels by default (``attn_impl="cuda"``: K1
+over the dense cache, K4 over the paged pool); ``attn_impl="ref"`` is the
+escape hatch to the plain versions.  The engine runs on the card unless
+constructed with ``device="cpu"``.
 
-``run`` / ``serve`` (continuous batching over the paged pool) are the next
-slice of the port (ROADMAP.md A5).
+``run`` is the closed-loop client of ``serve``: it submits every request
+to a :class:`FrontEnd` at once and drains it through the overlapped
+token-budget :class:`StepLoop` (``prefill="chunked"``), or runs the
+monolithic prefill-then-decode state machine (``prefill="monolithic"``:
+one batch-1 ``prefill`` per admitted request scattered into the pool, then
+``decode_step_paged``).  Speculative decode waits for ROADMAP.md A7.
+
+Sampling: greedy takes the first maximum (exact); a sampled request draws
+from its own ``torch.Generator`` seeded with its seed, one draw per
+emitted token, so its stream in ``run`` is the one a single-request
+``generate(seed=...)`` gives.
 """
 from __future__ import annotations
 
+import collections
+import functools
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -33,9 +45,16 @@ from repro_torch.models.transformer import LM
 from repro_torch.quant.apply import apply_policy_packed, apply_policy_to_params
 from repro_torch.quant.linear_quant import FULL_BITS
 from repro_torch.quant.policy import QuantPolicy
+from repro_torch.serve import paged_kv
+from repro_torch.serve.frontend import FrontEnd, as_request
+from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.stats import ServeStats
+from repro_torch.serve.step_loop import StepLoop
 
-__all__ = ["ServeEngine", "ServeStats"]
+__all__ = ["ServeEngine", "ServeStats", "sample_tokens"]
+
+SPECULATIVE_NOT_PORTED = ("speculative decode is not ported yet: ROADMAP.md "
+                          "A7 (draft pass, verify spans, rollback)")
 
 
 def _leaves(tree):
@@ -47,6 +66,18 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def sample_tokens(last: torch.Tensor, temperature: float,
+                  gen: torch.Generator) -> torch.Tensor:
+    """One token per row of ``last`` (B, V) f32, drawn at ``temperature``
+    from ``gen``: what ``torch.multinomial(softmax(last / T), 1)`` draws
+    (the argmax of p / q with q ~ Exp(1) from ``gen``), written out because
+    ``multinomial`` checks its input on the host, which syncs the device.
+    Returns (B,) int64."""
+    probs = torch.softmax(last / temperature, dim=-1)
+    q = torch.empty_like(probs).exponential_(1, generator=gen)
+    return torch.argmax(probs / q, dim=-1)
 
 
 class ServeEngine:
@@ -90,6 +121,40 @@ class ServeEngine:
                     graph, [policy.act_bits.get(l.name, float(FULL_BITS))
                             for l in graph.layers])
         self.params = params
+        # distinct input shapes seen per entry point: the port's analogue
+        # of the reference's jit-variant counter.  The chunked loop keeps
+        # trace_counts["model_step"] at <= 2 whatever the prompt lengths.
+        self.trace_counts: Dict[str, int] = collections.Counter()
+        self._shapes: Dict[str, set] = collections.defaultdict(set)
+        self._prefill = self._counted("prefill", model.prefill)
+        self._decode = self._counted("decode_step", model.decode_step)
+        self._decode_paged = self._counted("decode_step_paged",
+                                           model.decode_step_paged)
+        self._model_step = self._counted("model_step", model.model_step)
+
+    def _counted(self, name, fn):
+        @functools.wraps(fn)
+        def wrapped(*a, **kw):
+            key = tuple(tuple(x.shape) for x in a
+                        if isinstance(x, torch.Tensor))
+            key += tuple(tuple(x["tokens"].shape) for x in a
+                         if isinstance(x, dict) and "tokens" in x)
+            if key not in self._shapes[name]:
+                self._shapes[name].add(key)
+                self.trace_counts[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def _sample(self, logits: torch.Tensor, lanes) -> torch.Tensor:
+        """Every row's token from logits (R, C, V), on the device: the
+        first maximum of the last column, and for each sampled row ``i``
+        in ``lanes`` (row -> (generator, temperature)) a draw from its own
+        generator instead.  Returns (R,) int64."""
+        last = logits[:, -1].to(torch.float32)
+        toks = torch.argmax(last, dim=-1)
+        for i, (gen, temp) in lanes.items():
+            toks[i] = sample_tokens(last[i:i + 1], temp, gen)[0]
+        return toks
 
     def weight_hbm_bytes(self) -> Dict[str, int]:
         """Stored weight bytes by leaf kind: ``packed`` (PackedWeight
@@ -120,8 +185,9 @@ class ServeEngine:
 
         Greedy decoding is exact: ``torch.argmax`` takes the first maximum,
         as ``jnp.argmax`` does.  Sampling draws from a ``torch.Generator``
-        seeded with ``seed``; it cannot reproduce the reference's threefry
-        stream, so sampled outputs agree with it in distribution only.
+        seeded with ``seed`` (:func:`sample_tokens`); it cannot reproduce
+        the reference's threefry stream, so sampled outputs agree with it
+        in distribution only.
         """
         B, S = tokens.shape
         if S + n_new > self.max_len:
@@ -135,7 +201,7 @@ class ServeEngine:
                                device=dev)
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(self.params, {"tokens": toks}, cache,
+        logits, cache = self._prefill(self.params, {"tokens": toks}, cache,
                                       self.act_bits, attn_impl=self.attn_impl)
         self._sync()
         stats.prefill_s = time.perf_counter() - t0
@@ -149,15 +215,14 @@ class ServeEngine:
             top2 = torch.topk(last, 2, dim=-1).values
             gaps.append(top2[:, 0] - top2[:, 1])
             if temperature > 0:
-                probs = torch.softmax(last / temperature, dim=-1)
-                cur = torch.multinomial(probs, 1, generator=gen)[:, 0]
+                cur = sample_tokens(last, temperature, gen)
             else:
                 cur = torch.argmax(last, dim=-1)
             cur = cur[:, None]
             out.append(cur)
-            logits, cache = model.decode_step(self.params, cur, cache, S + i,
-                                              self.act_bits,
-                                              attn_impl=self.attn_impl)
+            logits, cache = self._decode(self.params, cur, cache, S + i,
+                                         self.act_bits,
+                                         attn_impl=self.attn_impl)
         self._sync()
         stats.decode_s = time.perf_counter() - t0
         stats.tokens_out = B * n_new
@@ -171,12 +236,222 @@ class ServeEngine:
             else np.zeros((0, B), np.float32),
         }
 
-    def run(self, *a, **kw):
-        raise NotImplementedError(
-            "ServeEngine.run (continuous batching over the paged pool) is "
-            "the next slice of the port: ROADMAP.md A5")
 
-    def serve(self, *a, **kw):
-        raise NotImplementedError(
-            "ServeEngine.serve (the open-loop core) is the next slice of "
-            "the port: ROADMAP.md A5")
+    # --------------------------------------------------- continuous batching
+    def run(self, requests: Sequence[Union[Request, Dict[str, Any], tuple]],
+            *, page_size: int = 16, max_slots: int = 8,
+            num_pages: Optional[int] = None, prefill: Optional[str] = None,
+            chunk_tokens: Optional[int] = None,
+            token_budget: Optional[int] = None, speculative: bool = False,
+            overlap: bool = True) -> Dict[str, Any]:
+        """Serve a workload of mixed-length requests with continuous
+        batching over the paged pool, as the reference's ``run``.
+
+        requests: each a :class:`Request`, a ``{"tokens", "n_new",
+        "temperature"?, "seed"?}`` dict, or a ``(tokens, n_new)`` tuple
+        with a 1-D prompt.  ``prefill="chunked"`` (the default) submits
+        them all to a :class:`FrontEnd` and drains :meth:`serve`: one
+        ``model_step`` per step, every in-flight sequence contributing up
+        to ``chunk_tokens`` (default ``page_size``) prompt tokens or one
+        decode token under ``token_budget`` real tokens (default
+        ``max_slots + chunk_tokens - 1``, at least ``max_slots``).
+        ``overlap`` selects the pipelined step loop; both settings give the
+        same streams.  ``prefill="monolithic"`` prefills each admitted
+        request alone (K1), scatters it into the pool and decodes the
+        batch through ``decode_step_paged``.  ``num_pages`` defaults to
+        ``max_slots`` sequences at ``max_len`` plus the trash page; a
+        smaller pool throttles admission and requeues prefills that cannot
+        grow.  ``speculative=True`` raises (ROADMAP.md A7).
+
+        Each request's stream is the one ``generate`` gives it alone with
+        its seed.  Returns ``{"outputs": [np.ndarray per request, submit
+        order], "stats": ServeStats}``."""
+        if speculative:
+            raise NotImplementedError(SPECULATIVE_NOT_PORTED)
+        reqs = [as_request(i, r) for i, r in enumerate(requests)]
+        if prefill is None:
+            prefill = "chunked"
+        if prefill not in ("chunked", "monolithic"):
+            raise ValueError(f"unknown prefill mode {prefill!r}")
+        if prefill == "chunked":
+            fe = FrontEnd()
+            for r in reqs:
+                fe.submit(r)
+            res = self.serve(fe, page_size=page_size, max_slots=max_slots,
+                             num_pages=num_pages, chunk_tokens=chunk_tokens,
+                             token_budget=token_budget, overlap=overlap)
+            return {"outputs": [res["outputs"][r.rid] for r in reqs],
+                    "stats": res["stats"]}
+        for r in reqs:
+            self.check_fits(r)
+        kinds = self.model.cfg.cache_kinds()
+        cache, sched, num_pages = self._session(page_size, max_slots,
+                                                num_pages)
+        for r in reqs:
+            sched.submit(r)
+        outputs: Dict[int, List[int]] = {r.rid: [] for r in reqs}
+        stats = ServeStats(n_requests=len(reqs), mode=prefill)
+        self._run_monolithic(sched, cache, kinds, outputs, stats, num_pages,
+                             page_size, self._reclaim_window(kinds))
+        return {"outputs": [np.asarray(outputs[r.rid], np.int32)
+                            for r in reqs],
+                "stats": stats}
+
+    def serve(self, frontend: FrontEnd, *, page_size: int = 16,
+              max_slots: int = 8, num_pages: Optional[int] = None,
+              chunk_tokens: Optional[int] = None,
+              token_budget: Optional[int] = None, speculative: bool = False,
+              overlap: bool = True) -> Dict[str, Any]:
+        """Open-loop serving: drain a :class:`FrontEnd` of timestamped
+        arrivals through the overlapped :class:`StepLoop`.  Requests may
+        arrive while the loop runs (``frontend.submit(..., at=t)`` or from
+        another thread); each iteration pumps due arrivals (shedding
+        SLO-overdue waiters), admits what fits and runs one
+        ``model_step``.  The knobs are :meth:`run`'s.  Returns
+        ``{"outputs": {rid: np.ndarray}, "stats": ServeStats, "shed":
+        [rid, ...]}``; shed requests have empty streams."""
+        if speculative:
+            raise NotImplementedError(SPECULATIVE_NOT_PORTED)
+        kinds = self.model.cfg.cache_kinds()
+        chunk = chunk_tokens if chunk_tokens is not None else page_size
+        budget = token_budget if token_budget is not None \
+            else max_slots + chunk - 1
+        if chunk < 1:
+            raise ValueError(f"chunk_tokens must be >= 1, got {chunk}")
+        if budget < max_slots:
+            raise ValueError(
+                f"token_budget={budget} < max_slots={max_slots}: every "
+                "decode lane needs a token each step (decode is never "
+                "deferred); raise the budget or shrink the batch")
+        cache, sched, num_pages = self._session(page_size, max_slots,
+                                                num_pages)
+        stats = ServeStats(mode="chunked", overlapped=bool(overlap))
+        loop = StepLoop(self, frontend, sched, cache, kinds, stats,
+                        num_pages=num_pages, page_size=page_size,
+                        chunk=chunk, budget=budget,
+                        reclaim=self._reclaim_window(kinds), overlap=overlap)
+        loop.run()
+        stats.n_requests = frontend.n_submitted
+        stats.shed = list(frontend.shed)
+        outputs = {rid: np.asarray(toks, np.int32)
+                   for rid, toks in loop.outputs.items()}
+        for rid in frontend.shed:
+            outputs.setdefault(rid, np.zeros((0,), np.int32))
+        return {"outputs": outputs, "stats": stats,
+                "shed": list(frontend.shed)}
+
+    def check_fits(self, req: Request) -> None:
+        """Raise unless ``req``'s prompt and decode fit ``max_len``."""
+        if req.prompt_len + req.n_new > self.max_len:
+            raise ValueError(
+                f"request {req.rid}: {req.prompt_len}+{req.n_new} tokens "
+                f"exceeds max_len={self.max_len}")
+
+    def _session(self, page_size: int, max_slots: int,
+                 num_pages: Optional[int]):
+        """A fresh paged pool and its scheduler; ``num_pages`` defaults to
+        ``max_slots`` sequences at ``max_len`` plus the trash page.
+        Returns (cache, scheduler, num_pages)."""
+        blocks_per_seq = paged_kv.pages_needed(self.max_len, page_size)
+        if num_pages is None:
+            num_pages = max_slots * blocks_per_seq + 1      # +1: trash page
+        cache = self.model.init_paged_cache(max_slots, num_pages, page_size,
+                                            kv_bits=self.kv_bits,
+                                            device=self.device)
+        sched = Scheduler(max_slots, page_size, blocks_per_seq,
+                          paged_kv.PageAllocator(num_pages))
+        return cache, sched, num_pages
+
+    def _reclaim_window(self, kinds) -> Optional[int]:
+        # out-of-window reclamation is sound only when *every* block of the
+        # pattern attends through the same sliding window (a single global
+        # block needs the whole history; one block table serves all layers)
+        cfg = self.model.cfg
+        return cfg.window if (all(kd == "paged" for kd in kinds) and
+                              cfg.window is not None and
+                              all(b.kind == "local_attn"
+                                  for b in cfg.pattern)) else None
+
+    def _run_monolithic(self, sched, cache, kinds, outputs, stats,
+                        num_pages, page_size, reclaim):
+        """Prefill-then-decode state machine (the chunked loop's TTFT
+        baseline).  Synchronous: each admission and each decode step reads
+        its tokens back before the next."""
+        t_run = time.perf_counter()
+        temps = np.zeros((sched.n_slots,), np.float32)
+        gens: Dict[int, torch.Generator] = {}
+        while sched.has_work:
+            # ---- admission: prefill queued requests into free slots/pages
+            admitted = 0
+            while (adm := sched.try_admit()) is not None:
+                admitted += 1
+                req, slot, pages = adm
+                t0 = time.perf_counter()
+                logits, dense = self._prefill_one(req, page_size)
+                paged_kv.scrub_pages(cache, kinds, pages)
+                paged_kv.write_prefill(cache, dense, kinds, slot, pages,
+                                       page_size)
+                temps[slot] = req.temperature
+                gens.pop(slot, None)
+                lanes = {}
+                if req.temperature > 0:
+                    gens[slot] = backend.make_generator(req.seed,
+                                                        self.device)
+                    lanes = {0: (gens[slot], req.temperature)}
+                tok = int(self._sample(logits, lanes)[0])
+                stats.prefill_s += time.perf_counter() - t0
+                outputs[req.rid].append(tok)
+                stats.tokens_out += 1
+                stats.prefill_tokens += 1
+                stats.mono_prefill_tokens += req.prompt_len
+                stats.ttft_steps[req.rid] = stats.steps + 1
+                stats.ttft_s[req.rid] = time.perf_counter() - t_run
+                sched.bind(slot, req, tok)
+            stats.peak_pages = max(stats.peak_pages,
+                                   num_pages - 1 - sched.allocator.n_free)
+
+            running = sched.running_slots()
+            if not running:
+                if sched.has_work and not admitted:
+                    raise paged_kv.PagesExhausted(
+                        "queued request cannot ever be admitted: pool of "
+                        f"{num_pages} pages (page_size={page_size}) is too "
+                        "small for its prompt + decode headroom")
+                continue                    # everything admitted finished
+
+            # ---- one batched decode step over all in-flight sequences
+            if reclaim is not None:
+                stats.reclaimed_pages += len(
+                    sched.reclaim_out_of_window(reclaim))
+            t0 = time.perf_counter()
+            paged_kv.scrub_pages(cache, kinds, sched.ensure_pages())
+            b = sched.batch()
+            dev = self.device
+            logits, cache = self._decode_paged(
+                self.params, backend.upload(b["tokens"].astype(np.int64), dev),
+                cache, backend.upload(b["block_tables"], dev),
+                backend.upload(b["pos"], dev), self.act_bits,
+                attn_impl=self.attn_impl)
+            toks = self._sample(logits, {i: (gens[i], float(temps[i]))
+                                         for i in running if temps[i] > 0})
+            vals = toks.cpu().numpy()       # one transfer for the batch
+            for i in running:
+                req = sched.slot(i).req
+                tok = int(vals[i])
+                outputs[req.rid].append(tok)
+                stats.tokens_out += 1
+                sched.record(i, tok)
+            stats.decode_s += time.perf_counter() - t0
+            stats.steps += 1
+
+    def _prefill_one(self, req: Request, page_size: int):
+        """Batch-1 prefill into a dense cache sized to whole pages (the
+        cache length only pads the KV store: prefill logits come from the
+        in-flight K/V)."""
+        L = paged_kv.pages_needed(req.prompt_len, page_size) * page_size
+        dense = self.model.init_cache(1, L, kv_bits=self.kv_bits,
+                                      device=self.device)
+        toks = torch.as_tensor(req.tokens[None].astype(np.int64),
+                               device=self.device)
+        return self._prefill(self.params, {"tokens": toks}, dense,
+                             self.act_bits, attn_impl=self.attn_impl)

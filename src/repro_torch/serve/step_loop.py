@@ -1,0 +1,269 @@
+"""Overlapped token-budget step loop: the serving back-end (port of
+``repro/serve/step_loop.py`` without its speculative branch, which waits
+for ROADMAP.md A7).
+
+Each step plans a fixed-shape batch (``Scheduler.plan_step``), runs one
+``LM.model_step`` over it and samples every lane on the device.  Host and
+device overlap as in the reference:
+
+* **sample on the device** -- greedy lanes take the first maximum, a
+  sampled lane draws from its own ``torch.Generator`` (seeded with the
+  request's seed at admission), so only the (R,) token vector ever crosses
+  to the host;
+* **plan value-free** -- ``plan_step`` depends on token counts and
+  positions only, so step t+1 is planned while step t's tokens are still on
+  the device; the host records a ``PENDING`` placeholder for each;
+* **feed back on the device** -- a decode lane's column-0 input for step
+  t+1 is scattered in from step t's device-resident token vector
+  (``tok_in[rows_d, 0] = last_tok[rows_d]``), so the model always sees the
+  exact sampled token;
+* **retire one step late** -- with ``overlap=True`` the host dispatches
+  step t+1, then waits on a CUDA event recorded after step t's token
+  vector was copied, without blocking, into pinned memory; it backfills
+  the ``PENDING`` slots, fires stream callbacks in token order and stamps
+  latency.  ``overlap=False`` retires each step at once.  Both produce the
+  same streams bit for bit.
+
+JAX's asynchronous dispatch becomes PyTorch's: kernels are queued on the
+current stream and nothing inside a step waits for them.  A step must hold
+no host sync (``.item()``, ``int(t)``, ``nonzero``, boolean-mask indexing,
+``.cpu()``, a blocking host-to-device copy): any of them would quietly
+make the loop synchronous.  Host arrays reach the card through
+``backend.upload`` (pinned, non-blocking).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import backend
+from repro_torch.serve import paged_kv
+from repro_torch.serve.frontend import FrontEnd
+from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.stats import ServeStats
+
+__all__ = ["StepLoop", "PENDING"]
+
+# placeholder for a sampled-but-not-yet-synced token in host bookkeeping
+# (scheduler ``out`` lists and the output streams); never fed to the model
+# -- dispatch overrides decode feedback with the device-resident value
+PENDING = -1
+
+
+class StepLoop:
+    """One serving session's back-end: drives a :class:`Scheduler` fed by
+    a :class:`FrontEnd` until both are drained.
+
+    Built by ``ServeEngine.serve`` (and through it by ``run``); owns the
+    paged pool, the per-slot generators and temperatures, and the
+    per-request output streams.
+    """
+
+    def __init__(self, engine, frontend: FrontEnd, sched: Scheduler, cache,
+                 kinds, stats: ServeStats, *, num_pages: int, page_size: int,
+                 chunk: int, budget: int, reclaim: Optional[int] = None,
+                 overlap: bool = True):
+        self.eng = engine
+        self.fe = frontend
+        self.sched = sched
+        self.cache = cache
+        self.kinds = kinds
+        self.stats = stats
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.chunk = chunk
+        self.budget = budget
+        self.reclaim = reclaim
+        self.overlap = bool(overlap)
+        self.device = engine.device
+        n = sched.n_slots
+        self.outputs: Dict[int, List[int]] = {}
+        # per-slot sampling state, set at admission (a requeued request
+        # re-seeds identically: it emitted nothing, so drew nothing)
+        self._temps = np.zeros((n,), np.float32)
+        self._gens: Dict[int, torch.Generator] = {}
+        self._last_tok = torch.zeros((n,), dtype=torch.int64,
+                                     device=self.device)
+        # in-flight retirement record: ((host tokens, event), emit rows)
+        self._inflight: Optional[Tuple[tuple, List[tuple]]] = None
+        self._last_t: Dict[int, float] = {}   # rid -> last host-visible time
+
+    # ------------------------------------------------------------ the loop
+    def run(self) -> None:
+        """Drain the front-end and scheduler: pump arrivals, step, idle
+        between future arrivals.  Ends when no request is scheduled,
+        queued, or running."""
+        try:
+            while True:
+                now, released = self.fe.pump(self.sched)
+                for req in released:
+                    self.eng.check_fits(req)
+                if not self.sched.has_work:
+                    if self.fe.n_scheduled == 0:
+                        break
+                    self._retire()        # flush streams before idling
+                    self.fe.wait(now)
+                    continue
+                self.step(now)
+        finally:
+            self._retire()
+
+    def step(self, now: float) -> None:
+        """One engine step: admit, plan, dispatch, sample, account."""
+        eng, sched, stats = self.eng, self.sched, self.stats
+        if self.reclaim is not None:
+            stats.reclaimed_pages += len(
+                sched.reclaim_out_of_window(self.reclaim))
+        # ---- admission: a request joins when its first chunk fits
+        fresh = []
+        while (adm := sched.try_admit_chunked(self.chunk)) is not None:
+            req, slot, pages = adm
+            fresh += pages
+            self._admit(req, slot, now)
+        if not sched.running_slots():
+            raise paged_kv.PagesExhausted(
+                "queued request cannot ever be admitted: pool of "
+                f"{self.num_pages} pages (page_size={self.page_size}) is "
+                "too small for its first chunk + decode headroom")
+        t0 = self.fe.now()
+        plan = sched.plan_step(self.chunk, self.budget)
+        stats.requeues += len(plan["requeued"])
+        # a request admitted above may have been preempted inside this very
+        # plan_step: its admission pages are back on the free list, so drop
+        # the stale aliases from the scrub set
+        drop = set(plan["freed"])
+        fresh = [p for p in fresh if p not in drop]
+        # scrub unconditionally: admission pages must be sentinel-clean
+        # before any later step writes chunks into them
+        paged_kv.scrub_pages(self.cache, self.kinds, fresh + plan["fresh"])
+        if not plan["sample"] and not plan["chunked"]:
+            return                  # every planned slot was preempted
+        # pure-decode steps run the (R, 1) column slice: two shapes per run
+        w = self.chunk if plan["chunked"] else 1
+        dev = self.device
+        tok_in = backend.upload(plan["tokens"][:, :w].astype(np.int64), dev)
+        if plan["decode"]:
+            # decode feedback stays exact: the host holds PENDING, the
+            # device value is authoritative
+            rows_d = backend.upload(np.asarray(plan["decode"], np.int64),
+                                    dev)
+            tok_in[rows_d, 0] = self._last_tok[rows_d]
+        logits, self.cache = eng._model_step(
+            eng.params, tok_in, backend.upload(plan["positions"][:, :w], dev),
+            backend.upload(plan["slot_map"], dev), self.cache,
+            backend.upload(sched.tables.as_array(), dev),
+            backend.upload(plan["logit_cols"], dev), eng.act_bits,
+            attn_impl=eng.attn_impl)
+        stats.chunk_prefill_tokens += sum(plan["chunked"].values())
+        toks = eng._sample(logits, {i: (self._gens[i], float(self._temps[i]))
+                                    for i in plan["sample"]
+                                    if self._temps[i] > 0})
+        emitted_step = self._finish_plain(plan, toks)
+        dt = self.fe.now() - t0
+        # chunk-carrying steps are prefill-side: their time and their
+        # sampled tokens leave the decode rate
+        if plan["chunked"]:
+            stats.prefill_s += dt
+            stats.prefill_tokens += emitted_step
+        else:
+            stats.decode_s += dt
+        stats.steps += 1
+        stats.peak_pages = max(stats.peak_pages,
+                               self.num_pages - 1 - sched.allocator.n_free)
+
+    # ---------------------------------------------------------- inner steps
+    def _admit(self, req: Request, slot: int, now: float) -> None:
+        rid = req.rid
+        if rid not in self.stats.queue_wait_s:
+            arrival = self.fe.arrival_s.get(rid)
+            if arrival is not None:
+                self.stats.queue_wait_s[rid] = now - arrival
+        self.fe.note_admitted(rid)
+        self._temps[slot] = req.temperature
+        self._gens.pop(slot, None)
+        if req.temperature > 0:
+            self._gens[slot] = backend.make_generator(req.seed, self.device)
+
+    def _finish_plain(self, plan, toks) -> int:
+        """Value-free advance: record PENDING placeholders, start the token
+        vector's copy to the host, retire the previous step's (pipelined)
+        or this one's (synchronous)."""
+        sched, stats = self.sched, self.stats
+        rows = []
+        for i in plan["sample"]:
+            s = sched.slot(i)
+            rid = s.req.rid
+            out = self.outputs.setdefault(rid, [])
+            idx = len(out)
+            out.append(PENDING)
+            first = not s.out
+            if first:
+                stats.ttft_steps[rid] = stats.steps + 1
+                done = sched.record_first(i, PENDING)
+            else:
+                done = sched.record(i, PENDING)
+            rows.append((i, rid, idx, first, done))
+            stats.tokens_out += 1
+        self._last_tok = toks
+        pending = (self._to_host(toks), rows)
+        if self.overlap:
+            prev, self._inflight = self._inflight, pending
+            if prev is not None:
+                self._retire_record(prev)
+        else:
+            self._retire_record(pending)
+        return len(rows)
+
+    def _to_host(self, toks: torch.Tensor):
+        """Start the (R,) token vector's copy to the host: into pinned
+        memory without blocking, with an event to wait on (on the card);
+        the tensor itself on the CPU."""
+        if toks.device.type != "cuda":
+            return toks, None
+        host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+        host.copy_(toks, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    # ----------------------------------------------------------- retirement
+    def _retire(self) -> None:
+        """Retire the in-flight step, if any (loop exit / idle / error)."""
+        prev, self._inflight = self._inflight, None
+        if prev is not None:
+            self._retire_record(prev)
+
+    def _retire_record(self, pending) -> None:
+        """Wait for one step's token vector -- the only blocking point per
+        step -- and make its tokens host-visible: backfill PENDING output
+        slots, fire stream callbacks, stamp latency."""
+        (host, done), rows = pending
+        if done is not None:
+            done.synchronize()
+        vals = host.numpy()
+        now = self.fe.now()
+        for slot, rid, idx, first, fin in rows:
+            tok = int(vals[slot])
+            self.outputs[rid][idx] = tok
+            self._emit(rid, idx, tok, now, first, fin)
+
+    def _emit(self, rid: int, idx: int, tok: int, now: float, first: bool,
+              done: bool) -> None:
+        """One token became host-visible: latency stats + stream callback."""
+        stats = self.stats
+        arrival = self.fe.arrival_s.get(rid)
+        if first:
+            if arrival is not None:
+                stats.ttft_s[rid] = now - arrival
+        else:
+            prev_t = self._last_t.get(rid)
+            if prev_t is not None:
+                stats.itl_s.append(now - prev_t)
+        self._last_t[rid] = now
+        if done:
+            if arrival is not None:
+                stats.e2e_s[rid] = now - arrival
+            self._last_t.pop(rid, None)
+        self.fe.emit(rid, idx, tok)

@@ -181,8 +181,8 @@ def test_engine_rejects_bad_options(setup):
         _port_engine(setup, "fake", attn_impl="pallas")
     with pytest.raises(ValueError):
         _port_engine(setup, "fake", kv_bits=4)
-    with pytest.raises(NotImplementedError, match="A5"):
-        _port_engine(setup, "fake").run([])
+    with pytest.raises(NotImplementedError, match="A7"):
+        _port_engine(setup, "fake").run([], speculative=True)
     with pytest.raises(NotImplementedError, match="A8"):
         ServeEngine(setup["tm"], setup["tp"],
                     policy=QuantPolicy(QuantMode.BINARIZE, {}, {}),

@@ -6,6 +6,8 @@
 * Entry points run on the card by default: without CUDA and without
   ``device="cpu"`` they raise and name the opt-in, never carrying on
   quietly on the CPU.
+* Kernel wrappers run their plain versions only on CPU tensors, without
+  counting a launch, and refuse tensors on any other non-CUDA device.
 """
 import ast
 import os
@@ -13,6 +15,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -34,6 +37,15 @@ def _modules():
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         mods.append(".".join(parts))
     return mods
+
+
+def test_scan_covers_the_serving_modules():
+    names = {str(p.relative_to(PORT)) for p in _port_files()
+             if PORT in p.parents}
+    for mod in ("serve/paged_kv.py", "serve/scheduler.py",
+                "serve/frontend.py", "serve/step_loop.py",
+                "serve/engine.py", "kernels/attention.py"):
+        assert mod in names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -72,15 +84,24 @@ def test_entry_points_require_cuda_unless_cpu_is_asked(monkeypatch):
     from repro_torch.serve import ServeEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = LM(ARCHS["gemma2-2b"].smoke)
+    params = model.init(0, device="cpu")
     for call in (lambda: model.init(0),
                  lambda: model.init_cache(1, 8),
-                 lambda: ServeEngine(model, {})):
+                 lambda: model.init_paged_cache(2, 5, 4),
+                 lambda: model.init_paged_cache(2, 5, 4, device="cuda"),
+                 lambda: ServeEngine(model, {}),
+                 lambda: ServeEngine(model, params, device="cuda")):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
-    params = model.init(0, device="cpu")
     assert params["embed"].device.type == "cpu"
     eng = ServeEngine(model, params, max_len=8, device="cpu")
     assert eng.device.type == "cpu"
+    pool = model.init_paged_cache(2, 5, 4, device="cpu")
+    assert pool[0]["k"].device.type == "cpu"
+    # run() serves on the CPU only because the engine was asked to
+    out = eng.run([(np.arange(3, dtype=np.int32), 2)], page_size=4,
+                  max_slots=2)
+    assert out["outputs"][0].shape == (2,)
 
 
 def test_wrappers_run_plain_versions_only_on_cpu_tensors():
@@ -88,12 +109,34 @@ def test_wrappers_run_plain_versions_only_on_cpu_tensors():
     tensor on any other non-CUDA device is refused, not redirected."""
     from repro_torch import kernels
     from repro_torch.kernels.ops import quant_matmul
+    from repro_torch.kernels.attention import paged_prefill_attention
     kernels.reset_launch_counts()
     x = torch.randn(3, 8)
     qw = torch.randint(-5, 5, (8, 4), dtype=torch.int8)
     s = torch.rand(4)
     quant_matmul(x, qw, s)
-    assert kernels.launch_counts() == {"flash_attention": 0,
-                                       "quant_matmul": 0, "packed_matmul": 0}
+    q = torch.randn(2, 3, 4, 8)
+    pages = torch.randn(5, 4, 2, 8)
+    pos = torch.full((5, 4), 2**31 - 1, dtype=torch.int32)
+    pos[1] = torch.arange(4, dtype=torch.int32)
+    bt = torch.tensor([[1, 0], [0, 0]], dtype=torch.int32)
+    q_pos = torch.tensor([[1, 2, 3], [2**31 - 1] * 3], dtype=torch.int32)
+    out = paged_prefill_attention(q, pages, pages, pos, bt, q_pos=q_pos)
+    assert out.shape == q.shape
+    assert kernels.launch_counts() == {
+        "flash_attention": 0, "quant_matmul": 0, "packed_matmul": 0,
+        "paged_attention": 0}
     with pytest.raises(ValueError):
         quant_matmul(x.to("meta"), qw.to("meta"), s.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        paged_prefill_attention(q.to("meta"), pages.to("meta"),
+                                pages.to("meta"), pos.to("meta"),
+                                bt.to("meta"), q_pos=q_pos.to("meta"))
+    # the dispatcher hands impl="cuda" to the wrapper whatever the masks:
+    # off the CPU it launches K4 or raises, never the plain version
+    from repro_torch.models.layers import paged_attention
+    with pytest.raises(ValueError, match="no kernel"):
+        paged_attention(q.to("meta"), pages.to("meta"), pages.to("meta"),
+                        pos.to("meta"), bt.to("meta"),
+                        q_pos=q_pos.to("meta"), window=2, attn_cap=5.0,
+                        impl="cuda")

@@ -107,7 +107,7 @@ def test_unported_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A10"):
         get("jamba-1.5-large-398b")
     tm = LM(ARCHS["gemma2-2b"].smoke)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tm.model_step()
+    with pytest.raises(NotImplementedError, match="A9"):
+        tm.apply()
     with pytest.raises(KeyError):
         get("no-such-arch")
