@@ -6,12 +6,15 @@
 Phases, each printing one JSON line per result; any failure raises and the
 run exits non-zero:
 
-1. build   -- nvcc-compiles the four CUDA kernels from ``src/repro_torch/
+1. build   -- nvcc-compiles the six CUDA kernels from ``src/repro_torch/
               csrc`` in parallel and prints the card's name and power limit.
 2. kernels -- holds each kernel against its plain PyTorch version on the
-              card at the shapes gemma2-2b's serving paths give it, and
-              times kernel, plain version, one library call and the bound
-              (CUDA events, L2 flushed before each run, median of 10).
+              card at the shapes its path gives it (gemma2-2b serving for
+              K1-K4; the search's CIF10 layers and gemma2-2b's stacked
+              weights for B5 fake-quant, bit for bit; CIF10's im2col and
+              fc products for B6 bit-plane matmul), and times kernel,
+              plain version, one library call and the bound (CUDA events,
+              L2 flushed before each run, median of 10).
 3. serve   -- ServeEngine.generate on gemma2-2b at full width and depth
               with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
@@ -25,9 +28,24 @@ run exits non-zero:
               off bitwise, every stream against the same engine's
               generate (top-2 gap rule), monolithic prefill on the first
               4, launch counts, host syncs per step, and one profiled run.
+6. search  -- the AutoQ search on CIF10-7CNN at full width: trains the
+              substrate (250 Adam steps, batch 128, as the example does),
+              checks the 32-bit policy against the unquantized accuracy,
+              the QUANT evaluator on B5 against a plain evaluation (weights
+              bit for bit, same accuracy) for three seeded policies, and
+              the BINARIZE evaluator on B6 against the dense
+              fake-binarized conv (logits within 1e-4); then run_search
+              with a HierarchicalAgent, 40 QUANT and 20 BINARIZE episodes
+              (accuracy-guaranteed reward), with seconds per episode split
+              into acting, evaluating and updating, and exactly 8 launches
+              per evaluation of its mode's kernel; last, one
+              make_lm_evaluator call on the gemma2-2b params against a
+              plain evaluation (weights bit for bit, logits against the
+              plain-attention forward, accuracy by the gap rule).
 
 The line before the last lists every kernel with its launches on its path
-(K1-K3: generate; K4: run) and its times; the last line is
+(K1-K3: generate; K4: run; B5: the QUANT search; B6: the BINARIZE search)
+and its times; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it prints no
 result and exits 2.  It imports neither JAX nor the reference package.
@@ -80,7 +98,20 @@ SOURCES = {
                       "src/repro/kernels/packed_matmul.py:50"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/attention.py:206"),
+    "fake_quant": ("src/repro_torch/csrc/fake_quant.cu",
+                   "src/repro/kernels/fake_quant.py:19"),
+    "binary_matmul": ("src/repro_torch/csrc/binary_matmul.cu",
+                      "src/repro/kernels/binary_matmul.py:20"),
 }
+
+# phase search: CIF10-7CNN, the example's substrate preparation and a
+# 40 + 20 episode search (examples/autoq_search_cnn.py's schedule, cut)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, VAL_IMAGES = 250, 128, 2e-3, 512
+SEARCH_RUNS = (("quant", 10, 30), ("binarize", 5, 15))
+LM_EVAL_BATCH, LM_EVAL_LEN = 4, 128
+FQ_NOTE = ("no single PyTorch call: torch.fake_quantize_per_channel_affine "
+           "takes one integer range for all channels, with no prune or "
+           "pass-through")
 
 # phase run: 8 requests over 4 slots, so later requests reuse freed pages
 RUN_PROMPTS = (4160, 3100, 2050, 1030, 515, 260, 97, 33)
@@ -337,12 +368,92 @@ def paged_rows(torch, timer, cap):
     return rows
 
 
+def _fq_inputs(torch, g, M, N):
+    """x (M, N) and per-column scale / levels / bits as the QUANT evaluator
+    makes them: bits from 0..8 with every 16th column at 32."""
+    x = torch.randn((M, N), generator=g, device="cuda")
+    bits = torch.randint(0, 9, (N,), generator=g, device="cuda").float()
+    bits[::16] = 32.0
+    lv = torch.clamp(torch.pow(2.0, bits - 1.0) - 1.0, min=1.0)
+    amax = x.abs().amax(dim=0)
+    sc = torch.where(amax > 0, amax / lv, torch.ones_like(amax))
+    return x, sc, lv, bits
+
+
+def search_kernel_rows(torch, timer):
+    """B5 at the search's CIF10 conv5 and fc weights and at gemma2-2b's
+    stacked wg and unembed (bit for bit); B6 at CIF10's conv1 and conv5
+    im2col products, the fc, and one single-plane case (GEMM_TOL).  B6's
+    bound counts 2 M K N operations, the fewest any implementation of the
+    function needs; its library call is torch.matmul against the folded
+    weight."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import binary_matmul_ref, fake_quant_ref
+    cfg = ARCHS[ARCH].config
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = []
+    for label, M, N in (("cif10_conv5", 9 * 128, 128), ("cif10_fc", 128, 10),
+                        ("gemma2_wg_stack", cfg.n_repeat * cfg.d_model,
+                         cfg.d_ff),
+                        ("gemma2_unembed", cfg.d_model, cfg.vocab_padded)):
+        x, sc, lv, bits = _fq_inputs(torch, g, M, N)
+        kern = lambda: ops.fake_quant_channels(x, sc, lv, bits)
+        plain = lambda: fake_quant_ref(x, sc, lv, bits)
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"fake_quant/{label}: differs from its plain "
+                                 f"version (max abs err {err})")
+        b_ms, b_by = bound_ms(4 * (2 * M * N + 3 * N), 5.0 * M * N)
+        rows.append(dict(
+            name="fake_quant", case=label, shape=[M, N], max_abs_err=err,
+            max_rel_err=0.0, tol="bitwise", ms=timer(kern),
+            plain_ms=timer(plain), library_ms=None, library_note=FQ_NOTE,
+            device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", **rows[-1]})
+        del x, got, want
+    torch.cuda.empty_cache()
+    for label, M, K, N, P in (("cif10_conv1_im2col", 512 * 32 * 32, 9 * 32,
+                               32, 8),
+                              ("cif10_conv5_im2col", 512 * 8 * 8, 9 * 128,
+                               128, 8),
+                              ("cif10_fc", 512, 128, 10, 8),
+                              ("conv5_one_plane", 512 * 8 * 8, 9 * 128, 128,
+                               1)):
+        x = torch.randn((M, K), generator=g, device="cuda")
+        planes = (torch.randint(0, 2, (P, K, N), generator=g, device="cuda")
+                  * 2 - 1).to(torch.int8)
+        alpha = torch.rand((P, N), generator=g, device="cuda") / math.sqrt(K)
+        kern = lambda: ops.binary_matmul(x, planes, alpha)
+        plain = lambda: binary_matmul_ref(x, planes, alpha)
+        got = kern()
+        torch.cuda.synchronize()
+        err, rel = compare(torch, got, plain(), GEMM_TOL,
+                           f"binary_matmul/{label}")
+        w_hat = (alpha[:, None, :] * planes.float()).sum(0)
+        b_ms, b_by = bound_ms(4 * (M * K + P * N + M * N) + P * K * N,
+                              2.0 * M * K * N)
+        rows.append(dict(
+            name="binary_matmul", case=label, shape=[M, K, N, P],
+            max_abs_err=err, max_rel_err=rel, tol=GEMM_TOL, ms=timer(kern),
+            plain_ms=timer(plain),
+            library_ms=timer(lambda: torch.matmul(x, w_hat)),
+            device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", **rows[-1]})
+        del x, planes, got, w_hat
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(torch, timer):
     from repro_torch.kernels import attention, ops, pack
     from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
     from repro_torch.models.layers import attention_ref
     cap = 50.0
-    rows = paged_rows(torch, timer, cap)
+    rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap)
     for label, q, k, v, qp, kp, window, chunk in _attn_cases(torch):
         kern = lambda: attention.flash_attention(
             q, k, v, q_pos=qp, kv_pos=kp, window=window, attn_cap=cap)
@@ -452,7 +563,8 @@ def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
                   logits=out["prefill_logits"].float().cpu())
     if profile:
         emit({"phase": "profile", "engine": label,
-              **profile_generate(torch, eng, tokens, n_new)})
+              **profile_call(torch,
+                              lambda: eng.generate(tokens, n_new))})
     del eng, out
     gc.collect()
     if on_card:
@@ -460,15 +572,14 @@ def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
     return result
 
 
-def profile_generate(torch, eng, tokens, n_new):
-    """Device time of one more ``generate`` call by kernel name, and the
-    device's busy share of the call's wall time (torch.profiler, CUDA
-    activity only)."""
+def profile_call(torch, fn):
+    """Device time of one ``fn()`` by kernel name, and the device's busy
+    share of its wall time (torch.profiler, CUDA activity only)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.generate(tokens, n_new)
+        fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = sorted(((e.key[:90], e.device_time_total / 1e3, e.count)
@@ -750,6 +861,322 @@ def phase_run(torch, cfg, model, params, policy):
                 profile=prof)
 
 
+# --------------------------------------------------------------- phase 6
+def train_substrate(torch, model, params, data):
+    """The example's preparation: TRAIN_STEPS Adam steps (the port's
+    core.ddpg.adam_update, lr TRAIN_LR) on fresh synthetic batches."""
+    from repro_torch import backend
+    from repro_torch.core.ddpg import (adam_init, adam_update, tree_leaves,
+                                       tree_map, tree_unflatten)
+    dev = torch.device("cuda")
+    opt = adam_init(params)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        b = {k: backend.upload(v, dev)
+             for k, v in data.batch(i, TRAIN_BATCH).items()}
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = model.loss(p, b)
+        grads = tree_unflatten(p, torch.autograd.grad(loss, tree_leaves(p)))
+        params, opt = adam_update(tree_map(torch.detach, p), grads, opt,
+                                  TRAIN_LR)
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    return params, dict(seconds=time.perf_counter() - t0,
+                        first_loss=float(losses[0]),
+                        last_loss=float(losses[-1]))
+
+
+def _cnn_policy(graph, seed, mode, act=None):
+    """Seeded kernel-wise policy: weight QBNs from 0..8 and 32, activation
+    QBNs from 3..8 (or ``act``)."""
+    from repro_torch.quant.policy import QuantPolicy
+    rng = np.random.default_rng(seed)
+    wb = {l.name: rng.choice([0, 1, 2, 3, 4, 5, 6, 8, 32],
+                             size=l.n_groups).astype(np.float32)
+          for l in graph.layers}
+    ab = {l.name: float(act if act is not None else rng.integers(3, 9))
+          for l in graph.layers}
+    return QuantPolicy(mode, wb, ab)
+
+
+def _syncs_of(torch, fn):
+    """Host syncs ``fn`` makes, counted by the sync debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("called a synchronizing CUDA operation" in
+                    str(w.message) for w in seen)
+
+
+def check_evaluators(torch, model, params, graph, val, acc_raw):
+    """The 32-bit policy == unquantized; QUANT on B5 == a plain evaluation
+    (weights bit for bit, same accuracy) for three seeded policies;
+    BINARIZE on B6 == the dense fake-binarized forward (logits, 1e-4) with
+    activations at 32 bits.  Counts host syncs per evaluation."""
+    from repro_torch import backend
+    from repro_torch.core import evaluate, make_cnn_evaluator
+    from repro_torch.quant.apply import apply_policy_to_params, get_path
+    from repro_torch.quant.policy import QuantMode, QuantPolicy
+    dev = torch.device("cuda")
+    names = [l.name for l in graph.layers]
+    xb = {k: backend.upload(v, dev) for k, v in val.items()}
+    problems, rec = [], {}
+    ev = {m: make_cnn_evaluator(model, params, graph, val, mode=m)
+          for m in (QuantMode.QUANT, QuantMode.BINARIZE)}
+    acc32 = ev[QuantMode.QUANT](QuantPolicy.uniform(graph, 32.0))
+    rec["acc_uniform32"] = acc32
+    if abs(acc32 - acc_raw) > 1e-3:
+        problems.append(f"32-bit policy {acc32} != unquantized {acc_raw}")
+    rec["quant"] = []
+    for seed in range(3):
+        pol = _cnn_policy(graph, SEED + 10 + seed, QuantMode.QUANT)
+        wb, _ = evaluate.upload_bits(pol, graph, dev)
+        with torch.no_grad():
+            q = evaluate._quantize_params(params, graph, wb, QuantMode.QUANT)
+            plain = apply_policy_to_params(params, graph, pol)
+            same = all(torch.equal(get_path(q, l.param_path),
+                                   get_path(plain, l.param_path))
+                       for l in graph.layers)
+            acc_plain = float(model.accuracy(
+                plain, xb, act_bits=pol.act_bits)) * 100.0
+        acc, syncs = _syncs_of(torch, lambda: ev[QuantMode.QUANT](pol))
+        rec["quant"].append(dict(seed=seed, weights_bitwise=same, acc=acc,
+                                 acc_plain=acc_plain, host_syncs=syncs))
+        if not same or acc != acc_plain:
+            problems.append(f"QUANT policy {seed}: weights bitwise {same}, "
+                            f"acc {acc} vs plain {acc_plain}")
+    pol = _cnn_policy(graph, SEED + 20, QuantMode.BINARIZE, act=32.0)
+    wb, _ = evaluate.upload_bits(pol, graph, dev)
+    with torch.no_grad():
+        got = model.apply(evaluate._quantize_params(
+            params, graph, wb, QuantMode.BINARIZE, planes=True), xb["x"])
+        want = model.apply(apply_policy_to_params(params, graph, pol),
+                           xb["x"])
+    diff = float((got - want).abs().max())
+    acc_b, syncs_b = _syncs_of(torch, lambda: ev[QuantMode.BINARIZE](pol))
+    rec["binarize"] = dict(logit_max_abs_diff=diff, tol=GEMM_TOL,
+                           acc=acc_b, host_syncs=syncs_b,
+                           logit_max_abs=float(want.abs().max()))
+    if not bool(torch.isfinite(got).all()) or \
+            not torch.allclose(got, want, **GEMM_TOL):
+        problems.append(f"BINARIZE logits differ from the dense forward by "
+                        f"{diff}")
+    rec["problems"] = problems
+    emit({"phase": "search-check", **rec})
+    return rec
+
+
+def _timed_agent(agent):
+    """Wrap the controllers' act / update and the env's evaluator with
+    host timers (act and update read back to the host, the evaluator
+    reads its accuracy, so each call ends synchronised)."""
+    spent = {"act": 0.0, "evaluate": 0.0, "update": 0.0}
+    calls = {"act": 0, "evaluate": 0, "update": 0}
+
+    def wrap(obj, attr, key):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spent[key] += time.perf_counter() - t0
+            calls[key] += 1
+            return out
+        setattr(obj, attr, timed)
+
+    for ctl in (agent.hlc, agent.llc):
+        wrap(ctl, "act", "act")
+        wrap(ctl, "update", "update")
+    wrap(agent.env, "evaluator", "evaluate")
+    return spent, calls
+
+
+def run_cnn_search(torch, model, params, graph, val, mode_name, n_explore,
+                   n_exploit):
+    """run_search over a HierarchicalAgent (accuracy-guaranteed reward) on
+    the CNN evaluator of ``mode_name``: the main path of B5 (quant) or B6
+    (binarize).  Launch counts are reset just before and read just
+    after."""
+    from repro_torch import kernels
+    from repro_torch.core import (HierarchicalAgent, QuantEnv, RewardCfg,
+                                  make_cnn_evaluator, run_search)
+    from repro_torch.quant.policy import QuantMode
+    mode = QuantMode.QUANT if mode_name == "quant" else QuantMode.BINARIZE
+    ev = make_cnn_evaluator(model, params, graph, val, mode=mode)
+    env = QuantEnv(graph, params, ev, RewardCfg.accuracy_guaranteed(),
+                   mode=mode)
+    agent = HierarchicalAgent(env, seed=SEED)
+    spent, calls = _timed_agent(agent)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = run_search(agent, n_explore=n_explore, n_exploit=n_exploit)
+    launches = kernels.launch_counts()
+    spent, calls = dict(spent), dict(calls)
+    n = len(res.history)
+    mine = "fake_quant" if mode_name == "quant" else "binary_matmul"
+    other = "binary_matmul" if mode_name == "quant" else "fake_quant"
+    problems = []
+    if n != n_explore + n_exploit or calls["evaluate"] != n:
+        problems.append(f"{n} episodes, {calls['evaluate']} evaluations")
+    want = len(graph.layers) * calls["evaluate"]
+    if launches[mine] != want or launches[other] != 0:
+        problems.append(f"launches {launches}: want {mine} {want} and "
+                        f"{other} 0")
+    if not all(np.isfinite(h.reward) and np.isfinite(h.acc)
+               for h in res.history):
+        problems.append("non-finite reward or accuracy")
+    # after the counted run: one more episode, then one evaluation of the
+    # best policy, under the profiler
+    prof_episode = profile_call(torch, lambda: agent.run_episode(noise=0.1))
+    prof_eval = profile_call(torch, lambda: ev(res.best_policy))
+    wall = res.wall_s
+    rec = dict(
+        mode=mode_name, episodes=n, n_explore=n_explore,
+        n_exploit=n_exploit, wall_s=wall, s_per_episode=wall / n,
+        split_s=dict(spent, other=wall - sum(spent.values())),
+        calls=calls, ms_per_act=1e3 * spent["act"] / max(calls["act"], 1),
+        ms_per_update=1e3 * spent["update"] / max(calls["update"], 1),
+        ms_per_eval=1e3 * spent["evaluate"] / max(calls["evaluate"], 1),
+        evals_per_s=calls["evaluate"] / max(spent["evaluate"], 1e-9),
+        best_acc=res.best_log.acc, best_reward=res.best_log.reward,
+        best_avg_wbits=res.best_log.avg_wbits,
+        best_avg_abits=res.best_log.avg_abits,
+        first_reward=res.history[0].reward,
+        last_reward=res.history[-1].reward,
+        mean_acc_last5=float(np.mean([h.acc for h in res.history[-5:]])),
+        launches=launches, launches_per_eval=launches[mine] /
+        max(calls["evaluate"], 1), profile_episode=prof_episode,
+        profile_eval=prof_eval, problems=problems)
+    emit({"phase": "search-run", **rec})
+    return rec
+
+
+def check_lm_evaluator(torch, cfg, model, params, policy):
+    """One make_lm_evaluator call on the full-width params: B5 launches ==
+    the graph's layer count; against a plain evaluation
+    (apply_policy_to_params, then the forward with plain attention) the
+    weights bit for bit, the logits within ACT_LOGIT_ATOL (the policy
+    quantizes activations at QBN 8), and the accuracy by the gap rule: a
+    token may score differently only where the plain top-2 gap is below
+    that tolerance."""
+    from repro_torch import backend, kernels
+    from repro_torch.core import evaluate, make_lm_evaluator
+    from repro_torch.data import TokenStream
+    from repro_torch.quant.apply import apply_policy_to_params, get_path
+    dev = torch.device("cuda")
+    graph = model.graph(seq_len=LM_EVAL_LEN, batch=LM_EVAL_BATCH)
+    val = TokenStream(vocab=cfg.vocab).batch(0, LM_EVAL_BATCH, LM_EVAL_LEN)
+    vb = {k: backend.upload(np.asarray(v), dev) for k, v in val.items()}
+    problems = []
+    with torch.no_grad():
+        plain = apply_policy_to_params(params, graph, policy)
+        wb, _ = evaluate.upload_bits(policy, graph, dev)
+        q = evaluate._quantize_params(params, graph, wb, evaluate.QuantMode
+                                      .QUANT)
+        same = all(torch.equal(get_path(q, l.param_path),
+                               get_path(plain, l.param_path))
+                   for l in graph.layers)
+        got = evaluate.lm_logits(model, q, graph, policy, vb)
+        del q
+        want = evaluate.lm_logits(model, plain, graph, policy, vb,
+                                  attn_impl="ref")
+        del plain
+        acc_plain = float(evaluate.token_accuracy(want, vb["labels"]))
+        d = (got - want).abs()
+        top2 = torch.topk(want, 2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        labels = vb["labels"].long()
+        flips = (torch.argmax(got, -1) != torch.argmax(want, -1)) & \
+            (labels >= 0)
+        n_tok = int((labels >= 0).sum())
+        n_flips = int(flips.sum())
+        flip_gap = float(gap[flips].max()) if n_flips else None
+        rec_logits = dict(
+            logit_max_abs_diff=float(d.max()),
+            logit_mean_abs_diff=float(d.mean()), tol=ACT_LOGIT_ATOL,
+            logits_bitwise=bool(torch.equal(got, want)),
+            logit_max_abs=float(want.abs().max()),
+            min_plain_top2_gap=float(gap.min()),
+            argmax_flips=n_flips, max_flip_gap=flip_gap)
+        if not bool(torch.isfinite(got).all()) or \
+                got.shape != (LM_EVAL_BATCH, LM_EVAL_LEN, cfg.vocab_padded):
+            problems.append(f"LM evaluator logits {tuple(got.shape)} or "
+                            f"not finite")
+        if rec_logits["logit_max_abs_diff"] > ACT_LOGIT_ATOL:
+            problems.append(f"LM evaluator logits differ from the plain "
+                            f"forward by {rec_logits['logit_max_abs_diff']}")
+        if n_flips and flip_gap >= ACT_LOGIT_ATOL:
+            problems.append(f"LM evaluator argmax differs where the plain "
+                            f"top-2 gap is {flip_gap}")
+        del got, want, d, top2, gap
+    torch.cuda.empty_cache()
+    ev = make_lm_evaluator(model, params, graph, val)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    acc = ev(policy)
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if launches["fake_quant"] != len(graph.layers):
+        problems.append(f"B5 launched {launches['fake_quant']} times for "
+                        f"{len(graph.layers)} layers")
+    if not same or abs(acc - acc_plain) > 100.0 * n_flips / max(n_tok, 1):
+        problems.append(f"LM evaluator: weights bitwise {same}, acc {acc} "
+                        f"vs plain {acc_plain} with {n_flips} flips")
+    rec = dict(arch=cfg.name, tokens=[LM_EVAL_BATCH, LM_EVAL_LEN],
+               layers=len(graph.layers), acc=acc, acc_plain=acc_plain,
+               weights_bitwise=same, **rec_logits, seconds=seconds,
+               launches=launches,
+               peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
+               problems=problems)
+    emit({"phase": "search-lm", **rec})
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_search(torch, cfg, lm, lm_params, lm_policy):
+    """The AutoQ search on CIF10-7CNN at full width, then the LM
+    evaluator on the serving phases' gemma2-2b params."""
+    from repro_torch import backend
+    from repro_torch.data import SyntheticImages
+    from repro_torch.models.cnn import CIF10, CNN
+    t0 = time.perf_counter()
+    model = CNN(CIF10)
+    data = SyntheticImages(img_size=CIF10.img_size)
+    params, train = train_substrate(torch, model, model.init(SEED, "cuda"),
+                                    data)
+    val = data.batch(99_999, VAL_IMAGES)
+    with torch.no_grad():
+        acc_raw = float(model.accuracy(params, {
+            k: backend.upload(v, torch.device("cuda"))
+            for k, v in val.items()})) * 100.0
+    graph = model.graph()
+    emit({"phase": "search-train", "model": CIF10.name, **train,
+          "val_images": VAL_IMAGES, "val_acc": acc_raw,
+          "searched_groups": sum(l.n_groups for l in graph.layers)})
+    checks = check_evaluators(torch, model, params, graph, val, acc_raw)
+    runs = [run_cnn_search(torch, model, params, graph, val, *r)
+            for r in SEARCH_RUNS]
+    cnn_s = time.perf_counter() - t0
+    lm_rec = check_lm_evaluator(torch, cfg, lm, lm_params, lm_policy)
+    problems = checks["problems"] + [p for r in runs for p in r["problems"]] \
+        + lm_rec["problems"]
+    if train["last_loss"] >= train["first_loss"]:
+        problems.append(f"substrate loss did not fall: {train}")
+    if problems:
+        raise AssertionError("search checks failed: " + "; ".join(problems))
+    return dict(train=train, val_acc=acc_raw, checks=checks, runs=runs,
+                lm=lm_rec, cnn_seconds=cnn_s)
+
+
 # ------------------------------------------------------------------ main
 def summarize(rows, launches):
     """One entry per kernel: sums over its measured shapes.  ``launches``
@@ -766,7 +1193,8 @@ def summarize(rows, launches):
             plain_ms=sum(r["plain_ms"] for r in mine),
             bound_ms=sum(r["bound_ms"] for r in mine),
             bound_by=worst["bound_by"],
-            library_ms=sum(r["library_ms"] for r in mine),
+            library_ms=None if any(r["library_ms"] is None for r in mine)
+            else sum(r["library_ms"] for r in mine),
             device_ms=None if any(r["device_ms"] is None for r in mine)
             else sum(r["device_ms"] for r in mine),
             cases=[r["case"] for r in mine]))
@@ -799,13 +1227,18 @@ def main(argv=None) -> int:
     cfg, model, params, policy = init_model(torch)
     rec_a, rec_b, checks = phase_serve(torch, cfg, model, params, policy)
     run = phase_run(torch, cfg, model, params, policy)
+    search = phase_search(torch, cfg, model, params, policy)
     launches = dict(rec_a["launches"])
     launches["paged_attention"] = \
         run["runs"]["overlap"]["launches"]["paged_attention"]
+    for r in search["runs"]:
+        name = "fake_quant" if r["mode"] == "quant" else "binary_matmul"
+        launches[name] = r["launches"][name]
     kernels = summarize(rows, launches)
     result = {"card": card, "kernel_rows": rows, "engine_a": rec_a,
               "engine_b": rec_b, "checks": checks, "run": run,
-              "kernels": kernels, "seconds": time.perf_counter() - t0}
+              "search": search, "kernels": kernels,
+              "seconds": time.perf_counter() - t0}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,12 +1,15 @@
-// The GEMM shared by quant_matmul.cu (int8, BITS = 8) and packed_matmul.cu
-// (int4 / int2, BITS = 4 / 2):  y (M, N) = x (M, K) @ (w * scale[None, :]).
+// The GEMM shared by quant_matmul.cu (int8, BITS = 8), packed_matmul.cu
+// (int4 / int2, BITS = 4 / 2) and binary_matmul.cu (sign planes):
+// y (M, N) = x (M, K) @ W, with W staged into fp32 tile by tile from its
+// stored form by a weight source (PackedRows, SignPlanes below).
 //
-// w is stored (ceil(K / F), N) int8 with F = 8 / BITS values of one column
-// per byte, packed along K as repro/kernels/pack.py lays them out: field i
-// of packed row r is K row r * F + i, lowest-order field first, two's
-// complement (field() below is pack.extract_fields on the card).  For
-// BITS = 8 this is the plain (K, N) int8 matrix.  Rows past the logical K
-// are masked here, so the caller pads nothing.
+// PackedRows: w is stored (ceil(K / F), N) int8 with F = 8 / BITS values of
+// one column per byte, packed along K as repro/kernels/pack.py lays them
+// out: field i of packed row r is K row r * F + i, lowest-order field
+// first, two's complement (field() below is pack.extract_fields on the
+// card).  For BITS = 8 this is the plain (K, N) int8 matrix; W is
+// w * scale[None, :].  Rows past the logical K are masked here, so the
+// caller pads nothing.
 //
 // Numerics: products and sums in fp32 on CUDA cores (no TF32 tensor cores,
 // which keep ~3 decimal digits and would break the rtol 1e-4 parity of
@@ -16,8 +19,8 @@
 // Two launch shapes:
 //  * gemm_tiled, for M > SKINNY_M (prefill): 128 x 128 output tiles, 256
 //    threads with 8 x 8 outputs each, K in steps of 8 through shared
-//    memory; weight bytes are unpacked into fp32 as they are staged.
-//    Bound by operations at prefill sizes.
+//    memory; the weight source converts its stored form into fp32 as the
+//    tile is staged.  Bound by operations at prefill sizes.
 //  * gemm_skinny, for M <= SKINNY_M (decode, the last-token logits): bound
 //    by the weight bytes, so each warp reads 128 contiguous bytes per
 //    packed row (4 columns a thread), warps split the rows, and when the
@@ -43,20 +46,82 @@ __device__ __forceinline__ float field(int byte, int i) {
 
 // ---------------------------------------------------------------- tiled
 constexpr int TBM = 128, TBN = 128, TBK = 8, TT = 16;  // TT x TT threads
+constexpr int MAX_PLANES = 8;
+typedef float WTile[TBK][TBN];
 
+// Weight source of the packed store: int8 / int4 / int2 packed along K,
+// one scale per column applied to the finished accumulator.
 template <int BITS>
-__global__ void __launch_bounds__(TT * TT)
-gemm_tiled(const float* __restrict__ x, const int8_t* __restrict__ w,
-           const float* __restrict__ scale, float* __restrict__ y,
-           int M, int K, int N) {
-  constexpr int F = 8 / BITS;
+struct PackedRows {
+  static constexpr int F = 8 / BITS;
   static_assert(TBK % F == 0, "a K step must hold whole packed rows");
+  const int8_t* w;
+  const float* scale;
+
+  __device__ void begin(int, int, int) {}
+  __device__ void stage(WTile& Bs, int k0, int n0, int K, int N,
+                        int tid) const {
+    const int Kp = (K + F - 1) / F;
+    for (int i = tid; i < (TBK / F) * TBN; i += TT * TT) {
+      const int pr = i / TBN, c = i % TBN;
+      const int grow = k0 / F + pr, gn = n0 + c;
+      const int byte = (grow < Kp && gn < N) ? w[(size_t)grow * N + gn] : 0;
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        Bs[pr * F + f][c] = (grow * F + f < K) ? field<BITS>(byte, f) : 0.f;
+    }
+  }
+  __device__ float col_scale(int n) const { return scale[n]; }
+};
+
+// Weight source of the bit-plane product: P <= MAX_PLANES int8 sign planes
+// (P, K, N) and per-plane column scales alpha (P, N), folded into
+// W[k, n] = sum_p alpha[p, n] * B_p[k, n] (p in order) as the tile is
+// staged.  Each thread stages one column of the tile, so it keeps that
+// column's alphas in registers for the whole K walk.
+struct SignPlanes {
+  static_assert((TT * TT) % TBN == 0, "a thread stages one column");
+  const int8_t* planes;
+  const float* alpha;
+  int P;
+  float a[MAX_PLANES];
+
+  __device__ void begin(int tid, int n0, int N) {
+    const int gn = n0 + tid % TBN;
+#pragma unroll
+    for (int p = 0; p < MAX_PLANES; ++p)
+      a[p] = (p < P && gn < N) ? alpha[(size_t)p * N + gn] : 0.f;
+  }
+  __device__ void stage(WTile& Bs, int k0, int n0, int K, int N,
+                        int tid) const {
+    const int c = tid % TBN, gn = n0 + c;
+    const size_t plane = (size_t)K * N;
+    for (int r = tid / TBN; r < TBK; r += (TT * TT) / TBN) {
+      const int gk = k0 + r;
+      float wv = 0.f;
+      if (gk < K && gn < N) {
+        const int8_t* src = planes + (size_t)gk * N + gn;
+#pragma unroll
+        for (int p = 0; p < MAX_PLANES; ++p)
+          if (p < P) wv = fmaf(a[p], static_cast<float>(src[p * plane]), wv);
+      }
+      Bs[r][c] = wv;
+    }
+  }
+  __device__ float col_scale(int) const { return 1.f; }
+};
+
+template <class W>
+__global__ void __launch_bounds__(TT * TT)
+gemm_tiled(const float* __restrict__ x, W wsrc, float* __restrict__ y,
+           int M, int K, int N) {
   __shared__ float As[TBM][TBK + 1];
   __shared__ float Bs[TBK][TBN];
   const int tid = threadIdx.x;
   const int tr = tid / TT, tc = tid % TT;
   const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  const int Kp = (K + F - 1) / F;
+  W w = wsrc;
+  w.begin(tid, n0, N);
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -69,14 +134,7 @@ gemm_tiled(const float* __restrict__ x, const int8_t* __restrict__ w,
       const int gm = m0 + r, gk = k0 + c;
       As[r][c] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
     }
-    for (int i = tid; i < (TBK / F) * TBN; i += TT * TT) {
-      const int pr = i / TBN, c = i % TBN;
-      const int grow = k0 / F + pr, gn = n0 + c;
-      const int byte = (grow < Kp && gn < N) ? w[(size_t)grow * N + gn] : 0;
-#pragma unroll
-      for (int f = 0; f < F; ++f)
-        Bs[pr * F + f][c] = (grow * F + f < K) ? field<BITS>(byte, f) : 0.f;
-    }
+    w.stage(Bs, k0, n0, K, N, tid);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < TBK; ++kk) {
@@ -96,13 +154,23 @@ gemm_tiled(const float* __restrict__ x, const int8_t* __restrict__ w,
   for (int j = 0; j < 8; ++j) {
     const int gn = n0 + tc + TT * j;
     if (gn >= N) continue;
-    const float s = scale[gn];
+    const float s = w.col_scale(gn);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int gm = m0 + tr + TT * i;
       if (gm < M) y[(size_t)gm * N + gn] = acc[i][j] * s;
     }
   }
+}
+
+// Launch gemm_tiled over weight source `w` on `stream`; returns
+// cudaGetLastError() right after the launch.
+template <class W>
+int launch_tiled(const float* x, const W& w, float* y, int M, int K, int N,
+                 cudaStream_t stream) {
+  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+  gemm_tiled<W><<<grid, TT * TT, 0, stream>>>(x, w, y, M, K, N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // --------------------------------------------------------------- skinny
@@ -193,11 +261,8 @@ int launch_gemm(const float* x, const int8_t* w, const float* scale, float* y,
                 float* partial, int M, int K, int N, int ksplit,
                 cudaStream_t stream) {
   constexpr int F = 8 / BITS;
-  if (M > SKINNY_M) {
-    dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-    gemm_tiled<BITS><<<grid, TT * TT, 0, stream>>>(x, w, scale, y, M, K, N);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (M > SKINNY_M)
+    return launch_tiled(x, PackedRows<BITS>{w, scale}, y, M, K, N, stream);
   const int Kp = (K + F - 1) / F;
   const int rows_per_split = (Kp + ksplit - 1) / ksplit;
   const int vec = (N % 4 == 0) &&

@@ -7,13 +7,18 @@ packed_matmul    (K3, csrc/packed_matmul.cu) -- int4 / int2 packed GEMM
 paged_prefill_attention (K4, csrc/paged_attention.cu) -- causal attention
                  over the paged KV pool (chunks and decode tokens)
 packed_mixed_matmul -- one K2/K3 launch per bucket of a PackedWeight
+fake_quant_channels (B5, csrc/fake_quant.cu) -- per-channel fake-quant
+                 of the search's QUANT evaluations
+binary_matmul    (B6, csrc/binary_matmul.cu) -- bit-plane product of the
+                 search's BINARIZE evaluations
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors, counting launches in its ``LaunchCount``
 (:func:`launch_counts`).  ``build.py`` compiles the sources with nvcc at
 first use; ``pack.py`` holds the byte format and the PackedWeight store.
 """
-from repro_torch.kernels import attention, packed_matmul, quant_matmul
+from repro_torch.kernels import (attention, binary_matmul, fake_quant,
+                                 packed_matmul, quant_matmul)
 from repro_torch.kernels.attention import (flash_attention,
                                           paged_decode_attention,
                                           paged_prefill_attention)
@@ -21,7 +26,7 @@ from repro_torch.kernels.ops import packed_mixed_matmul
 from repro_torch.kernels.pack import PackedWeight, pack_sub8, unpack_sub8
 
 COUNTS = (attention.COUNT, quant_matmul.COUNT, packed_matmul.COUNT,
-          attention.PAGED_COUNT)
+          attention.PAGED_COUNT, fake_quant.COUNT, binary_matmul.COUNT)
 
 
 def launch_counts() -> dict:

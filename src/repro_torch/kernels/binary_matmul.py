@@ -1,0 +1,58 @@
+"""Kernel B6: bit-plane matmul ``y = sum_p alpha[p, n] * (x @ B_p)`` over
+``P <= 8`` sign planes ``B_p`` in {-1, +1}.
+
+Port of ``repro/kernels/binary_matmul.py::binary_matmul_pallas`` as a CUDA
+C++ kernel (``csrc/binary_matmul.cu``, on the tiled GEMM of
+``csrc/gemm_tiles.cuh``): the planes are folded into one fp32 weight tile
+as it is staged, then one product follows.  The binarized CNN evaluator
+(``core/evaluate.py``) computes every conv (im2col) and the fc through it.
+The wrapper runs the plain version (``ref.binary_matmul_ref``) for CPU
+tensors and the kernel for CUDA tensors; there is no fallback between them.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+COUNT = build.LaunchCount("binary_matmul")
+MAX_PLANES = 8      # csrc/gemm_tiles.cuh: MAX_PLANES
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    return build.bind("binary_matmul", "binary_matmul_f32", 4, 4)
+
+
+def binary_matmul(x: torch.Tensor, planes: torch.Tensor,
+                  alpha: torch.Tensor) -> torch.Tensor:
+    """x (M, K) f32; planes (P, K, N) int8 signs; alpha (P, N) f32 ->
+    (M, N) f32."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        raise NotImplementedError("bf16 inputs to the bit-plane kernel are "
+                                  "not ported yet: ROADMAP.md B6")
+    build.expect(x, "x", torch.float32, 2, x.device)
+    build.expect(planes, "planes", torch.int8, 3, x.device)
+    build.expect(alpha, "alpha", torch.float32, 2, x.device)
+    P, K, N = planes.shape
+    if x.shape[1] != K or tuple(alpha.shape) != (P, N):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, planes "
+                         f"{tuple(planes.shape)}, alpha {tuple(alpha.shape)}")
+    if not 1 <= P <= MAX_PLANES:
+        raise ValueError(f"{P} planes; the kernel takes 1 to {MAX_PLANES}")
+    if x.device.type == "cpu":
+        return ref.binary_matmul_ref(x, planes, alpha)
+    if x.device.type != "cuda":
+        raise ValueError(f"binary_matmul: no kernel for {x.device}")
+    M = x.shape[0]
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if M == 0 or N == 0:
+        return y
+    with torch.cuda.device(x.device):
+        err = _fn()(x.data_ptr(), planes.data_ptr(), alpha.data_ptr(),
+                    y.data_ptr(), M, K, N, P, build.stream_of(x))
+    COUNT.launches += 1
+    build.check(build.load(COUNT.name), err, COUNT.name)
+    return y

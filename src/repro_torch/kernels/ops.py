@@ -1,5 +1,4 @@
-"""Public matmul entry points over the packed store (port of
-``repro/kernels/ops.py``).
+"""Public kernel entry points (port of ``repro/kernels/ops.py``).
 
 :func:`packed_mixed_matmul` is the serving contraction a searched
 mixed-QBN policy compiles to: one launch per non-empty bucket (K3 for
@@ -7,17 +6,21 @@ int2 / int4, K2 for int8), a plain matmul for the bf16 ``full`` bucket,
 implicit zeros for pruned channels, and the per-bucket outputs scattered
 back into the policy's channel order.  The reference pads every operand
 to its block grid here; the CUDA kernels mask their ragged edges
-themselves, so nothing is padded.
+themselves, so nothing is padded: :func:`binary_matmul` (B6) and
+:func:`fake_quant_channels` (B5) are their kernels' wrappers as they are.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.binary_matmul import binary_matmul
+from repro_torch.kernels.fake_quant import fake_quant_channels
 from repro_torch.kernels.pack import STORE_BITS, PackedWeight
 from repro_torch.kernels.packed_matmul import packed_matmul
 from repro_torch.kernels.quant_matmul import quant_matmul
 
-__all__ = ["quant_matmul", "packed_matmul", "packed_mixed_matmul"]
+__all__ = ["quant_matmul", "packed_matmul", "packed_mixed_matmul",
+           "binary_matmul", "fake_quant_channels"]
 
 
 def packed_mixed_matmul(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:

@@ -240,14 +240,16 @@ class LM:
         return x
 
     def _stack(self, params, x, cache, act_bits, **kw):
-        """Run every block: loop over repeats, then pattern positions."""
+        """Run every block: loop over repeats, then pattern positions.
+        ``cache`` None runs without one (the full-sequence forward)."""
         cfg = self.cfg
         for r in range(cfg.n_repeat):
             for p_idx, bdef in enumerate(cfg.pattern):
                 ab = None if act_bits is None else float(act_bits[r][p_idx])
                 x = self._apply_block(
                     _repeat(params["blocks"][p_idx], r), bdef, x,
-                    cache=_repeat(cache[p_idx], r), act_bits=ab, **kw)
+                    cache=None if cache is None else _repeat(cache[p_idx], r),
+                    act_bits=ab, **kw)
         return x
 
     # --------------------------------------------------------------- helpers
@@ -260,7 +262,22 @@ class LM:
             lg = torch.where(valid, lg, torch.full_like(lg, -1e30))
         return lg
 
-    def apply(self, *a, **kw):
+    def apply(self, params, batch, act_bits=None, attn_impl=None):
+        """Full-sequence forward of ``batch["tokens"]`` (B, S), causal, no
+        cache.  Returns (logits (B, S, V), aux_loss 0.0), as the
+        reference's ``apply`` does for these families.  act_bits: optional
+        (n_repeat, len(pattern)) activation QBNs on the host; attn_impl:
+        layers.ATTN_IMPLS.  Forward only: training is not ported."""
+        tokens = batch["tokens"]
+        x = params["embed"][tokens.long()]
+        B, S, _ = x.shape
+        q_pos = torch.arange(S, dtype=torch.int32,
+                             device=x.device).repeat(B, 1)
+        x = self._stack(params, x, None, act_bits, q_pos=q_pos, mode="train",
+                        attn_impl=attn_impl)
+        return self.logits_of(params, x), 0.0
+
+    def loss(self, *a, **kw):
         raise _not_ported("train")
 
     # ---------------------------------------------------------------- caches

@@ -21,9 +21,15 @@ def _levels(bits: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.pow(2.0, bits - 1.0) - 1.0, min=1.0)
 
 
+def channel_scale(amax: torch.Tensor, bits: torch.Tensor):
+    """The grid of each channel: ``(scale, levels)`` for its ``amax`` and
+    QBN, ``scale = amax / levels`` (1 for an all-zero channel)."""
+    lv = _levels(bits)
+    return torch.where(amax > 0, amax / lv, torch.ones_like(amax)), lv
+
+
 def _quant_dequant(xf, amax, b):
-    lv = _levels(b)
-    scale = torch.where(amax > 0, amax / lv, torch.ones_like(amax))
+    scale, lv = channel_scale(amax, b)
     q = torch.clamp(torch.round(xf / scale), -lv, lv) * scale
     return torch.where(b <= 0.5, torch.zeros_like(q),
                        torch.where(b >= FULL_BITS, xf, q))
@@ -119,10 +125,8 @@ def quant_pack_sub8(w: torch.Tensor, bits, axis: int = -1):
         if name == "full":
             parts.append((cols.to(torch.bfloat16),))
             continue
-        lv = _levels(torch.as_tensor(b[idx], dtype=torch.float32,
-                                     device=w.device))
-        am = amax.index_select(0, idx_t)
-        sc = torch.where(am > 0, am / lv, torch.ones_like(am))
+        sc, lv = channel_scale(amax.index_select(0, idx_t), torch.as_tensor(
+            b[idx], dtype=torch.float32, device=w.device))
         q = torch.clamp(torch.round(cols / sc), -lv, lv).to(torch.int32)
         data = q.to(torch.int8) if name == "int8" else \
             pack_sub8(q, STORE_BITS[name], axis=-2)

@@ -183,7 +183,19 @@ def test_engine_rejects_bad_options(setup):
         _port_engine(setup, "fake", kv_bits=4)
     with pytest.raises(NotImplementedError, match="A7"):
         _port_engine(setup, "fake").run([], speculative=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ServeEngine(setup["tm"], setup["tp"],
-                    policy=QuantPolicy(QuantMode.BINARIZE, {}, {}),
-                    graph=setup["tgraph"], device="cpu")
+    # binarized policies: the fake store serves fake-binarized weights (as
+    # the reference's does); the packed store is linear quantization only
+    bpol = QuantPolicy(QuantMode.BINARIZE, setup["tpol"].weight_bits,
+                       setup["tpol"].act_bits)
+    with pytest.raises(ValueError, match="linear quantization"):
+        ServeEngine(setup["tm"], setup["tp"], policy=bpol,
+                    graph=setup["tgraph"], weight_store="packed",
+                    device="cpu")
+    from repro_torch.quant.binarize import fake_binarize_per_channel
+    eng = ServeEngine(setup["tm"], setup["tp"], policy=bpol,
+                      graph=setup["tgraph"], device="cpu")
+    layer = setup["tgraph"].layers[0]
+    np.testing.assert_array_equal(
+        eng.params["blocks"][0]["wq"].numpy(),
+        fake_binarize_per_channel(setup["tp"]["blocks"][0]["wq"],
+                                  bpol.expand_weight_bits(layer)).numpy())

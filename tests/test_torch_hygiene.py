@@ -5,7 +5,8 @@
   a fresh interpreter leaves ``jax`` out of ``sys.modules``.
 * Entry points run on the card by default: without CUDA and without
   ``device="cpu"`` they raise and name the opt-in, never carrying on
-  quietly on the CPU.
+  quietly on the CPU (the LM, the serving engine, the CNN, the DDPG
+  controllers and both search agents).
 * Kernel wrappers run their plain versions only on CPU tensors, without
   counting a launch, and refuse tensors on any other non-CUDA device.
 """
@@ -40,11 +41,18 @@ def _modules():
 
 
 def test_scan_covers_the_serving_modules():
+    """The scan sees the serving modules and, since the search slice, the
+    search modules."""
     names = {str(p.relative_to(PORT)) for p in _port_files()
              if PORT in p.parents}
+    core = ("__init__", "ddpg", "reward", "bound", "env", "agent", "flat",
+            "search", "evaluate")
     for mod in ("serve/paged_kv.py", "serve/scheduler.py",
                 "serve/frontend.py", "serve/step_loop.py",
-                "serve/engine.py", "kernels/attention.py"):
+                "serve/engine.py", "kernels/attention.py",
+                "kernels/fake_quant.py", "kernels/binary_matmul.py",
+                "models/cnn.py", "quant/binarize.py", "data/synthetic.py",
+                "data/__init__.py") + tuple(f"core/{m}.py" for m in core):
         assert mod in names
 
 
@@ -85,14 +93,30 @@ def test_entry_points_require_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = LM(ARCHS["gemma2-2b"].smoke)
     params = model.init(0, device="cpu")
+    from repro_torch.core import (DDPG, DDPGConfig, FlatAgent,
+                                  HierarchicalAgent, QuantEnv, RewardCfg)
+    from repro_torch.models.cnn import CNN, CNNConfig
+    cnn = CNN(CNNConfig(name="t", img_size=8, channels=(4,), pool_after=()))
+    cnn_params = cnn.init(0, device="cpu")
+    env = QuantEnv(cnn.graph(), cnn_params, lambda policy: 50.0,
+                   RewardCfg.accuracy_guaranteed())
     for call in (lambda: model.init(0),
                  lambda: model.init_cache(1, 8),
                  lambda: model.init_paged_cache(2, 5, 4),
                  lambda: model.init_paged_cache(2, 5, 4, device="cuda"),
                  lambda: ServeEngine(model, {}),
-                 lambda: ServeEngine(model, params, device="cuda")):
+                 lambda: ServeEngine(model, params, device="cuda"),
+                 lambda: cnn.init(0),
+                 lambda: DDPG(DDPGConfig(state_dim=3, action_dim=1)),
+                 lambda: HierarchicalAgent(env),
+                 lambda: FlatAgent(env, device="cuda")):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
+    assert cnn_params["conv0"]["w"].device.type == "cpu"
+    agent = HierarchicalAgent(env, device="cpu")
+    assert agent.llc.state["actor"][0]["w"].device.type == "cpu"
+    log, _ = agent.run_episode(noise=0.5)
+    assert np.isfinite(log.reward)
     assert params["embed"].device.type == "cpu"
     eng = ServeEngine(model, params, max_len=8, device="cpu")
     assert eng.device.type == "cpu"
@@ -123,11 +147,22 @@ def test_wrappers_run_plain_versions_only_on_cpu_tensors():
     q_pos = torch.tensor([[1, 2, 3], [2**31 - 1] * 3], dtype=torch.int32)
     out = paged_prefill_attention(q, pages, pages, pos, bt, q_pos=q_pos)
     assert out.shape == q.shape
+    from repro_torch.kernels.ops import binary_matmul, fake_quant_channels
+    planes = torch.ones(2, 8, 4, dtype=torch.int8)
+    alpha = torch.rand(2, 4)
+    binary_matmul(x, planes, alpha)
+    v = torch.ones(8)
+    fake_quant_channels(x, v, v, v)
     assert kernels.launch_counts() == {
         "flash_attention": 0, "quant_matmul": 0, "packed_matmul": 0,
-        "paged_attention": 0}
+        "paged_attention": 0, "fake_quant": 0, "binary_matmul": 0}
     with pytest.raises(ValueError):
         quant_matmul(x.to("meta"), qw.to("meta"), s.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        binary_matmul(x.to("meta"), planes.to("meta"), alpha.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        fake_quant_channels(x.to("meta"), v.to("meta"), v.to("meta"),
+                            v.to("meta"))
     with pytest.raises(ValueError, match="no kernel"):
         paged_prefill_attention(q.to("meta"), pages.to("meta"),
                                 pages.to("meta"), pos.to("meta"),

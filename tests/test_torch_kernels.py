@@ -212,3 +212,76 @@ def test_fake_quant_bitwise_equal_reference():
                       tlq.fake_quant_per_token(_t(w), b)))
     for ref, got in pairs:
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+# ------------------------------------------------- B5 fake-quant, bitwise
+@pytest.mark.parametrize("M,N", [(256, 128), (100, 70), (512, 257)])
+def test_fake_quant_channels_plain_bitwise_reference(M, N):
+    """The port's plain version == the reference kernel in interpret mode,
+    bit for bit (f32, the shapes of test_kernels.py); the wrapper on CPU
+    tensors returns the same and counts no launch."""
+    from repro_torch.kernels import fake_quant as tfq
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(M + N)
+    x = rng.normal(size=(M, N)).astype(np.float32)
+    bits = rng.integers(0, 9, size=N).astype(np.float32)
+    bits[::7] = 32.0
+    lv = np.maximum(2.0 ** (bits - 1) - 1, 1.0).astype(np.float32)
+    amax = np.abs(x).max(axis=0)
+    sc = np.where(amax > 0, amax / lv, 1.0).astype(np.float32)
+    ref = jops.fake_quant_channels(jnp.asarray(x), jnp.asarray(sc),
+                                   jnp.asarray(lv), jnp.asarray(bits))
+    plain = tref.fake_quant_ref(_t(x), _t(sc), _t(lv), _t(bits))
+    np.testing.assert_array_equal(plain.numpy(), np.asarray(ref))
+    before = tfq.COUNT.launches
+    got = tops.fake_quant_channels(_t(x), _t(sc), _t(lv), _t(bits))
+    assert tfq.COUNT.launches == before
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_fake_quant_channels_validates():
+    x = torch.zeros(4, 3)
+    v = torch.ones(3)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B5"):
+        tops.fake_quant_channels(x.bfloat16(), v, v, v)
+    with pytest.raises(ValueError):
+        tops.fake_quant_channels(x, v[:2], v, v)
+    with pytest.raises(ValueError):
+        tops.fake_quant_channels(x, v, v.double(), v)
+
+
+# ------------------------------------------------------ B6 bit-plane GEMM
+@pytest.mark.parametrize("M,K,N,P", [(128, 128, 128, 1), (64, 100, 70, 4),
+                                     (256, 130, 128, 8)])
+def test_binary_matmul_plain_matches_reference(M, K, N, P):
+    """The port's plain version (and its wrapper on CPU tensors, which
+    counts no launch) == the reference kernel in interpret mode at
+    test_kernels.py's shapes, rtol = atol = 1e-4."""
+    from repro_torch.kernels import binary_matmul as tbm
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(M * P + K)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    B = rng.choice([-1, 1], size=(P, K, N)).astype(np.int8)
+    a = rng.uniform(0.1, 1.0, size=(P, N)).astype(np.float32)
+    ref = jops.binary_matmul(jnp.asarray(x), jnp.asarray(B), jnp.asarray(a))
+    plain = tref.binary_matmul_ref(_t(x), _t(B), _t(a))
+    np.testing.assert_allclose(plain.numpy(), np.asarray(ref), **GEMM_TOL)
+    before = tbm.COUNT.launches
+    got = tops.binary_matmul(_t(x), _t(B), _t(a))
+    assert tbm.COUNT.launches == before
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+
+
+def test_binary_matmul_validates():
+    x = torch.zeros(4, 6)
+    B = torch.ones(2, 6, 3, dtype=torch.int8)
+    a = torch.ones(2, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B6"):
+        tops.binary_matmul(x.bfloat16(), B, a)
+    with pytest.raises(ValueError):
+        tops.binary_matmul(x[:, :5].contiguous(), B, a)
+    with pytest.raises(ValueError):
+        tops.binary_matmul(x, torch.ones(9, 6, 3, dtype=torch.int8),
+                           torch.ones(9, 3))
+    with pytest.raises(ValueError):
+        tops.binary_matmul(x, B, a[:1])

@@ -85,6 +85,21 @@ def test_prefill_decode_logits_match_reference(arch, kv_bits, impl, act):
                                       np.asarray(jcp["pos"]))
 
 
+@pytest.mark.parametrize("arch,impl", [("gemma2-2b", "cuda"),
+                                       ("internlm2-20b", "ref")])
+def test_apply_logits_match_reference(arch, impl):
+    """The full-sequence forward (the LM evaluator's) == the reference's
+    ``apply`` at every position (prompt 12 > gemma2-smoke's window 8)."""
+    jm, jp, tm, tp = _pair(arch)
+    toks = np.random.default_rng(2).integers(
+        0, jm.cfg.vocab, size=(2, 12)).astype(np.int32)
+    jl, _ = jax.jit(jm.apply)(jp, {"tokens": jnp.asarray(toks)})
+    tl, aux = tm.apply(tp, {"tokens": torch.from_numpy(toks)},
+                       attn_impl=impl)
+    assert aux == 0.0
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+
+
 def test_block_act_bits_and_graph_match_reference():
     from repro.quant.policy import QuantPolicy as JPolicy
     jm = JLM(JARCHS["gemma2-2b"].smoke)
@@ -108,6 +123,6 @@ def test_unported_families_name_their_roadmap_item():
         get("jamba-1.5-large-398b")
     tm = LM(ARCHS["gemma2-2b"].smoke)
     with pytest.raises(NotImplementedError, match="A9"):
-        tm.apply()
+        tm.loss()
     with pytest.raises(KeyError):
         get("no-such-arch")
