@@ -11,10 +11,15 @@ run exits non-zero:
 2. kernels -- holds each kernel against its plain PyTorch version on the
               card at the shapes its path gives it (gemma2-2b serving for
               K1-K4; the search's CIF10 layers and gemma2-2b's stacked
-              weights for B5 fake-quant, bit for bit; CIF10's im2col and
-              fc products for B6 bit-plane matmul), and times kernel,
-              plain version, one library call and the bound (CUDA events,
-              L2 flushed before each run, median of 10).
+              weights for B5 fake-quant, bit for bit; CIF10's conv0, conv1
+              and conv5 im2col and fc products for B6 bit-plane matmul),
+              and times kernel, plain version, one library call and the
+              bound (CUDA events, L2 flushed before each run, median of
+              10).  K1's decode rows (the global cache, the local ring, and
+              one query at position 40 whose splits are mostly empty) run
+              the split-KV walk: each prints its split count and is also
+              held against the split walk's plain statement; every K1 row
+              must give the same bits on a second call.
 3. serve   -- ServeEngine.generate on gemma2-2b at full width and depth
               with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
@@ -37,8 +42,10 @@ run exits non-zero:
               fake-binarized conv (logits within 1e-4); then run_search
               with a HierarchicalAgent, 40 QUANT and 20 BINARIZE episodes
               (accuracy-guaranteed reward), with seconds per episode split
-              into acting, evaluating and updating, and exactly 8 launches
-              per evaluation of its mode's kernel; last, one
+              into acting, evaluating and updating, exactly 8 launches
+              per evaluation of its mode's kernel, one profiled
+              evaluation (kernel launches, B6's device time) and, for
+              BINARIZE, the im2col's event time and launches; last, one
               make_lm_evaluator call on the gemma2-2b params against a
               plain evaluation (weights bit for bit, logits against the
               plain-attention forward, accuracy by the gap rule).
@@ -211,8 +218,9 @@ def phase_build():
 # --------------------------------------------------------------- phase 2
 def _attn_cases(torch):
     """(label, q, k, v, q_pos, kv_pos, window, chunk) at the serving path's
-    shapes: prefill of 2 x 4160 tokens (global and local layers) and the
-    last decode step against the global cache and the local ring."""
+    shapes: prefill of 2 x 4160 tokens (global and local layers), the last
+    decode step against the global cache and the local ring, and an early
+    decode step (position 40) against the global cache."""
     cfg_h, cfg_kv, D = 8, 4, 256
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -239,6 +247,11 @@ def _attn_cases(torch):
     kr[:, (ring % W).long()] = ring
     yield "decode_ring4096", qd, kc[:, :W].contiguous(), \
         vc[:, :W].contiguous(), qp, kr, W, W
+    # one query at position 40 over the whole cache: most splits are empty
+    qs = torch.full((B, 1), 40, dtype=torch.int32, device="cuda")
+    ks = torch.full((B, MAX_LEN), SENT, dtype=torch.int32, device="cuda")
+    ks[:, :41] = torch.arange(41, dtype=torch.int32, device="cuda")
+    yield "decode_short", qd, kc, vc, qs, ks, None, MAX_LEN
 
 
 def _attn_library(torch, q, k, v, q_pos, kv_pos, window):
@@ -382,8 +395,8 @@ def _fq_inputs(torch, g, M, N):
 
 def search_kernel_rows(torch, timer):
     """B5 at the search's CIF10 conv5 and fc weights and at gemma2-2b's
-    stacked wg and unembed (bit for bit); B6 at CIF10's conv1 and conv5
-    im2col products, the fc, and one single-plane case (GEMM_TOL).  B6's
+    stacked wg and unembed (bit for bit); B6 at CIF10's conv0, conv1 and
+    conv5 im2col products, the fc, and one single-plane case (GEMM_TOL).  B6's
     bound counts 2 M K N operations, the fewest any implementation of the
     function needs; its library call is torch.matmul against the folded
     weight."""
@@ -416,7 +429,9 @@ def search_kernel_rows(torch, timer):
         emit({"phase": "kernel", **rows[-1]})
         del x, got, want
     torch.cuda.empty_cache()
-    for label, M, K, N, P in (("cif10_conv1_im2col", 512 * 32 * 32, 9 * 32,
+    for label, M, K, N, P in (("cif10_conv0_im2col", 512 * 32 * 32, 9 * 3,
+                               32, 8),
+                              ("cif10_conv1_im2col", 512 * 32 * 32, 9 * 32,
                                32, 8),
                               ("cif10_conv5_im2col", 512 * 8 * 8, 9 * 128,
                                128, 8),
@@ -448,12 +463,14 @@ def search_kernel_rows(torch, timer):
     return rows
 
 
-def phase_kernels(torch, timer):
-    from repro_torch.kernels import attention, ops, pack
-    from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
+def flash_rows(torch, timer, cap):
+    """K1 against attention_ref (and, where it splits, against the split
+    walk's plain statement), the same bits on a second call."""
+    from repro_torch.kernels import attention
+    from repro_torch.kernels.ref import attention_split_ref
     from repro_torch.models.layers import attention_ref
-    cap = 50.0
-    rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap)
+    rows = []
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for label, q, k, v, qp, kp, window, chunk in _attn_cases(torch):
         kern = lambda: attention.flash_attention(
             q, k, v, q_pos=qp, kv_pos=kp, window=window, attn_cap=cap)
@@ -461,24 +478,48 @@ def phase_kernels(torch, timer):
                                       window=window, attn_cap=cap,
                                       chunk=chunk)
         got = kern()
+        again = kern()
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two calls on the same inputs "
+                                 "give different bits")
         err, rel = compare(torch, got, plain(), ATTN_TOL, label)
+        ns = attention.decode_splits(q.shape[0], q.shape[1], q.shape[2],
+                                     k.shape[2], k.shape[1], n_sm)
+        split_err = None
+        if ns > 1:
+            split_err, _ = compare(
+                torch, got, attention_split_ref(
+                    q, k, v, q_pos=qp, kv_pos=kp, window=window,
+                    attn_cap=cap, n_splits=ns), ATTN_TOL, f"{label}/split")
         qq, kk = qp[:, :, None].long(), kp[:, None, :].long()
         valid = (kk != 2**31 - 1) & (kk <= qq)
         if window is not None:
             valid &= kk > qq - window
         pairs = float(valid.sum()) * q.shape[2]           # x query heads
-        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()) + \
-            4 * (qp.numel() + kp.numel())
+        # K/V rows that some query may attend, read once per kv head
+        slots = float(valid.any(dim=1).sum())
+        nbytes = 4 * (2 * q.numel() + 2 * slots * k.shape[2] * k.shape[3]) \
+            + 4 * (qp.numel() + kp.numel())
         b_ms, b_by = bound_ms(nbytes, 4 * q.shape[3] * pairs)
         rows.append(dict(
             name="flash_attention", case=label, shape=list(q.shape) +
-            [k.shape[1]], max_abs_err=err, max_rel_err=rel, tol=ATTN_TOL,
+            [k.shape[1]], splits=ns, split_ref_max_abs_err=split_err,
+            max_abs_err=err, max_rel_err=rel, tol=ATTN_TOL,
             ms=timer(kern), plain_ms=timer(plain),
             library_ms=timer(_attn_library(torch, q, k, v, qp, kp, window)),
             device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
         emit({"phase": "kernel", **rows[-1]})
-        del got
+        del got, again
+    return rows
+
+
+def phase_kernels(torch, timer):
+    from repro_torch.kernels import ops, pack
+    from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
+    cap = 50.0
+    rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap) \
+        + flash_rows(torch, timer, cap)
     gemm_shapes = [("wg_decode", 2, 2304, 9216), ("wg_prefill", 8320, 2304,
                                                    9216),
                    ("wd_decode", 2, 9216, 2304),
@@ -572,9 +613,12 @@ def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
     return result
 
 
-def profile_call(torch, fn):
-    """Device time of one ``fn()`` by kernel name, and the device's busy
-    share of its wall time (torch.profiler, CUDA activity only)."""
+def profile_call(torch, fn, match=()):
+    """Device time of one ``fn()`` by kernel name, the device launches
+    (entries with device time), and the device's busy share of its wall
+    time (torch.profiler, CUDA activity only); for each name fragment in
+    ``match``, the device ms and launches of the kernels whose names hold
+    it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -585,9 +629,46 @@ def profile_call(torch, fn):
     rows = sorted(((e.key[:90], e.device_time_total / 1e3, e.count)
                    for e in prof.key_averages()), key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    return dict(wall_s=wall, device_ms=device_ms,
-                busy_share=device_ms / 1e3 / wall,
-                top=[dict(name=n, ms=ms, calls=c) for n, ms, c in rows[:12]])
+    out = dict(wall_s=wall, device_ms=device_ms,
+               busy_share=device_ms / 1e3 / wall,
+               kernel_launches=sum(r[2] for r in rows if r[1] > 0),
+               top=[dict(name=n, ms=ms, calls=c) for n, ms, c in rows[:12]])
+    for m in match:
+        out[m] = dict(ms=sum(r[1] for r in rows if m in r[0]),
+                      calls=sum(r[2] for r in rows if m in r[0]))
+    return out
+
+
+def im2col_profile(torch, cfg):
+    """The im2col of one BINARIZE evaluation, after one warm-up call: the
+    7 convs' inputs at VAL_IMAGES images (contiguous NHWC; on the path
+    some are permuted views, copied the same way).  Its CUDA-event time
+    (its copies of ~1.2 GB outlast the host's launches) and its kernel
+    launches, counted as the runtime's cudaLaunchKernel calls."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.cnn import im2col
+    xs, h, c = [], cfg.img_size, cfg.in_channels
+    for i, cout in enumerate(cfg.channels):
+        xs.append(torch.randn((VAL_IMAGES, h, h, c), device="cuda"))
+        c = cout
+        if i in cfg.pool_after:
+            h //= 2
+    fn = lambda: [im2col(x, cfg.kernel) for x in xs]
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return dict(event_ms=a.elapsed_time(b), kernel_launches=launches)
 
 
 def check_serve(torch, a, b, tol, n_layers, vocab, n_new=N_NEW):
@@ -918,10 +999,11 @@ def _syncs_of(torch, fn):
 def check_evaluators(torch, model, params, graph, val, acc_raw):
     """The 32-bit policy == unquantized; QUANT on B5 == a plain evaluation
     (weights bit for bit, same accuracy) for three seeded policies;
-    BINARIZE on B6 == the dense fake-binarized forward (logits, 1e-4) with
-    activations at 32 bits.  Counts host syncs per evaluation."""
+    BINARIZE on B6 == the dense fake-binarized forward (plane-form weights
+    bit for bit, logits 1e-4) with activations at 32 bits.  Counts host syncs per evaluation."""
     from repro_torch import backend
     from repro_torch.core import evaluate, make_cnn_evaluator
+    from repro_torch.models.cnn import conv_rows
     from repro_torch.quant.apply import apply_policy_to_params, get_path
     from repro_torch.quant.policy import QuantMode, QuantPolicy
     dev = torch.device("cuda")
@@ -955,15 +1037,31 @@ def check_evaluators(torch, model, params, graph, val, acc_raw):
     pol = _cnn_policy(graph, SEED + 20, QuantMode.BINARIZE, act=32.0)
     wb, _ = evaluate.upload_bits(pol, graph, dev)
     with torch.no_grad():
-        got = model.apply(evaluate._quantize_params(
-            params, graph, wb, QuantMode.BINARIZE, planes=True), xb["x"])
-        want = model.apply(apply_policy_to_params(params, graph, pol),
-                           xb["x"])
+        qp = evaluate._quantize_params(params, graph, wb, QuantMode.BINARIZE,
+                                       planes=True)
+        dense = apply_policy_to_params(params, graph, pol)
+        # the plane form summed in plane order (as B6 folds it) == the dense
+        # fake-binarized weight, bit for bit
+        w_same = True
+        for l in graph.layers:
+            node = get_path(qp, l.param_path[:-1])
+            folded = torch.zeros(node["planes"].shape[1:], device=dev)
+            for a, b in zip(node["alpha"], node["planes"]):
+                folded = folded + a * b.float()
+            w = get_path(dense, l.param_path)
+            w_same &= torch.equal(folded, conv_rows(w) if l.kind == "conv"
+                                  else w)
+        got = model.apply(qp, xb["x"])
+        want = model.apply(dense, xb["x"])
     diff = float((got - want).abs().max())
     acc_b, syncs_b = _syncs_of(torch, lambda: ev[QuantMode.BINARIZE](pol))
     rec["binarize"] = dict(logit_max_abs_diff=diff, tol=GEMM_TOL,
-                           acc=acc_b, host_syncs=syncs_b,
+                           weights_bitwise=w_same, acc=acc_b,
+                           host_syncs=syncs_b,
                            logit_max_abs=float(want.abs().max()))
+    if not w_same:
+        problems.append("BINARIZE plane form != the dense fake-binarized "
+                        "weights")
     if not bool(torch.isfinite(got).all()) or \
             not torch.allclose(got, want, **GEMM_TOL):
         problems.append(f"BINARIZE logits differ from the dense forward by "
@@ -1035,7 +1133,8 @@ def run_cnn_search(torch, model, params, graph, val, mode_name, n_explore,
     # after the counted run: one more episode, then one evaluation of the
     # best policy, under the profiler
     prof_episode = profile_call(torch, lambda: agent.run_episode(noise=0.1))
-    prof_eval = profile_call(torch, lambda: ev(res.best_policy))
+    prof_eval = profile_call(torch, lambda: ev(res.best_policy),
+                             match=("bitplane_gemm", "fold_planes"))
     wall = res.wall_s
     rec = dict(
         mode=mode_name, episodes=n, n_explore=n_explore,
@@ -1054,6 +1153,8 @@ def run_cnn_search(torch, model, params, graph, val, mode_name, n_explore,
         launches=launches, launches_per_eval=launches[mine] /
         max(calls["evaluate"], 1), profile_episode=prof_episode,
         profile_eval=prof_eval, problems=problems)
+    if mode_name == "binarize":
+        rec["im2col"] = im2col_profile(torch, model.cfg)
     emit({"phase": "search-run", **rec})
     return rec
 

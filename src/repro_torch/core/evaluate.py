@@ -52,9 +52,15 @@ def fake_quant_weight(w: torch.Tensor, bits: torch.Tensor,
 
 def _plane_form(node: dict, key, w, layer, bits) -> dict:
     """The layer's params dict with weight ``key`` replaced by its plane
-    form (rows in ``F.unfold`` order for a conv)."""
-    w2 = conv_rows(w) if layer.kind == "conv" else w
-    planes, alpha = fake_binarize_planes(w2, bits)
+    form (rows in ``F.unfold`` order for a conv).  The planes are cut from
+    the weight in its own layout, as the dense form is, and only then
+    reordered into rows."""
+    if layer.channel_axis % w.ndim != w.ndim - 1:
+        raise ValueError(f"{layer.name}: the plane form needs output "
+                         f"channels on the last axis")
+    planes, alpha = fake_binarize_planes(w, bits)
+    if layer.kind == "conv":
+        planes = conv_rows(planes)
     out = {k: v for k, v in node.items() if k != key}
     out.update(planes=planes, alpha=alpha)
     return out

@@ -3,7 +3,9 @@
 // staging of the block's query rows, the positional mask, the store of a
 // K/V tile, and one online-softmax update of a block's 32 query rows over
 // a 32-row K/V tile held in shared memory.  Each kernel keeps only its own
-// walk over K/V and its own K/V source.
+// walk over K/V and its own K/V source.  Last, the two halves of a split-KV
+// decode: the write of a split's unnormalised row state (write_partial)
+// and the fixed-order merge of the splits (combine_cols).
 //
 // A block has 256 threads; 8 threads own a query row (position x head):
 // each holds 4 of the tile's 32 scores and D / 8 accumulator columns, so
@@ -183,6 +185,68 @@ __device__ __forceinline__ void write_row(float* orow, int l8, int D,
 #pragma unroll
   for (int j = 0; j < DPT; ++j)
     if (j < nd) orow[l8 + TPR * j] = acc[j] / denom;
+}
+
+// ------------------------------------------------------------ split-KV
+// A split-KV walk runs one block per (split, kv head, batch row), each over
+// its own run of KV tiles, then a second pass merges the splits.  The
+// partials are fp32, (B, Hq, NS, Sq) for m and for l and (B, Hq, NS, Sq, D)
+// for acc; only real rows are written.
+
+// Row (b, head, split s, position qi) of the (B, Hq, NS, Sq) partials.
+__device__ __forceinline__ size_t partial_row(int b, int head, int s, int qi,
+                                              int Hq, int NS, int Sq) {
+  return (((size_t)b * Hq + head) * NS + s) * Sq + qi;
+}
+
+// Row r's state after its split: m and l (by the row's thread l8 == 0)
+// and the unnormalised accumulator columns l8 + 8 j.
+__device__ __forceinline__ void write_partial(float* pm, float* pl,
+                                              float* pacc, size_t row,
+                                              int l8, int D, float m_i,
+                                              float l_i,
+                                              const float (&acc)[DPT]) {
+  if (l8 == 0) {
+    pm[row] = m_i;
+    pl[row] = l_i;
+  }
+  float* a = pacc + row * D;
+  const int nd = D / TPR;
+#pragma unroll
+  for (int j = 0; j < DPT; ++j)
+    if (j < nd) a[l8 + TPR * j] = acc[j];
+}
+
+// Columns d .. d + 3 of one output row from its NS partials (split s at
+// row0 + s * stride), merged in split order with no atomics, so the result
+// is the same on every run: m = max_s m_s, m_safe = m if finite else 0
+// (the reference's _online_update rule), e_s = exp(m_s - m_safe), and
+// o = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30).  A split that attended
+// nothing (m_s = -inf, l_s = 0, acc_s = 0) has e_s = 0 and adds exactly
+// nothing; a row that attended nothing comes out as exact zeros, as
+// write_row gives.
+__device__ __forceinline__ float4 combine_cols(const float* pm,
+                                               const float* pl,
+                                               const float* pacc,
+                                               size_t row0, size_t stride,
+                                               int NS, int D, int d) {
+  float m = -INFINITY;
+  for (int s = 0; s < NS; ++s) m = fmaxf(m, pm[row0 + s * stride]);
+  const float m_safe = isfinite(m) ? m : 0.f;
+  float l = 0.f;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < NS; ++s) {
+    const size_t row = row0 + s * stride;
+    const float e = expf(pm[row] - m_safe);
+    const float4 a = *reinterpret_cast<const float4*>(pacc + row * D + d);
+    l += e * pl[row];
+    o.x += e * a.x;
+    o.y += e * a.y;
+    o.z += e * a.z;
+    o.w += e * a.w;
+  }
+  const float denom = fmaxf(l, 1e-30f);
+  return make_float4(o.x / denom, o.y / denom, o.z / denom, o.w / denom);
 }
 
 }  // namespace attn

@@ -28,10 +28,28 @@
 //  * The tile update, its numerics and the shared-memory layout (~100 KB
 //    at D = 256, set above 48 KB with cudaFuncSetAttribute) are in
 //    attn_tile.cuh, shared with the paged kernel K4.
-//
-// Known weakness: decode at B = 2 on gemma2-2b launches B * Hkv = 8 blocks
-// on 132 SMs, each walking the whole cache.  Splitting the KV walk across
-// blocks (split-KV) is later work.
+//  * Split-KV decode.  Where one q tile holds every query position (Sq <=
+//    BQ) and the single walk's grid (Hkv * B blocks: 8 at gemma2-2b decode
+//    with B = 2) would leave most of the 132 SMs idle, the wrapper asks for
+//    NS > 1 splits (kernels/attention.py::decode_splits): flash_split runs
+//    one block per (split, kv head, batch row), each over its own run of
+//    whole 32-row KV tiles, and writes its rows' unnormalised (m, l, acc)
+//    into fp32 partials the wrapper allocates; split_combine merges them in
+//    split order (attn_tile.cuh: write_partial, combine_cols).  At gemma2-2b
+//    decode NS = 33: 264 blocks of 4 tiles each.  The split walk
+//    double-buffers its K/V tiles with cp.async, so the copy of the next
+//    live tile overlaps tile_update on the current one (K in 4-byte copies,
+//    since its rows are padded to D + 1 floats against bank conflicts; V in
+//    16-byte copies); the positions of the next tile are read, and the tile
+//    skipped if no row can attend it, while the current copy is in flight.
+//    The block keeps the 32-row query tile, of which only G = 2 rows are
+//    real at gemma2-2b decode; a warp that holds no real row (7 of the 8
+//    there) skips tile_update.  The walk is then bound by the live warp's
+//    tile_update, one tile after another (PERF.md section 6).  Every
+//    other call (prefill, the LM evaluator's 4 x 128 forward) runs
+//    flash_fwd, unchanged.  The merge sums in another order than the single
+//    walk, so the two agree to the reference tolerance, not bit for bit;
+//    the split path gives the same bits on every run.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -110,29 +128,182 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
               acc);
 }
 
+// Shared memory of the split walk: Q, two K tiles (rows of D + 1), two V
+// tiles and P, ~165 KB at D = 256.
+inline size_t split_smem_bytes(int D) {
+  return sizeof(float) *
+         ((size_t)ROWS * (D + 1) + 2 * (size_t)BKV * (D + 1) +
+          2 * (size_t)BKV * D + (size_t)ROWS * (BKV + 1));
+}
+
+// One block per (split s, kv head, batch row), the block's query tile at
+// q0 = 0 (Sq <= BQ); split s walks KV tiles [s * tps, (s + 1) * tps).
+__global__ void __launch_bounds__(NT)
+flash_split(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const int* __restrict__ qpos,
+            const int* __restrict__ kvpos, float* __restrict__ pm,
+            float* __restrict__ pl, float* __restrict__ pacc, int Sq,
+            int Skv, int Hq, int Hkv, int D, int G, int BQ, int causal,
+            int window, float cap, float scale, int NS, int tps) {
+  extern __shared__ float smem[];
+  const int DS = D + 1;
+  float* Qs = smem;
+  float* Ks0 = Qs + ROWS * DS;                 // [2][BKV][D + 1]
+  float* Vs0 = Ks0 + 2 * BKV * DS;             // [2][BKV][D]
+  float* Ps = Vs0 + 2 * BKV * D;
+  __shared__ int kps[2][BKV];
+  __shared__ int qps[ROWS];
+  __shared__ int qlo, qhi;
+
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, l8 = tid % TPR;
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qi = r / G, head = h * G + r % G;
+  const bool row_ok = r < BQ * G && qi < Sq;
+  // the warp's 32 / TPR rows hold a real one (rows past Sq * G are empty)
+  const bool warp_live = (tid / 32) * (32 / TPR) < Sq * G;
+  load_q(q, qpos, Qs, qps, qlo, qhi, b, h, 0, Sq, Hq, D, G, BQ, scale,
+         /*skip_sent=*/false);
+  const int n_tiles = (Skv + BKV - 1) / BKV;
+  const int t_end = min(n_tiles, (s + 1) * tps);
+
+  // From tile t on, the first tile that some query row of the block may
+  // attend (as flash_fwd's skip test), its positions left in kps[u];
+  // t_end if there is none.
+  auto next_live = [&](int t, int u) {
+    for (; t < t_end; ++t) {
+      int live = 0;
+      if (tid < BKV) {
+        const int kk = t * BKV + tid;
+        const int kp = kk < Skv ? kvpos[(size_t)b * Skv + kk] : SENT;
+        kps[u][tid] = kp;
+        live = kp != SENT && (!causal || kp <= qhi) &&
+               (window <= 0 || (long long)kp > (long long)qlo - window);
+      }
+      if (__syncthreads_or(live)) break;
+    }
+    return t;
+  };
+  // Starts the copy of tile t into buffer u (rows past Skv zero-filled).
+  auto start_copy = [&](int t, int u) {
+    float* Ks = Ks0 + u * BKV * DS;
+    float* Vs = Vs0 + u * BKV * D;
+    const int kv0 = t * BKV;
+    for (int i = tid; i < BKV * D; i += NT) {
+      const int j = i / D, d = i % D;
+      const bool ok = kv0 + j < Skv;
+      const size_t off = (((size_t)b * Skv + kv0 + j) * Hkv + h) * D + d;
+      rt::cp_async4(Ks + j * DS + d, ok ? k + off : k, ok);
+    }
+    const int D4 = D / 4;
+    for (int i = tid; i < BKV * D4; i += NT) {
+      const int j = i / D4, d = (i % D4) * 4;
+      const bool ok = kv0 + j < Skv;
+      const size_t off = (((size_t)b * Skv + kv0 + j) * Hkv + h) * D + d;
+      rt::cp_async16(Vs + j * D + d, ok ? v + off : v, ok);
+    }
+    rt::cp_async_commit();
+  };
+
+  float m_i = -INFINITY, l_i = 0.f;
+  float acc[DPT];
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
+
+  int cur = next_live(s * tps, 0), u = 0;
+  if (cur < t_end) start_copy(cur, 0);
+  while (cur < t_end) {
+    const int nxt = next_live(cur + 1, u ^ 1);
+    if (nxt < t_end) {
+      start_copy(nxt, u ^ 1);
+      rt::cp_async_wait<1>();
+    } else {
+      rt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (warp_live) {
+      const Tiles t{Qs, Ks0 + u * BKV * DS, Vs0 + u * BKV * D, Ps};
+      tile_update(t, kps[u], qps[r], r, l8, D, causal, window, cap, m_i,
+                  l_i, acc);
+    }
+    __syncthreads();
+    cur = nxt;
+    u ^= 1;
+  }
+
+  if (row_ok)
+    write_partial(pm, pl, pacc, partial_row(b, head, s, qi, Hq, NS, Sq), l8,
+                  D, m_i, l_i, acc);
+}
+
+// One block per (position, q head, batch row), 4 columns a thread.
+__global__ void split_combine(const float* __restrict__ pm,
+                              const float* __restrict__ pl,
+                              const float* __restrict__ pacc,
+                              float* __restrict__ o, int Sq, int Hq, int D,
+                              int NS) {
+  const int qi = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int d = threadIdx.x * 4;
+  if (d >= D) return;
+  const float4 val = combine_cols(
+      pm, pl, pacc, partial_row(b, head, 0, qi, Hq, NS, Sq), Sq, NS, D, d);
+  *reinterpret_cast<float4*>(o + (((size_t)b * Sq + qi) * Hq + head) * D +
+                             d) = val;
+}
+
 }  // namespace
 
-// window <= 0: no window; cap <= 0: no softcap.  Returns cudaGetLastError()
-// right after the launch.
+// window <= 0: no window; cap <= 0: no softcap.  n_splits <= 1 runs the
+// single walk (flash_fwd); n_splits > 1 needs Sq <= 32 / G and runs the
+// split walk, with `ml` holding 2 x B Hq n_splits Sq floats (m, then l) and
+// `pacc` B Hq n_splits Sq D floats.  Returns cudaGetLastError() right after
+// the launches.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, const void* q_pos,
-                                   const void* kv_pos, void* o, int B, int Sq,
-                                   int Skv, int Hq, int Hkv, int D,
-                                   int causal, int window, float cap,
-                                   float scale, void* stream) {
+                                   const void* kv_pos, void* o, void* ml,
+                                   void* pacc, int B, int Sq, int Skv, int Hq,
+                                   int Hkv, int D, int causal, int window,
+                                   int n_splits, float cap, float scale,
+                                   void* stream) {
   if (D % TPR != 0 || D % 4 != 0 || D > DMAX || Hq % Hkv != 0 ||
       Hq / Hkv > ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv, BQ = ROWS / G;
-  const size_t smem = smem_bytes(D);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const int* qp = static_cast<const int*>(q_pos);
+  const int* kp = static_cast<const int*>(kv_pos);
+  float* of = static_cast<float*>(o);
+  if (n_splits <= 1) {
+    const size_t smem = smem_bytes(D);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((Sq + BQ - 1) / BQ, Hkv, B);
+    flash_fwd<<<grid, NT, smem, st>>>(qf, kf, vf, qp, kp, of, Sq, Skv, Hq,
+                                      Hkv, D, G, BQ, causal, window, cap,
+                                      scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int n_tiles = (Skv + BKV - 1) / BKV;
+  if (Sq > BQ || n_splits > n_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tps = (n_tiles + n_splits - 1) / n_splits;
+  float* pm = static_cast<float*>(ml);
+  float* pl = pm + (size_t)B * Hq * n_splits * Sq;
+  float* pa = static_cast<float*>(pacc);
+  const size_t smem = split_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + BQ - 1) / BQ, Hkv, B);
-  flash_fwd<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(kv_pos), static_cast<float*>(o), Sq, Skv, Hq,
-      Hkv, D, G, BQ, causal, window, cap, scale);
+  flash_split<<<dim3(n_splits, Hkv, B), NT, smem, st>>>(
+      qf, kf, vf, qp, kp, pm, pl, pa, Sq, Skv, Hq, Hkv, D, G, BQ, causal,
+      window, cap, scale, n_splits, tps);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  split_combine<<<dim3(Sq, Hq, B), (D + 3) / 4, 0, st>>>(pm, pl, pa, of, Sq,
+                                                          Hq, D, n_splits);
   return static_cast<int>(cudaGetLastError());
 }

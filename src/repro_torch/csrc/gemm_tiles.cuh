@@ -1,7 +1,7 @@
-// The GEMM shared by quant_matmul.cu (int8, BITS = 8), packed_matmul.cu
-// (int4 / int2, BITS = 4 / 2) and binary_matmul.cu (sign planes):
-// y (M, N) = x (M, K) @ W, with W staged into fp32 tile by tile from its
-// stored form by a weight source (PackedRows, SignPlanes below).
+// The GEMM shared by quant_matmul.cu (int8, BITS = 8) and packed_matmul.cu
+// (int4 / int2, BITS = 4 / 2): y (M, N) = x (M, K) @ W, with W staged into
+// fp32 tile by tile from its stored form by a weight source (PackedRows
+// below).  B6 (binary_matmul.cu) has its own pipelined product.
 //
 // PackedRows: w is stored (ceil(K / F), N) int8 with F = 8 / BITS values of
 // one column per byte, packed along K as repro/kernels/pack.py lays them
@@ -46,7 +46,6 @@ __device__ __forceinline__ float field(int byte, int i) {
 
 // ---------------------------------------------------------------- tiled
 constexpr int TBM = 128, TBN = 128, TBK = 8, TT = 16;  // TT x TT threads
-constexpr int MAX_PLANES = 8;
 typedef float WTile[TBK][TBN];
 
 // Weight source of the packed store: int8 / int4 / int2 packed along K,
@@ -72,43 +71,6 @@ struct PackedRows {
     }
   }
   __device__ float col_scale(int n) const { return scale[n]; }
-};
-
-// Weight source of the bit-plane product: P <= MAX_PLANES int8 sign planes
-// (P, K, N) and per-plane column scales alpha (P, N), folded into
-// W[k, n] = sum_p alpha[p, n] * B_p[k, n] (p in order) as the tile is
-// staged.  Each thread stages one column of the tile, so it keeps that
-// column's alphas in registers for the whole K walk.
-struct SignPlanes {
-  static_assert((TT * TT) % TBN == 0, "a thread stages one column");
-  const int8_t* planes;
-  const float* alpha;
-  int P;
-  float a[MAX_PLANES];
-
-  __device__ void begin(int tid, int n0, int N) {
-    const int gn = n0 + tid % TBN;
-#pragma unroll
-    for (int p = 0; p < MAX_PLANES; ++p)
-      a[p] = (p < P && gn < N) ? alpha[(size_t)p * N + gn] : 0.f;
-  }
-  __device__ void stage(WTile& Bs, int k0, int n0, int K, int N,
-                        int tid) const {
-    const int c = tid % TBN, gn = n0 + c;
-    const size_t plane = (size_t)K * N;
-    for (int r = tid / TBN; r < TBK; r += (TT * TT) / TBN) {
-      const int gk = k0 + r;
-      float wv = 0.f;
-      if (gk < K && gn < N) {
-        const int8_t* src = planes + (size_t)gk * N + gn;
-#pragma unroll
-        for (int p = 0; p < MAX_PLANES; ++p)
-          if (p < P) wv = fmaf(a[p], static_cast<float>(src[p * plane]), wv);
-      }
-      Bs[r][c] = wv;
-    }
-  }
-  __device__ float col_scale(int) const { return 1.f; }
 };
 
 template <class W>

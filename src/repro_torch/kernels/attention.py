@@ -6,6 +6,9 @@ as a CUDA C++ kernel (``csrc/flash_attention.cu``).  q (B, Sq, Hq, D),
 k / v (B, Skv, Hkv, D), q_pos (B, Sq) and kv_pos (B, Skv) int32; causal and
 sliding-window validity come from comparing positions alone, so ring-buffer
 caches and sentinel tails (``POS_SENTINEL``) need no other argument.
+Decode, where one q tile holds every position and the single walk would
+leave most of the card idle, splits the KV walk across blocks
+(:func:`decode_splits`) and merges the splits in a second pass.
 
 K4 -- :func:`paged_prefill_attention` (and :func:`paged_decode_attention`,
 its k = 1 wrapper), causal attention for q tiles of k left-aligned tokens
@@ -31,11 +34,43 @@ COUNT = build.LaunchCount("flash_attention")
 PAGED_COUNT = build.LaunchCount("paged_attention")
 MAX_HEAD_DIM = 256      # csrc/flash_attention.cu: DMAX
 MAX_GROUP = 32          # query heads per kv head that fit one block
+ROWS = BKV = 32         # csrc/attn_tile.cuh: query rows of a block, KV tile
+
+
+def decode_splits(B: int, Sq: int, Hq: int, Hkv: int, Skv: int,
+                  n_sm: int) -> int:
+    """Number of KV splits of K1's split walk, 1 for the single walk.
+
+    Splits are taken where one q tile of ``32 // G`` positions holds every
+    query position and the single walk's ``Hkv * B`` blocks are fewer than
+    the card's ``n_sm`` SMs.  They aim at about two blocks per SM, hold
+    whole 32-row KV tiles, never outnumber the tiles, and are none of them
+    empty under :func:`split_tiles`' rule."""
+    G = Hq // Hkv
+    blocks = -(-Sq // (ROWS // G)) * Hkv * B
+    n_tiles = -(-Skv // BKV)
+    if Sq > ROWS // G or blocks >= n_sm or n_tiles <= 1:
+        return 1
+    per = -(-n_tiles // min(n_tiles, -(-2 * n_sm // blocks)))
+    return -(-n_tiles // per)
+
+
+def split_tiles(Skv: int, n_splits: int):
+    """The KV tile ranges ``[t0, t1)`` of each split, as the kernel cuts
+    them: ``ceil(tiles / n_splits)`` tiles a split, the last one short."""
+    n_tiles = -(-Skv // BKV)
+    per = -(-n_tiles // n_splits)
+    return [(s * per, min(n_tiles, (s + 1) * per)) for s in range(n_splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("flash_attention", "flash_attention_f32", 6, 8,
+    return build.bind("flash_attention", "flash_attention_f32", 8, 9,
                       tail=(ctypes.c_float, ctypes.c_float))
 
 
@@ -78,11 +113,22 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    ns = decode_splits(B, Sq, Hq, Hkv, Skv,
+                       _sm_count(q.device.index if q.device.index is not None
+                                 else torch.cuda.current_device()))
+    ml = pacc = None
+    if ns > 1:      # the splits' fp32 partials, one allocation: (m, l), acc
+        rows = B * Hq * ns * Sq
+        ml_len = -(-2 * rows // 4) * 4          # acc starts 16-byte aligned
+        part = torch.empty(ml_len + rows * D, dtype=torch.float32,
+                           device=q.device)
+        ml, pacc = part.data_ptr(), part[ml_len:].data_ptr()
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     q_pos.data_ptr(), kv_pos.data_ptr(), o.data_ptr(),
+                    ml, pacc,
                     B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
-                    int(window or 0), float(attn_cap or 0.0),
+                    int(window or 0), ns, float(attn_cap or 0.0),
                     1.0 / math.sqrt(D), build.stream_of(q))
     COUNT.launches += 1
     build.check(build.load(COUNT.name), err, COUNT.name)

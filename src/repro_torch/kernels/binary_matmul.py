@@ -2,9 +2,9 @@
 ``P <= 8`` sign planes ``B_p`` in {-1, +1}.
 
 Port of ``repro/kernels/binary_matmul.py::binary_matmul_pallas`` as a CUDA
-C++ kernel (``csrc/binary_matmul.cu``, on the tiled GEMM of
-``csrc/gemm_tiles.cuh``): the planes are folded into one fp32 weight tile
-as it is staged, then one product follows.  The binarized CNN evaluator
+C++ kernel (``csrc/binary_matmul.cu``): the planes are folded once per call
+into an fp32 weight scratch that this wrapper allocates, then one pipelined
+product follows, its tile width chosen from N.  The binarized CNN evaluator
 (``core/evaluate.py``) computes every conv (im2col) and the fc through it.
 The wrapper runs the plain version (``ref.binary_matmul_ref``) for CPU
 tensors and the kernel for CUDA tensors; there is no fallback between them.
@@ -18,12 +18,13 @@ import torch
 from repro_torch.kernels import build, ref
 
 COUNT = build.LaunchCount("binary_matmul")
-MAX_PLANES = 8      # csrc/gemm_tiles.cuh: MAX_PLANES
+MAX_PLANES = 8      # csrc/binary_matmul.cu: MAX_PLANES
+SCRATCH_K, SCRATCH_N = 32, 128   # csrc/binary_matmul.cu: KPAD, WCOLS
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("binary_matmul", "binary_matmul_f32", 4, 4)
+    return build.bind("binary_matmul", "binary_matmul_f32", 5, 4)
 
 
 def binary_matmul(x: torch.Tensor, planes: torch.Tensor,
@@ -50,9 +51,14 @@ def binary_matmul(x: torch.Tensor, planes: torch.Tensor,
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return y
+    # the folded weight, padded to whole K steps and 128 columns
+    w = torch.empty((-(-K // SCRATCH_K) * SCRATCH_K,
+                     -(-N // SCRATCH_N) * SCRATCH_N), dtype=torch.float32,
+                    device=x.device)
     with torch.cuda.device(x.device):
         err = _fn()(x.data_ptr(), planes.data_ptr(), alpha.data_ptr(),
-                    y.data_ptr(), M, K, N, P, build.stream_of(x))
+                    w.data_ptr(), y.data_ptr(), M, K, N, P,
+                    build.stream_of(x))
     COUNT.launches += 1
     build.check(build.load(COUNT.name), err, COUNT.name)
     return y

@@ -11,10 +11,11 @@ there) and the VALID 2x2 max pool is ``F.max_pool2d``.
 
 A layer whose params carry ``{"planes", "alpha", "b"}`` in place of
 ``{"w", "b"}`` (a binarized weight in plane form,
-``quant.binarize.fake_binarize_planes`` of its 2-d view) computes its
+``quant.binarize.fake_binarize_planes`` of its weight, a conv's planes
+in :func:`conv_rows` order) computes its
 product through the bit-plane kernel B6 (``kernels.ops.binary_matmul``):
-a conv through an im2col (``F.unfold``, padding 1, rows ordered (cin, kh,
-kw)), the fc directly.
+a conv through an im2col (:func:`im2col`: zero padding, then one strided
+copy; rows ordered (cin, kh, kw), as ``F.unfold``'s), the fc directly.
 """
 from __future__ import annotations
 
@@ -57,9 +58,23 @@ CIF10_TINY = CNNConfig(name="cif10_tiny", img_size=16,
 
 def conv_rows(w: torch.Tensor) -> torch.Tensor:
     """An HWIO conv weight as the (cin * kh * kw, cout) matrix whose rows
-    follow ``F.unfold``'s patch order (c, kh, kw)."""
-    kh, kw, cin, cout = w.shape
-    return w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+    follow ``F.unfold``'s patch order (c, kh, kw); leading axes (a stack
+    of sign planes) are kept."""
+    kh, kw, cin, cout = w.shape[-4:]
+    return w.movedim(-2, -4).reshape(*w.shape[:-4], cin * kh * kw, cout)
+
+
+def im2col(x: torch.Tensor, kernel: int) -> torch.Tensor:
+    """The (B * H * W, C * kernel * kernel) patch rows of NHWC ``x`` for a
+    SAME, stride-1 conv, each row in (c, kh, kw) order: the rows of
+    ``F.unfold(x.permute(0, 3, 1, 2), kernel, padding=kernel // 2)``
+    transposed, bit for bit.  A pad, then one copy of a strided window view
+    (``F.unfold`` on the card runs one kernel per image)."""
+    B, H, W, C = x.shape
+    p = kernel // 2
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    win = xp.unfold(1, kernel, 1).unfold(2, kernel, 1)   # (B, H, W, C, kh, kw)
+    return win.reshape(B * H * W, C * kernel * kernel)
 
 
 def _conv(x, p, kernel):
@@ -70,9 +85,8 @@ def _conv(x, p, kernel):
                      padding=kernel // 2)
         return y.permute(0, 2, 3, 1)
     B, H, W, _ = x.shape
-    cols = F.unfold(x.permute(0, 3, 1, 2), kernel, padding=kernel // 2)
-    rows = cols.transpose(1, 2).reshape(B * H * W, -1).contiguous()
-    return binary_matmul(rows, p["planes"], p["alpha"]).reshape(B, H, W, -1)
+    return binary_matmul(im2col(x, kernel), p["planes"],
+                         p["alpha"]).reshape(B, H, W, -1)
 
 
 def _dense(x, p):

@@ -9,8 +9,8 @@ channel and bit-widths are capped at ``MAX_PLANES``.
 
 The deployment form of a binarized product is the bit-plane matmul
 y = sum_m alpha_m (x @ B_m) (kernel B6, ``kernels/binary_matmul.py``);
-:func:`fake_binarize_planes` gives a 2-d weight in that form, masked as
-:func:`fake_binarize_per_channel` masks it.
+:func:`fake_binarize_planes` gives a weight in that form, masked as
+:func:`fake_binarize_per_channel` masks it and from the same arithmetic.
 """
 from __future__ import annotations
 
@@ -63,6 +63,29 @@ def _clipped_bits(bits_per_channel, shape, device) -> torch.Tensor:
     return torch.clamp(b.reshape(shape), 0.0, float(MAX_PLANES))
 
 
+def _greedy_planes(w: torch.Tensor, bits_per_channel, axis: int):
+    """The masked greedy expansion, plane by plane: yields (b, a, keep)
+    for each of MAX_PLANES planes, b the signs of the residual, a its
+    per-channel mean |r| (keepdim), keep = BBN > m.  The residual update is
+    unconditional.  :func:`fake_binarize_per_channel` and
+    :func:`fake_binarize_planes` both run it, so their planes and alphas
+    are the same bits: a mean over another layout of the same weight (a
+    conv's im2col rows) sums in another order, and an alpha off by one ulp
+    can flip the sign of a residual near 0 in a later plane."""
+    w = w.to(torch.float32)
+    axis_ = axis % w.ndim
+    red = tuple(d for d in range(w.ndim) if d != axis_)
+    shape = [1] * w.ndim
+    shape[axis_] = w.shape[axis_]
+    bits = _clipped_bits(bits_per_channel, shape, w.device)
+    r = w
+    for m in range(MAX_PLANES):
+        b = torch.where(r >= 0, 1.0, -1.0)
+        a = r.abs().mean(dim=red, keepdim=True)
+        yield b, a, bits > (m + 0.5)
+        r = r - a * b
+
+
 def fake_binarize_per_channel(w: torch.Tensor, bits_per_channel,
                               axis: int = -1) -> torch.Tensor:
     """Binarize-dequantize with a *vector* of per-channel plane counts.
@@ -71,38 +94,22 @@ def fake_binarize_per_channel(w: torch.Tensor, bits_per_channel,
     whose BBN <= m (bits clipped to [0, MAX_PLANES]).  The residual update
     is unconditional, so a channel's reconstruction at BBN = b is its
     b-plane greedy expansion."""
-    w = w.to(torch.float32)
-    axis_ = axis % w.ndim
-    red = tuple(d for d in range(w.ndim) if d != axis_)
-    shape = [1] * w.ndim
-    shape[axis_] = w.shape[axis_]
-    bits = _clipped_bits(bits_per_channel, shape, w.device)
-
-    out = torch.zeros_like(w)
-    r = w
-    for m in range(MAX_PLANES):
-        b = torch.where(r >= 0, 1.0, -1.0)
-        a = r.abs().mean(dim=red, keepdim=True)
+    out = torch.zeros_like(w, dtype=torch.float32)
+    for b, a, keep in _greedy_planes(w, bits_per_channel, axis):
         contrib = a * b
-        out = out + torch.where(bits > (m + 0.5), contrib,
-                                torch.zeros_like(contrib))
-        r = r - contrib
+        out = out + torch.where(keep, contrib, torch.zeros_like(contrib))
     return out
 
 
-def fake_binarize_planes(w2d: torch.Tensor, bits_per_channel):
-    """:func:`fake_binarize_per_channel` of a (K, N) weight (channels on
-    axis 1) in plane form: ``planes`` (MAX_PLANES, K, N) int8 {-1, +1}
-    from the greedy residual, ``alpha`` (MAX_PLANES, N) f32, mean|r| of
-    plane m masked by ``bits > m + 0.5``.  ``reconstruct(planes, alpha[:,
-    None, :])`` is the dense fake-binarized weight."""
-    w = w2d.to(torch.float32)
-    bits = _clipped_bits(bits_per_channel, (w.shape[1],), w.device)
-    planes, alpha, r = [], [], w
-    for m in range(MAX_PLANES):
-        b = torch.where(r >= 0, 1.0, -1.0)
-        a = r.abs().mean(dim=0)
+def fake_binarize_planes(w: torch.Tensor, bits_per_channel):
+    """:func:`fake_binarize_per_channel` of a weight with its channels on
+    the last axis (N of them), in plane form: ``planes`` (MAX_PLANES,
+    *w.shape) int8 {-1, +1} from the greedy residual, ``alpha``
+    (MAX_PLANES, N) f32, mean|r| of plane m masked by ``bits > m + 0.5``.
+    Summed plane by plane in order, ``alpha * planes`` is the dense
+    fake-binarized weight bit for bit."""
+    planes, alpha = [], []
+    for b, a, keep in _greedy_planes(w, bits_per_channel, -1):
         planes.append(b.to(torch.int8))
-        alpha.append(torch.where(bits > (m + 0.5), a, torch.zeros_like(a)))
-        r = r - a * b
+        alpha.append(torch.where(keep, a, torch.zeros_like(a)).reshape(-1))
     return torch.stack(planes), torch.stack(alpha)

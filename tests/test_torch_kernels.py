@@ -84,6 +84,63 @@ def test_flash_attention_wrapper_validates():
         tattn.flash_attention(q, k.transpose(1, 2), k, q_pos=pos, kv_pos=kvp)
 
 
+# ------------------------------------------------- K1 split-KV decode
+@pytest.mark.parametrize("B,hkv,g,Skv,n_real,window,cap,n_splits", [
+    (2, 2, 2, 150, 150, None, None, 3),     # decode, GQA 2
+    (2, 1, 4, 224, 40, None, None, 7),      # sentinel tail: splits 2-6 empty
+    (1, 2, 2, 224, 200, 40, None, 3),       # window kills the leading splits
+    (2, 2, 2, 100, 97, None, 30.0, 1),      # softcap, one split
+    (1, 2, 2, 224, 180, 64, 30.0, 7),       # one split per tile
+])
+def test_attention_split_ref_matches_reference(B, hkv, g, Skv, n_real,
+                                               window, cap, n_splits):
+    """The plain statement of K1's split walk and merge == the reference
+    kernel in interpret mode, at TOL."""
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels.ref import attention_split_ref
+    rng = np.random.default_rng(Skv * 10 + n_splits)
+    D = 8
+    q = rng.normal(size=(B, 1, hkv * g, D)).astype(np.float32)
+    k = rng.normal(size=(B, Skv, hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Skv, hkv, D)).astype(np.float32)
+    q_pos = np.full((B, 1), n_real - 1, np.int32)
+    kv_pos = np.full((B, Skv), POS_SENTINEL, np.int32)
+    kv_pos[:, :n_real] = np.arange(n_real, dtype=np.int32)
+    ref = jattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_pos=jnp.asarray(q_pos), kv_pos=jnp.asarray(kv_pos), window=window,
+        attn_cap=cap, bq=8, bk=32)
+    got = attention_split_ref(_t(q), _t(k), _t(v), q_pos=_t(q_pos),
+                              kv_pos=_t(kv_pos), window=window, attn_cap=cap,
+                              n_splits=n_splits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    tiles = ka.split_tiles(Skv, n_splits)
+    assert len(tiles) == n_splits and tiles[-1][1] == -(-Skv // ka.BKV)
+
+
+def test_decode_splits_rule():
+    """gemma2-2b decode at B = 2 fills the 132 SMs of an H100; prefill and
+    the LM evaluator's 4 x 128 forward keep the single walk; the splits
+    never outnumber the tiles and none is empty."""
+    from repro_torch.kernels.attention import decode_splits, split_tiles
+    ns = decode_splits(2, 1, 8, 4, 4224, 132)
+    assert ns * 4 * 2 >= 132 and ns == 33
+    assert decode_splits(2, 4160, 8, 4, 4224, 132) == 1
+    assert decode_splits(4, 128, 8, 4, 128, 132) == 1
+    assert decode_splits(33, 1, 8, 4, 4224, 132) == 1     # grid fills the card
+    assert decode_splits(1, 1, 4, 4, 20, 132) == 1        # one tile
+    for B in (1, 2, 3, 8):
+        for Skv in (33, 100, 640, 4096, 4224, 9999):
+            for Hq, Hkv in ((8, 4), (8, 1), (4, 4), (32, 8)):
+                for Sq in (1, 2, 5):
+                    n = decode_splits(B, Sq, Hq, Hkv, Skv, 132)
+                    n_tiles = -(-Skv // 32)
+                    assert 1 <= n <= n_tiles
+                    if Sq > 32 // (Hq // Hkv):
+                        assert n == 1
+                    assert all(t1 > t0 for t0, t1 in split_tiles(Skv, n))
+
+
 # ------------------------------------------------------------- GEMMs K2/K3
 SHAPES = [(5, 37, 19), (16, 130, 70), (1, 96, 257)]
 

@@ -150,6 +150,30 @@ def test_fake_binarize_and_planes_match_reference(shape, axis):
         **BIN_TOL)
 
 
+@pytest.mark.parametrize("kind,shape,seed", [("conv", (3, 3, 64, 64), 28),
+                                             ("conv", (3, 3, 128, 128), 12),
+                                             ("dense", (96, 10), 0)])
+def test_plane_form_sums_to_dense_binarize_bitwise(kind, shape, seed):
+    """The evaluator's plane form, summed plane by plane in order (as B6
+    folds it), is the dense fake-binarized weight bit for bit, in im2col
+    row order for a conv.  The seeds are ones where alphas taken over the
+    im2col rows instead of the HWIO weight flip a residual's sign."""
+    from types import SimpleNamespace
+    rng = np.random.default_rng(seed)
+    w = _t(rng.normal(size=shape).astype(np.float32))
+    bits = np.resize(np.arange(9, dtype=np.float32), shape[-1])
+    layer = SimpleNamespace(name=kind, kind=kind, channel_axis=-1)
+    node = teval._plane_form({"w": w, "b": torch.zeros(shape[-1])}, "w", w,
+                             layer, _t(bits))
+    assert set(node) == {"planes", "alpha", "b"}
+    folded = torch.zeros(node["planes"].shape[1:])
+    for p in range(tbin.MAX_PLANES):
+        folded = folded + node["alpha"][p] * node["planes"][p].float()
+    dense = tbin.fake_binarize_per_channel(w, bits)
+    want = tcnn.conv_rows(dense) if kind == "conv" else dense
+    assert torch.equal(folded, want)
+
+
 # ------------------------------------------------------------------ CNN
 def test_cnn_logits_and_adam_step_match_reference(cnn):
     """Logits at 1e-4 (activations off); one Adam step of the substrate
@@ -237,6 +261,25 @@ def test_cnn_evaluator_accuracy_matches_reference(cnn, mode, act, seed):
     assert abs(tacc - jacc) <= 100.0 * n_bad / len(cnn["val"]["y"]) + 1e-9
     if act == 32.0:
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+
+
+@pytest.mark.parametrize("shape", [
+    (4, tcnn.CIF10_TINY.img_size, tcnn.CIF10_TINY.img_size,
+     tcnn.CIF10_TINY.in_channels),
+    (2, tcnn.CIF10.img_size, tcnn.CIF10.img_size, tcnn.CIF10.in_channels),
+    (3, 5, 7, 6),
+])
+def test_im2col_rows_equal_unfold(shape):
+    """The one-copy im2col of the plane-form convs == F.unfold's rows
+    transposed, bit for bit, in (c, kh, kw) order."""
+    import torch.nn.functional as F
+    B, H, W, C = shape
+    x = torch.from_numpy(np.random.default_rng(sum(shape)).normal(
+        size=shape).astype(np.float32))
+    want = F.unfold(x.permute(0, 3, 1, 2), 3, padding=1).transpose(1, 2) \
+        .reshape(B * H * W, C * 9)
+    got = tcnn.im2col(x, 3)
+    assert got.is_contiguous() and torch.equal(got, want)
 
 
 def test_binarized_logits_match_dense_reference(cnn):
