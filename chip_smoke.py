@@ -16,10 +16,16 @@ run exits non-zero:
               and times kernel, plain version, one library call and the
               bound (CUDA events, L2 flushed before each run, median of
               10).  K1's decode rows (the global cache, the local ring, and
-              one query at position 40 whose splits are mostly empty) run
-              the split-KV walk: each prints its split count and is also
-              held against the split walk's plain statement; every K1 row
-              must give the same bits on a second call.
+              one query at position 40 whose splits are mostly empty) and
+              K4's (4 rows at ~4175 positions: global, window, int8 pool;
+              4 rows at ~40) run the split-KV walks: each prints its split
+              count and is also held against its walk's plain statement;
+              every K1 and K4 row must give the same bits on a second call.
+              The GEMM rows cover generate's shapes and run()'s 2048-row
+              chunk shapes; each prints its route (K2: tc_2xtf32 for
+              M > 8, else skinny; K3: fp32_tiled or skinny) and that
+              route's bound beside the function's.  K2's tensor-core rows
+              must also come within TC_ERR_LIMIT of quant_matmul_ref.
 3. serve   -- ServeEngine.generate on gemma2-2b at full width and depth
               with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
@@ -32,7 +38,9 @@ run exits non-zero:
               requests over the paged pool on engine A: overlap on ==
               off bitwise, every stream against the same engine's
               generate (top-2 gap rule), monolithic prefill on the first
-              4, launch counts, host syncs per step, and one profiled run.
+              4, launch counts, host syncs per step, and one profiled run
+              (device time by kernel group: K4's chunk and decode
+              launches, K2's and K3's GEMMs).
 6. search  -- the AutoQ search on CIF10-7CNN at full width: trains the
               substrate (250 Adam steps, batch 128, as the example does),
               checks the 32-bit policy against the unquantized accuracy,
@@ -75,9 +83,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet: HBM3 bandwidth
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet: fp32, non-tensor
+TF32_FLOP_PER_S = 495e12      # H100 SXM data sheet: TF32 tensor, dense
+# device-time groups of the profiled runs: kernel-name fragments
+KERNEL_GROUPS = {
+    "k1": ("flash_fwd", "flash_split", "split_combine"),
+    "k4_chunk": ("paged_fwd",),
+    "k4_decode": ("paged_split", "paged_combine"),
+    "k2_tc": ("gemm_tc",),
+    "k2_skinny": ("gemm_skinny<8>",),
+    "k3_tiled": ("gemm_tiled",),
+    "k3_skinny": ("gemm_skinny<4>", "gemm_skinny<2>"),
+    "gemm_reduce_k2_k3": ("gemm_reduce",),
+}
 
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/test_attention.py:25
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_packed.py:68-69
+# K2's tensor-core rows (outputs ~0.5): a sound two-pass kernel ends within
+# ~1.2e-5 of quant_matmul_ref at K = 9216, one that chains every MMA into
+# the truncating accumulator ~1.7e-4 (still inside GEMM_TOL by its rtol)
+TC_ERR_LIMIT = 5e-5
 # Engines A and B differ in summation order only (fp32 throughout), but 26
 # layers deep on random weights a 1e-6 relative difference per GEMM grows;
 # 2e-3 on logits capped at +-30 still separates any real fault (a wrong
@@ -131,9 +155,19 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, flop_per_s=FP32_FLOP_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def kernel_groups(keyed):
+    """Device ms and launches of each KERNEL_GROUPS group from
+    ``(kernel name, device ms, calls)`` triples."""
+    return {g: dict(ms=sum(ms for n, ms, _ in keyed
+                           if any(f in n for f in frags)),
+                    calls=sum(c for n, ms, c in keyed
+                              if any(f in n for f in frags) and ms > 0))
+            for g, frags in KERNEL_GROUPS.items()}
 
 
 class Timer:
@@ -304,23 +338,30 @@ def _paged_pool(torch, g, rows, k, kv_bits=None):
 def _paged_cases():
     """(label, rows, k, window, kv_bits) at the run phase's shapes: 512-token
     chunks (a late chunk of a 4160-token prompt, a first chunk, a partial
-    chunk, an idle lane) and decode tokens at ~4175 positions."""
+    chunk, an idle lane), decode tokens at ~4175 positions, and decode
+    tokens at ~40 (most splits empty)."""
     chunk = [(4160, 3648, 512), (512, 0, 512), (1254, 1024, 230), (0, 0, 0)]
     dec = [(4176, 4175, 1), (4171, 4170, 1), (4161, 4160, 1),
            (4101, 4100, 1)]
+    short = [(41, 40, 1), (44, 43, 1), (39, 38, 1), (37, 36, 1)]
     yield "chunk_global", chunk, CHUNK, None, None
     yield "chunk_window4096", chunk, CHUNK, 4096, None
     yield "decode_global", dec, 1, None, None
     yield "decode_window4096", dec, 1, 4096, None
     yield "decode_int8", dec, 1, None, 8
+    yield "decode_short", short, 1, None, None
 
 
 def paged_rows(torch, timer, cap):
-    """K4 against paged_attention_ref on the real (non-sentinel) columns;
-    the idle lane must come back as exact zeros."""
+    """K4 against paged_attention_ref on the real (non-sentinel) columns
+    (and, where it splits, against the split walk's plain statement); the
+    idle lane must come back as exact zeros, and a second call must give
+    the same bits."""
     from repro_torch.kernels import attention
+    from repro_torch.kernels.ref import paged_attention_split_ref
     from repro_torch.models.layers import paged_attention_ref, paged_gather
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for label, spec, k, window, kv_bits in _paged_cases():
         q, kp, vp, pos, bt, qp, ks, vs = _paged_pool(torch, g, spec, k,
@@ -331,12 +372,24 @@ def paged_rows(torch, timer, cap):
         kern = lambda: attention.paged_prefill_attention(*args, **kw)
         plain = lambda: paged_attention_ref(*args, **kw)
         got = kern()
+        again = kern()
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"paged/{label}: two calls on the same "
+                                 "inputs give different bits")
         want = plain()
         real = [(i, c) for i, (_, _, c) in enumerate(spec) if c]
-        err, rel = compare(torch, torch.cat([got[i, :c] for i, c in real]),
-                           torch.cat([want[i, :c] for i, c in real]),
-                           ATTN_TOL, f"paged/{label}")
+        pick = lambda t: torch.cat([t[i, :c] for i, c in real])
+        err, rel = compare(torch, pick(got), pick(want), ATTN_TOL,
+                           f"paged/{label}")
+        ns = attention.paged_decode_splits(
+            q.shape[0], k, q.shape[2], kp.shape[2], bt.shape[1] * PAGE, n_sm)
+        split_err = None
+        if ns > 1:
+            split_err, _ = compare(
+                torch, pick(got), pick(paged_attention_split_ref(
+                    *args, **kw, n_splits=ns)), ATTN_TOL,
+                f"paged/{label}/split")
         for i, (L, _, c) in enumerate(spec):
             if not L and bool((got[i] != 0).any()):
                 raise AssertionError(f"paged/{label}: idle lane {i} is not "
@@ -368,7 +421,8 @@ def paged_rows(torch, timer, cap):
             vg = vg.float() * paged_gather(vs, bt)[..., None]
         rows.append(dict(
             name="paged_attention", case=label,
-            shape=list(q.shape) + [bt.shape[1] * PAGE], max_abs_err=err,
+            shape=list(q.shape) + [bt.shape[1] * PAGE], splits=ns,
+            split_ref_max_abs_err=split_err, max_abs_err=err,
             max_rel_err=rel, tol=ATTN_TOL, ms=timer(kern),
             plain_ms=timer(plain),
             library_ms=timer(_attn_library(torch, q, kg, vg, qp, kvp,
@@ -376,7 +430,7 @@ def paged_rows(torch, timer, cap):
             device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by,
             pages_walked=n_pages))
         emit({"phase": "kernel", **rows[-1]})
-        del got, want, kg, vg, kp, vp
+        del got, again, want, kg, vg, kp, vp
     torch.cuda.empty_cache()
     return rows
 
@@ -515,7 +569,7 @@ def flash_rows(torch, timer, cap):
 
 
 def phase_kernels(torch, timer):
-    from repro_torch.kernels import ops, pack
+    from repro_torch.kernels import ops, pack, quant_matmul
     from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
     cap = 50.0
     rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap) \
@@ -524,6 +578,8 @@ def phase_kernels(torch, timer):
                                                    9216),
                    ("wd_decode", 2, 9216, 2304),
                    ("unembed_decode", 2, 2304, 256000),
+                   ("wg_chunk", 2048, 2304, 9216),
+                   ("wd_chunk", 2048, 9216, 2304),
                    ("ragged", 37, 1001, 333)]
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for bits, name in ((8, "quant_matmul"), (4, "packed_matmul"),
@@ -549,10 +605,21 @@ def phase_kernels(torch, timer):
                                f"{name}/int{bits}/{label}")
             wdeq = qv.float() * s[None, :]
             nbytes = 4 * (M * K + N + M * N) + w.numel()
-            b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N)
+            route = quant_matmul.route(M, bits)
+            if route == "tc_2xtf32" and err > TC_ERR_LIMIT:
+                raise AssertionError(f"{name}/int{bits}/{label}: max abs err "
+                                     f"{err} over {TC_ERR_LIMIT}")
+            # the function's 2 M K N operations at the TF32 peak (an integer
+            # weight is exact in TF32); its route's own work beside it: two
+            # TF32 passes on the tensor cores, else fp32 on CUDA cores
+            flops = 2.0 * M * K * N
+            b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
+            r_ms = bound_ms(nbytes, 2 * flops, TF32_FLOP_PER_S)[0] \
+                if route == "tc_2xtf32" else bound_ms(nbytes, flops)[0]
             rows.append(dict(
                 name=name, case=f"int{bits}_{label}", shape=[M, K, N],
-                max_abs_err=err, max_rel_err=rel, tol=GEMM_TOL,
+                route=route, route_bound_ms=r_ms, max_abs_err=err,
+                max_rel_err=rel, tol=GEMM_TOL,
                 ms=timer(kern), plain_ms=timer(plain),
                 library_ms=timer(lambda: torch.matmul(x, wdeq)),
                 device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
@@ -626,13 +693,15 @@ def profile_call(torch, fn, match=()):
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = sorted(((e.key[:90], e.device_time_total / 1e3, e.count)
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
                    for e in prof.key_averages()), key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     out = dict(wall_s=wall, device_ms=device_ms,
                busy_share=device_ms / 1e3 / wall,
                kernel_launches=sum(r[2] for r in rows if r[1] > 0),
-               top=[dict(name=n, ms=ms, calls=c) for n, ms, c in rows[:12]])
+               groups=kernel_groups(rows),
+               top=[dict(name=n[:90], ms=ms, calls=c)
+                    for n, ms, c in rows[:12]])
     for m in match:
         out[m] = dict(ms=sum(r[1] for r in rows if m in r[0]),
                       calls=sum(r[2] for r in rows if m in r[0]))
@@ -836,7 +905,7 @@ def profile_run(torch, eng, reqs, kw):
     wall = time.perf_counter() - t0
     syncs = [str(w.message)[:120] for w in seen
              if "called a synchronizing CUDA operation" in str(w.message)]
-    rows = sorted(((e.key[:90], e.device_time_total / 1e3, e.count)
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
                    for e in prof.key_averages()), key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     steps = res["stats"].steps
@@ -845,7 +914,8 @@ def profile_run(torch, eng, reqs, kw):
                      host_syncs=len(syncs),
                      host_syncs_per_step=len(syncs) / max(steps, 1),
                      sync_examples=sorted(set(syncs))[:3],
-                     top=[dict(name=n, ms=ms, calls=c)
+                     groups=kernel_groups(rows),
+                     top=[dict(name=n[:90], ms=ms, calls=c)
                           for n, ms, c in rows[:12]])
 
 

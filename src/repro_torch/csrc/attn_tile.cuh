@@ -3,9 +3,12 @@
 // staging of the block's query rows, the positional mask, the store of a
 // K/V tile, and one online-softmax update of a block's 32 query rows over
 // a 32-row K/V tile held in shared memory.  Each kernel keeps only its own
-// walk over K/V and its own K/V source.  Last, the two halves of a split-KV
+// walk over K/V and its own K/V source.  Then the two halves of a split-KV
 // decode: the write of a split's unnormalised row state (write_partial)
-// and the fixed-order merge of the splits (combine_cols).
+// and the fixed-order merge of the splits (combine_cols).  Last,
+// decode_update: the online-softmax update of a decode block, which holds
+// only its R <= 32 real query rows and shares their work among all 256
+// threads (K4's split walk; K1's split walk still runs tile_update).
 //
 // A block has 256 threads; 8 threads own a query row (position x head):
 // each holds 4 of the tile's 32 scores and D / 8 accumulator columns, so
@@ -247,6 +250,111 @@ __device__ __forceinline__ float4 combine_cols(const float* pm,
   }
   const float denom = fmaxf(l, 1e-30f);
   return make_float4(o.x / denom, o.y / denom, o.z / denom, o.w / denom);
+}
+
+// ------------------------------------------------------------- decode
+// One online-softmax update of a decode block's R <= ROWS query rows over
+// one BKV-slot tile, with all NT threads at work whatever R is (at
+// gemma2-2b decode R = G = 2: tile_update would leave 7 of 8 warps idle
+// and give each live thread ~2,000 dependent FMAs a tile; here each thread
+// makes 64 for the scores and 64 for P V).  Numerics are tile_update's (the reference's
+// _online_update): softcap before the mask, m_safe, alpha = 0 while m is
+// -inf, so a tile that no row can attend leaves the state unchanged; the
+// final divide by max(l, 1e-30) is the merge's (combine_cols).
+//
+// Qs: R x D pre-scaled queries (row stride D); kv: the tile, read through
+// kv.k4(j, d) (K[j][d..d+3]) and kv.v(c, d) (V[c][d]), each element
+// dequantized where it is read; kps: the tile's positions; qps: the rows'
+// positions.  Ss (R x BKV), ms, ls, as (R) are shared memory: scores then
+// probabilities, and each row's m, l and last alpha.  acc[u] holds output
+// element i = tid + NT u of the R x D accumulator (row i / D, column
+// i % D).  Three phases, with a barrier after each of the first two:
+//  1. scores: thread (j = tid / 8, l8 = tid % 8) keeps chunks l8 + 8 i of
+//     K row j in registers and, for each row, dots them with the query's
+//     chunks; 3 shuffles sum the 8 partials (a quarter-warp reads one
+//     128-byte run of K and of Q: no bank conflicts, no padding).
+//  2. softmax: warp w takes rows w, w + 8, ..., a lane per slot: max and
+//     sum by shuffles, p into Ss, and (lane 0) m, l and alpha.
+//  3. P V: each thread rescales its accumulator elements by their row's
+//     alpha and adds the tile's BKV products (a warp reads 32 consecutive
+//     columns of one V row).
+template <class KV>
+__device__ __forceinline__ void decode_update(
+    const float* Qs, const KV& kv, const int* kps, const int* qps,
+    float* Ss, float* ms, float* ls, float* as, int R, int D, int causal,
+    int window, float cap, float (&acc)[DPT]) {
+  const int tid = threadIdx.x;
+  const int D4 = D / 4;
+  {
+    const int j = tid / TPR, l8 = tid % TPR;
+    const int kp = kps[j];
+    float4 kr[DMAX / 4 / TPR];
+#pragma unroll
+    for (int i = 0; i < DMAX / 4 / TPR; ++i)
+      if (l8 + TPR * i < D4) kr[i] = kv.k4(j, 4 * (l8 + TPR * i));
+    for (int r = 0; r < R; ++r) {
+      const float* qr = Qs + r * D;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < DMAX / 4 / TPR; ++i) {
+        if (l8 + TPR * i < D4) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qr + 4 * (l8 + TPR * i));
+          s = fmaf(qv.x, kr[i].x, s);
+          s = fmaf(qv.y, kr[i].y, s);
+          s = fmaf(qv.z, kr[i].z, s);
+          s = fmaf(qv.w, kr[i].w, s);
+        }
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off /= 2)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (l8 == 0) {
+        if (cap > 0.f) s = cap * tanhf(s / cap);
+        Ss[r * BKV + j] =
+            attendable(kp, qps[r], causal, window) ? s : -INFINITY;
+      }
+    }
+  }
+  __syncthreads();
+  {
+    const int lane = tid % 32;
+    for (int r = tid / 32; r < R; r += NT / 32) {
+      const float s = Ss[r * BKV + lane];
+      float mx = s;
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = ms[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float m_safe = isfinite(m_new) ? m_new : 0.f;
+      const float p = expf(s - m_safe);
+      float psum = p;
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      Ss[r * BKV + lane] = p;
+      if (lane == 0) {
+        const float alpha = isfinite(m_old) ? expf(m_old - m_safe) : 0.f;
+        ls[r] = ls[r] * alpha + psum;
+        ms[r] = m_new;
+        as[r] = alpha;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < DPT; ++u) {
+    const int i = tid + NT * u;
+    if (i < R * D) {
+      const int r = i / D, d = i - r * D;
+      const float* pr = Ss + r * BKV;
+      float a = acc[u] * as[r];
+#pragma unroll 8
+      for (int c = 0; c < BKV; ++c) a = fmaf(pr[c], kv.v(c, d), a);
+      acc[u] = a;
+    }
+  }
 }
 
 }  // namespace attn

@@ -15,6 +15,10 @@ its k = 1 wrapper), causal attention for q tiles of k left-aligned tokens
 per sequence over the paged KV pool: port of the reference's function of
 the same name as ``csrc/paged_attention.cu``.  The kernel walks each
 sequence's block-table row itself; int8 pools are dequantized on load.
+Decode tokens, where one q tile holds every column and the single walk
+would leave most of the card idle, split each row's live slot range
+across blocks (:func:`paged_decode_splits`; ``ref.paged_split_slots``
+states the cut) and merge the splits in a second pass.
 
 Each wrapper runs its plain version (``models.layers.attention_ref``,
 ``models.layers.paged_attention_ref``) for CPU tensors and its kernel for
@@ -35,6 +39,7 @@ PAGED_COUNT = build.LaunchCount("paged_attention")
 MAX_HEAD_DIM = 256      # csrc/flash_attention.cu: DMAX
 MAX_GROUP = 32          # query heads per kv head that fit one block
 ROWS = BKV = 32         # csrc/attn_tile.cuh: query rows of a block, KV tile
+POS_SENTINEL = 2**31 - 1
 
 
 def decode_splits(B: int, Sq: int, Hq: int, Hkv: int, Skv: int,
@@ -61,11 +66,6 @@ def split_tiles(Skv: int, n_splits: int):
     n_tiles = -(-Skv // BKV)
     per = -(-n_tiles // n_splits)
     return [(s * per, min(n_tiles, (s + 1) * per)) for s in range(n_splits)]
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,16 +113,8 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    ns = decode_splits(B, Sq, Hq, Hkv, Skv,
-                       _sm_count(q.device.index if q.device.index is not None
-                                 else torch.cuda.current_device()))
-    ml = pacc = None
-    if ns > 1:      # the splits' fp32 partials, one allocation: (m, l), acc
-        rows = B * Hq * ns * Sq
-        ml_len = -(-2 * rows // 4) * 4          # acc starts 16-byte aligned
-        part = torch.empty(ml_len + rows * D, dtype=torch.float32,
-                           device=q.device)
-        ml, pacc = part.data_ptr(), part[ml_len:].data_ptr()
+    ns = decode_splits(B, Sq, Hq, Hkv, Skv, build.sm_count(q.device))
+    ml, pacc = _split_partials(q, ns)
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     q_pos.data_ptr(), kv_pos.data_ptr(), o.data_ptr(),
@@ -135,10 +127,46 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
     return o
 
 
+def _split_partials(q, ns):
+    """Pointers (m and l, acc) into one fp32 allocation of the partials of
+    ``ns`` splits for q (B, Sq, Hq, D); (None, None) for the single walk."""
+    if ns <= 1:
+        return None, None
+    B, Sq, Hq, D = q.shape
+    rows = B * Hq * ns * Sq
+    ml_len = -(-2 * rows // 4) * 4          # acc starts 16-byte aligned
+    part = torch.empty(ml_len + rows * D, dtype=torch.float32,
+                       device=q.device)
+    return part.data_ptr(), part[ml_len:].data_ptr()
+
+
 # --------------------------------------------------------------- paged (K4)
+def paged_decode_splits(B: int, k: int, Hq: int, Hkv: int, n_slots: int,
+                        n_sm: int) -> int:
+    """Number of splits of K4's split walk, 1 for the single walk.
+
+    ``n_slots = nb * page_size`` is a block-table row's capacity: the rule
+    reads shapes only, never positions, so the step loop need not sync.
+    Splits are taken where one q sub-tile of ``32 // G`` columns holds
+    every query column and the single walk's ``Hkv * B`` blocks are fewer
+    than the card's ``n_sm`` SMs, as :func:`decode_splits` does for K1:
+    about two blocks per SM, never more splits than 32-slot tiles.  Unlike
+    K1's rule the count rounds down, to at most two blocks per SM: an fp32
+    pool's block holds ~140 KB of shared memory and runs alone on its SM,
+    so a grid just over two blocks per SM would take a third, nearly empty
+    wave."""
+    G = Hq // Hkv
+    blocks = Hkv * B
+    n_tiles = -(-n_slots // BKV)
+    if k > ROWS // G or blocks >= n_sm or n_tiles <= 1:
+        return 1
+    per = -(-n_tiles // min(n_tiles, max(1, 2 * n_sm // blocks)))
+    return -(-n_tiles // per)
+
+
 @functools.lru_cache(maxsize=None)
 def _paged_fn():
-    return build.bind("paged_attention", "paged_attention_f32", 9, 10,
+    return build.bind("paged_attention", "paged_attention_f32", 11, 11,
                       tail=(ctypes.c_float, ctypes.c_float))
 
 
@@ -223,14 +251,17 @@ def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    ns = paged_decode_splits(B, k, Hq, Hkv, nb * ps, build.sm_count(q.device))
+    ml, pacc = _split_partials(q, ns)
     with torch.cuda.device(q.device):
         err = _paged_fn()(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             pos_pages.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
             k_scale_pages.data_ptr() if quant else None,
             v_scale_pages.data_ptr() if quant else None, o.data_ptr(),
-            B, k, P, ps, Hq, Hkv, D, nb, int(quant), int(window or 0),
-            float(attn_cap or 0.0), 1.0 / math.sqrt(D), build.stream_of(q))
+            ml, pacc, B, k, P, ps, Hq, Hkv, D, nb, int(quant),
+            int(window or 0), ns, float(attn_cap or 0.0), 1.0 / math.sqrt(D),
+            build.stream_of(q))
     PAGED_COUNT.launches += 1
     build.check(build.load(PAGED_COUNT.name), err, PAGED_COUNT.name)
     return o

@@ -133,6 +133,17 @@ def expect(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{what}: must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of CUDA ``device``, read from the runtime once per card."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a C pointer value."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -2,7 +2,10 @@
 
 Port of ``repro/kernels/quant_matmul.py::quant_matmul_pallas`` as a CUDA
 C++ kernel (``csrc/quant_matmul.cu``, shared GEMM in
-``csrc/gemm_tiles.cuh``).  The wrapper runs the plain version
+``csrc/gemm_tiles.cuh``): for M > ``SKINNY_M`` on TF32 tensor cores with
+x split into two TF32 parts (fp32 accuracy; :func:`route` names it, and
+``ref.quant_matmul_tf32x2_ref`` states its numerics), else a skinny
+weight-streaming pass on CUDA cores.  The wrapper runs the plain version
 (``ref.quant_matmul_ref``) for CPU tensors and the kernel for CUDA
 tensors; there is no fallback between them.
 """
@@ -23,14 +26,24 @@ def _fn():
     return build.bind("quant_matmul", "quant_matmul_f32", 5, 4)
 
 
+def route(M: int, bits: int = 8) -> str:
+    """The launch shape that ``launch_gemm``'s kernel takes for M rows of a
+    ``bits``-wide weight: ``skinny`` (weight streaming) for M <= SKINNY_M,
+    else ``tc_2xtf32`` for K2 (int8, TF32 tensor cores, two passes) and
+    ``fp32_tiled`` for K3 (int4 / int2, fp32 CUDA cores)."""
+    if M <= SKINNY_M:
+        return "skinny"
+    return "tc_2xtf32" if bits == 8 else "fp32_tiled"
+
+
 def ksplit(M: int, rows: int, N: int, device: torch.device) -> int:
     """Packed rows split across blocks for a skinny (small-M) launch, so
     that a narrow N still puts about two blocks on every SM."""
     if M > SKINNY_M:
         return 1
     col_blocks = -(-N // 128)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-2 * sms // col_blocks), rows // 64))
+    return max(1, min(-(-2 * build.sm_count(device) // col_blocks),
+                      rows // 64))
 
 
 def check_gemm(x, w, scale, rows: int):
