@@ -15,17 +15,25 @@ run exits non-zero:
               and conv5 im2col and fc products for B6 bit-plane matmul),
               and times kernel, plain version, one library call and the
               bound (CUDA events, L2 flushed before each run, median of
-              10).  K1's decode rows (the global cache, the local ring, and
+              10).  K1's prefill rows run its TF32 tensor-core walk
+              (flash_tc, route tc_3xtf32) and are also held against the
+              plain statement of its arithmetic (attention_tf32x3_ref).
+              K1's decode rows (the global cache, the local ring, and
               one query at position 40 whose splits are mostly empty) and
               K4's (4 rows at ~4175 positions: global, window, int8 pool;
               4 rows at ~40) run the split-KV walks: each prints its split
               count and is also held against its walk's plain statement;
               every K1 and K4 row must give the same bits on a second call.
               The GEMM rows cover generate's shapes and run()'s 2048-row
-              chunk shapes; each prints its route (K2: tc_2xtf32 for
-              M > 8, else skinny; K3: fp32_tiled or skinny) and that
-              route's bound beside the function's.  K2's tensor-core rows
-              must also come within TC_ERR_LIMIT of quant_matmul_ref.
+              chunk shapes; each prints its route (K2 and K3: tc_2xtf32
+              for M > 8, else skinny) and that route's bound beside the
+              function's; every tensor-core row must also come within
+              TC_ERR_LIMIT of quant_matmul_ref / packed_matmul_ref.  Every
+              bound counts the function's operations at the TF32 peak
+              where its values are exact in TF32 or the route makes them
+              so (GEMMs, attention); `route_bound_ms` is the floor of the
+              route taken (2 TF32 passes for the GEMMs on tensor cores, 3
+              for K1's prefill, fp32 on CUDA cores for the rest).
 3. serve   -- ServeEngine.generate on gemma2-2b at full width and depth
               with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
@@ -42,8 +50,13 @@ run exits non-zero:
               (device time by kernel group: K4's chunk and decode
               launches, K2's and K3's GEMMs).
 6. search  -- the AutoQ search on CIF10-7CNN at full width: trains the
-              substrate (250 Adam steps, batch 128, as the example does),
-              checks the 32-bit policy against the unquantized accuracy,
+              substrate (250 Adam steps, batch 128, as the example does)
+              twice from one seed and requires every leaf equal bit for
+              bit (cuDNN runs deterministic, repro_torch.backend), then
+              runs a short QUANT search (HierarchicalAgent, 5 episodes)
+              twice on it and requires equal policies (every group's and
+              every activation QBN) and rewards; checks the 32-bit policy
+              against the unquantized accuracy,
               the QUANT evaluator on B5 against a plain evaluation (weights
               bit for bit, same accuracy) for three seeded policies, and
               the BINARIZE evaluator on B6 against the dense
@@ -86,21 +99,23 @@ FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet: fp32, non-tensor
 TF32_FLOP_PER_S = 495e12      # H100 SXM data sheet: TF32 tensor, dense
 # device-time groups of the profiled runs: kernel-name fragments
 KERNEL_GROUPS = {
-    "k1": ("flash_fwd", "flash_split", "split_combine"),
+    "k1_tc": ("flash_tc",),
+    "k1_split": ("flash_split", "split_combine"),
     "k4_chunk": ("paged_fwd",),
     "k4_decode": ("paged_split", "paged_combine"),
-    "k2_tc": ("gemm_tc",),
+    "k2_tc": ("Int8Stage",),              # gemm_tc's weight source names it
     "k2_skinny": ("gemm_skinny<8>",),
-    "k3_tiled": ("gemm_tiled",),
+    "k3_tc": ("PackedStage",),
     "k3_skinny": ("gemm_skinny<4>", "gemm_skinny<2>"),
     "gemm_reduce_k2_k3": ("gemm_reduce",),
 }
 
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/test_attention.py:25
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_packed.py:68-69
-# K2's tensor-core rows (outputs ~0.5): a sound two-pass kernel ends within
-# ~1.2e-5 of quant_matmul_ref at K = 9216, one that chains every MMA into
-# the truncating accumulator ~1.7e-4 (still inside GEMM_TOL by its rtol)
+# K2's and K3's tensor-core rows (outputs ~0.5): a sound two-pass kernel
+# ends within ~1.4e-5 of quant_matmul_ref / packed_matmul_ref at K = 9216,
+# one that chains every MMA into the truncating accumulator ~1.7e-4 (still
+# inside GEMM_TOL by its rtol)
 TC_ERR_LIMIT = 5e-5
 # Engines A and B differ in summation order only (fp32 throughout), but 26
 # layers deep on random weights a 1e-6 relative difference per GEMM grows;
@@ -139,6 +154,7 @@ SOURCES = {
 # 40 + 20 episode search (examples/autoq_search_cnn.py's schedule, cut)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, VAL_IMAGES = 250, 128, 2e-3, 512
 SEARCH_RUNS = (("quant", 10, 30), ("binarize", 5, 15))
+DETERMINISM_EPISODES = (3, 2)       # explore, exploit: C1's repeat check
 LM_EVAL_BATCH, LM_EVAL_LEN = 4, 128
 FQ_NOTE = ("no single PyTorch call: torch.fake_quantize_per_channel_affine "
            "takes one integer range for all channels, with no prune or "
@@ -414,7 +430,10 @@ def paged_rows(torch, timer, cap):
         pairs = float(valid.sum()) * q.shape[2]
         nbytes = n_pages * page_bytes + 8 * q.numel() + \
             4 * (bt.numel() + qp.numel())
-        b_ms, b_by = bound_ms(nbytes, 4 * D * pairs)
+        # the function's operations at the TF32 peak (3 TF32 passes give
+        # fp32 accuracy); its route's, fp32 FMAs on CUDA cores, beside it
+        b_ms, b_by = bound_ms(nbytes, 4 * D * pairs, TF32_FLOP_PER_S)
+        r_ms = bound_ms(nbytes, 4 * D * pairs)[0]
         kg, vg = paged_gather(kp, bt), paged_gather(vp, bt)
         if ks is not None:
             kg = kg.float() * paged_gather(ks, bt)[..., None]
@@ -422,6 +441,8 @@ def paged_rows(torch, timer, cap):
         rows.append(dict(
             name="paged_attention", case=label,
             shape=list(q.shape) + [bt.shape[1] * PAGE], splits=ns,
+            route="fp32_split" if ns > 1 else "fp32_walk",
+            route_bound_ms=r_ms,
             split_ref_max_abs_err=split_err, max_abs_err=err,
             max_rel_err=rel, tol=ATTN_TOL, ms=timer(kern),
             plain_ms=timer(plain),
@@ -518,10 +539,12 @@ def search_kernel_rows(torch, timer):
 
 
 def flash_rows(torch, timer, cap):
-    """K1 against attention_ref (and, where it splits, against the split
-    walk's plain statement), the same bits on a second call."""
+    """K1 against attention_ref and against the plain statement of its
+    route (the tensor-core walk's attention_tf32x3_ref, or the split walk's
+    attention_split_ref), the same bits on a second call."""
     from repro_torch.kernels import attention
-    from repro_torch.kernels.ref import attention_split_ref
+    from repro_torch.kernels.ref import (attention_split_ref,
+                                         attention_tf32x3_ref)
     from repro_torch.models.layers import attention_ref
     rows = []
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -540,12 +563,16 @@ def flash_rows(torch, timer, cap):
         err, rel = compare(torch, got, plain(), ATTN_TOL, label)
         ns = attention.decode_splits(q.shape[0], q.shape[1], q.shape[2],
                                      k.shape[2], k.shape[1], n_sm)
-        split_err = None
+        kw = dict(q_pos=qp, kv_pos=kp, window=window, attn_cap=cap)
         if ns > 1:
-            split_err, _ = compare(
-                torch, got, attention_split_ref(
-                    q, k, v, q_pos=qp, kv_pos=kp, window=window,
-                    attn_cap=cap, n_splits=ns), ATTN_TOL, f"{label}/split")
+            route, route_ref = "fp32_split", attention_split_ref(
+                q, k, v, **kw, n_splits=ns)
+        else:
+            route, route_ref = "tc_3xtf32", attention_tf32x3_ref(q, k, v,
+                                                                 **kw)
+        route_err, _ = compare(torch, got, route_ref, ATTN_TOL,
+                               f"{label}/{route}")
+        del route_ref
         qq, kk = qp[:, :, None].long(), kp[:, None, :].long()
         valid = (kk != 2**31 - 1) & (kk <= qq)
         if window is not None:
@@ -555,10 +582,16 @@ def flash_rows(torch, timer, cap):
         slots = float(valid.any(dim=1).sum())
         nbytes = 4 * (2 * q.numel() + 2 * slots * k.shape[2] * k.shape[3]) \
             + 4 * (qp.numel() + kp.numel())
-        b_ms, b_by = bound_ms(nbytes, 4 * q.shape[3] * pairs)
+        # the function's operations at the TF32 peak; its route's beside
+        # it: 3 TF32 passes (flash_tc), or fp32 FMAs on CUDA cores (split)
+        flops = 4 * q.shape[3] * pairs
+        b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
+        r_ms = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)[0] \
+            if route == "tc_3xtf32" else bound_ms(nbytes, flops)[0]
         rows.append(dict(
             name="flash_attention", case=label, shape=list(q.shape) +
-            [k.shape[1]], splits=ns, split_ref_max_abs_err=split_err,
+            [k.shape[1]], splits=ns, route=route, route_bound_ms=r_ms,
+            route_ref_max_abs_err=route_err,
             max_abs_err=err, max_rel_err=rel, tol=ATTN_TOL,
             ms=timer(kern), plain_ms=timer(plain),
             library_ms=timer(_attn_library(torch, q, k, v, qp, kp, window)),
@@ -611,7 +644,8 @@ def phase_kernels(torch, timer):
                                      f"{err} over {TC_ERR_LIMIT}")
             # the function's 2 M K N operations at the TF32 peak (an integer
             # weight is exact in TF32); its route's own work beside it: two
-            # TF32 passes on the tensor cores, else fp32 on CUDA cores
+            # TF32 passes on the tensor cores, else fp32 on CUDA cores.
+            # Every tensor-core row (K2 and K3) is held to TC_ERR_LIMIT
             flops = 2.0 * M * K * N
             b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
             r_ms = bound_ms(nbytes, 2 * flops, TF32_FLOP_PER_S)[0] \
@@ -670,9 +704,9 @@ def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
     result = dict(rec=rec, tokens=out["tokens"], gaps=out["top2_gap"],
                   logits=out["prefill_logits"].float().cpu())
     if profile:
-        emit({"phase": "profile", "engine": label,
-              **profile_call(torch,
-                              lambda: eng.generate(tokens, n_new))})
+        rec["profile"] = profile_call(torch,
+                                      lambda: eng.generate(tokens, n_new))
+        emit({"phase": "profile", "engine": label, **rec["profile"]})
     del eng, out
     gc.collect()
     if on_card:
@@ -1313,6 +1347,58 @@ def check_lm_evaluator(torch, cfg, model, params, policy):
     return rec
 
 
+def short_search(torch, model, params, graph, val):
+    """DETERMINISM_EPISODES episodes of a QUANT search (HierarchicalAgent
+    from SEED, accuracy-guaranteed reward): each episode's policy and
+    reward."""
+    from repro_torch.core import (HierarchicalAgent, QuantEnv, RewardCfg,
+                                  make_cnn_evaluator, run_search)
+    from repro_torch.quant.policy import QuantMode
+    ev = make_cnn_evaluator(model, params, graph, val, mode=QuantMode.QUANT)
+    env = QuantEnv(graph, params, ev, RewardCfg.accuracy_guaranteed(),
+                   mode=QuantMode.QUANT)
+    agent = HierarchicalAgent(env, seed=SEED)
+    policies, episode = [], agent.run_episode
+
+    def recorded(*a, **k):
+        log, policy = episode(*a, **k)
+        policies.append(policy.copy())
+        return log, policy
+    agent.run_episode = recorded
+    res = run_search(agent, n_explore=DETERMINISM_EPISODES[0],
+                     n_exploit=DETERMINISM_EPISODES[1])
+    return policies, [h.reward for h in res.history]
+
+
+def check_determinism(torch, model, data, graph, val):
+    """C1: the substrate trained twice from SEED, every leaf bit for bit,
+    then a short QUANT search twice on it: the same policies (every
+    group's and every activation QBN) and rewards.  Returns the first
+    substrate and the training record (seconds of each training)."""
+    from repro_torch.core.ddpg import tree_leaves
+    runs = [train_substrate(torch, model, model.init(SEED, "cuda"), data)
+            for _ in range(2)]
+    (params, train), (again, train2) = runs
+    leaves = list(zip(tree_leaves(params), tree_leaves(again)))
+    differ = sum(not torch.equal(a, b) for a, b in leaves)
+    searches = [short_search(torch, model, params, graph, val)
+                for _ in range(2)]
+    (pols, rewards), (pols2, rewards2) = searches
+    same_policy = len(pols) == len(pols2) and all(
+        a.weight_bits.keys() == b.weight_bits.keys()
+        and all(np.array_equal(a.weight_bits[n], b.weight_bits[n])
+                for n in a.weight_bits)
+        and a.act_bits == b.act_bits for a, b in zip(pols, pols2))
+    rec = dict(leaves=len(leaves), leaves_differing=differ,
+               episodes=len(rewards), policies_equal=same_policy,
+               rewards_equal=rewards == rewards2, rewards=rewards,
+               rewards_repeat=rewards2)
+    emit({"phase": "search-determinism", **rec})
+    if differ or not same_policy or rewards != rewards2:
+        raise AssertionError(f"search: two runs from one seed differ: {rec}")
+    return params, dict(train, seconds_repeat=train2["seconds"])
+
+
 def phase_search(torch, cfg, lm, lm_params, lm_policy):
     """The AutoQ search on CIF10-7CNN at full width, then the LM
     evaluator on the serving phases' gemma2-2b params."""
@@ -1322,14 +1408,13 @@ def phase_search(torch, cfg, lm, lm_params, lm_policy):
     t0 = time.perf_counter()
     model = CNN(CIF10)
     data = SyntheticImages(img_size=CIF10.img_size)
-    params, train = train_substrate(torch, model, model.init(SEED, "cuda"),
-                                    data)
     val = data.batch(99_999, VAL_IMAGES)
+    graph = model.graph()
+    params, train = check_determinism(torch, model, data, graph, val)
     with torch.no_grad():
         acc_raw = float(model.accuracy(params, {
             k: backend.upload(v, torch.device("cuda"))
             for k, v in val.items()})) * 100.0
-    graph = model.graph()
     emit({"phase": "search-train", "model": CIF10.name, **train,
           "val_images": VAL_IMAGES, "val_acc": acc_raw,
           "searched_groups": sum(l.n_groups for l in graph.layers)})

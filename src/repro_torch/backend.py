@@ -11,6 +11,19 @@ Importing this module turns TF32 off for matmuls and cuDNN, process-wide.
 The reference computes in full fp32 (``ServeEngine(cache_dtype=float32)``),
 and TF32 keeps about three decimal digits, which would break the parity
 tolerances (rtol 1e-4 for the GEMMs, 2e-4 for attention).
+
+It also makes cuDNN deterministic (``cudnn.deterministic = True``, its
+algorithm autotuner off), process-wide.  The search trains its CNN
+substrate and evaluates policies through cuDNN's convolutions
+(``models/cnn.py``); left to itself, cuDNN's conv backward picks
+algorithms that sum in a different order from run to run, so two runs
+from one seed train different substrates and search different policies.
+The reference pins bit-reproducible training
+(``tests/test_trainer_fault.py``: a resumed run equals the uninterrupted
+one), and the port holds itself to the same.  The serving path runs no
+cuDNN op.  ``torch.use_deterministic_algorithms`` is not set: it raises
+on any op without a deterministic kernel, which would turn a serving
+call into an error.
 """
 from __future__ import annotations
 
@@ -21,6 +34,8 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
 
 DeviceLike = Union[str, torch.device, None]
 

@@ -1,9 +1,11 @@
-// Shared by the attention kernels K1 (flash_attention.cu) and K4
-// (paged_attention.cu): the block shape, the shared-memory layout, the
-// staging of the block's query rows, the positional mask, the store of a
-// K/V tile, and one online-softmax update of a block's 32 query rows over
-// a 32-row K/V tile held in shared memory.  Each kernel keeps only its own
-// walk over K/V and its own K/V source.  Then the two halves of a split-KV
+// Shared by the CUDA-core attention walks of K1 (flash_attention.cu's
+// split-KV decode) and K4 (paged_attention.cu): the block shape, the
+// shared-memory layout, the staging of the block's query rows, the
+// positional mask, the store of a K/V tile, and one online-softmax update
+// of a block's 32 query rows over a 32-row K/V tile held in shared memory
+// (K1's prefill, flash_tc, runs on the tensor cores with its own
+// layout).  Each kernel keeps only its own walk over K/V and its own K/V
+// source.  Then the two halves of a split-KV
 // decode: the write of a split's unnormalised row state (write_partial)
 // and the fixed-order merge of the splits (combine_cols).  Last,
 // decode_update: the online-softmax update of a decode block, which holds

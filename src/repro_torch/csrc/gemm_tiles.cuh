@@ -3,27 +3,22 @@
 // :], with W read from its stored form by a weight source.  B6
 // (binary_matmul.cu) has its own pipelined product.
 //
-// PackedRows: w is stored (ceil(K / F), N) int8 with F = 8 / BITS values of
-// one column per byte, packed along K as repro/kernels/pack.py lays them
-// out: field i of packed row r is K row r * F + i, lowest-order field
-// first, two's complement (field() below is pack.extract_fields on the
-// card).  For BITS = 8 this is the plain (K, N) int8 matrix.  Rows past the
-// logical K are masked here, so the caller pads nothing.
+// w is stored (ceil(K / F), N) int8 with F = 8 / BITS values of one column
+// per byte, packed along K as repro/kernels/pack.py lays them out: field i
+// of packed row r is K row r * F + i, lowest-order field first, two's
+// complement (field() below and PackedStage::at are pack.extract_fields
+// on the card).  For BITS = 8 this is the plain (K, N) int8 matrix.  Rows
+// past the logical K are masked here, so the caller pads nothing.
 //
-// Three launch shapes:
-//  * gemm_tc, for K2 (BITS = 8) at M > SKINNY_M (prefill, run()'s chunk
-//    steps): TF32 tensor cores (mma.sync m16n8k8) at fp32 accuracy; see its
-//    section below.  Bound by the function's 2 M K N operations at the
-//    TF32 peak of 495 TFLOP/s (0.71 ms at 8320x2304x9216); its two passes
-//    make the route's own floor twice that (1.43 ms).
-//  * gemm_tiled, for K3 (BITS = 4, 2) at M > SKINNY_M: fp32 FMAs on CUDA
-//    cores, 128 x 128 output tiles, 256 threads with 8 x 8 outputs each, K
-//    in steps of 8 through shared memory; the weight source converts its
-//    stored form into fp32 as the tile is staged.  Its route's floor is
-//    2 M K N fp32 operations at 67 TFLOP/s (5.27 ms at 8320x2304x9216),
-//    7.4x the function's TF32 bound of gemm_tc above.  K3 moves to
-//    gemm_tc in a later change (its int4 and int2 fields are exact in TF32
-//    as well).
+// Two launch shapes:
+//  * gemm_tc, for M > SKINNY_M (prefill, run()'s chunk steps): TF32 tensor
+//    cores (mma.sync m16n8k8) at fp32 accuracy; see its section below.
+//    The weight source stages the stored bytes and converts each value to
+//    float as the B fragment is built: Int8Stage for K2, PackedStage for
+//    K3 (int8, int4 and int2 values are all exact in TF32).  Bound by the
+//    function's 2 M K N operations at the TF32 peak of 495 TFLOP/s (0.71
+//    ms at 8320x2304x9216); its two passes make the route's own floor
+//    twice that (1.43 ms).
 //  * gemm_skinny, for M <= SKINNY_M (decode, the last-token logits): bound
 //    by the weight bytes, so each warp reads 128 contiguous bytes per
 //    packed row (4 columns a thread), warps split the rows, and when the
@@ -49,102 +44,11 @@ __device__ __forceinline__ float field(int byte, int i) {
   return static_cast<float>(m - ((m >> (BITS - 1)) << BITS));
 }
 
-// ---------------------------------------------------------------- tiled
-constexpr int TBM = 128, TBN = 128, TBK = 8, TT = 16;  // TT x TT threads
-typedef float WTile[TBK][TBN];
-
-// Weight source of the packed store: int8 / int4 / int2 packed along K,
-// one scale per column applied to the finished accumulator.
-template <int BITS>
-struct PackedRows {
-  static constexpr int F = 8 / BITS;
-  static_assert(TBK % F == 0, "a K step must hold whole packed rows");
-  const int8_t* w;
-  const float* scale;
-
-  __device__ void begin(int, int, int) {}
-  __device__ void stage(WTile& Bs, int k0, int n0, int K, int N,
-                        int tid) const {
-    const int Kp = (K + F - 1) / F;
-    for (int i = tid; i < (TBK / F) * TBN; i += TT * TT) {
-      const int pr = i / TBN, c = i % TBN;
-      const int grow = k0 / F + pr, gn = n0 + c;
-      const int byte = (grow < Kp && gn < N) ? w[(size_t)grow * N + gn] : 0;
-#pragma unroll
-      for (int f = 0; f < F; ++f)
-        Bs[pr * F + f][c] = (grow * F + f < K) ? field<BITS>(byte, f) : 0.f;
-    }
-  }
-  __device__ float col_scale(int n) const { return scale[n]; }
-};
-
-template <class W>
-__global__ void __launch_bounds__(TT * TT)
-gemm_tiled(const float* __restrict__ x, W wsrc, float* __restrict__ y,
-           int M, int K, int N) {
-  __shared__ float As[TBM][TBK + 1];
-  __shared__ float Bs[TBK][TBN];
-  const int tid = threadIdx.x;
-  const int tr = tid / TT, tc = tid % TT;
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  W w = wsrc;
-  w.begin(tid, n0, N);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += TBK) {
-    for (int i = tid; i < TBM * TBK; i += TT * TT) {
-      const int r = i / TBK, c = i % TBK;
-      const int gm = m0 + r, gk = k0 + c;
-      As[r][c] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
-    }
-    w.stage(Bs, k0, n0, K, N, tid);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TBK; ++kk) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[tr + TT * i][kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk][tc + TT * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int gn = n0 + tc + TT * j;
-    if (gn >= N) continue;
-    const float s = w.col_scale(gn);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int gm = m0 + tr + TT * i;
-      if (gm < M) y[(size_t)gm * N + gn] = acc[i][j] * s;
-    }
-  }
-}
-
-// Launch gemm_tiled over weight source `w` on `stream`; returns
-// cudaGetLastError() right after the launch.
-template <class W>
-int launch_tiled(const float* x, const W& w, float* y, int M, int K, int N,
-                 cudaStream_t stream) {
-  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-  gemm_tiled<W><<<grid, TT * TT, 0, stream>>>(x, w, y, M, K, N);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------- tensor cores
 // gemm_tc: y = (x @ w) * scale on TF32 tensor cores at fp32 accuracy.
 //
-// Numerics.  TF32 keeps 10 mantissa bits, so every int8 weight (|w| <=
-// 127 < 2048) is exact in it and only x loses bits.  Each x value is split
+// Numerics.  TF32 keeps 10 mantissa bits, so every int8, int4 and int2
+// weight (|w| <= 127 < 2048) is exact in it and only x loses bits.  Each x value is split
 // in registers at fragment load, hi = rna_tf32(x), lo = rna_tf32(x - hi),
 // and two MMAs (hi, then lo, against the same weight fragment) go into one
 // fp32 accumulator: x @ w to ~2^-22 of x, against ~2^-11 for one pass.
@@ -181,26 +85,11 @@ constexpr int CBM = 128, CBN = 128, CBK = 32, CST = 3;  // tile, K step, ring
 constexpr int CNT = 256;                                 // threads
 constexpr int CAP = CBK + 4;          // staged x row stride, floats
 
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// c += a (16 x 8, row) @ b (8 x 8, col), TF32 in, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Weight source of gemm_tc: int8 (K, N) rows staged as bytes.  VEC: 16-byte
 // cp.async copies (N % 16 == 0 and w 16-byte aligned), else byte loads.
 template <bool VEC>
 struct Int8Stage {
+  static constexpr int F = 1;              // values per stored byte
   static constexpr int RS = CBN + 16;      // bytes per staged K row
   static constexpr int BYTES = CBK * RS;   // bytes per stage
   static_assert(CBK * CBN / 16 == CNT, "one 16-byte copy per thread");
@@ -225,6 +114,66 @@ struct Int8Stage {
   // W at (k, n) of a staged tile, as a float (exact in TF32)
   __device__ __forceinline__ float at(const int8_t* src, int k, int n) const {
     return static_cast<float>(src[k * RS + n]);
+  }
+  __device__ float col_scale(int n) const { return scale[n]; }
+};
+
+// Weight source of gemm_tc for K3: int4 / int2 fields packed along K, a K
+// step's CBK / F packed rows staged as bytes (16 rows of int4, 8 of int2)
+// and unpacked with field() where the B fragment is built.  VEC: 16-byte
+// cp.async copies (N % 16 == 0 and w 16-byte aligned), else byte loads.
+template <int BITS, bool VEC>
+struct PackedStage {
+  static constexpr int F = 8 / BITS;
+  static constexpr int PR = CBK / F;       // packed rows per K step
+  static constexpr int RS = CBN + 16;      // bytes per staged packed row
+  static constexpr int BYTES = PR * RS;    // bytes per stage
+  static_assert(CBK % F == 0 && PR * CBN / 16 <= CNT,
+                "a K step holds whole packed rows, one copy a thread");
+  const int8_t* w;
+  const float* scale;
+
+  __device__ void stage(int8_t* dst, int k0, int n0, int K, int N,
+                        int tid) const {
+    const int Kp = (K + F - 1) / F, r0 = k0 / F;
+    if (VEC) {
+      if (tid < PR * CBN / 16) {
+        const int r = tid / (CBN / 16), c = (tid % (CBN / 16)) * 16;
+        const int gr = r0 + r, gn = n0 + c;
+        const bool ok = gr < Kp && gn < N;
+        cp_async16(dst + r * RS + c, ok ? w + (size_t)gr * N + gn : w, ok);
+      }
+    } else {
+      for (int i = tid; i < PR * CBN; i += CNT) {
+        const int r = i / CBN, c = i % CBN;
+        const int gr = r0 + r, gn = n0 + c;
+        dst[r * RS + c] = (gr < Kp && gn < N) ? w[(size_t)gr * N + gn] : 0;
+      }
+    }
+  }
+  // The last K step's packed row that holds the logical K's last field
+  // (kmax = K - k0 < CBK, kmax % F != 0): its fields at or past K, e.g.
+  // one int4 field at K = 1001, are set to zero in the staged tile, so that
+  // they add exact zeros whatever x holds there (rows wholly past K were
+  // zero-filled when staged).
+  __device__ void mask_tail(int8_t* dst, int kmax, int tid) const {
+    const int pr = kmax / F, keep = (1 << (BITS * (kmax % F))) - 1;
+    for (int c = tid; c < CBN; c += CNT)
+      dst[pr * RS + c] = static_cast<int8_t>(dst[pr * RS + c] & keep);
+  }
+  // Field k % F of packed row k / F at column n, as a float, exact (int4
+  // and int2 are exact in TF32): the field's bits, their sign bit flipped,
+  // become the low mantissa bits of 2^23, and one FMA scales and re-centres
+  // them (no integer-to-float conversion).  At a fragment's k (a multiple
+  // of 8 plus t4 or t4 + 4) the field index is t4 % F, so the masks are
+  // the same for every value a thread loads.
+  __device__ __forceinline__ float at(const int8_t* src, int k, int n) const {
+    constexpr int MASK = (1 << BITS) - 1;
+    const int off = BITS * (k % F);
+    const int u = (static_cast<int>(src[(k / F) * RS + n]) & (MASK << off)) ^
+                  ((1 << (off + BITS - 1)) | 0x4B000000);
+    return fmaf(__int_as_float(u), __int_as_float((127 - off) << 23),
+                -static_cast<float>((1 << (23 - off)) + (1 << (BITS - 1))));
   }
   __device__ float col_scale(int n) const { return scale[n]; }
 };
@@ -289,6 +238,12 @@ gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait<CST - 2>();              // step kt's tiles have landed
     __syncthreads();                       // and step kt - 1's reads ended
+    if constexpr (W::F > 1) {              // Int8Stage zero-fills past K
+      if (K - kt * CBK < CBK && (K - kt * CBK) % W::F != 0) {
+        w.mask_tail(Bs + (kt % CST) * W::BYTES, K - kt * CBK, tid);
+        __syncthreads();                   // (the same for the whole block)
+      }
+    }
     const int pf = kt + CST - 1;
     if (pf < nk)
       stage(pf % CST, pf);
@@ -461,12 +416,17 @@ int launch_gemm(const float* x, const int8_t* w, const float* scale, float* y,
                 cudaStream_t stream) {
   constexpr int F = 8 / BITS;
   if (M > SKINNY_M) {
+    const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
     if constexpr (BITS == 8) {
-      if (N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0)
+      if (vec)
         return launch_tc(x, Int8Stage<true>{w, scale}, y, M, K, N, stream);
       return launch_tc(x, Int8Stage<false>{w, scale}, y, M, K, N, stream);
     } else {
-      return launch_tiled(x, PackedRows<BITS>{w, scale}, y, M, K, N, stream);
+      if (vec)
+        return launch_tc(x, PackedStage<BITS, true>{w, scale}, y, M, K, N,
+                         stream);
+      return launch_tc(x, PackedStage<BITS, false>{w, scale}, y, M, K, N,
+                       stream);
     }
   }
   const int Kp = (K + F - 1) / F;

@@ -8,12 +8,21 @@
 //
 // Bound on an H100: at decode (M = 2) by the packed weight bytes, 1/2 or
 // 1/4 byte per element read once, which is the whole point of the store;
-// at prefill (M = 8320) by fp32 operations on CUDA cores.  The design
-// (gemm_tiles.cuh) reads only packed bytes from device memory and unpacks
-// them with shift, mask and sign extension in registers, in exactly the
-// field order of repro/kernels/pack.py::extract_fields; rows past the
-// logical K are masked in the kernel instead of padding x (the reference
-// wrapper pads x, repro/kernels/ops.py:61-62).
+// at prefill (M = 8320) and run()'s chunk steps (M = 2048) by the
+// function's 2 M K N operations at the TF32 tensor-core peak of 495
+// TFLOP/s (0.71 ms at 8320x2304x9216; the two passes of the route below
+// need 1.43 ms).  The design (gemm_tiles.cuh) reads only packed bytes from
+// device memory and unpacks them with shift, mask and sign extension in
+// registers, in exactly the field order of
+// repro/kernels/pack.py::extract_fields; fields past the logical K are
+// masked in the kernel instead of padding x (the reference wrapper pads
+// x, repro/kernels/ops.py:61-62).  For M <= 8 a skinny weight-streaming
+// pass on CUDA cores; for larger M K2's gemm_tc, 128 x 128 tiles on TF32
+// mma.sync with x split into hi and lo TF32 parts, the packed rows of a K
+// step staged as bytes (PackedStage) and each field unpacked where the MMA
+// fragment is built (int4 and int2 are exact in TF32, so two passes give
+// fp32 accuracy); the scale multiplies the finished accumulator once,
+// where the Pallas kernel applies it.
 #include "gemm_tiles.cuh"
 
 extern "C" int packed_matmul_f32(const void* x, const void* pw,

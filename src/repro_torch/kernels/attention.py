@@ -6,9 +6,12 @@ as a CUDA C++ kernel (``csrc/flash_attention.cu``).  q (B, Sq, Hq, D),
 k / v (B, Skv, Hkv, D), q_pos (B, Sq) and kv_pos (B, Skv) int32; causal and
 sliding-window validity come from comparing positions alone, so ring-buffer
 caches and sentinel tails (``POS_SENTINEL``) need no other argument.
-Decode, where one q tile holds every position and the single walk would
-leave most of the card idle, splits the KV walk across blocks
-(:func:`decode_splits`) and merges the splits in a second pass.
+Prefill runs a walk on TF32 tensor cores with both operands of both
+products split in three passes (fp32 accuracy;
+``ref.attention_tf32x3_ref`` states its arithmetic).  Decode, where one
+q tile holds every position and that walk would leave most of the card
+idle, splits the KV walk across blocks (:func:`decode_splits`) and merges
+the splits in a second pass.
 
 K4 -- :func:`paged_prefill_attention` (and :func:`paged_decode_attention`,
 its k = 1 wrapper), causal attention for q tiles of k left-aligned tokens
@@ -110,6 +113,9 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"head dim {D}: the kernel takes multiples of 8 up "
                          f"to {MAX_HEAD_DIM}")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % 16:                       # 16-byte vector loads
+            raise ValueError(f"{what}: data must be 16-byte aligned")
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

@@ -4,7 +4,8 @@
 Port of ``repro/kernels/packed_matmul.py::packed_matmul_pallas`` as a CUDA
 C++ kernel (``csrc/packed_matmul.cu``, shared GEMM in
 ``csrc/gemm_tiles.cuh``): it reads only packed bytes and unpacks them in
-registers.  The wrapper runs the plain version (``ref.packed_matmul_ref``)
+registers, on TF32 tensor cores for M > 8 as K2 does
+(``quant_matmul.route``).  The wrapper runs the plain version (``ref.packed_matmul_ref``)
 for CPU tensors and the kernel for CUDA tensors; there is no fallback
 between them.
 """

@@ -5,7 +5,8 @@ C++ kernel (``csrc/quant_matmul.cu``, shared GEMM in
 ``csrc/gemm_tiles.cuh``): for M > ``SKINNY_M`` on TF32 tensor cores with
 x split into two TF32 parts (fp32 accuracy; :func:`route` names it, and
 ``ref.quant_matmul_tf32x2_ref`` states its numerics), else a skinny
-weight-streaming pass on CUDA cores.  The wrapper runs the plain version
+weight-streaming pass on CUDA cores.  K3 (``packed_matmul.py``) shares
+the rule, the launch shapes and :func:`launch_gemm`.  The wrapper runs the plain version
 (``ref.quant_matmul_ref``) for CPU tensors and the kernel for CUDA
 tensors; there is no fallback between them.
 """
@@ -28,12 +29,11 @@ def _fn():
 
 def route(M: int, bits: int = 8) -> str:
     """The launch shape that ``launch_gemm``'s kernel takes for M rows of a
-    ``bits``-wide weight: ``skinny`` (weight streaming) for M <= SKINNY_M,
-    else ``tc_2xtf32`` for K2 (int8, TF32 tensor cores, two passes) and
-    ``fp32_tiled`` for K3 (int4 / int2, fp32 CUDA cores)."""
-    if M <= SKINNY_M:
-        return "skinny"
-    return "tc_2xtf32" if bits == 8 else "fp32_tiled"
+    ``bits``-wide weight (8 for K2; 4 or 2 for K3, the same rule):
+    ``skinny`` (weight streaming on CUDA cores) for M <= SKINNY_M, else
+    ``tc_2xtf32`` (gemm_tc: TF32 tensor cores, x split into two passes;
+    int8, int4 and int2 weights are exact in TF32)."""
+    return "skinny" if M <= SKINNY_M else "tc_2xtf32"
 
 
 def ksplit(M: int, rows: int, N: int, device: torch.device) -> int:

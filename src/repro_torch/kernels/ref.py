@@ -2,8 +2,9 @@
 ``repro/kernels/ref.py``), and plain statements of what the card's
 kernels compute where their arithmetic differs from the reference's: the
 split-KV decode walks of K1 (:func:`attention_split_ref`) and K4
-(:func:`paged_attention_split_ref`), and K2's two-pass TF32 product
-(:func:`quant_matmul_tf32x2_ref`).
+(:func:`paged_attention_split_ref`), K1's three-pass TF32 prefill walk
+(:func:`attention_tf32x3_ref`), and the two-pass TF32 product of K2 and
+K3 (:func:`quant_matmul_tf32x2_ref`, on K3's unpacked weight).
 
 The wrappers in ``quant_matmul.py`` / ``packed_matmul.py`` /
 ``binary_matmul.py`` / ``fake_quant.py`` run these for CPU tensors;
@@ -40,11 +41,11 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
 
 def quant_matmul_tf32x2_ref(x: torch.Tensor, qw: torch.Tensor,
                             scale: torch.Tensor) -> torch.Tensor:
-    """K2's numerics on the tensor cores (csrc/gemm_tiles.cuh: gemm_tc):
-    x split into ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x - hi)``, each
-    part times the int8 weight (exact: int8 is exact in TF32 and the
-    products fit f32), sums in f32, then the per-channel scale.  Tests
-    only; no card path runs it."""
+    """K2's and K3's numerics on the tensor cores (csrc/gemm_tiles.cuh:
+    gemm_tc): x split into ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x -
+    hi)``, each part times the integer weight (int8, or K3's unpacked int4
+    / int2: exact in TF32, and the products fit f32), sums in f32, then
+    the per-channel scale.  Tests only; no card path runs it."""
     xf, w = x.to(torch.float32), qw.to(torch.float32)
     hi = tf32_rna(xf)
     return (hi @ w + tf32_rna(xf - hi) @ w) * scale[None, :].to(torch.float32)
@@ -87,12 +88,14 @@ def fake_quant_ref(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _split_walk(qf, k, v, q_pos, kv_pos, runs, *, window, attn_cap,
-                causal):
+                causal, mm=torch.einsum):
     """Each split's online softmax over its slot run ``[a, b)``, 32 slots a
     tile, by the reference's update rule, then the merge in split order:
     m = max_s m_s, e_s = exp(m_s - m_safe), o = sum_s e_s acc_s /
     max(sum_s e_s l_s, 1e-30).  qf: (B, Sq, Hkv, G, D) pre-scaled f32;
-    k, v: (B, S, Hkv, D) f32; returns (B, Sq, Hkv, G, D)."""
+    k, v: (B, S, Hkv, D) f32; returns (B, Sq, Hkv, G, D).  ``mm`` computes
+    the two products of a tile (an einsum, or :func:`einsum_tf32x3`).  A
+    tile's P V is a fresh sum added to the rescaled accumulator."""
     from repro_torch.kernels.attention import BKV
     from repro_torch.models.layers import NEG_INF, _mask_scores, softcap
     B, Sq, Hkv, G, D = qf.shape
@@ -103,7 +106,7 @@ def _split_walk(qf, k, v, q_pos, kv_pos, runs, *, window, attn_cap,
         acc = torch.zeros((B, Sq, Hkv, G, D), device=qf.device)
         for t0 in range(a, b, BKV):
             sl = slice(t0, min(t0 + BKV, b))
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k[:, sl])
+            s = mm("bqhgd,bkhd->bhgqk", qf, k[:, sl])
             s = _mask_scores(softcap(s, attn_cap), q_pos, kv_pos[:, sl],
                              causal=causal, window=window)
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -113,7 +116,7 @@ def _split_walk(qf, k, v, q_pos, kv_pos, runs, *, window, attn_cap,
             alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
                                 torch.zeros_like(m))
             l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + torch.einsum(
+            acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + mm(
                 "bhgqk,bkhd->bqhgd", p, v[:, sl])
             m = m_new
         parts.append((m, l, acc))
@@ -147,6 +150,39 @@ def attention_split_ref(q, k, v, *, q_pos, kv_pos, window=None,
     o = _split_walk(qf, k.to(torch.float32), v.to(torch.float32), q_pos,
                     kv_pos, runs, window=window, attn_cap=attn_cap,
                     causal=causal)
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def einsum_tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, a, b)`` in three TF32 passes, as the tensor cores
+    compute it with both operands split: ``hi = tf32_rna(v)``,
+    ``lo = tf32_rna(v - hi)``, then ``hi.hi + hi.lo + lo.hi`` (each
+    product of two TF32 values is exact in f32; lo.lo, ~2^-22 of the
+    product, is dropped)."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl)) + \
+        torch.einsum(eq, al, bh)
+
+
+def attention_tf32x3_ref(q, k, v, *, q_pos, kv_pos, window=None,
+                         attn_cap=None, causal=True):
+    """What K1's tensor-core prefill walk computes
+    (csrc/flash_attention.cu: flash_tc): the reference's online softmax
+    over KV tiles of 32 rows, with both products of a tile in three TF32
+    passes (:func:`einsum_tf32x3`): the scores ``S = q k^T`` on the
+    pre-scaled q, then the softcap and the mask on the f32 scores, and
+    ``P V`` with P and V both split, a fresh sum added (round to nearest)
+    to the rescaled running output.  Layouts as ``layers.attention_ref``.
+    Tests and ``chip_smoke.py`` hold the kernel to it; no card path runs
+    it."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qf = (q.to(torch.float32) * (1.0 / math.sqrt(D))).reshape(
+        B, Sq, Hkv, Hq // Hkv, D)
+    o = _split_walk(qf, k.to(torch.float32), v.to(torch.float32), q_pos,
+                    kv_pos, [(0, Skv)], window=window, attn_cap=attn_cap,
+                    causal=causal, mm=einsum_tf32x3)
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 

@@ -9,13 +9,17 @@ the JAX reference on the CPU.
   beside long ones (empty splits), an idle lane (exact zeros), an int8
   pool, one split, and a two-column q tile; and the split rule
   ``attention.paged_decode_splits``.
-* K2's tensor-core numerics (``csrc/gemm_tiles.cuh``: gemm_tc), stated by
-  ``ref.quant_matmul_tf32x2_ref``: x split into two rna-TF32 parts against
-  the reference's ``quant_matmul_ref`` at rtol = atol = 1e-4 of
-  test_packed.py, and the single TF32 pass failing that tolerance at
-  K = 9216, which is why the kernel makes two; and an emulation of the
-  MMA's truncating accumulation, which is why the kernel sums each K step
-  in a fresh accumulator.
+* The tensor-core numerics of K2 and K3 (``csrc/gemm_tiles.cuh``:
+  gemm_tc), stated by ``ref.quant_matmul_tf32x2_ref``: x split into two
+  rna-TF32 parts against the reference's ``quant_matmul_ref`` (int8) and
+  ``packed_matmul_ref`` (int4 / int2, the weight unpacked first: its
+  fields are exact in TF32 too) at rtol = atol = 1e-4 of test_packed.py,
+  and the single TF32 pass failing that tolerance at K = 9216, which is
+  why the kernel makes two; and an emulation of the MMA's truncating
+  accumulation, which is why the kernel sums each K step in a fresh
+  accumulator.
+* The process-wide numerics switches of ``repro_torch.backend``: TF32 off,
+  cuDNN deterministic.
 """
 import numpy as np
 import pytest
@@ -26,9 +30,12 @@ torch.set_num_threads(2)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import attention as jattn  # noqa: E402
+from repro.kernels import pack as jpack  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models.transformer import _kv_quant as j_kv_quant  # noqa: E402
+from repro_torch import backend as tbackend  # noqa: E402
 from repro_torch.kernels import attention as tattn  # noqa: E402
+from repro_torch.kernels import pack as tpack  # noqa: E402
 from repro_torch.kernels import quant_matmul as tqm  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
@@ -146,8 +153,8 @@ def test_paged_decode_splits_rule():
     """run()'s decode step (4 rows x 1 token, gemma2-2b, 264 pages of 16)
     puts about, and at most, two blocks on each of an H100's 132 SMs;
     chunk steps, q tiles wider than 32 / G, full grids and single tiles
-    keep the single walk; the splits never outnumber the tiles.  K2 routes
-    M > 8 to the tensor cores."""
+    keep the single walk; the splits never outnumber the tiles.  K2 and K3
+    route M > 8 to the tensor cores."""
     ns = tattn.paged_decode_splits(4, 1, 8, 4, 4224, 132)
     assert ns == 15 and 1.75 * 132 <= ns * 4 * 4 <= 2 * 132
     assert tattn.paged_decode_splits(4, 512, 8, 4, 4224, 132) == 1
@@ -166,7 +173,7 @@ def test_paged_decode_splits_rule():
                         assert n == 1
     assert tqm.route(2) == "skinny" and tqm.route(8, 4) == "skinny"
     assert tqm.route(9) == tqm.route(2048, 8) == "tc_2xtf32"
-    assert tqm.route(9, 4) == tqm.route(2048, 2) == "fp32_tiled"
+    assert tqm.route(9, 4) == tqm.route(2048, 2) == "tc_2xtf32"
 
 
 # ------------------------------------------------------ K2 on TF32 cores
@@ -204,6 +211,38 @@ def test_quant_matmul_tf32x2_ref_matches_reference(M, K, N):
     if K == 9216:
         one = (tref.tf32_rna(_t(x)) @ _t(qw).float() * _t(s)).numpy()
         assert not np.allclose(one, want, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("M,K,N", [(64, 9216, 128), (37, 1001, 333)])
+def test_packed_matmul_tf32x2_ref_matches_reference(M, K, N, bits):
+    """K3 at M > 8 runs gemm_tc as K2 does, its int4 / int2 fields unpacked
+    where the fragment is built: two TF32 passes of x against the unpacked
+    weight hold the reference's packed_matmul_ref (K = 1001 leaves one
+    int4 field, three int2 fields, of the last byte past K)."""
+    rng = np.random.default_rng(M + K + N + bits)
+    lv = 2 ** (bits - 1) - 1
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    qw = rng.integers(-lv, lv + 1, size=(K, N)).astype(np.int8)
+    s = ((rng.random(N) + 0.5) / (lv * np.sqrt(K))).astype(np.float32)
+    pw = np.asarray(jpack.pack_sub8(jnp.asarray(qw), bits, axis=0))
+    want = np.asarray(jref.packed_matmul_ref(jnp.asarray(x), jnp.asarray(pw),
+                                             jnp.asarray(s), bits))
+    unpacked = tpack.unpack_sub8(_t(pw), bits, k=K, axis=0)
+    assert torch.equal(unpacked, _t(qw))
+    two = tref.quant_matmul_tf32x2_ref(_t(x), unpacked, _t(s)).numpy()
+    np.testing.assert_allclose(two, want, **GEMM_TOL)
+    assert np.abs(two - want).max() < 2e-5
+
+
+def test_backend_pins_deterministic_cudnn():
+    """Importing the port's backend turns TF32 off and makes cuDNN
+    deterministic with its autotuner off (bit-reproducible training)."""
+    assert tbackend.torch is torch
+    assert torch.backends.cudnn.deterministic is True
+    assert torch.backends.cudnn.benchmark is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
 def _tc_accumulate(hi, lo, q, flush_every):
