@@ -14,26 +14,34 @@ run exits non-zero:
               weights for B5 fake-quant, bit for bit; CIF10's conv0, conv1
               and conv5 im2col and fc products for B6 bit-plane matmul),
               and times kernel, plain version, one library call and the
-              bound (CUDA events, L2 flushed before each run, median of
-              10).  K1's prefill rows run its TF32 tensor-core walk
-              (flash_tc, route tc_3xtf32) and are also held against the
-              plain statement of its arithmetic (attention_tf32x3_ref).
-              K1's decode rows (the global cache, the local ring, and
-              one query at position 40 whose splits are mostly empty) and
-              K4's (4 rows at ~4175 positions: global, window, int8 pool;
-              4 rows at ~40) run the split-KV walks: each prints its split
-              count and is also held against its walk's plain statement;
-              every K1 and K4 row must give the same bits on a second call.
-              The GEMM rows cover generate's shapes and run()'s 2048-row
-              chunk shapes; each prints its route (K2 and K3: tc_2xtf32
-              for M > 8, else skinny) and that route's bound beside the
-              function's; every tensor-core row must also come within
-              TC_ERR_LIMIT of quant_matmul_ref / packed_matmul_ref.  Every
-              bound counts the function's operations at the TF32 peak
-              where its values are exact in TF32 or the route makes them
-              so (GEMMs, attention); `route_bound_ms` is the floor of the
-              route taken (2 TF32 passes for the GEMMs on tensor cores, 3
-              for K1's prefill, fp32 on CUDA cores for the rest).
+              bound (CUDA events, L2 flushed before each run, median of 10;
+              kernel and library runs take turns), the device time of both,
+              and on the GEMM rows the host time of both. K1's prefill rows
+              and K4's chunk rows (4 x 512 over fp32 pages, global and
+              window, and over int8 pages) run the TF32 tensor-core walk
+              (attn_tc, route tc_3xtf32, or tc_3xtf32_split where K4's chunk
+              rule splits it) and are also held against the plain statement
+              of its arithmetic (attention_tf32x3_ref,
+              paged_attention_split_ref with einsum_tf32x3). K1's decode
+              rows (the global cache, the local ring, and one query at
+              position 40 whose splits are mostly empty) and K4's (4 rows at
+              ~4175 positions: global, window, int8 pool; 4 rows at ~40; 36
+              rows at one split) run the split-KV walks on CUDA cores
+              (fp32_split), also held against their plain statements. Each
+              attention row prints its split count. The GEMM rows cover
+              generate's shapes and run()'s 2048-row chunk shapes; each
+              prints its route (K2 and K3: tc_2xtf32 for M > 8, else skinny,
+              one launch that sums its K splits in a cluster) and that
+              route's bound beside the function's, must make exactly one
+              launch a call, and every tensor-core row must also come within
+              TC_ERR_LIMIT of quant_matmul_ref / packed_matmul_ref. Every
+              kernel row must give the same bits on a second call. Every
+              bound counts the function's operations at the TF32 peak where
+              its values are exact in TF32 or the route makes them so
+              (GEMMs, attention); `route_bound_ms` is the floor of the route
+              taken (2 TF32 passes for the GEMMs on tensor cores, 3 for the
+              attention walks on tensor cores, fp32 on CUDA cores for the
+              rest).
 3. serve   -- ServeEngine.generate on gemma2-2b at full width and depth
               with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
@@ -48,7 +56,9 @@ run exits non-zero:
               generate (top-2 gap rule), monolithic prefill on the first
               4, launch counts, host syncs per step, and one profiled run
               (device time by kernel group: K4's chunk and decode
-              launches, K2's and K3's GEMMs).
+              launches, K2's and K3's GEMMs; one device launch per GEMM
+              call, a trace that lost kernel records taken again, at
+              most TRACE_ATTEMPTS times, as is generate's on engine A).
 6. search  -- the AutoQ search on CIF10-7CNN at full width: trains the
               substrate (250 Adam steps, batch 128, as the example does)
               twice from one seed and requires every leaf equal bit for
@@ -98,17 +108,23 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet: HBM3 bandwidth
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet: fp32, non-tensor
 TF32_FLOP_PER_S = 495e12      # H100 SXM data sheet: TF32 tensor, dense
 # device-time groups of the profiled runs: kernel-name fragments
+# (attn_tc's K/V source and gemm_tc's weight source name their launches;
+# paged_combine merges the splits of both K4 walks)
 KERNEL_GROUPS = {
-    "k1_tc": ("flash_tc",),
+    "k1_tc": ("DenseSlots",),
     "k1_split": ("flash_split", "split_combine"),
-    "k4_chunk": ("paged_fwd",),
-    "k4_decode": ("paged_split", "paged_combine"),
-    "k2_tc": ("Int8Stage",),              # gemm_tc's weight source names it
-    "k2_skinny": ("gemm_skinny<8>",),
+    "k4_chunk": ("PagedSlots",),
+    "k4_decode": ("paged_split",),
+    "k4_merge": ("paged_combine",),
+    "k2_tc": ("Int8Stage",),
+    "k2_skinny": ("gemm_stream<8,",),
     "k3_tc": ("PackedStage",),
-    "k3_skinny": ("gemm_skinny<4>", "gemm_skinny<2>"),
-    "gemm_reduce_k2_k3": ("gemm_reduce",),
+    "k3_skinny": ("gemm_stream<4,", "gemm_stream<2,"),
 }
+GEMM_GROUPS = {"quant_matmul": ("k2_tc", "k2_skinny"),
+               "packed_matmul": ("k3_tc", "k3_skinny")}
+# profiled runs traced again when their trace lost GEMM launch records
+TRACE_ATTEMPTS = 3
 
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/test_attention.py:25
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_packed.py:68-69
@@ -186,6 +202,41 @@ def kernel_groups(keyed):
             for g, frags in KERNEL_GROUPS.items()}
 
 
+def traced_gemm_launches(trace, what):
+    """``trace()`` -> a profile with ``groups``, taken until K2's and K3's
+    device launches in it equal their wrappers' counts of the same run:
+    one launch per call.  A CUPTI trace can drop kernel records (plain
+    PyTorch kernels' as well as ours, a few in a run of tens of
+    thousands) but never adds one, so more device launches than calls
+    fail at once and fewer trace the run again, TRACE_ATTEMPTS times at
+    most.  Returns the last profile, with ``gemm_launches`` (the pairs)
+    and ``trace_shortfalls`` (the launches each earlier trace missed),
+    and the problems found."""
+    from repro_torch import kernels
+    shortfalls = []
+    for _ in range(TRACE_ATTEMPTS):
+        kernels.reset_launch_counts()
+        prof = trace()
+        launches = kernels.launch_counts()
+        pairs = {name: dict(calls=launches[name],
+                            device_launches=sum(prof["groups"][g]["calls"]
+                                                for g in grps))
+                 for name, grps in GEMM_GROUPS.items()}
+        prof["gemm_launches"], prof["trace_shortfalls"] = pairs, shortfalls
+        over = [f"{what}: {n} made {p['device_launches']} device launches "
+                f"for {p['calls']} calls" for n, p in pairs.items()
+                if p["device_launches"] > p["calls"]]
+        if over:
+            return prof, over
+        short = sum(p["calls"] - p["device_launches"]
+                    for p in pairs.values())
+        if not short:
+            return prof, []
+        shortfalls.append(short)
+    return prof, [f"{what}: each of {TRACE_ATTEMPTS} traces missed GEMM "
+                  f"launches ({shortfalls}); last {pairs}"]
+
+
 class Timer:
     """CUDA-event timing with the L2 cache flushed before every run.
 
@@ -212,28 +263,70 @@ class Timer:
     def device(self, fn):
         """Mean device time per call in ms: the profiled kernel time
         of ``reps`` (flush + call) runs less that of ``reps`` flushes.
-        None if the profiler saw no device activity."""
-        flush_us = self._profiled_us(None)
-        total_us = self._profiled_us(fn)
-        if flush_us <= 0 or total_us <= 0:
-            return None
-        return (total_us - flush_us) / self.reps / 1e3
+        A pair of traces in which either saw no device activity (a trace
+        can come back empty) is taken again, TRACE_ATTEMPTS times at
+        most; None if every pair did."""
+        for _ in range(TRACE_ATTEMPTS):
+            flush_us = self._profiled_us(None)
+            total_us = self._profiled_us(fn)
+            if flush_us > 0 and total_us > 0:
+                return (total_us - flush_us) / self.reps / 1e3
+        return None
+
+    def launches(self, fn) -> int:
+        """Device launches (kernels with device time) of one ``fn()``.  A
+        trace that shows none is taken again (TRACE_ATTEMPTS times at
+        most): it can drop a kernel record but never adds one."""
+        from torch.profiler import ProfilerActivity, profile
+        for _ in range(TRACE_ATTEMPTS):
+            self.torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                self.torch.cuda.synchronize()
+            n = sum(e.count for e in prof.key_averages()
+                    if getattr(e, "device_time_total", 0.0) > 0)
+            if n:
+                return n
+        return n
+
+    def _event(self, fn) -> float:
+        torch = self.torch
+        self.flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
 
     def __call__(self, fn) -> float:
-        torch = self.torch
         for _ in range(self.warm):
             fn()
-        times = []
-        for _ in range(self.reps):
-            self.flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
+        return float(np.median([self._event(fn) for _ in range(self.reps)]))
+
+    def pair(self, fn, lib):
+        """Event ms (medians) of ``fn`` and ``lib``, their runs taking
+        turns, so that drift on the shared host falls on both alike."""
+        for _ in range(self.warm):
             fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
+            lib()
+        a, b = [], []
+        for _ in range(self.reps):
+            a.append(self._event(fn))
+            b.append(self._event(lib))
+        return float(np.median(a)), float(np.median(b))
+
+    def host(self, fn) -> float:
+        """Host ms of one call: ``reps`` calls back to back (none waits
+        for the device) from an idle device, over ``reps``."""
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(self.reps):
+            fn()
+        t = time.perf_counter() - t0
+        self.torch.cuda.synchronize()
+        return t / self.reps * 1e3
 
 
 def compare(torch, got, want, tol, what):
@@ -354,27 +447,34 @@ def _paged_pool(torch, g, rows, k, kv_bits=None):
 def _paged_cases():
     """(label, rows, k, window, kv_bits) at the run phase's shapes: 512-token
     chunks (a late chunk of a 4160-token prompt, a first chunk, a partial
-    chunk, an idle lane), decode tokens at ~4175 positions, and decode
-    tokens at ~40 (most splits empty)."""
+    chunk, an idle lane) over fp32 and int8 pages, decode tokens at ~4175
+    positions, decode tokens at ~40 (most splits empty), and a decode step
+    of 36 slots at 1000-4150 positions, whose 144 blocks fill the card
+    unsplit (the decode walk at one split)."""
     chunk = [(4160, 3648, 512), (512, 0, 512), (1254, 1024, 230), (0, 0, 0)]
     dec = [(4176, 4175, 1), (4171, 4170, 1), (4161, 4160, 1),
            (4101, 4100, 1)]
     short = [(41, 40, 1), (44, 43, 1), (39, 38, 1), (37, 36, 1)]
     yield "chunk_global", chunk, CHUNK, None, None
     yield "chunk_window4096", chunk, CHUNK, 4096, None
+    yield "chunk_int8", chunk, CHUNK, None, 8
     yield "decode_global", dec, 1, None, None
     yield "decode_window4096", dec, 1, 4096, None
     yield "decode_int8", dec, 1, None, 8
     yield "decode_short", short, 1, None, None
+    wide = [(1000 + 90 * i, 999 + 90 * i, 1) for i in range(36)]
+    yield "decode_wide", wide, 1, None, None
 
 
 def paged_rows(torch, timer, cap):
     """K4 against paged_attention_ref on the real (non-sentinel) columns
-    (and, where it splits, against the split walk's plain statement); the
-    idle lane must come back as exact zeros, and a second call must give
-    the same bits."""
+    and against the plain statement of the walk it takes (the decode
+    walk's paged_attention_split_ref, or the tensor-core walk's, with
+    einsum_tf32x3); the idle lane must come back as exact zeros, and a
+    second call must give the same bits."""
     from repro_torch.kernels import attention
-    from repro_torch.kernels.ref import paged_attention_split_ref
+    from repro_torch.kernels.ref import (einsum_tf32x3,
+                                         paged_attention_split_ref)
     from repro_torch.models.layers import paged_attention_ref, paged_gather
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -398,14 +498,18 @@ def paged_rows(torch, timer, cap):
         pick = lambda t: torch.cat([t[i, :c] for i, c in real])
         err, rel = compare(torch, pick(got), pick(want), ATTN_TOL,
                            f"paged/{label}")
-        ns = attention.paged_decode_splits(
-            q.shape[0], k, q.shape[2], kp.shape[2], bt.shape[1] * PAGE, n_sm)
-        split_err = None
-        if ns > 1:
-            split_err, _ = compare(
-                torch, pick(got), pick(paged_attention_split_ref(
-                    *args, **kw, n_splits=ns)), ATTN_TOL,
-                f"paged/{label}/split")
+        shape = (q.shape[0], k, q.shape[2], kp.shape[2], bt.shape[1] * PAGE,
+                 n_sm)
+        walk, ns = attention.paged_walk(*shape)
+        if walk == "decode":
+            route, mm = "fp32_split", torch.einsum
+        else:
+            route = "tc_3xtf32_split" if ns > 1 else "tc_3xtf32"
+            mm = einsum_tf32x3
+        route_err, _ = compare(
+            torch, pick(got), pick(paged_attention_split_ref(
+                *args, **kw, n_splits=ns, mm=mm)), ATTN_TOL,
+            f"paged/{label}/{route}")
         for i, (L, _, c) in enumerate(spec):
             if not L and bool((got[i] != 0).any()):
                 raise AssertionError(f"paged/{label}: idle lane {i} is not "
@@ -431,27 +535,29 @@ def paged_rows(torch, timer, cap):
         nbytes = n_pages * page_bytes + 8 * q.numel() + \
             4 * (bt.numel() + qp.numel())
         # the function's operations at the TF32 peak (3 TF32 passes give
-        # fp32 accuracy); its route's, fp32 FMAs on CUDA cores, beside it
+        # fp32 accuracy); its route's beside it: 3 TF32 passes (attn_tc),
+        # or fp32 FMAs on CUDA cores (the decode walk)
         b_ms, b_by = bound_ms(nbytes, 4 * D * pairs, TF32_FLOP_PER_S)
-        r_ms = bound_ms(nbytes, 4 * D * pairs)[0]
+        r_ms = bound_ms(nbytes, 4 * D * pairs)[0] if route == "fp32_split" \
+            else bound_ms(nbytes, 3 * 4 * D * pairs, TF32_FLOP_PER_S)[0]
         kg, vg = paged_gather(kp, bt), paged_gather(vp, bt)
         if ks is not None:
             kg = kg.float() * paged_gather(ks, bt)[..., None]
             vg = vg.float() * paged_gather(vs, bt)[..., None]
+        lib = _attn_library(torch, q, kg, vg, qp, kvp, window)
+        ms, lib_ms = timer.pair(kern, lib)
         rows.append(dict(
             name="paged_attention", case=label,
             shape=list(q.shape) + [bt.shape[1] * PAGE], splits=ns,
-            route="fp32_split" if ns > 1 else "fp32_walk",
-            route_bound_ms=r_ms,
-            split_ref_max_abs_err=split_err, max_abs_err=err,
-            max_rel_err=rel, tol=ATTN_TOL, ms=timer(kern),
-            plain_ms=timer(plain),
-            library_ms=timer(_attn_library(torch, q, kg, vg, qp, kvp,
-                                           window)),
+            route=route, route_bound_ms=r_ms,
+            route_ref_max_abs_err=route_err, max_abs_err=err,
+            max_rel_err=rel, tol=ATTN_TOL, ms=ms,
+            plain_ms=timer(plain), library_ms=lib_ms,
+            library_device_ms=timer.device(lib),
             device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by,
             pages_walked=n_pages))
         emit({"phase": "kernel", **rows[-1]})
-        del got, again, want, kg, vg, kp, vp
+        del got, again, want, kg, vg, kp, vp, lib
     torch.cuda.empty_cache()
     return rows
 
@@ -588,16 +694,18 @@ def flash_rows(torch, timer, cap):
         b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
         r_ms = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)[0] \
             if route == "tc_3xtf32" else bound_ms(nbytes, flops)[0]
+        lib = _attn_library(torch, q, k, v, qp, kp, window)
+        ms, lib_ms = timer.pair(kern, lib)
         rows.append(dict(
             name="flash_attention", case=label, shape=list(q.shape) +
             [k.shape[1]], splits=ns, route=route, route_bound_ms=r_ms,
             route_ref_max_abs_err=route_err,
             max_abs_err=err, max_rel_err=rel, tol=ATTN_TOL,
-            ms=timer(kern), plain_ms=timer(plain),
-            library_ms=timer(_attn_library(torch, q, k, v, qp, kp, window)),
+            ms=ms, plain_ms=timer(plain), library_ms=lib_ms,
+            library_device_ms=timer.device(lib),
             device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
         emit({"phase": "kernel", **rows[-1]})
-        del got, again
+        del got, again, lib
     return rows
 
 
@@ -615,6 +723,7 @@ def phase_kernels(torch, timer):
                    ("wd_chunk", 2048, 9216, 2304),
                    ("ragged", 37, 1001, 333)]
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for bits, name in ((8, "quant_matmul"), (4, "packed_matmul"),
                        (2, "packed_matmul")):
         lv = 2 ** (bits - 1) - 1
@@ -633,9 +742,17 @@ def phase_kernels(torch, timer):
                 kern = lambda: ops.packed_matmul(x, w, s, store_bits=bits)
                 plain = lambda: packed_matmul_ref(x, w, s, bits)
             got = kern()
+            again = kern()
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}/int{bits}/{label}: two calls on "
+                                     "the same inputs give different bits")
             err, rel = compare(torch, got, plain(), GEMM_TOL,
                                f"{name}/int{bits}/{label}")
+            n_launch = timer.launches(kern)
+            if n_launch != 1:
+                raise AssertionError(f"{name}/int{bits}/{label}: {n_launch} "
+                                     "device launches a call, want 1")
             wdeq = qv.float() * s[None, :]
             nbytes = 4 * (M * K + N + M * N) + w.numel()
             route = quant_matmul.route(M, bits)
@@ -650,15 +767,21 @@ def phase_kernels(torch, timer):
             b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
             r_ms = bound_ms(nbytes, 2 * flops, TF32_FLOP_PER_S)[0] \
                 if route == "tc_2xtf32" else bound_ms(nbytes, flops)[0]
+            lib = lambda: torch.matmul(x, wdeq)
+            ms, lib_ms = timer.pair(kern, lib)
             rows.append(dict(
                 name=name, case=f"int{bits}_{label}", shape=[M, K, N],
                 route=route, route_bound_ms=r_ms, max_abs_err=err,
-                max_rel_err=rel, tol=GEMM_TOL,
-                ms=timer(kern), plain_ms=timer(plain),
-                library_ms=timer(lambda: torch.matmul(x, wdeq)),
-                device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
+                max_rel_err=rel, tol=GEMM_TOL, launches_per_call=n_launch,
+                splits=quant_matmul.skinny_splits(w.shape[0], N, n_sm)
+                if route == "skinny" else None,
+                ms=ms, plain_ms=timer(plain), library_ms=lib_ms,
+                library_device_ms=timer.device(lib),
+                device_ms=timer.device(kern), host_ms=timer.host(kern),
+                library_host_ms=timer.host(lib), bound_ms=b_ms,
+                bound_by=b_by))
             emit({"phase": "kernel", **rows[-1]})
-            del x, qv, w, wdeq, got
+            del x, qv, w, wdeq, got, again
     torch.cuda.empty_cache()
     return rows
 
@@ -704,9 +827,13 @@ def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
     result = dict(rec=rec, tokens=out["tokens"], gaps=out["top2_gap"],
                   logits=out["prefill_logits"].float().cpu())
     if profile:
-        rec["profile"] = profile_call(torch,
-                                      lambda: eng.generate(tokens, n_new))
-        emit({"phase": "profile", "engine": label, **rec["profile"]})
+        prof, problems = traced_gemm_launches(
+            lambda: profile_call(torch, lambda: eng.generate(tokens, n_new)),
+            f"generate {label}")
+        rec["profile"] = prof
+        emit({"phase": "profile", "engine": label, **prof})
+        if problems:
+            raise AssertionError("; ".join(problems))
     del eng, out
     gc.collect()
     if on_card:
@@ -1032,9 +1159,18 @@ def phase_run(torch, cfg, model, params, policy):
     check = dict(overlap_bitwise=bitwise, first_differences=firsts,
                  trace_counts=dict(eng.trace_counts), problems=problems)
     emit({"phase": "run-check", **check})
-    res, prof = profile_run(torch, eng, reqs, dict(kw, overlap=True))
-    if not all(np.array_equal(a, b) for a, b in zip(res["outputs"], on)):
-        problems.append("run: the profiled run's streams differ")
+    traced = []
+
+    def trace():
+        res, prof = profile_run(torch, eng, reqs, dict(kw, overlap=True))
+        traced.append(res["outputs"])
+        return prof
+
+    prof, gemm_problems = traced_gemm_launches(trace, "run profile")
+    problems += gemm_problems
+    if not all(np.array_equal(a, b) for outs in traced
+               for a, b in zip(outs, on)):
+        problems.append("run: a profiled run's streams differ")
     emit({"phase": "run-profile", **prof})
     if problems:
         raise AssertionError("run checks failed: " + "; ".join(problems))

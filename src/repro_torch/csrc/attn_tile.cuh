@@ -1,25 +1,24 @@
-// Shared by the CUDA-core attention walks of K1 (flash_attention.cu's
-// split-KV decode) and K4 (paged_attention.cu): the block shape, the
-// shared-memory layout, the staging of the block's query rows, the
-// positional mask, the store of a K/V tile, and one online-softmax update
-// of a block's 32 query rows over a 32-row K/V tile held in shared memory
-// (K1's prefill, flash_tc, runs on the tensor cores with its own
-// layout).  Each kernel keeps only its own walk over K/V and its own K/V
-// source.  Then the two halves of a split-KV
-// decode: the write of a split's unnormalised row state (write_partial)
-// and the fixed-order merge of the splits (combine_cols).  Last,
-// decode_update: the online-softmax update of a decode block, which holds
-// only its R <= 32 real query rows and shares their work among all 256
-// threads (K4's split walk; K1's split walk still runs tile_update).
+// Shared by the attention walks of K1 (flash_attention.cu) and K4
+// (paged_attention.cu), and by attn_tc.cuh, their tensor-core walk: the
+// block shape and tile size, the positional mask, the two halves of a
+// split-KV walk (the write of a split's unnormalised row state,
+// write_partial / partial_row, and the fixed-order merge of the splits,
+// combine_cols, which K1's split decode and both of K4's walks use), and
+// the CUDA-core online-softmax updates of the split-KV decode walks:
+// tile_update (K1's flash_split: a block's 32 query rows over a 32-row
+// K/V tile, 8 threads a row) with load_q, its staging of the query rows,
+// and decode_update (K4's paged_split: only the block's R <= 32 real rows,
+// their work shared among all 256 threads).  Each kernel keeps its own
+// walk over K/V and its own K/V source.
 //
-// A block has 256 threads; 8 threads own a query row (position x head):
-// each holds 4 of the tile's 32 scores and D / 8 accumulator columns, so
-// the row max and sum are 3 shuffles.  Numerics follow the reference's
-// _online_update (repro/kernels/attention.py:96-115): m_safe = m if finite
-// else 0, alpha = 0 while m is -inf, so a tile that no row can attend
-// leaves m, l and acc bit for bit unchanged (the kernels skip such tiles
-// before loading them), and the final divide by max(l, 1e-30) turns an
-// all-masked row into exact zeros.
+// In tile_update 8 threads own a query row (position x head): each holds
+// 4 of the tile's 32 scores and D / 8 accumulator columns, so the row max
+// and sum are 3 shuffles.  Numerics follow the reference's _online_update
+// (repro/kernels/attention.py:96-115): m_safe = m if finite else 0, alpha
+// = 0 while m is -inf, so a tile that no row can attend leaves m, l and
+// acc bit for bit unchanged (the kernels skip such tiles before loading
+// them), and the final divide by max(l, 1e-30) turns an all-masked row
+// into exact zeros.
 #pragma once
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -37,15 +36,6 @@ constexpr int DMAX = 256;
 constexpr int DPT = DMAX / TPR;    // accumulator columns per thread (max)
 constexpr int SENT = INT_MAX;      // POS_SENTINEL: never attended
 
-// Dynamic shared memory of a block: Q (ROWS x D+1, pre-scaled), K
-// (BKV x D+1), V (BKV x D) and P (ROWS x BKV+1) in fp32, ~100 KB at
-// D = 256 (rows padded by one float against bank conflicts).
-inline size_t smem_bytes(int D) {
-  return sizeof(float) *
-         ((size_t)ROWS * (D + 1) + (size_t)BKV * (D + 1) + (size_t)BKV * D +
-          (size_t)ROWS * (BKV + 1));
-}
-
 struct Tiles {
   float* Qs;   // ROWS x (D + 1), pre-scaled
   float* Ks;   // BKV x (D + 1)
@@ -53,26 +43,16 @@ struct Tiles {
   float* Ps;   // ROWS x (BKV + 1)
 };
 
-__device__ __forceinline__ Tiles carve(float* smem, int D) {
-  Tiles t;
-  t.Qs = smem;
-  t.Ks = t.Qs + ROWS * (D + 1);
-  t.Vs = t.Ks + BKV * (D + 1);
-  t.Ps = t.Vs + BKV * D;
-  return t;
-}
-
 // Stages the block's query rows: the G heads of kv head h at positions
 // q0 .. q0 + BQ - 1 of batch row b (q is (B, Sq, Hq, D), q_pos (B, Sq)),
 // pre-scaled into Qs, with zeros for rows past the tile or past Sq; their
 // positions into qps (0 for those rows).  qlo / qhi get the lowest and
-// highest position of the sub-tile, sentinels left out when skip_sent
-// (qlo > qhi when nothing is left).  Ends with __syncthreads.
+// highest position of the sub-tile.  Ends with __syncthreads.
 __device__ __forceinline__ void load_q(const float* q, const int* qpos,
                                        float* Qs, int* qps, int& qlo,
                                        int& qhi, int b, int h, int q0, int Sq,
                                        int Hq, int D, int G, int BQ,
-                                       float scale, bool skip_sent) {
+                                       float scale) {
   const int tid = threadIdx.x;
   const int DS = D + 1;
   const int rows = BQ * G;
@@ -94,7 +74,6 @@ __device__ __forceinline__ void load_q(const float* q, const int* qpos,
     int lo = INT_MAX, hi = INT_MIN;
     for (int qq = 0; qq < BQ && q0 + qq < Sq; ++qq) {
       const int p = qpos[(size_t)b * Sq + q0 + qq];
-      if (skip_sent && p == SENT) continue;
       lo = min(lo, p);
       hi = max(hi, p);
     }
@@ -102,15 +81,6 @@ __device__ __forceinline__ void load_q(const float* q, const int* qpos,
     qhi = hi;
   }
   __syncthreads();
-}
-
-// Stores columns d .. d + 3 of tile slot j: kv into Ks, vv into Vs.
-__device__ __forceinline__ void tile_store(const Tiles& t, int j, int d,
-                                           int D, float4 kv, float4 vv) {
-  float* kd = t.Ks + j * (D + 1) + d;
-  kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
-  float* vd = t.Vs + j * D + d;
-  vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
 }
 
 __device__ __forceinline__ bool attendable(int kp, int qp, int causal,
@@ -179,17 +149,6 @@ __device__ __forceinline__ void tile_update(
     for (int j = 0; j < DPT; ++j)
       if (j < nd) acc[j] = fmaf(pc, Vs[c * D + l8 + TPR * j], acc[j]);
   }
-}
-
-// The block's result for row r: acc / max(l, 1e-30) into orow[0..D).
-__device__ __forceinline__ void write_row(float* orow, int l8, int D,
-                                          float l_i,
-                                          const float (&acc)[DPT]) {
-  const int nd = D / TPR;
-  const float denom = fmaxf(l_i, 1e-30f);
-#pragma unroll
-  for (int j = 0; j < DPT; ++j)
-    if (j < nd) orow[l8 + TPR * j] = acc[j] / denom;
 }
 
 // ------------------------------------------------------------ split-KV

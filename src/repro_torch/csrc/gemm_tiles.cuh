@@ -1,16 +1,16 @@
 // The GEMM shared by quant_matmul.cu (int8, BITS = 8) and packed_matmul.cu
 // (int4 / int2, BITS = 4 / 2): y (M, N) = x (M, K) @ W, W = w * scale[None,
-// :], with W read from its stored form by a weight source.  B6
-// (binary_matmul.cu) has its own pipelined product.
+// :], with W read from its stored form.  B6 (binary_matmul.cu) has its own
+// pipelined product.
 //
 // w is stored (ceil(K / F), N) int8 with F = 8 / BITS values of one column
 // per byte, packed along K as repro/kernels/pack.py lays them out: field i
 // of packed row r is K row r * F + i, lowest-order field first, two's
-// complement (field() below and PackedStage::at are pack.extract_fields
-// on the card).  For BITS = 8 this is the plain (K, N) int8 matrix.  Rows
+// complement (PackedStage::at and unpack4 below are pack.extract_fields on
+// the card).  For BITS = 8 this is the plain (K, N) int8 matrix.  Fields
 // past the logical K are masked here, so the caller pads nothing.
 //
-// Two launch shapes:
+// Two launch shapes, one launch per call either way:
 //  * gemm_tc, for M > SKINNY_M (prefill, run()'s chunk steps): TF32 tensor
 //    cores (mma.sync m16n8k8) at fp32 accuracy; see its section below.
 //    The weight source stages the stored bytes and converts each value to
@@ -19,30 +19,27 @@
 //    function's 2 M K N operations at the TF32 peak of 495 TFLOP/s (0.71
 //    ms at 8320x2304x9216); its two passes make the route's own floor
 //    twice that (1.43 ms).
-//  * gemm_skinny, for M <= SKINNY_M (decode, the last-token logits): bound
-//    by the weight bytes, so each warp reads 128 contiguous bytes per
-//    packed row (4 columns a thread), warps split the rows, and when the
-//    columns alone give too few blocks the rows are also split across
-//    blocks (ksplit) into fp32 partials that gemm_reduce sums in a fixed
-//    order (deterministic, no atomics).  Products and sums in fp32.
+//  * gemm_stream, for M <= SKINNY_M (decode, the last-token logits): bound
+//    by the weight bytes; 16-byte loads, four in flight a thread, x staged
+//    once in shared memory, M a template parameter, and the K splits of a
+//    column tile summed inside the launch across a thread-block cluster
+//    (see its section below).  Products and sums in fp32 on CUDA cores.
 // Every shape applies the per-channel scale to the finished fp32
-// accumulator once, where the Pallas kernels apply it.
+// accumulator once, where the Pallas kernels apply it, and sums in a fixed
+// order: two calls give the same bits.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace rt {
 
-constexpr int SKINNY_M = 8;
+namespace cg = cooperative_groups;
 
-template <int BITS>
-__device__ __forceinline__ float field(int byte, int i) {
-  constexpr int mask = (1 << BITS) - 1;
-  const int m = (byte >> (BITS * i)) & mask;
-  return static_cast<float>(m - ((m >> (BITS - 1)) << BITS));
-}
+constexpr int SKINNY_M = 8;
 
 // ---------------------------------------------------------- tensor cores
 // gemm_tc: y = (x @ w) * scale on TF32 tensor cores at fp32 accuracy.
@@ -120,7 +117,7 @@ struct Int8Stage {
 
 // Weight source of gemm_tc for K3: int4 / int2 fields packed along K, a K
 // step's CBK / F packed rows staged as bytes (16 rows of int4, 8 of int2)
-// and unpacked with field() where the B fragment is built.  VEC: 16-byte
+// and unpacked by at() where the B fragment is built.  VEC: 16-byte
 // cp.async copies (N % 16 == 0 and w 16-byte aligned), else byte loads.
 template <int BITS, bool VEC>
 struct PackedStage {
@@ -328,93 +325,309 @@ int launch_tc(const float* x, const W& w, float* y, int M, int K, int N,
 }
 
 // --------------------------------------------------------------- skinny
-constexpr int SW = 8;            // warps per block, splitting packed rows
-constexpr int SCOLS = 32 * 4;    // columns per block
+// gemm_stream: y = (x @ W) * scale for M <= SKINNY_M rows, in one launch
+// that streams W from device memory once.
+//
+// Bound: the weight bytes (Kp x N, Kp = ceil(K / F) packed rows) at the
+// card's 3.35 TB/s; x and y are a few KB.  Keeping HBM busy takes ~20-30
+// KB of loads in flight per SM (bandwidth x ~1 us latency / 132 SMs).
+// Design:
+//  * A block of 256 threads owns 128 columns: 8 column lanes of 16 columns
+//    by 32 row lanes.  A thread reads 16 columns of a packed row per load
+//    (one 16-byte ld.global.nc where N % 16 == 0 and w is 16-byte aligned;
+//    4-byte loads where N % 4 == 0; bytes otherwise), so a warp reads four
+//    whole 128-byte rows per instruction.
+//  * The block walks its packed rows in chunks of 128 (4 rows a row lane):
+//    the loads of chunk c + 1 are issued into registers before chunk c is
+//    computed, so each thread keeps 4 loads (64 bytes) in flight, ~32 KB
+//    an SM at two blocks an SM.
+//  * x is staged in shared memory once per chunk (cp.async into a
+//    two-slot ring, laid out [k][m] so that a packed row's F x M values are
+//    one vector read, a broadcast across the 8 column lanes), zero-filled
+//    for rows m >= M and for fields at or past K, so the fields past K of
+//    the last packed row add exact zeros whatever they hold.
+//  * M is a template parameter (1, 2, 4, 8; the wrapper's M rounded up):
+//    the accumulators (M x 16 a thread) and the reduction storage are
+//    sized by it.
+//  * Each stored value becomes an exact float without an integer-to-float
+//    conversion: its field, sign bit flipped, is byte-permuted into the
+//    mantissa of 2^23 and one add re-centres it (unpack4).  Products and
+//    sums in fp32 on CUDA cores: at M = 2 a byte costs ~4 instructions
+//    against ~14 bytes an SM and cycle at full bandwidth, inside the issue
+//    rate for int8 and int4.
+//  * Split K in one launch: when the columns alone give too few blocks,
+//    the packed rows are cut into S <= 8 runs (kernels/quant_matmul.py::
+//    skinny_splits, from shapes alone; skinny_cut states the cut) and the
+//    S blocks of a column tile form one thread-block cluster.  Each block
+//    sums its rows, its row lanes (two shuffles) and its warps (in warp
+//    order) into shared memory; rank 0 then adds the S blocks' sums from
+//    distributed shared memory in rank order, multiplies by the scale and
+//    writes y.  No atomics and no partials in device memory: every sum runs
+//    in a fixed order, so two calls give the same bits.
+constexpr int SNT = 256;             // threads a block
+constexpr int SCL = 8;               // column lanes, 16 columns each
+constexpr int SCOLS = 16 * SCL;      // columns a block
+constexpr int SRL = SNT / SCL;       // row lanes
+constexpr int SU = 4;                // packed rows a row lane takes a chunk
+constexpr int SXR = SRL * SU;        // packed rows a chunk
+constexpr int SMAX_SPLIT = 8;        // blocks a cluster (the portable limit)
 
-// out = partial + split * M * N when ksplit > 1 (unscaled), else y (scaled)
+// The F fields of each of the 4 bytes of `wd` (4 columns of one packed
+// row) as exact floats: v[f][c] is field f (K row r * F + f) of column c.
 template <int BITS>
-__global__ void __launch_bounds__(32 * SW)
-gemm_skinny(const float* __restrict__ x, const int8_t* __restrict__ w,
-            const float* __restrict__ scale, float* __restrict__ out,
-            int M, int K, int N, int rows_per_split, int ksplit, int vec) {
+__device__ __forceinline__ void unpack4(uint32_t wd,
+                                        float (&v)[8 / BITS][4]) {
   constexpr int F = 8 / BITS;
-  __shared__ float red[SW][SKINNY_M][SCOLS];
-  const int lane = threadIdx.x, wy = threadIdx.y;
-  const int n0 = blockIdx.x * SCOLS + lane * 4;
-  const int Kp = (K + F - 1) / F;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(Kp, r_begin + rows_per_split);
-  float acc[SKINNY_M][4];
+  constexpr uint32_t MASK = ((1u << BITS) - 1) * 0x01010101u;
+  constexpr uint32_t SIGN = (1u << (BITS - 1)) * 0x01010101u;
+  constexpr float OFF = 8388608.f + (1 << (BITS - 1));   // 2^23 + bias
 #pragma unroll
-  for (int m = 0; m < SKINNY_M; ++m)
+  for (int f = 0; f < F; ++f) {
+    // each byte now holds its field plus 2^(BITS-1), in 0 .. 2^BITS - 1
+    const uint32_t u = ((wd >> (BITS * f)) & MASK) ^ SIGN;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+    for (int c = 0; c < 4; ++c)    // 0x4B0000uu is the float 2^23 + uu
+      v[f][c] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | c)) -
+                OFF;
+  }
+}
 
-#pragma unroll 2
-  for (int pr = r_begin + wy; pr < r_end; pr += SW) {
-    int b[4] = {0, 0, 0, 0};
-    const int8_t* row = w + (size_t)pr * N;
-    if (vec && n0 + 3 < N) {
-      const char4 v = *reinterpret_cast<const char4*>(row + n0);
-      b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
-    } else {
+// 16 bytes (columns n0 .. n0 + 15) of one packed row, zeros where `ok` is
+// false or past N, read VW bytes at a time.
+template <int VW>
+__device__ __forceinline__ void load16(const int8_t* row, bool ok, int n0,
+                                       int N, uint32_t (&wd)[4]) {
+  if (VW == 16) {
+    int4 v = make_int4(0, 0, 0, 0);
+    if (ok && n0 < N) v = __ldg(reinterpret_cast<const int4*>(row + n0));
+    wd[0] = v.x; wd[1] = v.y; wd[2] = v.z; wd[3] = v.w;
+  } else if (VW == 4) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = (n0 + c < N) ? row[n0 + c] : 0;
+    for (int q = 0; q < 4; ++q)
+      wd[q] = (ok && n0 + 4 * q < N)
+                  ? __ldg(reinterpret_cast<const unsigned*>(row + n0 + 4 * q))
+                  : 0u;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t b = 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = n0 + 4 * q + c;
+        if (ok && n < N)
+          b |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(row + n)))
+               << (8 * c);
+      }
+      wd[q] = b;
     }
+  }
+}
+
+// M values of x at one K row, staged [k][m]
+template <int M>
+__device__ __forceinline__ void load_x(const float* p, float (&xv)[M]) {
+  if constexpr (M % 4 == 0) {
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const int k = pr * F + f;
-      if (k >= K) break;
-      float wv[4];
+    for (int m = 0; m < M; m += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + m);
+      xv[m] = t.x; xv[m + 1] = t.y; xv[m + 2] = t.z; xv[m + 3] = t.w;
+    }
+  } else if constexpr (M == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    xv[0] = t.x; xv[1] = t.y;
+  } else {
+    xv[0] = p[0];
+  }
+}
+
+// Dynamic shared memory of gemm_stream: the x ring (2 x SXR F x M floats),
+// reused after the walk for the warps' sums (8 x M x SCOLS floats).
+template <int BITS, int M>
+constexpr size_t stream_smem_bytes() {
+  constexpr size_t ring = sizeof(float) * 2 * SXR * (8 / BITS) * M;
+  constexpr size_t red = sizeof(float) * (SNT / 32) * M * SCOLS;
+  return ring > red ? ring : red;
+}
+
+// One block per (column tile, K split); the S = gridDim.y splits of a
+// column tile form one cluster.  Two blocks an SM (128 registers) except
+// at M = 8 and for byte loads (VW = 1), which would spill there.  Mr:
+// x's real rows (<= M); per: packed rows a split (the last split's run is
+// cut at Kp).
+template <int BITS, int M, int VW>
+__global__ void __launch_bounds__(SNT, M <= 4 && VW > 1 ? 2 : 1)
+gemm_stream(const float* __restrict__ x, const int8_t* __restrict__ w,
+            const float* __restrict__ scale, float* __restrict__ y, int Mr,
+            int K, int N, int per) {
+  constexpr int F = 8 / BITS;
+  constexpr int XK = SXR * F;               // K rows of x a chunk
+  extern __shared__ float4 stream_smem[];
+  float* xs = reinterpret_cast<float*>(stream_smem);   // [2][XK][M]
+  __shared__ float bsum[M * SCOLS];         // the block's sums, [m][col]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int cl = lane % SCL;                           // column lane
+  const int rl = warp * (32 / SCL) + lane / SCL;       // row lane
+  const int n0 = blockIdx.x * SCOLS + cl * 16;
+  const int Kp = (K + F - 1) / F;
+  const int rb = blockIdx.y * per, re = min(Kp, rb + per);
+  const int nch = re > rb ? (re - rb + SXR - 1) / SXR : 0;
+
+  // x at K rows (rb + c SXR) F .. + XK into ring slot c % 2, zero past the
+  // split's rows, past K and for rows m >= Mr
+  auto stage_x = [&](int c) {
+    const int k0 = (rb + c * SXR) * F, kend = min(K, re * F);
+    float* dst = xs + (c & 1) * XK * M;
+    for (int i = tid; i < XK * M; i += SNT) {
+      const int gk = k0 + i / M, m = i % M;
+      const bool ok = m < Mr && gk < kend;
+      rt::cp_async4(dst + i, ok ? x + (size_t)m * K + gk : x, ok);
+    }
+    rt::cp_async_commit();
+  };
+  auto load_w = [&](int c, uint32_t (&wd)[SU][4]) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) wv[c] = field<BITS>(b[c], f);
+    for (int u = 0; u < SU; ++u) {
+      const int r = rb + c * SXR + u * SRL + rl;
+      load16<VW>(w + (size_t)min(r, Kp - 1) * N, r < re, n0, N, wd[u]);
+    }
+  };
+
+  float acc[M][16];
 #pragma unroll
-      for (int m = 0; m < SKINNY_M; ++m) {
-        if (m >= M) break;
-        const float xv = x[(size_t)m * K + k];
+  for (int m = 0; m < M; ++m)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv, wv[c], acc[m][c]);
+    for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
+  uint32_t wc[SU][4], wn[SU][4];
+  if (nch > 0) {
+    load_w(0, wc);
+    stage_x(0);
+  }
+  for (int c = 0; c < nch; ++c) {
+    rt::cp_async_wait<0>();
+    __syncthreads();      // chunk c's x has landed; chunk c - 1 is done
+    if (c + 1 < nch) {
+      load_w(c + 1, wn);
+      stage_x(c + 1);
+    }
+    const float* xb = xs + (c & 1) * XK * M;
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const float* xr = xb + (u * SRL + rl) * F * M;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float v[F][4];
+        unpack4<BITS>(wc[u][q], v);
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          float xv[M];
+          load_x<M>(xr + f * M, xv);
+#pragma unroll
+          for (int m = 0; m < M; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[m][4 * q + e] = fmaf(xv[m], v[f][e], acc[m][4 * q + e]);
+        }
       }
     }
+    if (c + 1 < nch) {
+#pragma unroll
+      for (int u = 0; u < SU; ++u)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) wc[u][q] = wn[u][q];
+    }
   }
+
+  // the warp's 4 row lanes (lanes cl, cl + 8, cl + 16, cl + 24): every
+  // lane ends with the same bits, (a + b) + (c + d) in either order
 #pragma unroll
-  for (int m = 0; m < SKINNY_M; ++m)
+  for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) red[wy][m][lane * 4 + c] = acc[m][c];
+    for (int j = 0; j < 16; ++j) {
+      acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], 8);
+      acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], 16);
+    }
+  __syncthreads();                          // the ring is free: reuse it
+  float* red = xs;                          // [warp][m][col]
+  if (lane < SCL) {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < 16; j += 4)
+        *reinterpret_cast<float4*>(red + (warp * M + m) * SCOLS + cl * 16 +
+                                   j) =
+            make_float4(acc[m][j], acc[m][j + 1], acc[m][j + 2],
+                        acc[m][j + 3]);
+  }
   __syncthreads();
-  const int tid = wy * 32 + lane;
-  for (int i = tid; i < M * SCOLS; i += 32 * SW) {
-    const int m = i / SCOLS, c = i % SCOLS;
-    const int gn = blockIdx.x * SCOLS + c;
-    if (gn >= N) continue;
+  for (int i = tid; i < M * SCOLS; i += SNT) {
     float s = 0.f;
 #pragma unroll
-    for (int q = 0; q < SW; ++q) s += red[q][m][c];
-    if (ksplit == 1)
-      out[(size_t)m * N + gn] = s * scale[gn];
-    else
-      out[((size_t)blockIdx.y * M + m) * N + gn] = s;
+    for (int q = 0; q < SNT / 32; ++q) s += red[q * M * SCOLS + i];
+    bsum[i] = s;
   }
+  // rank 0 of the cluster adds the splits' sums in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    const int S = gridDim.y;                // the cluster's blocks
+    for (int i = tid; i < M * SCOLS; i += SNT) {
+      const int m = i / SCOLS, n = blockIdx.x * SCOLS + i % SCOLS;
+      if (m >= Mr || n >= N) continue;
+      float s = 0.f;
+      for (int r = 0; r < S; ++r) s += cluster.map_shared_rank(bsum, r)[i];
+      y[(size_t)m * N + n] = s * scale[n];
+    }
+  }
+  cluster.sync();                           // peers stay until rank 0 read
 }
 
-// y[m, n] = scale[n] * sum over splits of partial[split, m, n], in order
-__global__ void gemm_reduce(const float* __restrict__ partial,
-                            const float* __restrict__ scale,
-                            float* __restrict__ y, int M, int N, int ksplit) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * N) return;
-  float s = 0.f;
-  for (int q = 0; q < ksplit; ++q) s += partial[(size_t)q * M * N + i];
-  y[i] = s * scale[i % N];
+template <int BITS, int M, int VW>
+int launch_stream(const float* x, const int8_t* w, const float* scale,
+                  float* y, int Mr, int K, int N, int splits,
+                  cudaStream_t stream) {
+  constexpr int F = 8 / BITS;
+  const int Kp = (K + F - 1) / F;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + SCOLS - 1) / SCOLS, splits, 1);
+  cfg.blockDim = dim3(SNT, 1, 1);
+  cfg.dynamicSmemBytes = stream_smem_bytes<BITS, M>();
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, gemm_stream<BITS, M, VW>, x, w, scale, y, Mr,
+                         K, N, (Kp + splits - 1) / splits);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Launch on `stream`; returns cudaGetLastError() right after the launches.
-// `partial` holds ksplit * M * N floats when ksplit > 1 (else unused).
+// gemm_stream at M rounded up to 1, 2, 4 or 8, loads as wide as N and w's
+// alignment allow
+template <int BITS, int M>
+int launch_stream_m(const float* x, const int8_t* w, const float* scale,
+                    float* y, int Mr, int K, int N, int splits,
+                    cudaStream_t stream) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(w);
+  if (N % 16 == 0 && a % 16 == 0)
+    return launch_stream<BITS, M, 16>(x, w, scale, y, Mr, K, N, splits,
+                                      stream);
+  if (N % 4 == 0 && a % 4 == 0)
+    return launch_stream<BITS, M, 4>(x, w, scale, y, Mr, K, N, splits,
+                                     stream);
+  return launch_stream<BITS, M, 1>(x, w, scale, y, Mr, K, N, splits, stream);
+}
+
+// One launch on `stream`: gemm_tc for M > SKINNY_M, else gemm_stream with
+// `splits` K splits (1 .. SMAX_SPLIT); returns the first CUDA error of
+// the setup or the launch.
 template <int BITS>
 int launch_gemm(const float* x, const int8_t* w, const float* scale, float* y,
-                float* partial, int M, int K, int N, int ksplit,
-                cudaStream_t stream) {
-  constexpr int F = 8 / BITS;
+                int M, int K, int N, int splits, cudaStream_t stream) {
   if (M > SKINNY_M) {
     const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
     if constexpr (BITS == 8) {
@@ -429,20 +642,15 @@ int launch_gemm(const float* x, const int8_t* w, const float* scale, float* y,
                        stream);
     }
   }
-  const int Kp = (K + F - 1) / F;
-  const int rows_per_split = (Kp + ksplit - 1) / ksplit;
-  const int vec = (N % 4 == 0) &&
-                  (reinterpret_cast<uintptr_t>(w) % 4 == 0);
-  dim3 grid((N + SCOLS - 1) / SCOLS, ksplit);
-  gemm_skinny<BITS><<<grid, dim3(32, SW), 0, stream>>>(
-      x, w, scale, ksplit == 1 ? y : partial, M, K, N, rows_per_split, ksplit,
-      vec);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || ksplit == 1) return err;
-  const size_t total = (size_t)M * N;
-  gemm_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, scale, y, M, N, ksplit);
-  return static_cast<int>(cudaGetLastError());
+  if (splits < 1 || splits > SMAX_SPLIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 1)
+    return launch_stream_m<BITS, 1>(x, w, scale, y, M, K, N, splits, stream);
+  if (M <= 2)
+    return launch_stream_m<BITS, 2>(x, w, scale, y, M, K, N, splits, stream);
+  if (M <= 4)
+    return launch_stream_m<BITS, 4>(x, w, scale, y, M, K, N, splits, stream);
+  return launch_stream_m<BITS, 8>(x, w, scale, y, M, K, N, splits, stream);
 }
 
 }  // namespace rt

@@ -12,32 +12,34 @@
 // function's 2 M K N operations at the TF32 tensor-core peak of 495
 // TFLOP/s (0.71 ms at 8320x2304x9216; the two passes of the route below
 // need 1.43 ms).  The design (gemm_tiles.cuh) reads only packed bytes from
-// device memory and unpacks them with shift, mask and sign extension in
+// device memory and unpacks them with shifts, masks and a mantissa trick in
 // registers, in exactly the field order of
 // repro/kernels/pack.py::extract_fields; fields past the logical K are
 // masked in the kernel instead of padding x (the reference wrapper pads
-// x, repro/kernels/ops.py:61-62).  For M <= 8 a skinny weight-streaming
-// pass on CUDA cores; for larger M K2's gemm_tc, 128 x 128 tiles on TF32
-// mma.sync with x split into hi and lo TF32 parts, the packed rows of a K
-// step staged as bytes (PackedStage) and each field unpacked where the MMA
-// fragment is built (int4 and int2 are exact in TF32, so two passes give
-// fp32 accuracy); the scale multiplies the finished accumulator once,
-// where the Pallas kernel applies it.
+// x, repro/kernels/ops.py:61-62).  For M <= 8 K2's gemm_stream, one
+// launch that streams the packed bytes (each field made an exact float by
+// a byte permute into the mantissa of 2^23 and one add); for larger M
+// K2's gemm_tc, 128 x 128 tiles on TF32 mma.sync with x split into hi and
+// lo TF32 parts, the packed rows of a K step staged as bytes
+// (PackedStage) and each field unpacked where the MMA fragment is built
+// (int4 and int2 are exact in TF32, so two passes give fp32 accuracy);
+// the scale multiplies the finished accumulator once, where the Pallas
+// kernel applies it.
 #include "gemm_tiles.cuh"
 
+// splits: gemm_stream's K splits (M <= 8; ignored above).
 extern "C" int packed_matmul_f32(const void* x, const void* pw,
-                                 const void* scale, void* y, void* partial,
-                                 int M, int K, int N, int ksplit,
-                                 int store_bits, void* stream) {
+                                 const void* scale, void* y, int M, int K,
+                                 int N, int splits, int store_bits,
+                                 void* stream) {
   const float* xf = static_cast<const float*>(x);
   const int8_t* w = static_cast<const int8_t*>(pw);
   const float* s = static_cast<const float*>(scale);
   float* yf = static_cast<float*>(y);
-  float* pf = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (store_bits == 4)
-    return rt::launch_gemm<4>(xf, w, s, yf, pf, M, K, N, ksplit, st);
+    return rt::launch_gemm<4>(xf, w, s, yf, M, K, N, splits, st);
   if (store_bits == 2)
-    return rt::launch_gemm<2>(xf, w, s, yf, pf, M, K, N, ksplit, st);
+    return rt::launch_gemm<2>(xf, w, s, yf, M, K, N, splits, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

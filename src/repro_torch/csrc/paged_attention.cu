@@ -11,60 +11,54 @@
 // 0..c-1 in ascending order and POS_SENTINEL after; int8 pools add
 // per-(slot, head) scale pages (P, ps, Hkv) fp32; o (B, k, Hq, D) fp32.
 //
-// Bound on an H100: a prompt chunk by fp32 operations (4 D flops per
-// attended (query head, key) pair, on CUDA cores, as K1); a decode token by
-// the bytes of the pages its walk reads, once per kv head.
+// Bound on an H100: a prompt chunk by its operations (4 D flops per
+// attended (query head, key) pair) at the TF32 tensor-core peak, as K1's
+// prefill (its three TF32 passes make the route's floor three times
+// that); a decode token by the bytes of the pages its walk reads, once per
+// kv head.
 //
-// Two launch shapes: paged_fwd below for prompt chunks (and any call the
-// split rule leaves to one walk), and for decode the split-KV walk
-// paged_split + paged_combine (further down).
-//
-// Design:
-//  * One block per (q sub-tile, kv head, row).  As in K1 the block holds
-//    all G = Hq / Hkv query heads of its kv head for BQ = 32 / G positions,
-//    so every page is read once per kv head and sub-tile; a 512-token chunk
-//    at G = 2 is 32 sub-tiles, the split that K1 makes of Sq.  m, l and the
-//    accumulator stay in registers (attn_tile.cuh) while a loop inside the
-//    block walks the row's block table, in place of the TPU's grid axis
-//    over blocks with its scalar-prefetched table.
-//  * The walk is over logical slots, 32 per tile whatever the page size:
-//    slot s lives in page block_tables[row, s / ps] at offset s % ps, and
-//    the block reads each page id from the table in global memory.  It
-//    starts at the page that holds the window's oldest position for the
-//    sub-tile's lowest real position (the reference takes column 0, which
-//    left alignment makes the row's lowest; per sub-tile is the same or
-//    later), and it stops after the page that holds the sub-tile's highest
-//    real position: logical block i holds positions i*ps .. i*ps+ps-1 or
-//    the sentinel, so nothing past it is attendable.  Inside the walk a
-//    tile that no real query row can attend is skipped before its K/V are
-//    loaded, which leaves m, l and acc bit for bit unchanged.
-//  * Masks: sentinel slots, causal by each row's own position, the window,
-//    and the tanh softcap before the mask.  A sub-tile without a real
-//    position walks nothing and writes exact zeros (max(l, 1e-30)).
-//  * int8 pages are dequantized into shared memory on load, each element
-//    times its (slot, head) scale: the same single fp32 multiply as the
-//    plain version's gather-then-dequantize.
-//  * No atomics: every output element is written by one thread after a
-//    walk in a fixed order, so results are deterministic.
-//
-// Known weakness of paged_fwd: a block holds 32 query rows and shares
-// tile_update's work 8 threads a row, so a sub-tile with few real rows
-// leaves most warps idle; decode therefore runs the split walk below.
-// Chunk steps (k = 512) fill every row and keep paged_fwd.
+// Two launch shapes, both walking the row's block table inside the block
+// in place of the TPU's grid axis over blocks with its scalar-prefetched
+// table; kernels/attention.py::paged_walk picks one from shapes alone (the
+// decode walk for q tiles of k <= 32 / G columns, whatever the batch):
+//  * Chunk steps: attn_tc over PagedSlots (attn_tc.cuh, K1's prefill walk with K4's K/V
+//    source).  128 query rows a block (64 positions x G = 2 heads of one
+//    kv head), scores and P V on TF32 mma.sync in three passes (fp32
+//    accuracy), the live slot range computed on the device, int8 pages
+//    dequantized in shared memory once they land.  The walk is also split
+//    across blocks (kernels/attention.py::paged_chunk_splits, from shapes
+//    alone): at run()'s chunk shape (4 rows x 512, 4224 slots) the single
+//    walk's 8 x 4 x 4 = 128 blocks are one wave in which the q tiles of a
+//    long row's late chunk (~130 tiles each) set the time; 8 splits give
+//    1024 blocks of at most ~17 tiles.  Each split writes its unnormalised
+//    (m, l, acc); paged_combine merges them in split order.
+//    kernels/ref.py::paged_attention_split_ref(mm=einsum_tf32x3) states
+//    what it computes.
+//  * Decode: the split-KV walk paged_split + paged_combine, below.
+// Masks: sentinel slots, causal by each row's own position, the window,
+// and the tanh softcap before the mask; an idle lane (all sentinel) walks
+// nothing and comes out as exact zeros.  No atomics: every output element
+// is written by one thread after walks and merges in a fixed order, so
+// two calls give the same bits.
 //
 // ---- Decode: split-KV walk (paged_split, paged_combine).
-// Where one q sub-tile holds every query column (k <= 32 / G: every decode
-// step) and the single walk's R * Hkv blocks (16 at 4 rows on gemma2-2b)
+// Every call whose q tile holds at most 32 / G columns (every decode step)
+// runs this walk.  Where its R * Hkv blocks (16 at 4 rows on gemma2-2b)
 // are fewer than the SMs, the wrapper asks for NS > 1 splits
 // (kernels/attention.py::paged_decode_splits, from shapes alone: 15 at
-// run()'s decode steps, 240 blocks).
+// run()'s decode steps, 240 blocks); a batch whose blocks fill the card
+// alone (B Hkv >= SMs: 33 or more slots on gemma2-2b) runs NS = 1, still
+// through the partials and the merge, a few microseconds of one extra
+// launch.
 //  * One block per (split, kv head, row).  It computes the row's live slot
-//    range on the device as paged_fwd does, cuts it into NS runs of whole
-//    32-slot tiles (tiles counted from the range's first slot) and walks
-//    its own run, so a short row among long ones also spreads over all its
-//    splits.  A split that receives no tile writes m = -inf, l = 0, acc =
-//    0, which the merge adds as exact nothing; an idle lane (all sentinel)
-//    walks nothing in any split and comes out as exact zeros.
+//    range on the device as attn_tc's PagedSlots does (from the window's
+//    first page for the row's lowest real position to the page of its
+//    highest), cuts it into NS runs of whole 32-slot tiles (tiles counted
+//    from the range's first slot) and walks its own run, so a short row
+//    among long ones also spreads over all its splits.  A split that
+//    receives no tile writes m = -inf, l = 0, acc = 0, which the merge
+//    adds as exact nothing; an idle lane (all sentinel) walks nothing in
+//    any split and comes out as exact zeros.
 //  * The block holds only its R = k G query rows (G = 2 at gemma2-2b), and
 //    decode_update (attn_tile.cuh) shares their scores and accumulator
 //    columns among all 256 threads.
@@ -73,19 +67,20 @@
 //    over dead tiles, then starts that tile's copy before it updates on
 //    tile t.  The ids and positions are read from the table 256 slots at
 //    a time (a slot a thread) into shared memory, so a tile costs no
-//    dependent global round trip of its own.  fp32 pages are copied 16 bytes at a time into unpadded rows
-//    (decode_update's reads need none); int8 pages are staged as bytes
-//    (rows padded by 32 bytes against bank conflicts) with their
-//    (slot, head) scales, and each element is multiplied by its scale
-//    where decode_update reads it: the same single fp32 product as
-//    paged_fwd's dequantize-on-load.  A slot lives in page
+//    dependent global round trip of its own.  fp32 pages are copied 16
+//    bytes at a time into unpadded rows (decode_update's reads need
+//    none); int8 pages are staged as bytes (rows padded by 32 bytes
+//    against bank conflicts) with their (slot, head) scales, and each
+//    element is multiplied by its scale where decode_update reads it: the
+//    same single fp32 product as the plain version's
+//    gather-then-dequantize.  A slot lives in page
 //    block_tables[row, s / ps] at offset s % ps, so with 16-slot pages a
 //    tile spans two table entries.
 //  * paged_combine merges the splits in split order with no atomics
 //    (attn_tile.cuh: combine_cols), so a call gives the same bits every
-//    time; it sums in another order than paged_fwd, so the two agree to
-//    the reference tolerance, not bit for bit.  Shared memory: ~140 KB at
-//    D = 256 for fp32 pages (one block an SM), ~48 KB for int8.
+//    time; it sums in another order than the tensor-core walk, so the two
+//    agree to the reference tolerance, not bit for bit.  Shared memory:
+//    ~140 KB at D = 256 for fp32 pages (one block an SM), ~48 KB for int8.
 //  * What bounds it on an H100: decode_update more than the copies.  In a
 //    probe on the card, the walk without its copies took most of the full
 //    walk's time, and a ring of three tiles (two copies in flight) took
@@ -96,115 +91,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_tc.cuh"
 #include "attn_tile.cuh"
 #include "common.cuh"
 
 namespace {
 
 using namespace attn;
-
-template <bool QUANT>
-__global__ void __launch_bounds__(NT)
-paged_fwd(const float* __restrict__ q, const void* __restrict__ kpages,
-          const void* __restrict__ vpages, const int* __restrict__ pos,
-          const int* __restrict__ bt, const int* __restrict__ qpos,
-          const float* __restrict__ kscale, const float* __restrict__ vscale,
-          float* __restrict__ o, int k, int P, int ps, int Hq, int Hkv, int D,
-          int nb, int G, int BQ, int window, float cap, float scale) {
-  extern __shared__ float smem[];
-  const Tiles t = carve(smem, D);
-  __shared__ int kps[BKV];
-  __shared__ long long kslot[BKV];     // flat (page, slot) of each tile slot
-  __shared__ int qps[ROWS];
-  __shared__ int qlo, qhi, tile_live;
-
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, l8 = tid % TPR;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * BQ;
-  const int qi = r / G, head = h * G + r % G;
-  const bool row_ok = r < BQ * G && q0 + qi < k;
-  // qlo / qhi: the sub-tile's real (non-sentinel) positions
-  load_q(q, qpos, t.Qs, qps, qlo, qhi, b, h, q0, k, Hq, D, G, BQ, scale,
-         /*skip_sent=*/true);
-
-  float m_i = -INFINITY, l_i = 0.f;
-  float acc[DPT];
-#pragma unroll
-  for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
-
-  long long s_begin = 0, s_end = 0;    // logical slots to walk
-  if (qlo <= qhi) {
-    long long first = 0;
-    if (window > 0)
-      first = max(0LL, (long long)qlo - (window - 1)) / ps;
-    first = min(first, (long long)nb - 1);
-    s_begin = first * ps;
-    s_end = (long long)min(nb, qhi / ps + 1) * ps;
-  }
-  const int* btrow = bt + (size_t)b * nb;
-  const int8_t* k8 = static_cast<const int8_t*>(kpages);
-  const int8_t* v8 = static_cast<const int8_t*>(vpages);
-  const float* kf = static_cast<const float*>(kpages);
-  const float* vf = static_cast<const float*>(vpages);
-
-  for (long long s0 = s_begin; s0 < s_end; s0 += BKV) {
-    __syncthreads();
-    if (tid == 0) tile_live = 0;
-    __syncthreads();
-    if (tid < BKV) {
-      const long long sl = s0 + tid;
-      int kp = SENT;
-      long long flat = 0;
-      if (sl < s_end) {
-        const int page = btrow[sl / ps];
-        if (page >= 0 && page < P) {
-          flat = (long long)page * ps + sl % ps;
-          kp = pos[flat];
-        }
-      }
-      kps[tid] = kp;
-      kslot[tid] = flat;
-      // some real query row of the sub-tile may attend kp
-      if (kp != SENT && kp <= qhi &&
-          (window <= 0 || (long long)kp > (long long)qlo - window))
-        tile_live = 1;
-    }
-    __syncthreads();
-    if (!tile_live) continue;
-
-    const int D4 = D / 4;
-    for (int i = tid; i < BKV * D4; i += NT) {
-      const int j = i / D4, d = (i % D4) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (kps[j] != SENT) {
-        const size_t row = (size_t)kslot[j] * Hkv + h;
-        const size_t off = row * D + d;
-        if (QUANT) {
-          const char4 kc = *reinterpret_cast<const char4*>(k8 + off);
-          const char4 vc = *reinterpret_cast<const char4*>(v8 + off);
-          const float ks = kscale[row], vs = vscale[row];
-          kv = make_float4((float)kc.x * ks, (float)kc.y * ks,
-                           (float)kc.z * ks, (float)kc.w * ks);
-          vv = make_float4((float)vc.x * vs, (float)vc.y * vs,
-                           (float)vc.z * vs, (float)vc.w * vs);
-        } else {
-          kv = *reinterpret_cast<const float4*>(kf + off);
-          vv = *reinterpret_cast<const float4*>(vf + off);
-        }
-      }
-      tile_store(t, j, d, D, kv, vv);
-    }
-    __syncthreads();
-
-    tile_update(t, kps, qps[r], r, l8, D, /*causal=*/1, window, cap, m_i,
-                l_i, acc);
-  }
-
-  if (row_ok)
-    write_row(o + (((size_t)b * k + q0 + qi) * Hq + head) * D, l8, D, l_i,
-              acc);
-}
 
 // ------------------------------------------------------- split walk
 constexpr int KPAD8 = 32;   // int8 row padding, bytes
@@ -342,7 +235,7 @@ paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
     __syncthreads();
   };
   // From tile t on, the first tile that some real query row may attend
-  // (paged_fwd's skip test), its positions and slots left in buffer u;
+  // (attn_tc's skip test), its positions and slots left in buffer u;
   // t_end if there is none.
   auto next_live = [&](int t, int u) {
     for (; t < t_end; ++t) {
@@ -497,35 +390,18 @@ int launch_split(const void* q, const void* kp, const void* vp,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool QUANT>
-int launch(const void* q, const void* kp, const void* vp, const void* pos,
-           const void* bt, const void* qpos, const void* ks, const void* vs,
-           void* o, int B, int k, int P, int ps, int Hq, int Hkv, int D,
-           int nb, int window, float cap, float scale, cudaStream_t stream) {
-  const int G = Hq / Hkv, BQ = ROWS / G;
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_fwd<QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((k + BQ - 1) / BQ, Hkv, B);
-  paged_fwd<QUANT><<<grid, NT, smem, stream>>>(
-      static_cast<const float*>(q), kp, vp, static_cast<const int*>(pos),
-      static_cast<const int*>(bt), static_cast<const int*>(qpos),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<float*>(o), k, P, ps, Hq, Hkv, D, nb, G, BQ, window, cap,
-      scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // quant != 0: int8 pages with scale pages k_scale / v_scale; otherwise fp32
 // pages and the scale pointers are ignored.  window <= 0: no window;
-// cap <= 0: no softcap.  n_splits <= 1 runs the single walk (paged_fwd);
-// n_splits > 1 needs k <= 32 / G and runs the split walk, with `ml`
-// holding 2 x B Hq n_splits k floats (m, then l) and `pacc` B Hq n_splits k
-// D floats.  Returns cudaGetLastError() right after the launches.
+// cap <= 0: no softcap.  tc == 0 runs the decode walk (paged_split +
+// paged_combine, also at n_splits = 1), which takes q tiles of k <= 32 / G
+// columns only; tc != 0 runs the tensor-core walk (attn_tc over
+// PagedSlots) with n_splits splits, merged by paged_combine when
+// n_splits > 1.  kernels/attention.py::paged_walk picks both.  Where the
+// call merges, `ml` holds 2 x B Hq n_splits k floats (m, then l) and
+// `pacc` B Hq n_splits k D floats.  Returns cudaGetLastError() right
+// after the launches.
 extern "C" int paged_attention_f32(const void* q, const void* k_pages,
                                    const void* v_pages, const void* pos_pages,
                                    const void* block_tables,
@@ -533,24 +409,26 @@ extern "C" int paged_attention_f32(const void* q, const void* k_pages,
                                    const void* v_scale, void* o, void* ml,
                                    void* pacc, int B, int k, int P, int ps,
                                    int Hq, int Hkv, int D, int nb, int quant,
-                                   int window, int n_splits, float cap,
-                                   float scale, void* stream) {
-  if (D % TPR != 0 || D % 4 != 0 || D > DMAX || Hq % Hkv != 0 ||
-      Hq / Hkv > ROWS || ps < 1 || nb < 1 ||
-      (quant && (k_scale == nullptr || v_scale == nullptr)))
+                                   int window, int tc, int n_splits,
+                                   float cap, float scale, void* stream) {
+  const bool merged = !tc || n_splits > 1;
+  if (D % 8 != 0 || D > DMAX || Hq % Hkv != 0 || Hq / Hkv > ROWS ||
+      ps < 1 || nb < 1 || n_splits < 1 ||
+      (!tc && k * (Hq / Hkv) > ROWS) ||
+      (quant && (k_scale == nullptr || v_scale == nullptr)) ||
+      (merged && (ml == nullptr || pacc == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_splits > 1) {
-    if (k * (Hq / Hkv) > ROWS || ml == nullptr || pacc == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int G = Hq / Hkv;
+  const bool vec = D % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
+  if (!tc) {
     if (!quant)
       return launch_split<false, false>(
           q, k_pages, v_pages, pos_pages, block_tables, q_pos, k_scale,
           v_scale, o, ml, pacc, B, k, P, ps, Hq, Hkv, D, nb, window,
           n_splits, cap, scale, st);
-    const bool vec = D % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
     return vec ? launch_split<true, true>(
                      q, k_pages, v_pages, pos_pages, block_tables, q_pos,
                      k_scale, v_scale, o, ml, pacc, B, k, P, ps, Hq, Hkv, D,
@@ -560,10 +438,20 @@ extern "C" int paged_attention_f32(const void* q, const void* k_pages,
                      k_scale, v_scale, o, ml, pacc, B, k, P, ps, Hq, Hkv, D,
                      nb, window, n_splits, cap, scale, st);
   }
-  return quant ? launch<true>(q, k_pages, v_pages, pos_pages, block_tables,
-                              q_pos, k_scale, v_scale, o, B, k, P, ps, Hq,
-                              Hkv, D, nb, window, cap, scale, st)
-               : launch<false>(q, k_pages, v_pages, pos_pages, block_tables,
-                               q_pos, k_scale, v_scale, o, B, k, P, ps, Hq,
-                               Hkv, D, nb, window, cap, scale, st);
+  float* pm = static_cast<float*>(ml);
+  float* pl = pm ? pm + (size_t)B * Hq * n_splits * k : nullptr;
+  float* pa = static_cast<float*>(pacc);
+  const TcArgs a{static_cast<const float*>(q), static_cast<const int*>(q_pos),
+                 k_pages, v_pages, static_cast<const float*>(k_scale),
+                 static_cast<const float*>(v_scale), static_cast<float*>(o),
+                 pm, pl, pa, B, k, Hq, Hkv, D, G, TROWS / G, n_splits,
+                 /*causal=*/1, window, vec ? 1 : 0, cap, scale};
+  const PagedSlots src{static_cast<const int*>(pos_pages),
+                       static_cast<const int*>(block_tables), P, ps, nb};
+  const int e = quant ? launch_tc<PagedSlots, true>(a, src, st)
+                      : launch_tc<PagedSlots, false>(a, src, st);
+  if (e != 0 || n_splits == 1) return e;
+  paged_combine<<<dim3(k, Hq, B), (D + 3) / 4, 0, st>>>(
+      pm, pl, pa, static_cast<float*>(o), k, Hq, D, n_splits);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -5,27 +5,27 @@
 // weight store (repro_torch/kernels/ops.py::packed_mixed_matmul).
 //
 // Bound on an H100: at decode (M = 2) by the weight bytes, 1 byte per
-// element read once; at prefill (M = 8320) and run()'s chunk steps (M =
-// 2048) by the function's 2 M K N operations at the TF32 tensor-core peak
-// of 495 TFLOP/s (0.71 ms at 8320x2304x9216; the two passes of the route
-// below need 1.43 ms, and 2 M K N fp32 operations on CUDA cores 5.27 ms).
-// The design (gemm_tiles.cuh) gives each regime its own launch shape: a
-// skinny weight-streaming pass with 128-byte coalesced rows for M <= 8,
-// and for larger M gemm_tc, 128 x 128 tiles on TF32 mma.sync with each x
-// value split into hi and lo TF32 parts (int8 is exact in TF32, so two
-// passes give fp32 accuracy, and one would not).  The int8 tile is staged
-// as bytes and converted to float as the MMA fragment is built; the scale
-// multiplies the finished accumulator once, where the Pallas kernel
+// element read once (6.3 us at 2304 x 9216); at prefill (M = 8320) and
+// run()'s chunk steps (M = 2048) by the function's 2 M K N operations at
+// the TF32 tensor-core peak of 495 TFLOP/s (0.71 ms at 8320x2304x9216; the
+// two passes of the route below need 1.43 ms, and 2 M K N fp32 operations
+// on CUDA cores 5.27 ms).  The design (gemm_tiles.cuh) gives each regime
+// its own launch shape: for M <= 8 gemm_stream, one launch that streams
+// the weight with 16-byte loads and sums its K splits across a thread-block
+// cluster, and for larger M gemm_tc, 128 x 128 tiles on TF32 mma.sync with
+// each x value split into hi and lo TF32 parts (int8 is exact in TF32, so
+// two passes give fp32 accuracy, and one would not).  The int8 tile is
+// staged as bytes and converted to float as the MMA fragment is built; the
+// scale multiplies the finished accumulator once, where the Pallas kernel
 // applies it.
 #include "gemm_tiles.cuh"
 
+// splits: gemm_stream's K splits (M <= 8; ignored above).
 extern "C" int quant_matmul_f32(const void* x, const void* qw,
-                                const void* scale, void* y, void* partial,
-                                int M, int K, int N, int ksplit,
-                                void* stream) {
+                                const void* scale, void* y, int M, int K,
+                                int N, int splits, void* stream) {
   return rt::launch_gemm<8>(
       static_cast<const float*>(x), static_cast<const int8_t*>(qw),
-      static_cast<const float*>(scale), static_cast<float*>(y),
-      static_cast<float*>(partial), M, K, N, ksplit,
-      static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(scale), static_cast<float*>(y), M, K, N,
+      splits, static_cast<cudaStream_t>(stream));
 }

@@ -18,10 +18,14 @@ its k = 1 wrapper), causal attention for q tiles of k left-aligned tokens
 per sequence over the paged KV pool: port of the reference's function of
 the same name as ``csrc/paged_attention.cu``.  The kernel walks each
 sequence's block-table row itself; int8 pools are dequantized on load.
-Decode tokens, where one q tile holds every column and the single walk
-would leave most of the card idle, split each row's live slot range
-across blocks (:func:`paged_decode_splits`; ``ref.paged_split_slots``
-states the cut) and merge the splits in a second pass.
+Chunk steps run K1's tensor-core walk over the pool's slots (three TF32
+passes; ``ref.paged_attention_split_ref(mm=ref.einsum_tf32x3)`` states
+it); decode tokens, whose q tile holds a few real rows, run a CUDA-core
+walk over those rows alone (:func:`paged_walk` picks the walk).  Either
+walk cuts each row's live slot range across blocks
+(:func:`paged_chunk_splits`, :func:`paged_decode_splits`;
+``ref.paged_split_slots`` states the cut) and merges the splits in a
+second pass.
 
 Each wrapper runs its plain version (``models.layers.attention_ref``,
 ``models.layers.paged_attention_ref``) for CPU tensors and its kernel for
@@ -42,6 +46,7 @@ PAGED_COUNT = build.LaunchCount("paged_attention")
 MAX_HEAD_DIM = 256      # csrc/flash_attention.cu: DMAX
 MAX_GROUP = 32          # query heads per kv head that fit one block
 ROWS = BKV = 32         # csrc/attn_tile.cuh: query rows of a block, KV tile
+TC_ROWS = 128           # csrc/attn_tc.cuh: query rows of a tensor-core block
 POS_SENTINEL = 2**31 - 1
 
 
@@ -121,22 +126,21 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
         return o
     ns = decode_splits(B, Sq, Hq, Hkv, Skv, build.sm_count(q.device))
     ml, pacc = _split_partials(q, ns)
-    with torch.cuda.device(q.device):
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    q_pos.data_ptr(), kv_pos.data_ptr(), o.data_ptr(),
-                    ml, pacc,
-                    B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
-                    int(window or 0), ns, float(attn_cap or 0.0),
-                    1.0 / math.sqrt(D), build.stream_of(q))
+    err = build.launch(_fn(), q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       q_pos.data_ptr(), kv_pos.data_ptr(), o.data_ptr(), ml,
+                       pacc, B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
+                       int(window or 0), ns, float(attn_cap or 0.0),
+                       1.0 / math.sqrt(D))
     COUNT.launches += 1
     build.check(build.load(COUNT.name), err, COUNT.name)
     return o
 
 
-def _split_partials(q, ns):
+def _split_partials(q, ns, merged=None):
     """Pointers (m and l, acc) into one fp32 allocation of the partials of
-    ``ns`` splits for q (B, Sq, Hq, D); (None, None) for the single walk."""
-    if ns <= 1:
+    ``ns`` splits for q (B, Sq, Hq, D); (None, None) for a walk that writes
+    its output itself (``merged`` false, by default ``ns > 1``)."""
+    if not (ns > 1 if merged is None else merged):
         return None, None
     B, Sq, Hq, D = q.shape
     rows = B * Hq * ns * Sq
@@ -149,7 +153,8 @@ def _split_partials(q, ns):
 # --------------------------------------------------------------- paged (K4)
 def paged_decode_splits(B: int, k: int, Hq: int, Hkv: int, n_slots: int,
                         n_sm: int) -> int:
-    """Number of splits of K4's split walk, 1 for the single walk.
+    """Number of splits of K4's decode walk (CUDA cores), 1 for an
+    unsplit walk (:func:`paged_walk` picks the walk).
 
     ``n_slots = nb * page_size`` is a block-table row's capacity: the rule
     reads shapes only, never positions, so the step loop need not sync.
@@ -170,9 +175,51 @@ def paged_decode_splits(B: int, k: int, Hq: int, Hkv: int, n_slots: int,
     return -(-n_tiles // per)
 
 
+def paged_chunk_splits(B: int, k: int, Hq: int, Hkv: int, n_slots: int,
+                       n_sm: int) -> int:
+    """Number of splits of K4's tensor-core walk (chunk steps), 1 for an
+    unsplit walk.
+
+    The rule reads shapes only (``n_slots = nb * page_size``), so the step
+    loop need not sync.  A block holds 128 query rows (``128 // G``
+    positions of one kv head) and runs alone on its SM (~200 KB of shared
+    memory).  At run()'s chunk shape (4 rows x 512, G = 2, 4224 slots) the
+    unsplit grid is 8 x 4 x 4 = 128 blocks, one wave whose time is set by
+    the q tiles of a long row's late chunk, each walking ~130 of the row's
+    32-slot tiles while a short row's walk little.  Splitting each row's
+    live range into NS runs of whole tiles caps a block's walk at
+    ``ceil(tiles / NS)``, so the long row's blocks, wherever the scheduler
+    starts them, end soon after the short ones; the cost is the partials,
+    ``B Hq NS k (D + 2)`` floats written once and read once by the merge
+    (~135 MB at NS = 8).  On an H100 at that shape, forced split counts
+    showed the walk falling from NS = 1 to a floor around NS = 6-12 and
+    rising past it, so splits are taken up to about eight blocks per SM,
+    and never outnumber the tiles."""
+    G = Hq // Hkv
+    blocks = -(-k // (TC_ROWS // G)) * Hkv * B
+    n_tiles = -(-n_slots // BKV)
+    if n_tiles <= 1:
+        return 1
+    return max(1, min(n_tiles, (8 * n_sm) // blocks))
+
+
+def paged_walk(B: int, k: int, Hq: int, Hkv: int, n_slots: int,
+               n_sm: int):
+    """(walk, splits) of a K4 call, from shapes alone: ``"decode"`` (the
+    CUDA-core walk over the block's ``k * G`` real rows) for q tiles of at
+    most ``32 // G`` columns, whatever the batch, with
+    :func:`paged_decode_splits` splits (1 where the rows alone fill the
+    card); else ``"tc"`` (the 128-row tensor-core walk) with
+    :func:`paged_chunk_splits` splits.  The C entry point takes the walk
+    as given and only checks that it fits."""
+    if k <= ROWS // (Hq // Hkv):
+        return "decode", paged_decode_splits(B, k, Hq, Hkv, n_slots, n_sm)
+    return "tc", paged_chunk_splits(B, k, Hq, Hkv, n_slots, n_sm)
+
+
 @functools.lru_cache(maxsize=None)
 def _paged_fn():
-    return build.bind("paged_attention", "paged_attention_f32", 11, 11,
+    return build.bind("paged_attention", "paged_attention_f32", 11, 12,
                       tail=(ctypes.c_float, ctypes.c_float))
 
 
@@ -211,6 +258,8 @@ def _check_paged(q, k_pages, v_pages, pos_pages, block_tables, q_pos,
     for t, what in ((k_pages, "k_pages"), (v_pages, "v_pages")):
         if t.data_ptr() % (4 * t.element_size()):  # 4-element vector loads
             raise ValueError(f"{what}: data must be aligned to 4 elements")
+    if q.data_ptr() % 16:                             # 16-byte vector loads
+        raise ValueError("q: data must be 16-byte aligned")
 
 
 def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
@@ -254,20 +303,19 @@ def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"head dim {D}: the kernel takes multiples of 8 up "
                          f"to {MAX_HEAD_DIM}")
+    walk, ns = paged_walk(B, k, Hq, Hkv, nb * ps, build.sm_count(q.device))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    ns = paged_decode_splits(B, k, Hq, Hkv, nb * ps, build.sm_count(q.device))
-    ml, pacc = _split_partials(q, ns)
-    with torch.cuda.device(q.device):
-        err = _paged_fn()(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            pos_pages.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
-            k_scale_pages.data_ptr() if quant else None,
-            v_scale_pages.data_ptr() if quant else None, o.data_ptr(),
-            ml, pacc, B, k, P, ps, Hq, Hkv, D, nb, int(quant),
-            int(window or 0), ns, float(attn_cap or 0.0), 1.0 / math.sqrt(D),
-            build.stream_of(q))
+    # the decode walk merges its partials even unsplit
+    ml, pacc = _split_partials(q, ns, merged=walk == "decode" or ns > 1)
+    err = build.launch(
+        _paged_fn(), q, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        pos_pages.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
+        k_scale_pages.data_ptr() if quant else None,
+        v_scale_pages.data_ptr() if quant else None, o.data_ptr(), ml, pacc,
+        B, k, P, ps, Hq, Hkv, D, nb, int(quant), int(window or 0),
+        int(walk == "tc"), ns, float(attn_cap or 0.0), 1.0 / math.sqrt(D))
     PAGED_COUNT.launches += 1
     build.check(build.load(PAGED_COUNT.name), err, PAGED_COUNT.name)
     return o

@@ -55,10 +55,9 @@ def binary_matmul(x: torch.Tensor, planes: torch.Tensor,
     w = torch.empty((-(-K // SCRATCH_K) * SCRATCH_K,
                      -(-N // SCRATCH_N) * SCRATCH_N), dtype=torch.float32,
                     device=x.device)
-    with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), planes.data_ptr(), alpha.data_ptr(),
-                    w.data_ptr(), y.data_ptr(), M, K, N, P,
-                    build.stream_of(x))
+    err = build.launch(_fn(), x, x.data_ptr(), planes.data_ptr(),
+                       alpha.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N,
+                       P)
     COUNT.launches += 1
     build.check(build.load(COUNT.name), err, COUNT.name)
     return y

@@ -144,6 +144,17 @@ def sm_count(device: torch.device) -> int:
                      else torch.cuda.current_device())
 
 
-def stream_of(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a C pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(fn, t: torch.Tensor, *args) -> int:
+    """``fn(*args, stream)``: a C entry point called with ``t``'s card
+    current and PyTorch's current stream there as its last argument;
+    returns the entry point's error code.  The card is switched only where
+    it is not current already, and the stream is read as a raw pointer:
+    a device guard and a ``torch.cuda.Stream`` object cost several
+    microseconds of host time a call, which a decode step pays once for
+    every kernel it launches."""
+    idx = t.device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(idx):
+        return fn(*args, stream)

@@ -50,10 +50,9 @@ def fake_quant_channels(x: torch.Tensor, scale: torch.Tensor,
     y = torch.empty_like(x)
     if M == 0 or N == 0:
         return y
-    with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), scale.data_ptr(), levels.data_ptr(),
-                    bits.data_ptr(), y.data_ptr(), M, N, float(FULL_BITS),
-                    build.stream_of(x))
+    err = build.launch(_fn(), x, x.data_ptr(), scale.data_ptr(),
+                       levels.data_ptr(), bits.data_ptr(), y.data_ptr(), M, N,
+                       float(FULL_BITS))
     COUNT.launches += 1
     build.check(build.load(COUNT.name), err, COUNT.name)
     return y

@@ -24,7 +24,7 @@ COUNT = build.LaunchCount("packed_matmul")
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("packed_matmul", "packed_matmul_f32", 5, 5)
+    return build.bind("packed_matmul", "packed_matmul_f32", 4, 5)
 
 
 def packed_matmul(x: torch.Tensor, pw: torch.Tensor, scale: torch.Tensor, *,

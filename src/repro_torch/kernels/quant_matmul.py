@@ -4,9 +4,11 @@ Port of ``repro/kernels/quant_matmul.py::quant_matmul_pallas`` as a CUDA
 C++ kernel (``csrc/quant_matmul.cu``, shared GEMM in
 ``csrc/gemm_tiles.cuh``): for M > ``SKINNY_M`` on TF32 tensor cores with
 x split into two TF32 parts (fp32 accuracy; :func:`route` names it, and
-``ref.quant_matmul_tf32x2_ref`` states its numerics), else a skinny
-weight-streaming pass on CUDA cores.  K3 (``packed_matmul.py``) shares
-the rule, the launch shapes and :func:`launch_gemm`.  The wrapper runs the plain version
+``ref.quant_matmul_tf32x2_ref`` states its numerics), else one
+weight-streaming launch on CUDA cores whose K splits are summed inside
+the launch (:func:`skinny_splits`; :func:`skinny_cut` states the cut).
+K3 (``packed_matmul.py``) shares the rule, the launch shapes and
+:func:`launch_gemm`.  The wrapper runs the plain version
 (``ref.quant_matmul_ref``) for CPU tensors and the kernel for CUDA
 tensors; there is no fallback between them.
 """
@@ -19,12 +21,15 @@ import torch
 from repro_torch.kernels import build, ref
 
 COUNT = build.LaunchCount("quant_matmul")
-SKINNY_M = 8      # csrc/gemm_tiles.cuh: M at or below this streams weights
+SKINNY_M = 8          # csrc/gemm_tiles.cuh: M at or below this streams W
+SKINNY_COLS = 128     # gemm_stream: columns a block
+SKINNY_CHUNK = 128    # gemm_stream: packed rows a block takes at a time
+MAX_SPLITS = 8        # gemm_stream: blocks of a cluster (portable limit)
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("quant_matmul", "quant_matmul_f32", 5, 4)
+    return build.bind("quant_matmul", "quant_matmul_f32", 4, 4)
 
 
 def route(M: int, bits: int = 8) -> str:
@@ -36,14 +41,28 @@ def route(M: int, bits: int = 8) -> str:
     return "skinny" if M <= SKINNY_M else "tc_2xtf32"
 
 
-def ksplit(M: int, rows: int, N: int, device: torch.device) -> int:
-    """Packed rows split across blocks for a skinny (small-M) launch, so
-    that a narrow N still puts about two blocks on every SM."""
-    if M > SKINNY_M:
-        return 1
-    col_blocks = -(-N // 128)
-    return max(1, min(-(-2 * build.sm_count(device) // col_blocks),
-                      rows // 64))
+def skinny_splits(rows: int, N: int, n_sm: int) -> int:
+    """K splits of a skinny (M <= SKINNY_M) launch of ``rows`` packed rows
+    by N columns on a card of ``n_sm`` SMs, from shapes alone.
+
+    The S splits of a 128-column tile run as one thread-block cluster and
+    are summed inside the launch, so S is at most ``MAX_SPLITS``.  Two
+    blocks fit an SM (registers), so the splits fill up to two blocks per
+    SM and round down: a grid just over that would start a second, nearly
+    empty wave.  Each split keeps at least one 128-row chunk (fewer rows
+    would cost more in its prologue and the cluster's sum than they save).
+    N wide enough to fill the card alone (the unembedding) takes 1."""
+    col_tiles = -(-N // SKINNY_COLS)
+    return max(1, min(MAX_SPLITS, (2 * n_sm) // col_tiles,
+                      -(-rows // SKINNY_CHUNK)))
+
+
+def skinny_cut(rows: int, splits: int):
+    """The packed rows ``[a, b)`` of each K split, as gemm_stream cuts them:
+    ``ceil(rows / splits)`` a split, the last one short."""
+    per = -(-rows // splits)
+    return [(min(rows, s * per), min(rows, (s + 1) * per))
+            for s in range(splits)]
 
 
 def check_gemm(x, w, scale, rows: int):
@@ -57,19 +76,17 @@ def check_gemm(x, w, scale, rows: int):
 
 
 def launch_gemm(fn, count, x, w, scale, rows, *extra):
-    """Allocate, launch ``fn`` on the current stream, count, check."""
+    """Allocate, launch ``fn`` on the current stream (one launch), count,
+    check."""
     M, K = x.shape
     N = w.shape[1]
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return y
-    split = ksplit(M, rows, N, x.device)
-    partial = torch.empty((split, M, N), dtype=torch.float32,
-                          device=x.device) if split > 1 else y
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                 partial.data_ptr(), M, K, N, split, *extra,
-                 build.stream_of(x))
+    splits = skinny_splits(rows, N, build.sm_count(x.device)) \
+        if route(M) == "skinny" else 1
+    err = build.launch(fn, x, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                       y.data_ptr(), M, K, N, splits, *extra)
     count.launches += 1
     build.check(build.load(count.name), err, count.name)
     return y

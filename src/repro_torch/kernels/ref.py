@@ -2,9 +2,11 @@
 ``repro/kernels/ref.py``), and plain statements of what the card's
 kernels compute where their arithmetic differs from the reference's: the
 split-KV decode walks of K1 (:func:`attention_split_ref`) and K4
-(:func:`paged_attention_split_ref`), K1's three-pass TF32 prefill walk
-(:func:`attention_tf32x3_ref`), and the two-pass TF32 product of K2 and
-K3 (:func:`quant_matmul_tf32x2_ref`, on K3's unpacked weight).
+(:func:`paged_attention_split_ref`), the three-pass TF32 walks of K1's
+prefill (:func:`attention_tf32x3_ref`) and K4's chunk steps
+(:func:`paged_attention_split_ref` with ``mm=einsum_tf32x3``), and the
+two-pass TF32 product of K2 and K3 (:func:`quant_matmul_tf32x2_ref`, on
+K3's unpacked weight).
 
 The wrappers in ``quant_matmul.py`` / ``packed_matmul.py`` /
 ``binary_matmul.py`` / ``fake_quant.py`` run these for CPU tensors;
@@ -167,10 +169,10 @@ def einsum_tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def attention_tf32x3_ref(q, k, v, *, q_pos, kv_pos, window=None,
                          attn_cap=None, causal=True):
-    """What K1's tensor-core prefill walk computes
-    (csrc/flash_attention.cu: flash_tc): the reference's online softmax
-    over KV tiles of 32 rows, with both products of a tile in three TF32
-    passes (:func:`einsum_tf32x3`): the scores ``S = q k^T`` on the
+    """What K1's tensor-core prefill walk computes (csrc/attn_tc.cuh:
+    attn_tc over DenseSlots): the reference's online softmax over KV tiles
+    of 32 rows, with both products of a tile in three TF32 passes
+    (:func:`einsum_tf32x3`): the scores ``S = q k^T`` on the
     pre-scaled q, then the softcap and the mask on the f32 scores, and
     ``P V`` with P and V both split, a fresh sum added (round to nearest)
     to the rescaled running output.  Layouts as ``layers.attention_ref``.
@@ -217,16 +219,19 @@ def paged_split_slots(s_begin: int, s_end: int, n_splits: int):
 def paged_attention_split_ref(q, k_pages, v_pages, pos_pages, block_tables,
                               *, q_pos, window=None, attn_cap=None,
                               k_scale_pages=None, v_scale_pages=None,
-                              n_splits=1):
-    """What K4's split walk and its merge compute
-    (csrc/paged_attention.cu: paged_split, paged_combine): each row's live
-    logical slots (:func:`paged_live_slots`: from the window's first
-    page for its lowest real position to the page of its highest) are cut
-    into ``n_splits`` runs of whole 32-slot tiles
-    (:func:`paged_split_slots`), each run keeps its own online
-    softmax, and the runs are merged in order (:func:`_split_walk`).  int8
-    pools are dequantized element by element (one f32 product).  An idle
-    lane walks nothing and comes out as exact zeros.  Layouts as
+                              n_splits=1, mm=torch.einsum):
+    """What K4's walks and their merge compute (csrc/paged_attention.cu):
+    each row's live logical slots (:func:`paged_live_slots`: from the
+    window's first page for its lowest real position to the page of its
+    highest) are cut into ``n_splits`` runs of whole 32-slot tiles
+    (:func:`paged_split_slots`), each run keeps its own online softmax,
+    and the runs are merged in order (:func:`_split_walk`).  ``mm`` is the
+    product of a tile: the f32 einsum of the decode walk (paged_split), or
+    :func:`einsum_tf32x3` for the tensor-core walk of chunk steps (attn_tc
+    over PagedSlots, which also skips the tiles its q tile cannot attend:
+    exact, those tiles leave every row's state unchanged).  int8 pools are
+    dequantized element by element (one f32 product).  An idle lane walks
+    nothing and comes out as exact zeros.  Layouts as
     ``layers.paged_attention_ref``.  Tests and ``chip_smoke.py`` hold the
     kernel to it; no card path runs it."""
     from repro_torch.models.layers import paged_gather
@@ -249,5 +254,5 @@ def paged_attention_split_ref(q, k_pages, v_pages, pos_pages, block_tables,
         rows.append(_split_walk(
             qf[r], k[r], v[r], q_pos[r], kv_pos[r],
             paged_split_slots(s0, s1, n_splits), window=window,
-            attn_cap=attn_cap, causal=True))
+            attn_cap=attn_cap, causal=True, mm=mm))
     return torch.cat(rows).reshape(B, kq, Hq, D).to(q.dtype)

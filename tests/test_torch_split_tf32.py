@@ -174,6 +174,10 @@ def test_paged_decode_splits_rule():
     assert tqm.route(2) == "skinny" and tqm.route(8, 4) == "skinny"
     assert tqm.route(9) == tqm.route(2048, 8) == "tc_2xtf32"
     assert tqm.route(9, 4) == tqm.route(2048, 2) == "tc_2xtf32"
+    for bits in (8, 4, 2):
+        assert all(tqm.route(M, bits) == "skinny" for M in range(1, 9))
+        assert all(tqm.route(M, bits) == "tc_2xtf32"
+                   for M in (9, 37, 8320))
 
 
 # ------------------------------------------------------ K2 on TF32 cores
