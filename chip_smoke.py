@@ -180,6 +180,11 @@ FQ_NOTE = ("no single PyTorch call: torch.fake_quantize_per_channel_affine "
 RUN_PROMPTS = (4160, 3100, 2050, 1030, 515, 260, 97, 33)
 RUN_NEW = (16, 12, 16, 8, 16, 12, 16, 10)
 RUN_SLOTS, PAGE, CHUNK = 4, 16, 512
+SPEC_K = 4                          # draft tokens a lane, run()'s default
+# first verify positions of the 4 lanes of a verify-only step (K4's verify
+# and draft rows, the step cost), near the end of MAX_LEN like the run's
+SPEC_STARTS = (4175, 4170, 4160, 4100)
+STEP_REPS = 3
 SENT = 2**31 - 1
 
 
@@ -448,9 +453,12 @@ def _paged_cases():
     """(label, rows, k, window, kv_bits) at the run phase's shapes: 512-token
     chunks (a late chunk of a 4160-token prompt, a first chunk, a partial
     chunk, an idle lane) over fp32 and int8 pages, decode tokens at ~4175
-    positions, decode tokens at ~40 (most splits empty), and a decode step
+    positions, decode tokens at ~40 (most splits empty), a decode step
     of 36 slots at 1000-4150 positions, whose 144 blocks fill the card
-    unsplit (the decode walk at one split)."""
+    unsplit (the decode walk at one split), and speculative decode's two
+    new shapes: a verify-only step (4 lanes x 5 columns at ~4175 in a
+    512-wide tile, the tensor-core walk) and the draft's 2-column call
+    over an int8 pool (the decode walk)."""
     chunk = [(4160, 3648, 512), (512, 0, 512), (1254, 1024, 230), (0, 0, 0)]
     dec = [(4176, 4175, 1), (4171, 4170, 1), (4161, 4160, 1),
            (4101, 4100, 1)]
@@ -464,6 +472,14 @@ def _paged_cases():
     yield "decode_short", short, 1, None, None
     wide = [(1000 + 90 * i, 999 + 90 * i, 1) for i in range(36)]
     yield "decode_wide", wide, 1, None, None
+    # speculative decode: a verify-only step (SPEC_K + 1 real columns a
+    # lane in the CHUNK-wide tile) and the low-bit draft's catch-up call
+    # (2 columns a lane) over its int8 pool
+    c = SPEC_K + 1
+    verify = [(s0 + c, s0, c) for s0 in SPEC_STARTS]
+    yield "verify_4x5", verify, CHUNK, None, None
+    draft = [(s0 + 2, s0, 2) for s0 in SPEC_STARTS]
+    yield "draft_4x2_int8", draft, 2, None, 8
 
 
 def paged_rows(torch, timer, cap):
@@ -721,6 +737,8 @@ def phase_kernels(torch, timer):
                    ("unembed_decode", 2, 2304, 256000),
                    ("wg_chunk", 2048, 2304, 9216),
                    ("wd_chunk", 2048, 9216, 2304),
+                   ("wg_draft", 8, 2304, 9216),
+                   ("wd_draft", 8, 9216, 2304),
                    ("ragged", 37, 1001, 333)]
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -841,6 +859,25 @@ def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
     return result
 
 
+def device_rows(prof):
+    """(kernel name, device ms, launches) of every device activity in a
+    finished torch.profiler trace, largest first: what key_averages()
+    gives for a CUDA-only trace (user annotations and async events left
+    out), summed from the trace's raw events.  key_averages() first builds
+    a FunctionEvent per event, which takes over a minute for the ~10^5
+    kernels of a profiled speculative run(); the raw sum takes a second."""
+    from torch.autograd import DeviceType
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_async() or \
+                e.is_user_annotation():
+            continue
+        ms, n = acc.get(e.name(), (0.0, 0))
+        acc[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in acc.items()),
+                  key=lambda r: -r[1])
+
+
 def profile_call(torch, fn, match=()):
     """Device time of one ``fn()`` by kernel name, the device launches
     (entries with device time), and the device's busy share of its wall
@@ -854,8 +891,7 @@ def profile_call(torch, fn, match=()):
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()), key=lambda r: -r[1])
+    rows = device_rows(prof)
     device_ms = sum(r[1] for r in rows)
     out = dict(wall_s=wall, device_ms=device_ms,
                busy_share=device_ms / 1e3 / wall,
@@ -1066,8 +1102,7 @@ def profile_run(torch, eng, reqs, kw):
     wall = time.perf_counter() - t0
     syncs = [str(w.message)[:120] for w in seen
              if "called a synchronizing CUDA operation" in str(w.message)]
-    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()), key=lambda r: -r[1])
+    rows = device_rows(prof)
     device_ms = sum(r[1] for r in rows)
     steps = res["stats"].steps
     return res, dict(wall_s=wall, device_ms=device_ms,
@@ -1143,10 +1178,11 @@ def phase_run(torch, cfg, model, params, policy):
         problems.append("run: overlap on and off give different streams")
     if eng.trace_counts["model_step"] > 2:
         problems.append(f"run: model_step saw {eng.trace_counts} shapes")
-    firsts = []
+    firsts, gens = [], []
     for i, (toks, n_new) in enumerate(reqs):
         gen = eng.generate(toks[None], n_new)
         want, gaps = gen["tokens"][0], gen["top2_gap"][:, 0]
+        gens.append((want, gaps))
         if not np.all((want >= 0) & (want < cfg.vocab)):
             problems.append(f"request {i}: generate tokens out of range")
         for label in ("overlap", "monolithic"):
@@ -1174,12 +1210,265 @@ def phase_run(torch, cfg, model, params, policy):
     emit({"phase": "run-profile", **prof})
     if problems:
         raise AssertionError("run checks failed: " + "; ".join(problems))
+    spec = phase_spec(torch, cfg, eng, reqs, gens, recs["overlap"][1])
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return dict(paged_model=paged,
                 runs={k: v[1] for k, v in recs.items()}, check=check,
-                profile=prof)
+                profile=prof, spec=spec)
+
+
+class _Sessions:
+    """Counts what the scheduler does inside ``with``: the schedulers that
+    sessions build (``repro_torch.serve.engine.Scheduler``, patched to a
+    subclass for the duration) and the pages their
+    ``rollback_speculation`` returns."""
+
+    def __enter__(self):
+        from repro_torch.serve import engine, scheduler
+        watch, self.scheds, self.rolled_back = self, [], 0
+
+        class Watched(scheduler.Scheduler):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                watch.scheds.append(self)
+
+            def rollback_speculation(self, slot):
+                freed = super().rollback_speculation(slot)
+                watch.rolled_back += len(freed)
+                return freed
+
+        self._engine, self._orig = engine, engine.Scheduler
+        engine.Scheduler = Watched
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.Scheduler = self._orig
+
+    def leaked(self):
+        """Pages not back on a free list (0 when every pool drained)."""
+        return sum(s.allocator.num_pages - 1 - s.allocator.n_free
+                   for s in self.scheds)
+
+
+def _spec_record(torch, label, res, wall, launches, calls, syncs,
+                 rolled_back, leaked, trace_counts):
+    st = res["stats"]
+    rec = dict(run=label, wall_s=wall, steps=st.steps,
+               prefill_s=st.prefill_s, decode_s=st.decode_s,
+               decode_tok_per_s=st.decode_tok_per_s,
+               tokens_out=st.tokens_out, spec_steps=st.spec_steps,
+               spec_lane_steps=st.spec_lane_steps,
+               spec_tokens_out=st.spec_tokens_out,
+               draft_proposed=st.draft_proposed,
+               draft_accepted=st.draft_accepted,
+               acceptance_rate=st.acceptance_rate,
+               spec_tokens_per_step=st.spec_tokens_per_step,
+               accepted_hist={str(r): h for r, h in
+                              sorted(st.accepted_hist.items())},
+               rolled_back_pages=rolled_back, leaked_pages=leaked,
+               peak_pages=st.peak_pages,
+               ttft_s=st.ttft_percentiles((50, 99)),
+               host_syncs=syncs,
+               host_syncs_per_spec_step=syncs / max(st.spec_steps, 1),
+               calls=calls, trace_counts=trace_counts, launches=launches)
+    emit({"phase": "spec-run", **rec})
+    return rec
+
+
+def _step_inputs(torch, cfg, rows, w, k, dev):
+    """One step's model_step inputs on 4 lanes: tokens and positions
+    (4, w), each lane's real columns c0..c0+c-1 (``rows``: (c0, c)),
+    padding at the sentinel; logit_cols (4, k + 1) (k > 0) or (4,)."""
+    n = len(rows)
+    toks = torch.randint(0, cfg.vocab, (n, w), device=dev)
+    pos = torch.full((n, w), SENT, dtype=torch.int32, device=dev)
+    cols = torch.zeros((n, k + 1) if k else (n,), dtype=torch.int32,
+                       device=dev)
+    for i, (c0, c) in enumerate(rows):
+        pos[i, :c] = torch.arange(c0, c0 + c, dtype=torch.int32,
+                                  device=dev)
+        cols[i] = torch.clamp(torch.arange(k + 1, device=dev),
+                              max=c - 1) if k else c - 1
+    return toks, pos, cols
+
+
+def step_costs(torch, timer, cfg, eng, k):
+    """Event ms (Timer) and device ms (the profiler's kernel time over
+    STEP_REPS calls, by kernel group) of one verify-only step (4 lanes,
+    k + 1 real columns each at ~4175 in the run's CHUNK-wide tile, logits
+    of every verify column) against one plain decode step (4 lanes x 1
+    column), through LM.model_step on engine A's packed store, over a
+    pool whose 4 sequences hold ~4175 positions each."""
+    from repro_torch.serve.paged_kv import pages_needed
+    dev = eng.device
+    starts = SPEC_STARTS
+    nb = pages_needed(MAX_LEN, PAGE)
+    pool = eng.model.init_paged_cache(4, 4 * nb + 1, PAGE, device=dev)
+    bt = (torch.arange(4 * nb, dtype=torch.int32, device=dev) + 1
+          ).reshape(4, nb)
+    for entry in pool:
+        for i, c0 in enumerate(starts):
+            L = c0 + k + 1
+            ar = torch.arange(L, dtype=torch.int64, device=dev)
+            entry["pos"][:, bt[i, ar // PAGE].long(), ar % PAGE] = ar.int()
+    slot_map = torch.arange(4, dtype=torch.int32, device=dev)
+    out = {}
+    for label, w, rows, kk in (
+            ("verify", CHUNK, [(c0, k + 1) for c0 in starts], k),
+            ("decode", 1, [(c0, 1) for c0 in starts], 0)):
+        toks, pos, cols = _step_inputs(torch, cfg, rows, w, kk, dev)
+        fn = lambda: eng.model.model_step(eng.params, toks, pos, slot_map,
+                                          pool, bt, cols, eng.act_bits,
+                                          attn_impl="cuda")
+        ms = timer(fn)
+        prof = profile_call(torch, lambda: [fn() for _ in range(STEP_REPS)])
+        out[label] = dict(width=w, real_tokens=sum(c for _, c in rows),
+                          ms=ms, device_ms=prof["device_ms"] / STEP_REPS,
+                          launches=prof["kernel_launches"] / STEP_REPS,
+                          groups={g: v["ms"] / STEP_REPS
+                                  for g, v in prof["groups"].items()
+                                  if v["ms"]})
+    del pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec(torch, cfg, eng, reqs, gens, plain):
+    """Speculative decode on engine A after the plain runs: the prefix
+    draft on all requests, the self-draft and the low-bit draft on the 4
+    shortest.  Every stream against generate's (top-2 gap rule), the
+    accounting, the pool, the shapes, K4's launches, the host syncs; then
+    a sampled pair (plain against self-draft, printed, not gated), a
+    profile of the prefix run and one verify-only step's device time
+    against a plain decode step's."""
+    from repro_torch import kernels
+    t_phase = time.perf_counter()
+    kw = dict(page_size=PAGE, max_slots=RUN_SLOTS, chunk_tokens=CHUNK,
+              speculative=True, draft_k=SPEC_K)
+    nl, R = cfg.n_layers, cfg.n_repeat
+    short = sorted(range(len(reqs)), key=lambda i: len(reqs[i][0]))[:4]
+    short.sort()
+    problems, recs, seconds = [], {}, {}
+    shapes0 = dict(eng.trace_counts)
+    for label, extra, idx, dl in (
+            ("prefix", {}, list(range(len(reqs))),
+             (R // 2) * len(cfg.pattern)),
+            ("self", dict(draft_layers=R), short, nl),
+            ("lowbit", dict(draft_policy="lowbit"), short, nl)):
+        rq = [reqs[i] for i in idx]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        eng.call_counts.clear()
+        before = dict(eng.trace_counts)
+        with _Sessions() as sessions:
+            t0 = time.perf_counter()
+            res, syncs = _syncs_of(torch, lambda: eng.run(rq, **kw, **extra))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches, calls = kernels.launch_counts(), dict(eng.call_counts)
+        rec = _spec_record(torch, label, res, wall, launches, calls, syncs,
+                           sessions.rolled_back, sessions.leaked(),
+                           dict(eng.trace_counts))
+        recs[label] = (res, rec)
+        st = res["stats"]
+        firsts = []
+        for j, i in enumerate(idx):
+            f = _check_streams(f"spec-{label}/{i}", res["outputs"][j],
+                               gens[i][0], gens[i][1], ACT_LOGIT_ATOL,
+                               problems)
+            if f:
+                firsts.append(f)
+        rec["first_differences"] = firsts
+        if st.tokens_out != sum(n for _, n in rq):
+            problems.append(f"spec {label}: tokens_out {st.tokens_out}")
+        if st.spec_tokens_out != st.draft_accepted + st.spec_lane_steps:
+            problems.append(f"spec {label}: spec_tokens_out "
+                            f"{st.spec_tokens_out} != accepted + lane steps")
+        if st.spec_steps <= 0:
+            problems.append(f"spec {label}: no verify step")
+        if sessions.leaked():
+            problems.append(f"spec {label}: {sessions.leaked()} pages not "
+                            "back on the free list")
+        if label == "prefix" and sessions.rolled_back <= 0:
+            problems.append("spec prefix: no page rolled back")
+        if launches["flash_attention"]:
+            problems.append(f"spec {label}: flash_attention launched")
+        # a draft_tail call is one (R, 1) step of the draft
+        want = nl * calls.get("model_step", 0) + dl * (
+            calls.get("draft_step", 0) + calls.get("draft_tail", 0))
+        if launches["paged_attention"] != want:
+            problems.append(f"spec {label}: paged_attention launched "
+                            f"{launches['paged_attention']} times, want "
+                            f"{want} ({calls})")
+        if launches["quant_matmul"] <= 0 or launches["packed_matmul"] <= 0:
+            problems.append(f"spec {label}: GEMM kernels not on the path")
+        # a verify step syncs twice (proposals, verify tokens), others once
+        if syncs > st.steps + st.spec_steps:
+            problems.append(f"spec {label}: {syncs} host syncs in "
+                            f"{st.steps} steps ({st.spec_steps} verify)")
+        if label == "self" and st.spec_tokens_per_step <= 1.0:
+            problems.append("spec self: spec_tokens_per_step "
+                            f"{st.spec_tokens_per_step} <= 1")
+        emit({"phase": "spec-check", "run": label, "new_shapes": {
+            n: c - before.get(n, 0) for n, c in eng.trace_counts.items()},
+            "first_differences": firsts})
+    # the speculative session's own shapes (plain runs pass 1-D logit_cols)
+    added = {n: c - shapes0.get(n, 0) for n, c in eng.trace_counts.items()}
+    for name, most in (("model_step", 2), ("draft_step", 2),
+                       ("draft_tail", 1)):
+        if added.get(name, 0) > most:
+            problems.append(f"spec: {name} saw {added[name]} shapes")
+    seconds["runs"] = time.perf_counter() - t_phase
+    # sampled pair: plain against the self-draft, first difference printed
+    temps = (0.8, 0.0, 1.2, 0.5)
+    srq = [dict(tokens=reqs[i][0], n_new=reqs[i][1], temperature=t,
+                seed=40 + j) for j, (i, t) in enumerate(zip(short, temps))]
+    plain_s = eng.run(srq, page_size=PAGE, max_slots=RUN_SLOTS,
+                      chunk_tokens=CHUNK)
+    spec_s, syncs_s = _syncs_of(torch, lambda: eng.run(
+        srq, **kw, draft_layers=R))
+    sampled = []
+    for j, (a, b) in enumerate(zip(plain_s["outputs"], spec_s["outputs"])):
+        bad = np.flatnonzero(a != b)
+        sampled.append(dict(request=short[j], temperature=temps[j],
+                            equal=not bad.size,
+                            first_difference=int(bad[0]) if bad.size
+                            else None))
+    st = spec_s["stats"]
+    emit({"phase": "spec-sampled", "streams": sampled, "host_syncs": syncs_s,
+          "steps": st.steps, "spec_steps": st.spec_steps,
+          "acceptance_rate": st.acceptance_rate})
+    # rewinding a sampled lane's generator is host state: no extra sync
+    if syncs_s > st.steps + st.spec_steps:
+        problems.append(f"spec sampled: {syncs_s} host syncs in {st.steps} "
+                        f"steps ({st.spec_steps} verify)")
+    seconds["sampled"] = time.perf_counter() - t_phase - seconds["runs"]
+    # one profiled prefix run, and the cost of one step at each width
+    t0 = time.perf_counter()
+    res, prof = profile_run(torch, eng, reqs, kw)
+    if not all(np.array_equal(a, b) for a, b in
+               zip(res["outputs"], recs["prefix"][0]["outputs"])):
+        problems.append("spec: the profiled run's streams differ")
+    prof["spec_steps"] = res["stats"].spec_steps
+    emit({"phase": "spec-profile", **prof})
+    seconds["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps = step_costs(torch, Timer(torch), cfg, eng, SPEC_K)
+    emit({"phase": "spec-step-cost", **steps})
+    seconds["step_cost"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_phase
+    out = dict(runs={k: v[1] for k, v in recs.items()}, sampled=sampled,
+               profile=prof, step_costs=steps, shapes_added=added,
+               plain=dict(decode_tok_per_s=plain["decode_tok_per_s"],
+                          wall_s=plain["wall_s"]), seconds=seconds,
+               problems=problems)
+    emit({"phase": "spec", "seconds": seconds, "shapes_added": added,
+          "problems": problems})
+    if problems:
+        raise AssertionError("spec checks failed: " + "; ".join(problems))
+    return out
 
 
 # --------------------------------------------------------------- phase 6

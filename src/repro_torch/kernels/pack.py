@@ -13,7 +13,8 @@ the same shifts and masks on the card.
 :class:`PackedWeight` is the bucketed whole-tensor store: a plain class of
 tensors whose parts keep any leading (repeat) dims, with the reference's
 layouts: ``(..., ceil(K/f), nb)`` int8 packed data and ``(..., nb)`` f32
-scales.  :meth:`PackedWeight.take` gives repeat ``r`` of a stacked store.
+scales.  :meth:`PackedWeight.take` gives repeat ``r`` of a stacked store,
+:meth:`PackedWeight.prefix` its first ``d`` repeats.
 """
 from __future__ import annotations
 
@@ -122,6 +123,14 @@ class PackedWeight:
     def take(self, r: int) -> "PackedWeight":
         """Repeat ``r`` of a stacked store (views; shares the index cache)."""
         parts = tuple(tuple(a[r] for a in part) for part in self.parts)
+        return PackedWeight(parts=parts, k=self.k, n=self.n,
+                            buckets=self.buckets, out_dtype=self.out_dtype,
+                            _index=self._index)
+
+    def prefix(self, d: int) -> "PackedWeight":
+        """The first ``d`` repeats of a stacked store (views of every part;
+        shares the buckets and the index cache, copies nothing)."""
+        parts = tuple(tuple(a[:d] for a in part) for part in self.parts)
         return PackedWeight(parts=parts, k=self.k, n=self.n,
                             buckets=self.buckets, out_dtype=self.out_dtype,
                             _index=self._index)

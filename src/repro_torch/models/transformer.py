@@ -8,8 +8,9 @@ with per-(position, head) scales), and ``decode_step_paged`` and
 ``model_step`` over the paged pool (``init_paged_cache``).  Parameters
 keep the reference's pytree: ``{"blocks": tuple per pattern position of
 dicts of (n_repeat, ...) stacked tensors, "final_norm", "unembed",
-"embed"}``.  A Python loop over the ``n_repeat`` stacked repeats takes the
-place of ``lax.scan``.
+"embed"}``.  A Python loop over the stacked repeats takes the place of
+``lax.scan``; its depth is the params' own, so the speculative draft's
+prefix view (``draft_prefix_params``) runs through the same entry points.
 
 Unlike the reference, caches are updated **in place**: every entry point
 writes into the tensors of the cache or pool it is given and returns that
@@ -240,10 +241,11 @@ class LM:
         return x
 
     def _stack(self, params, x, cache, act_bits, **kw):
-        """Run every block: loop over repeats, then pattern positions.
-        ``cache`` None runs without one (the full-sequence forward)."""
+        """Run every block: loop over the params' repeats (``n_repeat``, or
+        a draft prefix's depth), then pattern positions.  ``cache`` None
+        runs without one (the full-sequence forward)."""
         cfg = self.cfg
-        for r in range(cfg.n_repeat):
+        for r in range(params["blocks"][0]["norm"].shape[0]):
             for p_idx, bdef in enumerate(cfg.pattern):
                 ab = None if act_bits is None else float(act_bits[r][p_idx])
                 x = self._apply_block(
@@ -358,6 +360,26 @@ class LM:
                                         device=device)
             caches.append(one)
         return tuple(caches)
+
+    # -------------------------------------------------- draft-prefix view
+    def draft_prefix_params(self, params, draft_layers: int):
+        """Shallow self-draft view: the first ``draft_layers`` pattern
+        repeats of ``params``, sharing embed, final_norm and unembed, as the
+        reference's.  Every stacked leaf of ``params["blocks"]`` is sliced
+        ``[:draft_layers]`` (a ``PackedWeight`` through
+        :meth:`PackedWeight.prefix`): views, no copy.  The entry points run
+        it against a cache stacked to the same depth
+        (``init_paged_cache(n_repeat=draft_layers)``); with
+        ``draft_layers == n_repeat`` the draft is the target."""
+        if not 1 <= draft_layers <= self.cfg.n_repeat:
+            raise ValueError(
+                f"draft_layers={draft_layers} outside 1..{self.cfg.n_repeat}"
+                f" (cfg.n_repeat)")
+        blocks = tuple(
+            {k: (v.prefix(draft_layers) if isinstance(v, PackedWeight)
+                 else v[:draft_layers]) for k, v in bp.items()}
+            for bp in params["blocks"])
+        return {**params, "blocks": blocks}
 
     # ------------------------------------------------------------ prefill
     def prefill(self, params, batch, cache, act_bits=None, attn_impl=None):

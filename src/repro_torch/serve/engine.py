@@ -21,12 +21,19 @@ to a :class:`FrontEnd` at once and drains it through the overlapped
 token-budget :class:`StepLoop` (``prefill="chunked"``), or runs the
 monolithic prefill-then-decode state machine (``prefill="monolithic"``:
 one batch-1 ``prefill`` per admitted request scattered into the pool, then
-``decode_step_paged``).  Speculative decode waits for ROADMAP.md A7.
+``decode_step_paged``).  ``run(speculative=True)`` adds multi-token
+decode on top of the chunked loop, as the reference's does: a draft pass
+proposes ``draft_k`` tokens per decoding lane, one verify ``model_step``
+scores each lane's whole span past its current position, and
+over-speculated pages roll back the same step; the emitted streams are
+the plain streams, bit for bit, for any draft.
 
 Sampling: greedy takes the first maximum (exact); a sampled request draws
 from its own ``torch.Generator`` seeded with its seed, one draw per
 emitted token, so its stream in ``run`` is the one a single-request
-``generate(seed=...)`` gives.
+``generate(seed=...)`` gives.  A verify span draws column by column and
+rewinds the generator to its emitted count, so rejected columns consume
+no randomness.
 """
 from __future__ import annotations
 
@@ -52,10 +59,6 @@ from repro_torch.serve.stats import ServeStats
 from repro_torch.serve.step_loop import StepLoop
 
 __all__ = ["ServeEngine", "ServeStats", "sample_tokens"]
-
-SPECULATIVE_NOT_PORTED = ("speculative decode is not ported yet: ROADMAP.md "
-                          "A7 (draft pass, verify spans, rollback)")
-
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -125,14 +128,22 @@ class ServeEngine:
         # of the reference's jit-variant counter.  The chunked loop keeps
         # trace_counts["model_step"] at <= 2 whatever the prompt lengths.
         self.trace_counts: Dict[str, int] = collections.Counter()
+        self.call_counts: Dict[str, int] = collections.Counter()
         self._shapes: Dict[str, set] = collections.defaultdict(set)
         self._prefill = self._counted("prefill", model.prefill)
         self._decode = self._counted("decode_step", model.decode_step)
         self._decode_paged = self._counted("decode_step_paged",
                                            model.decode_step_paged)
         self._model_step = self._counted("model_step", model.model_step)
+        # the speculative draft runs the same unified step under its own
+        # counters: call 1 of each draft pass, and each (R, 1) step of its
+        # autoregressive tail
+        self._draft_step = self._counted("draft_step", model.model_step)
+        self._draft_tail = self._counted("draft_tail", model.model_step)
 
     def _counted(self, name, fn):
+        """``fn`` counting its calls (``call_counts``) and its distinct
+        input shapes (``trace_counts``)."""
         @functools.wraps(fn)
         def wrapped(*a, **kw):
             key = tuple(tuple(x.shape) for x in a
@@ -142,19 +153,32 @@ class ServeEngine:
             if key not in self._shapes[name]:
                 self._shapes[name].add(key)
                 self.trace_counts[name] += 1
+            self.call_counts[name] += 1
             return fn(*a, **kw)
         return wrapped
 
-    def _sample(self, logits: torch.Tensor, lanes) -> torch.Tensor:
-        """Every row's token from logits (R, C, V), on the device: the
-        first maximum of the last column, and for each sampled row ``i``
-        in ``lanes`` (row -> (generator, temperature)) a draw from its own
-        generator instead.  Returns (R,) int64."""
-        last = logits[:, -1].to(torch.float32)
-        toks = torch.argmax(last, dim=-1)
-        for i, (gen, temp) in lanes.items():
-            toks[i] = sample_tokens(last[i:i + 1], temp, gen)[0]
-        return toks
+    @staticmethod
+    def _sample_span(logits: torch.Tensor, lanes):
+        """Every row's candidate tokens from logits (R, C, V), on the
+        device.  Greedy rows take each column's first maximum.  A sampled
+        row ``i`` in ``lanes`` (row -> (generator, temperature, columns))
+        draws its first ``columns`` columns in order, each exactly the
+        (1, V) draw :func:`sample_tokens` makes for one plain token.
+        Returns (toks (R, C) int64, states): ``states[i][m]`` is row i's
+        generator state before its draw m, so a caller that emits m < columns
+        tokens rewinds with ``set_state`` and rejected columns consume no
+        randomness.  Generator states live on the host (a CUDA generator's
+        is its seed and Philox offset): saving and restoring them does not
+        touch the device."""
+        toks = torch.argmax(logits, dim=-1)
+        states = {}
+        for i, (gen, temp, cols) in lanes.items():
+            states[i] = []
+            for j in range(cols):
+                states[i].append(gen.get_state())
+                toks[i, j] = sample_tokens(
+                    logits[i, j:j + 1].to(torch.float32), temp, gen)[0]
+        return toks, states
 
     def weight_hbm_bytes(self) -> Dict[str, int]:
         """Stored weight bytes by leaf kind: ``packed`` (PackedWeight
@@ -243,6 +267,9 @@ class ServeEngine:
             num_pages: Optional[int] = None, prefill: Optional[str] = None,
             chunk_tokens: Optional[int] = None,
             token_budget: Optional[int] = None, speculative: bool = False,
+            draft_k: int = 4, draft_policy: str = "prefix",
+            draft_layers: Optional[int] = None,
+            draft_act_bits: Optional[float] = None,
             overlap: bool = True) -> Dict[str, Any]:
         """Serve a workload of mixed-length requests with continuous
         batching over the paged pool, as the reference's ``run``.
@@ -261,30 +288,57 @@ class ServeEngine:
         batch through ``decode_step_paged``.  ``num_pages`` defaults to
         ``max_slots`` sequences at ``max_len`` plus the trash page; a
         smaller pool throttles admission and requeues prefills that cannot
-        grow.  ``speculative=True`` raises (ROADMAP.md A7).
+        grow.
+
+        ``speculative=True`` (chunked only) decodes up to ``draft_k + 1``
+        tokens a lane a step: the ``draft_policy`` draft proposes
+        ``draft_k`` tokens (``"prefix"``: the first ``draft_layers``
+        repeats, default ``n_repeat // 2``; ``"lowbit"``: the whole model
+        at activation QBN ``draft_act_bits``, default 4, over an int8
+        draft pool), one verify step scores them and the longest agreeing
+        prefix plus the corrected token is emitted.  Steps run
+        synchronously; the default budget becomes ``max_slots * (draft_k
+        + 1) + chunk_tokens - 1``.
 
         Each request's stream is the one ``generate`` gives it alone with
         its seed.  Returns ``{"outputs": [np.ndarray per request, submit
         order], "stats": ServeStats}``."""
-        if speculative:
-            raise NotImplementedError(SPECULATIVE_NOT_PORTED)
         reqs = [as_request(i, r) for i, r in enumerate(requests)]
+        kinds = self.model.cfg.cache_kinds()
         if prefill is None:
             prefill = "chunked"
         if prefill not in ("chunked", "monolithic"):
             raise ValueError(f"unknown prefill mode {prefill!r}")
+        if speculative:
+            # fail fast, before any model call
+            if not all(kd == "paged" for kd in kinds):
+                raise ValueError(
+                    f"speculative=True needs all-paged cache kinds, got "
+                    f"{kinds}: recurrent/memory blocks cannot run the "
+                    "multi-token verify chunk -- serve hybrid patterns "
+                    "non-speculatively through prefill='monolithic'")
+            if prefill == "monolithic":
+                raise ValueError(
+                    "speculative=True runs through the chunked model_step "
+                    "loop; prefill='monolithic' cannot carry verify spans "
+                    "-- drop speculative=True or use prefill='chunked'")
+            self._validate_draft_args(draft_k, draft_policy, draft_layers,
+                                      draft_act_bits)
         if prefill == "chunked":
             fe = FrontEnd()
             for r in reqs:
                 fe.submit(r)
             res = self.serve(fe, page_size=page_size, max_slots=max_slots,
                              num_pages=num_pages, chunk_tokens=chunk_tokens,
-                             token_budget=token_budget, overlap=overlap)
+                             token_budget=token_budget,
+                             speculative=speculative, draft_k=draft_k,
+                             draft_policy=draft_policy,
+                             draft_layers=draft_layers,
+                             draft_act_bits=draft_act_bits, overlap=overlap)
             return {"outputs": [res["outputs"][r.rid] for r in reqs],
                     "stats": res["stats"]}
         for r in reqs:
             self.check_fits(r)
-        kinds = self.model.cfg.cache_kinds()
         cache, sched, num_pages = self._session(page_size, max_slots,
                                                 num_pages)
         for r in reqs:
@@ -301,21 +355,32 @@ class ServeEngine:
               max_slots: int = 8, num_pages: Optional[int] = None,
               chunk_tokens: Optional[int] = None,
               token_budget: Optional[int] = None, speculative: bool = False,
+              draft_k: int = 4, draft_policy: str = "prefix",
+              draft_layers: Optional[int] = None,
+              draft_act_bits: Optional[float] = None,
               overlap: bool = True) -> Dict[str, Any]:
         """Open-loop serving: drain a :class:`FrontEnd` of timestamped
         arrivals through the overlapped :class:`StepLoop`.  Requests may
         arrive while the loop runs (``frontend.submit(..., at=t)`` or from
         another thread); each iteration pumps due arrivals (shedding
         SLO-overdue waiters), admits what fits and runs one
-        ``model_step``.  The knobs are :meth:`run`'s.  Returns
-        ``{"outputs": {rid: np.ndarray}, "stats": ServeStats, "shed":
-        [rid, ...]}``; shed requests have empty streams."""
+        ``model_step``.  ``speculative=True`` rides the same loop
+        synchronously (acceptance needs token values).  The knobs are
+        :meth:`run`'s.  Returns ``{"outputs": {rid: np.ndarray}, "stats":
+        ServeStats, "shed": [rid, ...]}``; shed requests have empty
+        streams."""
         if speculative:
-            raise NotImplementedError(SPECULATIVE_NOT_PORTED)
+            self._validate_draft_args(draft_k, draft_policy, draft_layers,
+                                      draft_act_bits)
         kinds = self.model.cfg.cache_kinds()
         chunk = chunk_tokens if chunk_tokens is not None else page_size
-        budget = token_budget if token_budget is not None \
-            else max_slots + chunk - 1
+        if token_budget is not None:
+            budget = token_budget
+        elif speculative:
+            # room for every lane's full verify span plus one chunk
+            budget = max_slots * (draft_k + 1) + chunk - 1
+        else:
+            budget = max_slots + chunk - 1
         if chunk < 1:
             raise ValueError(f"chunk_tokens must be >= 1, got {chunk}")
         if budget < max_slots:
@@ -325,11 +390,16 @@ class ServeEngine:
                 "deferred); raise the budget or shrink the batch")
         cache, sched, num_pages = self._session(page_size, max_slots,
                                                 num_pages)
-        stats = ServeStats(mode="chunked", overlapped=bool(overlap))
+        spec = self._make_draft(
+            max_slots, num_pages, page_size, draft_k, draft_policy,
+            draft_layers, draft_act_bits) if speculative else None
+        stats = ServeStats(mode="chunked",
+                           overlapped=bool(overlap) and not speculative)
         loop = StepLoop(self, frontend, sched, cache, kinds, stats,
                         num_pages=num_pages, page_size=page_size,
                         chunk=chunk, budget=budget,
-                        reclaim=self._reclaim_window(kinds), overlap=overlap)
+                        reclaim=self._reclaim_window(kinds), spec=spec,
+                        overlap=overlap)
         loop.run()
         stats.n_requests = frontend.n_submitted
         stats.shed = list(frontend.shed)
@@ -372,6 +442,138 @@ class ServeEngine:
                               all(b.kind == "local_attn"
                                   for b in cfg.pattern)) else None
 
+    @staticmethod
+    def _validate_draft_args(draft_k, draft_policy, draft_layers,
+                             draft_act_bits) -> None:
+        if draft_k < 1:
+            raise ValueError(f"draft_k must be >= 1, got {draft_k}")
+        if draft_policy not in ("prefix", "lowbit"):
+            raise ValueError(f"unknown draft_policy {draft_policy!r}; "
+                             "expected 'prefix' or 'lowbit'")
+        if draft_layers is not None and draft_policy != "prefix":
+            raise ValueError("draft_layers applies to "
+                             "draft_policy='prefix' only")
+        if draft_act_bits is not None and draft_policy != "lowbit":
+            raise ValueError("draft_act_bits applies to "
+                             "draft_policy='lowbit' only (the prefix "
+                             "draft serves the target's own act QBNs)")
+
+    # ------------------------------------------------- speculative drafting
+    def _make_draft(self, max_slots, num_pages, page_size, draft_k,
+                    draft_policy, draft_layers, draft_act_bits):
+        """The draft pass state of one speculative session: another view
+        of the same engine, proposing through the same ``model_step``
+        against its own paged cache, which shares the scheduler's block
+        tables (same positions and page ids: rollback and scrub cover
+        both).
+
+        * ``"prefix"``: the first ``draft_layers`` repeats of the served
+          params (``LM.draft_prefix_params``, no extra weights), the
+          target's activation QBNs of those repeats, a cache stacked to
+          the prefix depth with the engine's ``kv_bits``.
+          ``draft_layers == n_repeat`` makes the draft the target.
+        * ``"lowbit"``: the whole model at ``draft_act_bits`` activation
+          QBNs everywhere, over an int8 draft cache.
+        """
+        model, cfg = self.model, self.model.cfg
+        if draft_policy == "prefix":
+            d = draft_layers if draft_layers is not None \
+                else max(1, cfg.n_repeat // 2)
+            params = model.draft_prefix_params(self.params, d)
+            act = None if self.act_bits is None else self.act_bits[:d]
+            dcache = model.init_paged_cache(
+                max_slots, num_pages, page_size, kv_bits=self.kv_bits,
+                n_repeat=d, device=self.device)
+        else:                                     # "lowbit"
+            params = self.params
+            act = np.full((cfg.n_repeat, len(cfg.pattern)),
+                          4.0 if draft_act_bits is None
+                          else float(draft_act_bits), np.float32)
+            dcache = model.init_paged_cache(
+                max_slots, num_pages, page_size, kv_bits=8,
+                device=self.device)
+        return {"params": params, "cache": dcache, "act": act, "k": draft_k,
+                "frontier": {}}
+
+    def _draft_propose(self, spec, plan, sched, spec_lanes, w1):
+        """Run the draft pass of one step; returns slot -> draft tokens
+        (numpy, writable).
+
+        Call 1 (``draft_step``, width ``w1``: the chunk width, or 2 on
+        chunkless steps) carries three kinds of rows: prompt-chunk rows,
+        which keep the draft cache's prompt K/V warm; every decode row's
+        feedback token, preceded by a one-token catch-up when the previous
+        verify step accepted its whole span (the last draft was proposed
+        but never fed back: ``spec["frontier"]`` is each lane's draft
+        write cursor, clamped back after a rejection, since everything
+        past the acceptance point is rejected-token K/V that the stream
+        overwrites in place); and each speculating row's last real column,
+        whose logits propose its first draft token.  The tail proposes
+        ``d_2 .. d_k``: ``k - 1`` (R, 1) ``draft_tail`` steps, each
+        feeding every lane's previous proposal from the device at the
+        next position; a lane whose span has ended writes at sentinel
+        positions, into the trash page.  Proposals are greedy (the draft
+        is a guess, the verify sampler the ground truth), and the whole
+        proposal stack reaches the host in one transfer."""
+        dev = self.device
+        n = plan["tokens"].shape[0]
+        tables = backend.upload(sched.tables.as_array(), dev)
+        slot_map = backend.upload(plan["slot_map"], dev)
+        frontier = spec["frontier"]
+        dtok = np.zeros((n, w1), np.int64)
+        dpos = np.full((n, w1), paged_kv.POS_SENTINEL, np.int32)
+        lcols = np.zeros((n,), np.int32)
+        for i, c in plan["chunked"].items():      # mirror prompt chunks
+            dtok[i, :c] = plan["tokens"][i, :c]
+            dpos[i, :c] = plan["positions"][i, :c]
+            lcols[i] = c - 1
+        for i in plan["spec"]:                    # decode rows (any span)
+            s = sched.slot(i)
+            catch = min(s.pos - frontier.get(i, s.pos), 1)
+            if catch:                             # re-feed the accepted
+                dtok[i, 0] = s.out[s.pos - 1 - s.req.prompt_len]
+                dpos[i, 0] = s.pos - 1            # last draft of last span
+            dtok[i, catch] = s.out[-1]
+            dpos[i, catch] = s.pos
+            lcols[i] = catch
+        logits, spec["cache"] = self._draft_step(
+            spec["params"], backend.upload(dtok, dev),
+            backend.upload(dpos, dev), slot_map, spec["cache"], tables,
+            backend.upload(lcols, dev), spec["act"],
+            attn_impl=self.attn_impl)
+        for i, cols in plan["spec"].items():      # draft write cursors
+            frontier[i] = sched.slot(i).pos + max(cols - 1, 1)
+        if not spec_lanes:
+            return {}
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        props = [tok]
+        if max(spec_lanes.values()) > 2:
+            # always k - 1 steps (one tail shape); a lane proposes while its
+            # verify span still has columns (spans >= m + 2 at step m)
+            spans = np.zeros((n,), np.int32)
+            pos0 = np.zeros((n,), np.int32)
+            for i, cols in spec_lanes.items():
+                spans[i] = cols
+                pos0[i] = sched.slot(i).pos
+            spans, pos0 = backend.upload(spans, dev), backend.upload(pos0,
+                                                                     dev)
+            zeros = torch.zeros((n,), dtype=torch.int32, device=dev)
+            for m in range(1, spec["k"]):
+                active = spans >= m + 2
+                pos = torch.where(active, pos0 + m,
+                                  torch.full_like(pos0,
+                                                  paged_kv.POS_SENTINEL))
+                logits, spec["cache"] = self._draft_tail(
+                    spec["params"], tok[:, None], pos[:, None], slot_map,
+                    spec["cache"], tables, zeros, spec["act"],
+                    attn_impl=self.attn_impl)
+                prop = torch.argmax(logits[:, -1], dim=-1)
+                tok = torch.where(active, prop, tok)
+                props.append(prop)
+        all_props = torch.stack(props).cpu().numpy()   # one transfer
+        return {i: all_props[:cols - 1, i].copy()
+                for i, cols in spec_lanes.items()}
+
     def _run_monolithic(self, sched, cache, kinds, outputs, stats,
                         num_pages, page_size, reclaim):
         """Prefill-then-decode state machine (the chunked loop's TTFT
@@ -397,8 +599,8 @@ class ServeEngine:
                 if req.temperature > 0:
                     gens[slot] = backend.make_generator(req.seed,
                                                         self.device)
-                    lanes = {0: (gens[slot], req.temperature)}
-                tok = int(self._sample(logits, lanes)[0])
+                    lanes = {0: (gens[slot], req.temperature, 1)}
+                tok = int(self._sample_span(logits, lanes)[0][0, 0])
                 stats.prefill_s += time.perf_counter() - t0
                 outputs[req.rid].append(tok)
                 stats.tokens_out += 1
@@ -432,12 +634,13 @@ class ServeEngine:
                 cache, backend.upload(b["block_tables"], dev),
                 backend.upload(b["pos"], dev), self.act_bits,
                 attn_impl=self.attn_impl)
-            toks = self._sample(logits, {i: (gens[i], float(temps[i]))
-                                         for i in running if temps[i] > 0})
+            toks, _ = self._sample_span(
+                logits, {i: (gens[i], float(temps[i]), 1)
+                         for i in running if temps[i] > 0})
             vals = toks.cpu().numpy()       # one transfer for the batch
             for i in running:
                 req = sched.slot(i).req
-                tok = int(vals[i])
+                tok = int(vals[i, 0])
                 outputs[req.rid].append(tok)
                 stats.tokens_out += 1
                 sched.record(i, tok)

@@ -1,6 +1,5 @@
 """Overlapped token-budget step loop: the serving back-end (port of
-``repro/serve/step_loop.py`` without its speculative branch, which waits
-for ROADMAP.md A7).
+``repro/serve/step_loop.py``, speculative branch included).
 
 Each step plans a fixed-shape batch (``Scheduler.plan_step``), runs one
 ``LM.model_step`` over it and samples every lane on the device.  Host and
@@ -30,10 +29,17 @@ no host sync (``.item()``, ``int(t)``, ``nonzero``, boolean-mask indexing,
 ``.cpu()``, a blocking host-to-device copy): any of them would quietly
 make the loop synchronous.  Host arrays reach the card through
 ``backend.upload`` (pinned, non-blocking).
+
+Speculative decode rides the same class but steps synchronously
+(``overlap`` is ignored): acceptance needs token *values*, so each verify
+step reads its (R, k + 1) candidate tokens back at once.  A step with a
+chunk or a speculating lane runs at width ``max(chunk, k + 1)``, a pure
+decode step at width 1: still two ``model_step`` shapes.  A verify step
+makes two host syncs: the draft's proposal stack and the verify tokens.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,13 +64,14 @@ class StepLoop:
 
     Built by ``ServeEngine.serve`` (and through it by ``run``); owns the
     paged pool, the per-slot generators and temperatures, and the
-    per-request output streams.
+    per-request output streams.  ``spec`` is the draft state of a
+    speculative session (``ServeEngine._make_draft``), or None.
     """
 
     def __init__(self, engine, frontend: FrontEnd, sched: Scheduler, cache,
                  kinds, stats: ServeStats, *, num_pages: int, page_size: int,
                  chunk: int, budget: int, reclaim: Optional[int] = None,
-                 overlap: bool = True):
+                 spec: Optional[Dict[str, Any]] = None, overlap: bool = True):
         self.eng = engine
         self.fe = frontend
         self.sched = sched
@@ -76,7 +83,8 @@ class StepLoop:
         self.chunk = chunk
         self.budget = budget
         self.reclaim = reclaim
-        self.overlap = bool(overlap)
+        self.spec = spec
+        self.overlap = bool(overlap) and spec is None
         self.device = engine.device
         n = sched.n_slots
         self.outputs: Dict[int, List[int]] = {}
@@ -112,7 +120,9 @@ class StepLoop:
 
     def step(self, now: float) -> None:
         """One engine step: admit, plan, dispatch, sample, account."""
-        eng, sched, stats = self.eng, self.sched, self.stats
+        eng, sched, stats, spec = self.eng, self.sched, self.stats, self.spec
+        k = spec["k"] if spec else 0
+        W = max(self.chunk, k + 1) if spec else self.chunk
         if self.reclaim is not None:
             stats.reclaimed_pages += len(
                 sched.reclaim_out_of_window(self.reclaim))
@@ -128,7 +138,7 @@ class StepLoop:
                 f"{self.num_pages} pages (page_size={self.page_size}) is "
                 "too small for its first chunk + decode headroom")
         t0 = self.fe.now()
-        plan = sched.plan_step(self.chunk, self.budget)
+        plan = sched.plan_step(self.chunk, self.budget, draft_k=k)
         stats.requeues += len(plan["requeued"])
         # a request admitted above may have been preempted inside this very
         # plan_step: its admission pages are back on the free list, so drop
@@ -136,17 +146,29 @@ class StepLoop:
         drop = set(plan["freed"])
         fresh = [p for p in fresh if p not in drop]
         # scrub unconditionally: admission pages must be sentinel-clean
-        # before any later step writes chunks into them
+        # before any later step writes chunks into them.  The draft cache
+        # shares the block tables, so it scrubs the same pages.
         paged_kv.scrub_pages(self.cache, self.kinds, fresh + plan["fresh"])
+        if spec:
+            paged_kv.scrub_pages(spec["cache"], self.kinds,
+                                 fresh + plan["fresh"])
         if not plan["sample"] and not plan["chunked"]:
             return                  # every planned slot was preempted
         # pure-decode steps run the (R, 1) column slice: two shapes per run
-        w = self.chunk if plan["chunked"] else 1
+        spec_lanes = {i: c for i, c in plan["spec"].items() if c > 1}
+        w = W if (plan["chunked"] or spec_lanes) else 1
+        tokens = plan["tokens"]
+        if spec and (plan["chunked"] or plan["spec"]):
+            # the draft pass fills each speculating lane's verify columns
+            drafts = eng._draft_propose(spec, plan, sched, spec_lanes,
+                                        W if plan["chunked"] else 2)
+            for i, cols in spec_lanes.items():
+                tokens[i, 1:cols] = drafts[i][:cols - 1]
         dev = self.device
-        tok_in = backend.upload(plan["tokens"][:, :w].astype(np.int64), dev)
-        if plan["decode"]:
+        tok_in = backend.upload(tokens[:, :w].astype(np.int64), dev)
+        if spec is None and plan["decode"]:
             # decode feedback stays exact: the host holds PENDING, the
-            # device value is authoritative
+            # device value is authoritative (spec mode records values)
             rows_d = backend.upload(np.asarray(plan["decode"], np.int64),
                                     dev)
             tok_in[rows_d, 0] = self._last_tok[rows_d]
@@ -157,10 +179,17 @@ class StepLoop:
             backend.upload(plan["logit_cols"], dev), eng.act_bits,
             attn_impl=eng.attn_impl)
         stats.chunk_prefill_tokens += sum(plan["chunked"].values())
-        toks = eng._sample(logits, {i: (self._gens[i], float(self._temps[i]))
-                                    for i in plan["sample"]
-                                    if self._temps[i] > 0})
-        emitted_step = self._finish_plain(plan, toks)
+        # a sampled lane draws its verify columns (decode lanes) or its one
+        # token (a chunk that ends its prompt)
+        toks, states = eng._sample_span(
+            logits, {i: (self._gens[i], float(self._temps[i]),
+                         plan["spec"].get(i, 1))
+                     for i in plan["sample"] if self._temps[i] > 0})
+        if spec:
+            emitted_step = self._finish_spec(plan, spec_lanes, tokens, toks,
+                                             states)
+        else:
+            emitted_step = self._finish_plain(plan, toks[:, 0])
         dt = self.fe.now() - t0
         # chunk-carrying steps are prefill-side: their time and their
         # sampled tokens leave the decode rate
@@ -215,6 +244,61 @@ class StepLoop:
         else:
             self._retire_record(pending)
         return len(rows)
+
+    def _finish_spec(self, plan, spec_lanes, tokens, toks, states) -> int:
+        """Synchronous accept / rollback of a speculative step: walk each
+        lane's candidate span on the host, keep the longest draft / sample
+        agreement prefix plus the corrected token.  Every emitted token
+        comes from the logits row and the generator state plain decode
+        would use (a sampled lane rewinds to its emitted count), so
+        acceptance changes speed, never output."""
+        sched, stats, spec = self.sched, self.stats, self.spec
+        vals = toks.cpu().numpy()             # (R, C): one transfer
+        now = self.fe.now()
+        emitted_step = 0
+        for i in plan["sample"]:
+            s = sched.slot(i)
+            rid = s.req.rid
+            out = self.outputs.setdefault(rid, [])
+            if not s.out:                     # the request's first token
+                tok = int(vals[i, 0])
+                out.append(tok)
+                stats.tokens_out += 1
+                emitted_step += 1
+                stats.ttft_steps[rid] = stats.steps + 1
+                done = sched.record_first(i, tok)
+                self._emit(rid, len(out) - 1, tok, now, True, done)
+                continue
+            cols = plan["spec"].get(i, 1)
+            emitted = []
+            for j in range(cols):
+                tok = int(vals[i, j])
+                emitted.append(tok)
+                if j + 1 >= cols or tokens[i, j + 1] != tok:
+                    break
+            if len(emitted) < len(states.get(i, ())):
+                self._gens[i].set_state(states[i][len(emitted)])
+            if cols > 1:
+                stats.record_acceptance(rid, cols - 1, len(emitted) - 1)
+            done = False
+            for tok in emitted:
+                out.append(tok)
+                stats.tokens_out += 1
+                done = sched.record(i, tok)
+                self._emit(rid, len(out) - 1, tok, now, False, done)
+            emitted_step += len(emitted)
+            if done:
+                spec["frontier"].pop(i, None)  # slot may be re-admitted
+            elif cols > 1:
+                # pages past the acceptance point backed only rejected
+                # draft positions: return them now; the draft write cursor
+                # clamps back too
+                sched.rollback_speculation(i)
+                f = spec["frontier"]
+                f[i] = min(f.get(i, s.pos), s.pos)
+        if spec_lanes:
+            stats.spec_steps += 1
+        return emitted_step
 
     def _to_host(self, toks: torch.Tensor):
         """Start the (R,) token vector's copy to the host: into pinned

@@ -181,8 +181,17 @@ def test_engine_rejects_bad_options(setup):
         _port_engine(setup, "fake", attn_impl="pallas")
     with pytest.raises(ValueError):
         _port_engine(setup, "fake", kv_bits=4)
-    with pytest.raises(NotImplementedError, match="A7"):
-        _port_engine(setup, "fake").run([], speculative=True)
+    eng = _port_engine(setup, "fake")
+    toks = setup["toks"][0].astype(np.int32)
+    for bad, match in ((dict(draft_k=0), "draft_k"),
+                       (dict(draft_policy="oracle"), "draft_policy"),
+                       (dict(draft_policy="lowbit", draft_layers=1),
+                        "draft_layers"),
+                       (dict(draft_layers=99), "draft_layers"),
+                       (dict(draft_act_bits=2.0), "draft_act_bits"),
+                       (dict(prefill="monolithic"), "chunked")):
+        with pytest.raises(ValueError, match=match):
+            eng.run([(toks, 2)], speculative=True, **bad)
     # binarized policies: the fake store serves fake-binarized weights (as
     # the reference's does); the packed store is linear quantization only
     bpol = QuantPolicy(QuantMode.BINARIZE, setup["tpol"].weight_bits,

@@ -258,10 +258,20 @@ def test_run_error_paths():
         eng.run([(toks, 2)], page_size=4, max_slots=4, token_budget=3)
     with pytest.raises(ValueError, match="prefill"):
         eng.run([(toks, 2)], prefill="eager")
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.run([(toks, 2)], speculative=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.serve(FrontEnd(), speculative=True)
+    # speculative arguments: the reference's ValueErrors, on run and serve
+    for bad, match in ((dict(draft_k=0), "draft_k"),
+                       (dict(draft_policy="oracle"), "draft_policy"),
+                       (dict(draft_policy="lowbit", draft_layers=1),
+                        "draft_layers"),
+                       (dict(draft_layers=99), "draft_layers"),
+                       (dict(draft_policy="prefix", draft_act_bits=2.0),
+                        "draft_act_bits")):
+        with pytest.raises(ValueError, match=match):
+            eng.run([(toks, 2)], speculative=True, **bad)
+        with pytest.raises(ValueError, match=match):
+            eng.serve(FrontEnd(), speculative=True, **bad)
+    with pytest.raises(ValueError, match="chunked"):
+        eng.run([(toks, 2)], prefill="monolithic", speculative=True)
     with pytest.raises(ValueError, match="n_new"):
         Request(rid=0, tokens=toks, n_new=0)
 
