@@ -80,10 +80,29 @@ run exits non-zero:
               make_lm_evaluator call on the gemma2-2b params against a
               plain evaluation (weights bit for bit, logits against the
               plain-attention forward, accuracy by the gap rule).
+7. train   -- the paper's pipeline after the search, on its CIF10-7CNN
+              substrate: the Trainer (AdamW, 40 steps, checkpoints every
+              10) uninterrupted and preempted at step 25, resumed from
+              step 20, every parameter and optimizer leaf bit for bit,
+              the mean loss of the last 10 steps under the first 10's
+              (train-trainer); 3 + 2 QUANT episodes under the roofline
+              reward on H100Roofline at the card's power limit, each
+              reward recomputed on the host, and the H100 and TPU models'
+              latency and energy of the best and uniform policies
+              (train-roofline); qat_finetune of the QUANT search's best
+              policy (30 steps, batch 128): accuracy after >= before - 2,
+              B5 exactly 8 launches a step and B6 none, one step's
+              straight-through gradients bit for bit the plain
+              statement's, a profiled step with B5's device ms apart
+              (train-qat); 2 training steps of full-width gemma2-2b
+              (LM.loss at 1 x 512 tokens, remat=True, 8-bit AdamW) run
+              twice from one seed, losses and every leaf bit for bit, the
+              remat=False loss equal, peak memory (train-lm).
 
 The line before the last lists every kernel with its launches on its path
-(K1-K3: generate; K4: run; B5: the QUANT search; B6: the BINARIZE search)
-and its times; the last line is
+(K1-K3: generate; K4: run; B5: the QUANT search plus QAT, split in
+``launches_by_path``; B6: the BINARIZE search) and its times; the last
+line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it prints no
 result and exits 2.  It imports neither JAX nor the reference package.
@@ -175,6 +194,19 @@ LM_EVAL_BATCH, LM_EVAL_LEN = 4, 128
 FQ_NOTE = ("no single PyTorch call: torch.fake_quantize_per_channel_affine "
            "takes one integer range for all channels, with no prune or "
            "pass-through")
+
+# phase train: the Trainer (40 steps from a fresh init, checkpoints every
+# 10, preempted at 25), a 3 + 2 episode search under the roofline reward,
+# QAT of the best QUANT policy (tests/test_system.py:68's 30 steps at
+# batch 128) and 2 gemma2-2b training steps at 1 x 512 tokens, twice.
+# The Trainer's AdamW (b2 0.95) runs at lr 5e-4: at 2e-3 this CNN's loss
+# leaps in the first steps and then sits near chance in both packages, so
+# a falling loss would be luck
+TRAINER_STEPS, TRAINER_CKPT, TRAINER_PREEMPT = 40, 10, 25
+TRAINER_LR, TRAINER_WINDOW = 5e-4, 10
+ROOFLINE_EPISODES = (3, 2)
+QAT_STEPS, QAT_BATCH, QAT_DATA = 30, 128, 1000
+LM_TRAIN_STEPS, LM_TRAIN_LEN = 2, 512
 
 # phase run: 8 requests over 4 slots, so later requests reuse freed pages
 RUN_PROMPTS = (4160, 3100, 2050, 1030, 515, 260, 97, 33)
@@ -1685,7 +1717,7 @@ def run_cnn_search(torch, model, params, graph, val, mode_name, n_explore,
     if mode_name == "binarize":
         rec["im2col"] = im2col_profile(torch, model.cfg)
     emit({"phase": "search-run", **rec})
-    return rec
+    return rec, res
 
 
 def check_lm_evaluator(torch, cfg, model, params, policy):
@@ -1772,16 +1804,18 @@ def check_lm_evaluator(torch, cfg, model, params, policy):
     return rec
 
 
-def short_search(torch, model, params, graph, val):
-    """DETERMINISM_EPISODES episodes of a QUANT search (HierarchicalAgent
-    from SEED, accuracy-guaranteed reward): each episode's policy and
-    reward."""
+def short_search(torch, model, params, graph, val, reward=None,
+                 roofline=None, episodes=DETERMINISM_EPISODES):
+    """``episodes`` (explore, exploit) of a QUANT search (HierarchicalAgent
+    from SEED; the accuracy-guaranteed reward unless ``reward`` is given,
+    with ``roofline`` for kind "roofline"): each episode's policy, and
+    the SearchResult."""
     from repro_torch.core import (HierarchicalAgent, QuantEnv, RewardCfg,
                                   make_cnn_evaluator, run_search)
     from repro_torch.quant.policy import QuantMode
     ev = make_cnn_evaluator(model, params, graph, val, mode=QuantMode.QUANT)
-    env = QuantEnv(graph, params, ev, RewardCfg.accuracy_guaranteed(),
-                   mode=QuantMode.QUANT)
+    env = QuantEnv(graph, params, ev, reward or RewardCfg.accuracy_guaranteed(),
+                   mode=QuantMode.QUANT, roofline=roofline)
     agent = HierarchicalAgent(env, seed=SEED)
     policies, episode = [], agent.run_episode
 
@@ -1790,9 +1824,8 @@ def short_search(torch, model, params, graph, val):
         policies.append(policy.copy())
         return log, policy
     agent.run_episode = recorded
-    res = run_search(agent, n_explore=DETERMINISM_EPISODES[0],
-                     n_exploit=DETERMINISM_EPISODES[1])
-    return policies, [h.reward for h in res.history]
+    return policies, run_search(agent, n_explore=episodes[0],
+                                n_exploit=episodes[1])
 
 
 def check_determinism(torch, model, data, graph, val):
@@ -1808,7 +1841,9 @@ def check_determinism(torch, model, data, graph, val):
     differ = sum(not torch.equal(a, b) for a, b in leaves)
     searches = [short_search(torch, model, params, graph, val)
                 for _ in range(2)]
-    (pols, rewards), (pols2, rewards2) = searches
+    (pols, res), (pols2, res2) = searches
+    rewards = [h.reward for h in res.history]
+    rewards2 = [h.reward for h in res2.history]
     same_policy = len(pols) == len(pols2) and all(
         a.weight_bits.keys() == b.weight_bits.keys()
         and all(np.array_equal(a.weight_bits[n], b.weight_bits[n])
@@ -1826,7 +1861,9 @@ def check_determinism(torch, model, data, graph, val):
 
 def phase_search(torch, cfg, lm, lm_params, lm_policy):
     """The AutoQ search on CIF10-7CNN at full width, then the LM
-    evaluator on the serving phases' gemma2-2b params."""
+    evaluator on the serving phases' gemma2-2b params.  Returns the
+    record and what phase train builds on: the CNN, its trained
+    substrate, graph, data, val images and the QUANT run's best policy."""
     from repro_torch import backend
     from repro_torch.data import SyntheticImages
     from repro_torch.models.cnn import CIF10, CNN
@@ -1844,8 +1881,8 @@ def phase_search(torch, cfg, lm, lm_params, lm_policy):
           "val_images": VAL_IMAGES, "val_acc": acc_raw,
           "searched_groups": sum(l.n_groups for l in graph.layers)})
     checks = check_evaluators(torch, model, params, graph, val, acc_raw)
-    runs = [run_cnn_search(torch, model, params, graph, val, *r)
-            for r in SEARCH_RUNS]
+    runs, results = zip(*[run_cnn_search(torch, model, params, graph, val,
+                                         *r) for r in SEARCH_RUNS])
     cnn_s = time.perf_counter() - t0
     lm_rec = check_lm_evaluator(torch, cfg, lm, lm_params, lm_policy)
     problems = checks["problems"] + [p for r in runs for p in r["problems"]] \
@@ -1854,14 +1891,325 @@ def phase_search(torch, cfg, lm, lm_params, lm_policy):
         problems.append(f"substrate loss did not fall: {train}")
     if problems:
         raise AssertionError("search checks failed: " + "; ".join(problems))
-    return dict(train=train, val_acc=acc_raw, checks=checks, runs=runs,
-                lm=lm_rec, cnn_seconds=cnn_s)
+    substrate = dict(model=model, params=params, graph=graph, data=data,
+                     val=val, best=results[0].best_policy)
+    return dict(train=train, val_acc=acc_raw, checks=checks, runs=list(runs),
+                lm=lm_rec, cnn_seconds=cnn_s), substrate
+
+
+# --------------------------------------------------------------- phase 7
+def _power_w(card: str) -> float:
+    """The power limit in watts from nvidia-smi's ``name, limit W`` line."""
+    return float(card.rsplit(",", 1)[1].split()[0])
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def train_trainer(torch, model, data, tmp):
+    """The Trainer on CIF10-7CNN from a fresh init: an uninterrupted run,
+    then one preempted at TRAINER_PREEMPT and resumed from its newest
+    checkpoint; every parameter and optimizer leaf must be equal bit for
+    bit, and the loss (logged every step) must fall: the mean of the
+    last TRAINER_WINDOW steps under that of the first."""
+    from repro_torch.core.ddpg import tree_leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.train.loop import SimulatedPreemption, Trainer, TrainConfig
+    cfg = TrainConfig(total_steps=TRAINER_STEPS, ckpt_every=TRAINER_CKPT,
+                      lr=TRAINER_LR, keep=3, log_every=1)
+
+    def make(sub, preempt_at=None):
+        return Trainer(model, model.init(SEED, "cuda"), AdamW(lr=TRAINER_LR),
+                       lambda s: data.batch(s, TRAIN_BATCH),
+                       os.path.join(tmp, sub), cfg, preempt_at=preempt_at,
+                       device="cuda")
+
+    full, saves = make("full"), []
+    save = full.ckpt.save
+
+    def timed_save(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(*a, **k)
+        saves.append(time.perf_counter() - t0)
+        return out
+    full.ckpt.save = timed_save
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = full.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    problems = []
+    try:
+        make("pre", preempt_at=TRAINER_PREEMPT).run()
+        problems.append("the preempted run was not preempted")
+    except SimulatedPreemption:
+        pass
+    resumed = make("pre")
+    t0 = time.perf_counter()
+    out = resumed.run()
+    torch.cuda.synchronize()
+    wall_resumed = time.perf_counter() - t0
+    leaves = list(zip(tree_leaves(ref["params"]) + tree_leaves(ref["opt"]),
+                      tree_leaves(out["params"]) + tree_leaves(out["opt"])))
+    differ = sum(not torch.equal(a, b) for a, b in leaves)
+    want_start = TRAINER_PREEMPT // TRAINER_CKPT * TRAINER_CKPT
+    losses = [h["loss"] for h in ref["history"]]
+    if resumed.start_step != want_start:
+        problems.append(f"resumed at step {resumed.start_step}, want "
+                        f"{want_start}")
+    if differ:
+        problems.append(f"resumed run differs from the uninterrupted one in "
+                        f"{differ} of {len(leaves)} leaves")
+    first = float(np.mean(losses[:TRAINER_WINDOW]))
+    last = float(np.mean(losses[-TRAINER_WINDOW:]))
+    if not last < first:
+        problems.append(f"Trainer loss did not fall: {losses}")
+    newest = full.ckpt.dir / f"step_{full.ckpt.latest_step():010d}"
+    rec = dict(model=model.cfg.name, steps=TRAINER_STEPS,
+               batch=TRAIN_BATCH, ckpt_every=TRAINER_CKPT,
+               preempt_at=TRAINER_PREEMPT, start_step=resumed.start_step,
+               lr=TRAINER_LR, leaves=len(leaves), leaves_differing=differ,
+               loss_first_window=first, loss_last_window=last,
+               history=ref["history"], stragglers=ref["stragglers"],
+               s_per_step=(wall - sum(saves)) / TRAINER_STEPS,
+               resumed_s_per_step=wall_resumed / (TRAINER_STEPS -
+                                                  resumed.start_step),
+               ckpt_bytes=_dir_bytes(newest), saves=len(saves),
+               s_per_save=float(np.mean(saves)), kept=full.ckpt.all_steps(),
+               problems=problems)
+    emit({"phase": "train-trainer", **rec})
+    return rec
+
+
+def train_roofline(torch, model, params, graph, val, power_w):
+    """A short QUANT search under the roofline reward on the H100 model:
+    every episode's reward recomputed on the host from its logged policy
+    and accuracy; the H100 and TPU models' latency and energy of the best
+    policy and of uniform ones."""
+    from repro_torch.core import (H100Roofline, RewardCfg, TPURoofline,
+                                  extrinsic_reward)
+    from repro_torch.quant.policy import QuantPolicy
+    roof = H100Roofline(power_w=power_w)
+    cfg = RewardCfg(alpha=2.0, beta=0.5, gamma=0.5, kind="roofline")
+    t0 = time.perf_counter()
+    policies, res = short_search(torch, model, params, graph, val,
+                                 reward=cfg, roofline=roof,
+                                 episodes=ROOFLINE_EPISODES)
+    seconds = time.perf_counter() - t0
+    rewards = [h.reward for h in res.history]
+    host = [extrinsic_reward(h.acc, graph, p, cfg, roofline=roof)
+            for h, p in zip(res.history, policies)]
+    problems = []
+    if not all(np.isfinite(rewards)):
+        problems.append(f"non-finite roofline rewards {rewards}")
+    if host != rewards:
+        problems.append(f"rewards {rewards} != host recomputation {host}")
+    models = {"h100": roof, "tpu": TPURoofline()}
+    table = {}
+    for label, pol in [("best", res.best_policy)] + [
+            (f"uniform{b}", QuantPolicy.uniform(graph, float(b)))
+            for b in (32, 8, 4, 2)]:
+        table[label] = {n: dict(latency_s=m.latency(graph, pol),
+                                latency_ratio=m.latency(graph, pol) /
+                                m.latency_full(graph),
+                                energy_j=m.energy(graph, pol))
+                        for n, m in models.items()}
+    rec = dict(episodes=len(rewards), power_w=power_w, rewards=rewards,
+               host_rewards=host, accs=[h.acc for h in res.history],
+               best_avg_wbits=res.best_log.avg_wbits, seconds=seconds,
+               models=table, problems=problems)
+    emit({"phase": "train-roofline", **rec})
+    return rec
+
+
+def train_qat(torch, model, params, graph, val, data, best):
+    """qat_finetune of the QUANT search's best policy (QAT_STEPS steps,
+    batch QAT_BATCH): validation accuracy before and after, B5's launches
+    (one a searched weight a step; B6 none); one step's gradients against
+    the plain statement's (CNN.loss at the weights fake_quant_per_channel
+    gives), bit for bit; one profiled step, B5's device ms apart."""
+    from repro_torch import kernels
+    from repro_torch.core import make_cnn_evaluator
+    from repro_torch.core.ddpg import tree_leaves
+    from repro_torch.core.evaluate import upload_bits
+    from repro_torch.optim import AdamW
+    from repro_torch.quant.apply import get_path, set_path
+    from repro_torch.quant.linear_quant import fake_quant_per_channel
+    from repro_torch.train.loop import upload_batch, value_and_grad
+    from repro_torch.train.qat import make_qat_loss, qat_finetune
+    dev = torch.device("cuda")
+
+    def data_fn(i):
+        return data.batch(QAT_DATA + i, QAT_BATCH)
+    acc_before = make_cnn_evaluator(model, params, graph, val)(best)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tuned = qat_finetune(model, params, graph, best, data_fn, steps=QAT_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    acc_after = make_cnn_evaluator(model, tuned, graph, val)(best)
+    problems = []
+    want = len(graph.layers) * QAT_STEPS
+    if launches["fake_quant"] != want or launches["binary_matmul"] != 0:
+        problems.append(f"QAT launches {launches}: want fake_quant {want}, "
+                        f"binary_matmul 0")
+    if not acc_after >= acc_before - 2.0:
+        problems.append(f"QAT accuracy {acc_after} < {acc_before} - 2")
+    # the straight-through step against the plain statement
+    batch = upload_batch(data_fn(0), dev)
+    loss_fn = make_qat_loss(model, graph, best, device=dev)
+    l_ste, g_ste = value_and_grad(loss_fn, params, batch)
+    wb, ab = upload_bits(best, graph, dev)
+    qp = params
+    for layer, bits in zip(graph.layers, wb):
+        qp = set_path(qp, layer.param_path, fake_quant_per_channel(
+            get_path(params, layer.param_path), bits,
+            axis=layer.channel_axis))
+    act = dict(zip((l.name for l in graph.layers), ab))
+    l_plain, g_plain = value_and_grad(
+        lambda p: model.loss(p, batch, act_bits=act), qp)
+    pairs = list(zip(tree_leaves(g_ste), tree_leaves(g_plain)))
+    ste_differ = sum(not torch.equal(a, b) for a, b in pairs)
+    if ste_differ or not torch.equal(l_ste, l_plain):
+        problems.append(f"STE gradients differ from the plain statement's "
+                        f"in {ste_differ} of {len(pairs)} leaves (loss "
+                        f"{float(l_ste)} vs {float(l_plain)})")
+    opt = AdamW(lr=3e-4, grad_clip=1.0)
+    state = opt.init(params)
+
+    def one_step():
+        _, g = value_and_grad(loss_fn, params, batch)
+        return opt.update(params, g, state)
+    one_step()
+    kernels.reset_launch_counts()
+    prof = profile_call(torch, one_step, match=("fake_quant_rows",))
+    b5 = dict(prof.pop("fake_quant_rows"),
+              wrapper_calls=kernels.launch_counts()["fake_quant"])
+    rec = dict(model=model.cfg.name, steps=QAT_STEPS, batch=QAT_BATCH,
+               best_avg_wbits=best.avg_weight_bits(graph),
+               acc_before=acc_before, acc_after=acc_after,
+               s_per_step=seconds / QAT_STEPS, launches=launches,
+               ste_leaves=len(pairs), ste_leaves_differing=ste_differ,
+               step_device_ms=prof["device_ms"], step_b5_ms=b5["ms"],
+               step_b5_launches=b5["calls"],
+               step_b5_wrapper_calls=b5["wrapper_calls"],
+               step_rest_ms=prof["device_ms"] - b5["ms"],
+               profile_step=prof, problems=problems)
+    emit({"phase": "train-qat", **rec})
+    return rec
+
+
+def train_lm(torch, cfg, model):
+    """LM_TRAIN_STEPS training steps of full-width, full-depth gemma2-2b
+    (LM.loss at 1 x LM_TRAIN_LEN tokens with remat=True, backward, one
+    8-bit AdamW update), run twice from one seed: the losses and every
+    parameter leaf equal bit for bit.  The remat=False loss of step 1
+    must equal the remat=True one.  Peak memory is this phase's."""
+    from repro_torch.core.ddpg import tree_leaves
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import AdamW
+    from repro_torch.train.loop import upload_batch, value_and_grad
+    dev = torch.device("cuda")
+    opt = AdamW(lr=1e-4, state_bits=8)
+    stream = TokenStream(vocab=cfg.vocab)
+    batches = [stream.batch(i, 1, LM_TRAIN_LEN) for i in range(LM_TRAIN_STEPS)]
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_run(first):
+        params = model.init(SEED + 1, "cuda")
+        state = opt.init(params)
+        steps = []
+        for i, b in enumerate(batches):
+            tb = upload_batch(b, dev)
+            if first and i == 0:
+                with torch.no_grad():
+                    loss_nr = model.loss(params, tb, remat=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = value_and_grad(
+                lambda p: model.loss(p, tb, remat=True), params)
+            params, state, m = opt.update(params, g, state)
+            del g
+            torch.cuda.synchronize()
+            steps.append(dict(seconds=time.perf_counter() - t0, loss=loss,
+                              grad_norm=m["grad_norm"]))
+        return params, steps, (loss_nr if first else None)
+
+    params, steps, loss_nr = one_run(True)
+    peak = torch.cuda.max_memory_allocated()
+    kept = [t.cpu() for t in tree_leaves(params)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params2, steps2, _ = one_run(False)
+    n_leaves = len(kept)
+    differ = sum(not torch.equal(a.to(dev), b)
+                 for a, b in zip(kept, tree_leaves(params2)))
+    losses_equal = all(torch.equal(a["loss"], b["loss"])
+                       for a, b in zip(steps, steps2))
+    remat_equal = bool(torch.equal(loss_nr, steps[0]["loss"]))
+    del params2, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = []
+    if differ or not losses_equal:
+        problems.append(f"two gemma2-2b training runs differ: {differ} "
+                        f"leaves, losses equal {losses_equal}")
+    if not remat_equal:
+        problems.append(f"remat=False loss {float(loss_nr)} != remat=True "
+                        f"{float(steps[0]['loss'])}")
+    if not all(np.isfinite(float(s["loss"])) for s in steps + steps2):
+        problems.append("non-finite gemma2-2b loss")
+
+    def fl(st):
+        return [dict(seconds=s["seconds"], loss=float(s["loss"]),
+                     grad_norm=float(s["grad_norm"])) for s in st]
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, tokens=[1, LM_TRAIN_LEN],
+               remat=True, state_bits=8, steps=fl(steps),
+               steps_repeat=fl(steps2), leaves=n_leaves,
+               leaves_differing=differ, losses_equal=losses_equal,
+               loss_remat_false=float(loss_nr), remat_equal=remat_equal,
+               resident_bytes_before=resident, peak_mem_bytes=peak,
+               peak_mem_bytes_both=torch.cuda.max_memory_allocated(),
+               problems=problems)
+    emit({"phase": "train-lm", **rec})
+    return rec
+
+
+def phase_train(torch, cfg, lm, card, sub):
+    """The Trainer, the roofline reward, QAT (on the search phase's
+    substrate, val images and best QUANT policy) and one gemma2-2b
+    training step."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        trainer = train_trainer(torch, sub["model"], sub["data"], tmp)
+    roof = train_roofline(torch, sub["model"], sub["params"], sub["graph"],
+                          sub["val"], _power_w(card))
+    qat = train_qat(torch, sub["model"], sub["params"], sub["graph"],
+                    sub["val"], sub["data"], sub["best"])
+    lm_rec = train_lm(torch, cfg, lm)
+    recs = dict(trainer=trainer, roofline=roof, qat=qat, lm=lm_rec,
+                seconds=time.perf_counter() - t0)
+    problems = [p for r in (trainer, roof, qat, lm_rec)
+                for p in r["problems"]]
+    emit({"phase": "train", "seconds": recs["seconds"]})
+    if problems:
+        raise AssertionError("train checks failed: " + "; ".join(problems))
+    return recs
 
 
 # ------------------------------------------------------------------ main
-def summarize(rows, launches):
+def summarize(rows, launches, by_path):
     """One entry per kernel: sums over its measured shapes.  ``launches``
-    maps each kernel to its count on its own path's run."""
+    maps each kernel to its count on its own paths' runs; ``by_path``
+    splits it for a kernel that more than one path runs."""
     out = []
     for name, (source, replaces) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -1879,6 +2227,8 @@ def summarize(rows, launches):
             device_ms=None if any(r["device_ms"] is None for r in mine)
             else sum(r["device_ms"] for r in mine),
             cases=[r["case"] for r in mine]))
+        if name in by_path:
+            out[-1]["launches_by_path"] = by_path[name]
     return out
 
 
@@ -1908,17 +2258,24 @@ def main(argv=None) -> int:
     cfg, model, params, policy = init_model(torch)
     rec_a, rec_b, checks = phase_serve(torch, cfg, model, params, policy)
     run = phase_run(torch, cfg, model, params, policy)
-    search = phase_search(torch, cfg, model, params, policy)
+    search, substrate = phase_search(torch, cfg, model, params, policy)
+    del params                  # the serving phases' weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(torch, cfg, model, card, substrate)
     launches = dict(rec_a["launches"])
     launches["paged_attention"] = \
         run["runs"]["overlap"]["launches"]["paged_attention"]
     for r in search["runs"]:
         name = "fake_quant" if r["mode"] == "quant" else "binary_matmul"
         launches[name] = r["launches"][name]
-    kernels = summarize(rows, launches)
+    by_path = {"fake_quant": {"search": launches["fake_quant"],
+                              "qat": train["qat"]["launches"]["fake_quant"]}}
+    launches["fake_quant"] = sum(by_path["fake_quant"].values())
+    kernels = summarize(rows, launches, by_path)
     result = {"card": card, "kernel_rows": rows, "engine_a": rec_a,
               "engine_b": rec_b, "checks": checks, "run": run,
-              "search": search, "kernels": kernels,
+              "search": search, "train": train, "kernels": kernels,
               "seconds": time.perf_counter() - t0}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -9,10 +9,9 @@ quantization (port of ``repro/core``).
   search.run_search       -- explore / exploit episode schedule
   evaluate                -- QuantPolicy -> accuracy evaluators on kernels
                              B5 (fake-quant) and B6 (bit-plane product)
-
-The reference's ``roofline.TPURoofline`` is not ported (ROADMAP.md A8):
-``reward`` and ``env`` take any object with ``latency`` and
-``latency_full`` for ``kind="roofline"``.
+  roofline                -- latency / energy models for the roofline
+                             reward: the reference's TPURoofline (a copy)
+                             and the port's H100Roofline
 """
 from repro_torch.core.agent import HierarchicalAgent
 from repro_torch.core.bound import LayerBounder
@@ -21,11 +20,12 @@ from repro_torch.core.env import QuantEnv
 from repro_torch.core.evaluate import make_cnn_evaluator, make_lm_evaluator
 from repro_torch.core.flat import FlatAgent
 from repro_torch.core.reward import RewardCfg, extrinsic_reward, netscore
+from repro_torch.core.roofline import H100Roofline, TPURoofline
 from repro_torch.core.search import SearchResult, run_search
 
 __all__ = [
     "HierarchicalAgent", "LayerBounder", "DDPG", "DDPGConfig", "ReplayBuffer",
     "QuantEnv", "make_cnn_evaluator", "make_lm_evaluator", "FlatAgent",
-    "RewardCfg", "extrinsic_reward", "netscore", "SearchResult",
-    "run_search",
+    "RewardCfg", "extrinsic_reward", "netscore", "H100Roofline",
+    "TPURoofline", "SearchResult", "run_search",
 ]

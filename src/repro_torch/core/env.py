@@ -1,5 +1,7 @@
 # Port of src/repro/core/env.py: numpy throughout, as there; weights are
 # copied to the host once, when the env is built (group_weight_vars).
+# ``roofline`` is a core.roofline.TPURoofline or H100Roofline, used by
+# RewardCfg(kind="roofline").
 """The kernel-wise quantization environment.
 
 Wraps a model (via its QuantizableGraph + an evaluator) as the MDP the

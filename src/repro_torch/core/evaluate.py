@@ -8,10 +8,9 @@ vectors (``backend.upload``) and one host sync, when the accuracy is
 read.  Weights are quantized through the kernels written for it:
 
 * QUANT: every searched weight is fake-quantized by kernel B5
-  (``kernels.ops.fake_quant_channels``) on its channel-last 2-d view, with
-  the per-channel amax, levels and scale computed outside the kernel in
-  the ops of ``quant.linear_quant``: bit for bit
-  ``fake_quant_per_channel``.
+  (``quant.linear_quant.fake_quant_weight``: B5 on the weight's
+  channel-last 2-d view, with the per-channel amax, levels and scale
+  computed outside the kernel): bit for bit ``fake_quant_per_channel``.
 * BINARIZE, CNN: every searched weight goes to the model in plane form
   (``quant.binarize.fake_binarize_planes``), so its conv (im2col) or fc
   product runs on kernel B6 (``kernels.ops.binary_matmul``).  The LM
@@ -27,27 +26,12 @@ import torch
 
 from repro_torch import backend
 from repro_torch.core.ddpg import tree_leaves
-from repro_torch.kernels.ops import fake_quant_channels
 from repro_torch.models.cnn import conv_rows
 from repro_torch.quant.apply import get_path, set_path
 from repro_torch.quant.binarize import (fake_binarize_per_channel,
                                         fake_binarize_planes)
-from repro_torch.quant.linear_quant import channel_scale
+from repro_torch.quant.linear_quant import fake_quant_weight
 from repro_torch.quant.policy import QuantMode, QuantPolicy, QuantizableGraph
-
-
-def fake_quant_weight(w: torch.Tensor, bits: torch.Tensor,
-                      axis: int = -1) -> torch.Tensor:
-    """``quant.linear_quant.fake_quant_per_channel(w, bits, axis)`` with
-    the elementwise pass on kernel B5: the channel-last 2-d view, amax
-    over its rows, then ``linear_quant.channel_scale``."""
-    axis = axis % w.ndim
-    wl = w if axis == w.ndim - 1 else torch.movedim(w, axis, -1)
-    w2 = wl.reshape(-1, wl.shape[-1])
-    amax = w2.abs().amax(dim=0)
-    scale, lv = channel_scale(amax, bits)
-    out = fake_quant_channels(w2, scale, lv, bits).reshape(wl.shape)
-    return out if axis == w.ndim - 1 else torch.movedim(out, -1, axis)
 
 
 def _plane_form(node: dict, key, w, layer, bits) -> dict:

@@ -1,5 +1,6 @@
-# Copied from src/repro/core/reward.py; the roofline variant takes any
-# object with ``latency(graph, policy)`` and ``latency_full(graph)``.
+# Copied from src/repro/core/reward.py; the roofline variant takes a
+# core.roofline.TPURoofline or H100Roofline (any object with
+# ``latency(graph, policy)`` and ``latency_full(graph)``).
 """Extrinsic rewards: NetScore (Eq. 2), FLOP-based baseline, and the
 roofline-informed variant.
 

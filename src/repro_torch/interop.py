@@ -1,11 +1,13 @@
-"""Carry the reference package's parameters into the port.
+"""Carry the reference package's parameters into the port, and back.
 
 The reference hands its parameters over as numpy arrays
 (``jax.tree.map(np.asarray, params)``), which keeps its ``PackedWeight``
 nodes with numpy parts.  :func:`params_from_numpy` rebuilds the same tree
 with torch tensors on ``device``; a packed node is recognised by its
 attributes (``parts``, ``buckets``, ``k``, ``n``, ``out_dtype``), so this
-module imports nothing of the reference.
+module imports nothing of the reference.  Any tree of the same shape
+carries over the same way, an AdamW state (int8 ``q``, f32 ``s``, int32
+``t`` leaves) included.  :func:`params_to_numpy` is the inverse.
 """
 from __future__ import annotations
 
@@ -51,3 +53,24 @@ def params_from_numpy(tree: Any, device: backend.DeviceLike = None) -> Any:
         return tensor_from_numpy(node, device)
 
     return conv(tree)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor as a host numpy array; bfloat16 becomes ml_dtypes'
+    bfloat16 (the reference's numpy dtype), bit for bit."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The inverse of :func:`params_from_numpy` for trees of tensors (a
+    trained params or optimizer tree): numpy arrays, dicts, tuples and
+    lists kept."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    return tensor_to_numpy(tree)

@@ -4,7 +4,9 @@ precomputed per-column ``scale``, ``levels`` and ``bits``.
 Port of ``repro/kernels/fake_quant.py::fake_quant_pallas`` as a CUDA C++
 kernel (``csrc/fake_quant.cu``), bit for bit its plain version
 (``ref.fake_quant_ref``).  The search's QUANT evaluators
-(``core/evaluate.py``) fake-quantize every searched weight through it.
+(``core/evaluate.py``) and QAT's straight-through quantizer
+(``quant.linear_quant.ste_fake_quant``) fake-quantize every searched
+weight through it, by way of ``quant.linear_quant.fake_quant_weight``.
 The wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors; there is no fallback between them.
 """
@@ -16,7 +18,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.quant.linear_quant import FULL_BITS
+from repro_torch.kernels.ref import FULL_BITS
 
 COUNT = build.LaunchCount("fake_quant")
 
@@ -31,7 +33,7 @@ def fake_quant_channels(x: torch.Tensor, scale: torch.Tensor,
                         levels: torch.Tensor, bits: torch.Tensor
                         ) -> torch.Tensor:
     """x (M, N) f32; scale / levels / bits (N,) f32 -> (M, N) f32.  bits
-    <= 0.5 prunes a column, bits >= ``linear_quant.FULL_BITS`` (handed to
+    <= 0.5 prunes a column, bits >= ``ref.FULL_BITS`` (handed to
     the kernel at every launch) passes it through."""
     if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
         raise NotImplementedError("bf16 inputs to the fake-quant kernel are "

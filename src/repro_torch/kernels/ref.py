@@ -24,7 +24,12 @@ import math
 import torch
 
 from repro_torch.kernels.pack import unpack_sub8
-from repro_torch.quant.linear_quant import FULL_BITS
+
+# Bit-widths at or above this behave as full precision (f32 mantissa):
+# B5 passes such a channel through.  Defined here, below the quantizer
+# (quant.linear_quant re-exports it), so that the kernel modules import
+# nothing of quant/ and quant/ can call the kernels.
+FULL_BITS = 24
 
 
 def quant_matmul_ref(x: torch.Tensor, qw: torch.Tensor,
@@ -78,7 +83,7 @@ def fake_quant_ref(x: torch.Tensor, scale: torch.Tensor,
                    levels: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Per-channel quantize-dequantize with precomputed scales.
     x: (M, N); scale, levels, bits: (N,).  bits <= 0.5 prunes; bits >=
-    quant.linear_quant.FULL_BITS passes through."""
+    FULL_BITS passes through."""
     xf = x.to(torch.float32)
     s = scale[None, :].to(torch.float32)
     lv = levels[None, :].to(torch.float32)

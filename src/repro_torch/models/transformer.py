@@ -5,7 +5,8 @@ Covers what ``ServeEngine.generate`` and ``run`` / ``serve`` run: GQA
 attention with RoPE, the sliding window and the softcaps, dense SwiGLU
 FFNs, ``prefill`` and ``decode_step`` over the dense KV cache (fp32 or int8
 with per-(position, head) scales), and ``decode_step_paged`` and
-``model_step`` over the paged pool (``init_paged_cache``).  Parameters
+``model_step`` over the paged pool (``init_paged_cache``), and the
+training loss (``loss``, with per-repeat rematerialisation).  Parameters
 keep the reference's pytree: ``{"blocks": tuple per pattern position of
 dicts of (n_repeat, ...) stacked tensors, "final_norm", "unembed",
 "embed"}``.  A Python loop over the stacked repeats takes the place of
@@ -23,11 +24,14 @@ never allocated: sentinel lanes write there.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import backend
 from repro_torch.kernels.pack import PackedWeight
@@ -42,7 +46,6 @@ NOT_PORTED = {
     "mamba": "ROADMAP.md A10 (mamba blocks)",
     "cross_attn": "ROADMAP.md A10 (cross-attention memory cache)",
     "moe": "ROADMAP.md A10 (MoE FFN)",
-    "train": "ROADMAP.md A9 (training and QAT)",
 }
 
 
@@ -108,6 +111,41 @@ def _kv_write_paged(cache, k, v, wp, block_tables):
         else:
             cache[key][fp, fs] = val.to(cache[key].dtype)
     cache["pos"][fp, fs] = wp.reshape(-1).to(torch.int32)
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """``embed[tokens]`` whose backward is deterministic: rows of repeated
+    tokens are summed by PyTorch's sort-based ``index_put_`` (stable sort,
+    each row's terms added in token order), with deterministic algorithms
+    switched on for that one call, so two training runs from one seed
+    give the same bits."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.embed_shape = embed.shape
+        return embed[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        was = torch.are_deterministic_algorithms_enabled()
+        warn = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            ge = torch.zeros(ctx.embed_shape, dtype=g.dtype, device=g.device)
+            ge.index_put_((tokens,), g, accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(was, warn_only=warn)
+        return ge, None
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the 2-d matmuls (the weight
+    products; ``layers.linear`` is ``aten.mm``), recompute the rest, as
+    JAX's ``dots_with_no_batch_dims_saveable``."""
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default \
+        else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _repeat(tree: Dict[str, Any], r: int) -> Dict[str, Any]:
@@ -240,18 +278,30 @@ class LM:
             x = x + swiglu(h, bp, act_bits=act_bits)
         return x
 
-    def _stack(self, params, x, cache, act_bits, **kw):
+    def _stack(self, params, x, cache, act_bits, remat=False, **kw):
         """Run every block: loop over the params' repeats (``n_repeat``, or
         a draft prefix's depth), then pattern positions.  ``cache`` None
-        runs without one (the full-sequence forward)."""
+        runs without one (the full-sequence forward).  ``remat`` (that
+        forward only) checkpoints each repeat: True saves nothing inside
+        it, ``"dots"`` saves its matmul outputs."""
         cfg = self.cfg
-        for r in range(params["blocks"][0]["norm"].shape[0]):
+
+        def one_repeat(x, r):
             for p_idx, bdef in enumerate(cfg.pattern):
                 ab = None if act_bits is None else float(act_bits[r][p_idx])
                 x = self._apply_block(
                     _repeat(params["blocks"][p_idx], r), bdef, x,
                     cache=None if cache is None else _repeat(cache[p_idx], r),
                     act_bits=ab, **kw)
+            return x
+
+        ctx = {}
+        if remat == "dots":
+            ctx["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+        for r in range(params["blocks"][0]["norm"].shape[0]):
+            x = checkpoint(one_repeat, x, r, use_reentrant=False, **ctx) \
+                if remat else one_repeat(x, r)
         return x
 
     # --------------------------------------------------------------- helpers
@@ -264,23 +314,40 @@ class LM:
             lg = torch.where(valid, lg, torch.full_like(lg, -1e30))
         return lg
 
-    def apply(self, params, batch, act_bits=None, attn_impl=None):
+    def apply(self, params, batch, act_bits=None, attn_impl=None,
+              remat=False):
         """Full-sequence forward of ``batch["tokens"]`` (B, S), causal, no
         cache.  Returns (logits (B, S, V), aux_loss 0.0), as the
         reference's ``apply`` does for these families.  act_bits: optional
         (n_repeat, len(pattern)) activation QBNs on the host; attn_impl:
-        layers.ATTN_IMPLS.  Forward only: training is not ported."""
+        layers.ATTN_IMPLS; remat: False, True or ``"dots"``
+        (:meth:`_stack`).  Differentiable: the embedding's gradient is
+        deterministic (:class:`_EmbedLookup`)."""
         tokens = batch["tokens"]
-        x = params["embed"][tokens.long()]
+        x = _EmbedLookup.apply(params["embed"], tokens.long())
         B, S, _ = x.shape
         q_pos = torch.arange(S, dtype=torch.int32,
                              device=x.device).repeat(B, 1)
-        x = self._stack(params, x, None, act_bits, q_pos=q_pos, mode="train",
-                        attn_impl=attn_impl)
+        x = self._stack(params, x, None, act_bits, remat=remat, q_pos=q_pos,
+                        mode="train", attn_impl=attn_impl)
         return self.logits_of(params, x), 0.0
 
-    def loss(self, *a, **kw):
-        raise _not_ported("train")
+    def loss(self, params, batch, act_bits=None, remat=False):
+        """Mean next-token NLL over the positions with ``labels >= 0``,
+        plus ``0.01 * aux``, as the reference's ``loss``.  Attention runs
+        the plain version (``attn_impl`` "ref", the reference's own choice
+        for its loss: neither package has an attention backward)."""
+        logits, aux = self.apply(params, batch, act_bits=act_bits,
+                                 remat=remat)
+        labels = batch["labels"].long()
+        lf = logits.to(torch.float32)
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, torch.clamp(labels, min=0)[..., None]
+                            )[..., 0]
+        mask = (labels >= 0).to(torch.float32)
+        nll = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(),
+                                                           min=1.0)
+        return nll + 0.01 * aux
 
     # ---------------------------------------------------------------- caches
     def init_cache(self, batch: int, max_len: int,

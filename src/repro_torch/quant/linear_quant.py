@@ -6,14 +6,19 @@ per-channel scale ``s = amax / (2^(b-1)-1)``; ``b <= 0.5`` prunes the
 channel and ``b >= FULL_BITS`` passes it through.  Every step is the same
 f32 operation as in the reference (``torch.round`` rounds half to even, as
 ``jnp.round`` does), so the results are bitwise equal to it.
+
+:func:`fake_quant_weight` is the same per-channel quantizer with its
+elementwise pass on kernel B5, and :func:`ste_fake_quant` puts it under
+a straight-through gradient for QAT.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-# Bit-widths at or above this behave as full precision (f32 mantissa).
-FULL_BITS = 24
+from repro_torch.kernels.fake_quant import fake_quant_channels
+# bit-widths at or above this behave as full precision (f32 mantissa)
+from repro_torch.kernels.ref import FULL_BITS
 
 
 def _levels(bits: torch.Tensor) -> torch.Tensor:
@@ -60,6 +65,39 @@ def fake_quant_per_channel(w: torch.Tensor, bits_per_channel,
                            axis: int = -1) -> torch.Tensor:
     """Per-output-channel fake quantization (the paper's weight quantizer)."""
     return fake_quant(w, bits_per_channel, axis=axis)
+
+
+def fake_quant_weight(w: torch.Tensor, bits: torch.Tensor,
+                      axis: int = -1) -> torch.Tensor:
+    """:func:`fake_quant_per_channel` with the elementwise pass on kernel
+    B5 (``kernels.fake_quant.fake_quant_channels``): the channel-last 2-d
+    view, amax over its rows, then :func:`channel_scale`.  ``bits`` is
+    the (n_channels,) f32 tensor on ``w``'s device.  Bit for bit
+    :func:`fake_quant_per_channel`; CPU tensors take B5's plain version."""
+    axis = axis % w.ndim
+    wl = w if axis == w.ndim - 1 else torch.movedim(w, axis, -1)
+    w2 = wl.reshape(-1, wl.shape[-1]).contiguous()
+    amax = w2.abs().amax(dim=0)
+    scale, lv = channel_scale(amax, bits)
+    out = fake_quant_channels(w2, scale, lv, bits).reshape(wl.shape)
+    return out if axis == w.ndim - 1 else torch.movedim(out, -1, axis)
+
+
+class _SteFakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bits, axis):
+        return fake_quant_weight(x, bits, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def ste_fake_quant(x: torch.Tensor, bits: torch.Tensor, axis: int
+                   ) -> torch.Tensor:
+    """Fake quant with a straight-through gradient estimator (the QAT
+    forward): :func:`fake_quant_weight` forward, identity backward."""
+    return _SteFakeQuant.apply(x, bits, axis)
 
 
 def fake_quant_per_token(x: torch.Tensor, bits) -> torch.Tensor:

@@ -6,7 +6,8 @@
 * Entry points run on the card by default: without CUDA and without
   ``device="cpu"`` they raise and name the opt-in, never carrying on
   quietly on the CPU (the LM, the serving engine, the CNN, the DDPG
-  controllers and both search agents).
+  controllers, both search agents, the Trainer, the QAT loss and a
+  checkpoint's restore).
 * Kernel wrappers run their plain versions only on CPU tensors, without
   counting a launch, and refuse tensors on any other non-CUDA device.
 """
@@ -42,17 +43,22 @@ def _modules():
 
 def test_scan_covers_the_serving_modules():
     """The scan sees the serving modules and, since the search slice, the
-    search modules."""
+    search modules; since the training slice, the optimizer, the training
+    loop, checkpoints, QAT and the roofline models."""
     names = {str(p.relative_to(PORT)) for p in _port_files()
              if PORT in p.parents}
     core = ("__init__", "ddpg", "reward", "bound", "env", "agent", "flat",
-            "search", "evaluate")
+            "search", "evaluate", "roofline")
+    train = ("optim/__init__.py", "optim/adam.py", "optim/schedule.py",
+             "train/__init__.py", "train/checkpoint.py", "train/loop.py",
+             "train/qat.py")
     for mod in ("serve/paged_kv.py", "serve/scheduler.py",
                 "serve/frontend.py", "serve/step_loop.py",
                 "serve/engine.py", "kernels/attention.py",
                 "kernels/fake_quant.py", "kernels/binary_matmul.py",
                 "models/cnn.py", "quant/binarize.py", "data/synthetic.py",
-                "data/__init__.py") + tuple(f"core/{m}.py" for m in core):
+                "data/__init__.py") + train + \
+            tuple(f"core/{m}.py" for m in core):
         assert mod in names
 
 
@@ -86,7 +92,8 @@ def test_port_imports_without_jax():
     assert res.stdout.startswith("ok")
 
 
-def test_entry_points_require_cuda_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_require_cuda_unless_cpu_is_asked(monkeypatch,
+                                                       tmp_path):
     from repro_torch.configs import ARCHS
     from repro_torch.models import LM
     from repro_torch.serve import ServeEngine
@@ -100,6 +107,16 @@ def test_entry_points_require_cuda_unless_cpu_is_asked(monkeypatch):
     cnn_params = cnn.init(0, device="cpu")
     env = QuantEnv(cnn.graph(), cnn_params, lambda policy: 50.0,
                    RewardCfg.accuracy_guaranteed())
+    from repro_torch.optim import AdamW
+    from repro_torch.quant.policy import QuantPolicy
+    from repro_torch.train import CheckpointManager, Trainer
+    from repro_torch.train.qat import make_qat_loss
+    ckpt_dir = tmp_path
+    CheckpointManager(ckpt_dir).save(1, {"x": torch.zeros(2)})
+
+    def trainer(**kw):
+        return Trainer(cnn, cnn_params, AdamW(), lambda step: {},
+                       str(ckpt_dir / "t"), **kw)
     for call in (lambda: model.init(0),
                  lambda: model.init_cache(1, 8),
                  lambda: model.init_paged_cache(2, 5, 4),
@@ -109,10 +126,17 @@ def test_entry_points_require_cuda_unless_cpu_is_asked(monkeypatch):
                  lambda: cnn.init(0),
                  lambda: DDPG(DDPGConfig(state_dim=3, action_dim=1)),
                  lambda: HierarchicalAgent(env),
-                 lambda: FlatAgent(env, device="cuda")):
+                 lambda: FlatAgent(env, device="cuda"),
+                 lambda: trainer(),
+                 lambda: trainer(device="cuda"),
+                 lambda: make_qat_loss(cnn, cnn.graph(), QuantPolicy.uniform(
+                     cnn.graph(), 4.0)),
+                 lambda: CheckpointManager(ckpt_dir).restore(
+                     {"x": torch.zeros(2)})):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert cnn_params["conv0"]["w"].device.type == "cpu"
+    assert trainer(device="cpu").params["conv0"]["w"].device.type == "cpu"
     agent = HierarchicalAgent(env, device="cpu")
     assert agent.llc.state["actor"][0]["w"].device.type == "cpu"
     log, _ = agent.run_episode(noise=0.5)

@@ -121,8 +121,11 @@ def test_block_act_bits_and_graph_match_reference():
 def test_unported_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A10"):
         get("jamba-1.5-large-398b")
-    tm = LM(ARCHS["gemma2-2b"].smoke)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm.loss()
+    import dataclasses
+    from repro_torch.configs.base import dense
+    smoke = ARCHS["gemma2-2b"].smoke
+    tm = LM(dataclasses.replace(smoke, pattern=(dense("mamba"),)))
+    with pytest.raises(NotImplementedError, match="A10"):
+        tm.init(0, device="cpu")
     with pytest.raises(KeyError):
         get("no-such-arch")
