@@ -41,9 +41,15 @@ run exits non-zero:
               (GEMMs, attention); `route_bound_ms` is the floor of the route
               taken (2 TF32 passes for the GEMMs on tensor cores, 3 for the
               attention walks on tensor cores, fp32 on CUDA cores for the
-              rest).
-3. serve   -- ServeEngine.generate on gemma2-2b at full width and depth
-              with a seeded kernel-wise policy: engine A (packed store,
+              rest).  Rows of the later paths: K1's and K4's decode (and
+              K4's chunk) over bf16 K/V, granite-moe's K1 prefill and
+              decode and K4 chunk and decode at D 64, G 3; the
+              expert-batched K2 / K3 (granite's wg and wd over 40 experts
+              at C = 1024, 2 and 4 rows, one launch for all experts, the
+              library call torch.bmm on the dequantized stack) and K2 on
+              the uniform int8 store's gemma2-2b wq.
+3. serve   -- ServeEngine.generate on gemma2-2b at full width, cut to
+              GEMMA_LAYERS layers, with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
               attention), both on the card.  Checks the prefill logits,
               the greedy streams (top-2 gap rule) and the launch counts.
@@ -59,6 +65,14 @@ run exits non-zero:
               launches, K2's and K3's GEMMs; one device launch per GEMM
               call, a trace that lost kernel records taken again, at
               most TRACE_ATTEMPTS times, as is generate's on engine A).
+   cache-store -- gemma2-2b over a bf16 cache and pool (engine A's store
+              with cache_dtype=torch.bfloat16): run() against each
+              request's generate() by the gap rule, both against the fp32
+              twins by the gap rule at BF16_GAP_TOL, the pool's bytes; then
+              the uniform int8 store (model.quantize_params_int8): its
+              prefill logits against the fp32 engine's (mean |lf - lq| /
+              std(lf) < 0.35), K2 on every GEMM (exact launch count, one
+              device launch a call) and no K3, run() against generate().
 6. search  -- the AutoQ search on CIF10-7CNN at full width: trains the
               substrate (250 Adam steps, batch 128, as the example does)
               twice from one seed and requires every leaf equal bit for
@@ -80,6 +94,18 @@ run exits non-zero:
               make_lm_evaluator call on the gemma2-2b params against a
               plain evaluation (weights bit for bit, logits against the
               plain-attention forward, accuracy by the gap rule).
+   moe     -- granite-moe-3b-a800m at published width and depth (32 layers,
+              40 experts top-8, capacity factor 1.25), random fp32
+              weights: generate (2 x 2048 + 16) on engine A (packed store,
+              kernels) against engine B (fake store, plain versions) by
+              check_serve's rules, the expert GEMMs on one batched K2 / K3
+              launch per bucket of each site (exact counts), and the pair
+              again with activation quantization off at a tight limit;
+              run() on 8 requests at capacity factor 1.25 (0 host syncs)
+              and at 0 (each stream against its generate, gap rule); one
+              profiled generate (device ms by kernel group, busy share)
+              and one with the host traced too (device ms inside the MoE
+              dispatch and gather profiler ranges); the peak memory.
 7. train   -- the paper's pipeline after the search, on its CIF10-7CNN
               substrate: the Trainer (AdamW, 40 steps, checkpoints every
               10) uninterrupted and preempted at step 25, resumed from
@@ -100,9 +126,10 @@ run exits non-zero:
               remat=False loss equal, peak memory (train-lm).
 
 The line before the last lists every kernel with its launches on its path
-(K1-K3: generate; K4: run; B5: the QUANT search plus QAT, split in
-``launches_by_path``; B6: the BINARIZE search) and its times; the last
-line is
+(K1-K3: gemma2-2b's generate; K4: its run; B5: the QUANT search plus QAT;
+B6: the BINARIZE search), ``launches_by_path`` for the kernels that more
+than one path runs (K1-K4: the generate and run of each serving phase,
+granite-moe's included; B5: search, QAT) and its times; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it prints no
 result and exits 2.  It imports neither JAX nor the reference package.
@@ -152,20 +179,25 @@ GEMM_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_packed.py:68-69
 # one that chains every MMA into the truncating accumulator ~1.7e-4 (still
 # inside GEMM_TOL by its rtol)
 TC_ERR_LIMIT = 5e-5
-# Engines A and B differ in summation order only (fp32 throughout), but 26
-# layers deep on random weights a 1e-6 relative difference per GEMM grows;
+# Engines A and B differ in summation order only (fp32 throughout), but
+# many layers deep on random weights a 1e-6 relative difference per GEMM
+# grows;
 # 2e-3 on logits capped at +-30 still separates any real fault (a wrong
 # bucket or mask moves logits by O(1)).  This holds with activation
 # quantization off.
 LOGIT_ATOL = 2e-3
 # With activation QBN 8 every block rounds each token's activations to 255
 # levels; a 1-ulp difference that crosses a rounding boundary moves that
-# element by a whole step (amax / 127), and such flips compound over 26
+# element by a whole step (amax / 127), and such flips compound over the
 # layers: on an H100 this pair measured 0.072 on the prefill logits, and
-# 2.2e-5 with activation quantization off.
+# 2.2e-5 with activation quantization off (gemma2-2b at its 26 layers).
 ACT_LOGIT_ATOL = 0.25
 
 ARCH = "gemma2-2b"
+# gemma2-2b at published width, its depth cut from 26 layers to 12 (6
+# local / global pairs) in every phase that serves or trains it, so that
+# the whole script stays near 250 s with the granite-moe phase added
+GEMMA_LAYERS = 12
 B, PROMPT, N_NEW, MAX_LEN = 2, 4160, 16, 4224
 POLICY_QBNS = (0, 2, 3, 4, 5, 6, 8)
 SEED = 0
@@ -207,6 +239,34 @@ TRAINER_LR, TRAINER_WINDOW = 5e-4, 10
 ROOFLINE_EPISODES = (3, 2)
 QAT_STEPS, QAT_BATCH, QAT_DATA = 30, 128, 1000
 LM_TRAIN_STEPS, LM_TRAIN_LEN = 2, 512
+
+# phase moe: granite-moe-3b-a800m at published width and depth (32 layers,
+# d_model 1536, 24 q / 8 kv heads of 64, 40 experts top-8 of d_ff 512,
+# capacity factor 1.25): generate at 2 x 2048 + 16, run on 8 requests
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_PROMPT, MOE_MAX_LEN = 2048, 2112
+MOE_RUN_PROMPTS = (2048, 1536, 1024, 515, 260, 97, 33, 17)
+MOE_RUN_NEW = (16, 12, 16, 8, 16, 12, 16, 10)
+MOE_E, MOE_FF = 40, 512
+# int8 weights track fp: mean |lf - lq| / std(lf) (tests/
+# test_quant_serving.py:29-32)
+INT8_REL_LIMIT = 0.35
+# A bf16 cache rounds every K and V to 8 mantissa bits (2^-9 relative);
+# layers deep, with activation QBN 8 turning small differences into
+# whole rounding steps, the logits (softcapped at 30) of the bf16 and fp32
+# engines may differ by O(0.1-1): their streams are held to each other by
+# the gap rule at this tolerance
+BF16_GAP_TOL = 1.0
+# granite-moe's A / B pair (packed store on the kernels against the fake
+# store on the plain versions, activation QBN 8): besides the act-quant
+# rounding flips of the dense pair, a flip can move a token to another
+# expert (top-8 of 40), which moves that token's FFN output by O(1/8)
+MOE_LOGIT_ATOL = 0.25
+# the same pair with activation quantization off differs in summation
+# order only, as the dense pair at LOGIT_ATOL does: on an H100 it measured
+# 3.0e-5 on the prefill logits (a wrong bucket, expert or gate moves them
+# by O(0.1-1))
+MOE_ACT_OFF_ATOL = LOGIT_ATOL
 
 # phase run: 8 requests over 4 slots, so later requests reuse freed pages
 RUN_PROMPTS = (4160, 3100, 2050, 1030, 515, 260, 97, 33)
@@ -397,11 +457,13 @@ def phase_build():
 
 # --------------------------------------------------------------- phase 2
 def _attn_cases(torch):
-    """(label, q, k, v, q_pos, kv_pos, window, chunk) at the serving path's
-    shapes: prefill of 2 x 4160 tokens (global and local layers), the last
-    decode step against the global cache and the local ring, and an early
-    decode step (position 40) against the global cache."""
-    cfg_h, cfg_kv, D = 8, 4, 256
+    """(label, q, k, v, q_pos, kv_pos, window, chunk, cap) at the serving
+    paths' shapes: gemma2-2b's prefill of 2 x 4160 tokens (global and local
+    layers), the last decode step against the global cache and the local
+    ring, in fp32 and in a bf16 cache, and an early decode step (position
+    40) against the global cache; granite-moe's prefill of 2 x 2048 (D 64,
+    G 3, no softcap) and its last decode step of generate."""
+    cfg_h, cfg_kv, D, cap = 8, 4, 256, 50.0
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
     def randn(*s):
@@ -410,8 +472,8 @@ def _attn_cases(torch):
     ar = torch.arange(PROMPT, dtype=torch.int32, device="cuda").repeat(B, 1)
     q = randn(B, PROMPT, cfg_h, D)
     k, v = randn(B, PROMPT, cfg_kv, D), randn(B, PROMPT, cfg_kv, D)
-    yield "prefill_global", q, k, v, ar, ar, None, 1024
-    yield "prefill_window4096", q, k, v, ar, ar, 4096, 1024
+    yield "prefill_global", q, k, v, ar, ar, None, 1024, cap
+    yield "prefill_window4096", q, k, v, ar, ar, 4096, 1024, cap
     last = PROMPT + N_NEW - 1                     # position of the last token
     qd = randn(B, 1, cfg_h, D)
     qp = torch.full((B, 1), last, dtype=torch.int32, device="cuda")
@@ -419,25 +481,50 @@ def _attn_cases(torch):
     kp = torch.full((B, MAX_LEN), 2**31 - 1, dtype=torch.int32, device="cuda")
     kp[:, :last + 1] = torch.arange(last + 1, dtype=torch.int32,
                                     device="cuda")
-    yield "decode_global", qd, kc, vc, qp, kp, None, MAX_LEN
+    yield "decode_global", qd, kc, vc, qp, kp, None, MAX_LEN, cap
     W = 4096                                      # local layers' ring buffer
     ring = torch.arange(last + 1 - W, last + 1, dtype=torch.int32,
                         device="cuda")
     kr = torch.empty((B, W), dtype=torch.int32, device="cuda")
     kr[:, (ring % W).long()] = ring
     yield "decode_ring4096", qd, kc[:, :W].contiguous(), \
-        vc[:, :W].contiguous(), qp, kr, W, W
+        vc[:, :W].contiguous(), qp, kr, W, W, cap
+    # a bf16 cache (ServeEngine(cache_dtype=torch.bfloat16))
+    kb, vb = kc.bfloat16(), vc.bfloat16()
+    yield "decode_global_bf16", qd, kb, vb, qp, kp, None, MAX_LEN, cap
+    yield "decode_ring4096_bf16", qd, kb[:, :W].contiguous(), \
+        vb[:, :W].contiguous(), qp, kr, W, W, cap
+    del kb, vb
     # one query at position 40 over the whole cache: most splits are empty
     qs = torch.full((B, 1), 40, dtype=torch.int32, device="cuda")
     ks = torch.full((B, MAX_LEN), SENT, dtype=torch.int32, device="cuda")
     ks[:, :41] = torch.arange(41, dtype=torch.int32, device="cuda")
-    yield "decode_short", qd, kc, vc, qs, ks, None, MAX_LEN
+    yield "decode_short", qd, kc, vc, qs, ks, None, MAX_LEN, cap
+    del q, k, v, kc, vc
+    # granite-moe-3b-a800m: 24 q / 8 kv heads of 64, no softcap
+    Hq, Hkv, D = 24, 8, 64
+    ar = torch.arange(MOE_PROMPT, dtype=torch.int32,
+                      device="cuda").repeat(B, 1)
+    q = randn(B, MOE_PROMPT, Hq, D)
+    k, v = randn(B, MOE_PROMPT, Hkv, D), randn(B, MOE_PROMPT, Hkv, D)
+    yield "moe_prefill", q, k, v, ar, ar, None, 1024, None
+    last = MOE_PROMPT + N_NEW - 1
+    qd = randn(B, 1, Hq, D)
+    qp = torch.full((B, 1), last, dtype=torch.int32, device="cuda")
+    kc, vc = randn(B, MOE_MAX_LEN, Hkv, D), randn(B, MOE_MAX_LEN, Hkv, D)
+    kp = torch.full((B, MOE_MAX_LEN), SENT, dtype=torch.int32,
+                    device="cuda")
+    kp[:, :last + 1] = torch.arange(last + 1, dtype=torch.int32,
+                                    device="cuda")
+    yield "moe_decode", qd, kc, vc, qp, kp, None, MOE_MAX_LEN, None
 
 
 def _attn_library(torch, q, k, v, q_pos, kv_pos, window):
     """F.scaled_dot_product_attention with the position mask and GQA
-    expanded beforehand (SDPA has no softcap: it is timed without it)."""
+    expanded beforehand (SDPA has no softcap: it is timed without it; a
+    bf16 K/V is upcast beforehand, outside the timed call)."""
     import torch.nn.functional as F
+    k, v = k.float(), v.float()
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
@@ -449,14 +536,16 @@ def _attn_library(torch, q, k, v, q_pos, kv_pos, window):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
 
-def _paged_pool(torch, g, rows, k, kv_bits=None):
-    """A pool of PAGE-slot pages (Hkv 4, D 256) in shuffled order and one q
-    tile of ``k`` columns per row.  rows: per row (L, c0, c): the row holds
-    positions 0..L-1 and its real columns are positions c0..c0+c-1 (the
-    chunk or token just written); L == 0 is an idle lane (all-trash table,
-    all-sentinel tile).  Returns (q, k, v, pos, bt, q_pos, k_s, v_s)."""
-    Hkv, G, D = 4, 2, 256
-    nb = MAX_LEN // PAGE
+def _paged_pool(torch, g, rows, k, kv_bits=None, dtype=None, Hkv=4, G=2,
+                D=256, max_len=MAX_LEN):
+    """A pool of PAGE-slot pages (gemma2-2b's Hkv 4, G 2, D 256 unless
+    given) in shuffled order and one q tile of ``k`` columns per row.
+    rows: per row (L, c0, c): the row holds positions 0..L-1 and its real
+    columns are positions c0..c0+c-1 (the chunk or token just written);
+    L == 0 is an idle lane (all-trash table, all-sentinel tile).  Pages are
+    fp32, ``dtype`` (bf16), or int8 with ``kv_bits=8``.  Returns (q, k, v,
+    pos, bt, q_pos, k_s, v_s)."""
+    nb = max_len // PAGE
     B, P = len(rows), 1 + len(rows) * nb
     perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
     bt = torch.zeros((B, nb), dtype=torch.int32, device="cuda")
@@ -474,6 +563,8 @@ def _paged_pool(torch, g, rows, k, kv_bits=None):
     kf = torch.randn((P, PAGE, Hkv, D), generator=g, device="cuda")
     vf = torch.randn((P, PAGE, Hkv, D), generator=g, device="cuda")
     q = torch.randn((B, k, Hkv * G, D), generator=g, device="cuda")
+    if dtype is not None:
+        return q, kf.to(dtype), vf.to(dtype), pos, bt, qp, None, None
     if kv_bits != 8:
         return q, kf, vf, pos, bt, qp, None, None
     from repro_torch.models.transformer import _kv_quant
@@ -481,8 +572,10 @@ def _paged_pool(torch, g, rows, k, kv_bits=None):
     return q, kq, vq, pos, bt, qp, ks, vs
 
 
-def _paged_cases():
-    """(label, rows, k, window, kv_bits) at the run phase's shapes: 512-token
+def _paged_cases(torch):
+    """(label, rows, k, window, kv_bits, pool) at the run phases' shapes
+    (``pool``: _paged_pool's other arguments and the row's softcap, which
+    is gemma2-2b's 50 unless given): 512-token
     chunks (a late chunk of a 4160-token prompt, a first chunk, a partial
     chunk, an idle lane) over fp32 and int8 pages, decode tokens at ~4175
     positions, decode tokens at ~40 (most splits empty), a decode step
@@ -490,28 +583,40 @@ def _paged_cases():
     unsplit (the decode walk at one split), and speculative decode's two
     new shapes: a verify-only step (4 lanes x 5 columns at ~4175 in a
     512-wide tile, the tensor-core walk) and the draft's 2-column call
-    over an int8 pool (the decode walk)."""
+    over an int8 pool (the decode walk); then a chunk and decode tokens
+    over a bf16 pool, and granite-moe's chunk and decode tokens (D 64,
+    G 3, no softcap; its run's prompts are at most 2048 tokens)."""
     chunk = [(4160, 3648, 512), (512, 0, 512), (1254, 1024, 230), (0, 0, 0)]
     dec = [(4176, 4175, 1), (4171, 4170, 1), (4161, 4160, 1),
            (4101, 4100, 1)]
     short = [(41, 40, 1), (44, 43, 1), (39, 38, 1), (37, 36, 1)]
-    yield "chunk_global", chunk, CHUNK, None, None
-    yield "chunk_window4096", chunk, CHUNK, 4096, None
-    yield "chunk_int8", chunk, CHUNK, None, 8
-    yield "decode_global", dec, 1, None, None
-    yield "decode_window4096", dec, 1, 4096, None
-    yield "decode_int8", dec, 1, None, 8
-    yield "decode_short", short, 1, None, None
+    yield "chunk_global", chunk, CHUNK, None, None, {}
+    yield "chunk_window4096", chunk, CHUNK, 4096, None, {}
+    yield "chunk_int8", chunk, CHUNK, None, 8, {}
+    yield "decode_global", dec, 1, None, None, {}
+    yield "decode_window4096", dec, 1, 4096, None, {}
+    yield "decode_int8", dec, 1, None, 8, {}
+    yield "decode_short", short, 1, None, None, {}
     wide = [(1000 + 90 * i, 999 + 90 * i, 1) for i in range(36)]
-    yield "decode_wide", wide, 1, None, None
+    yield "decode_wide", wide, 1, None, None, {}
     # speculative decode: a verify-only step (SPEC_K + 1 real columns a
     # lane in the CHUNK-wide tile) and the low-bit draft's catch-up call
     # (2 columns a lane) over its int8 pool
     c = SPEC_K + 1
     verify = [(s0 + c, s0, c) for s0 in SPEC_STARTS]
-    yield "verify_4x5", verify, CHUNK, None, None
+    yield "verify_4x5", verify, CHUNK, None, None, {}
     draft = [(s0 + 2, s0, 2) for s0 in SPEC_STARTS]
-    yield "draft_4x2_int8", draft, 2, None, 8
+    yield "draft_4x2_int8", draft, 2, None, 8, {}
+    bf = dict(dtype=torch.bfloat16)
+    yield "chunk_bf16", chunk, CHUNK, None, None, bf
+    yield "decode_bf16", dec, 1, None, None, bf
+    moe = dict(Hkv=8, G=3, D=64, max_len=MOE_MAX_LEN, cap=None)
+    mchunk = [(2048, 1536, 512), (512, 0, 512), (1254, 1024, 230),
+              (0, 0, 0)]
+    mdec = [(2064, 2063, 1), (1548, 1547, 1), (1040, 1039, 1),
+            (530, 529, 1)]
+    yield "moe_chunk", mchunk, CHUNK, None, None, moe
+    yield "moe_decode", mdec, 1, None, None, moe
 
 
 def paged_rows(torch, timer, cap):
@@ -527,9 +632,12 @@ def paged_rows(torch, timer, cap):
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for label, spec, k, window, kv_bits in _paged_cases():
+    gemma_cap = cap
+    for label, spec, k, window, kv_bits, pool in _paged_cases(torch):
+        pool = dict(pool)
+        cap = pool.pop("cap", gemma_cap)
         q, kp, vp, pos, bt, qp, ks, vs = _paged_pool(torch, g, spec, k,
-                                                     kv_bits)
+                                                     kv_bits, **pool)
         args = (q, kp, vp, pos, bt)
         kw = dict(q_pos=qp, window=window, attn_cap=cap, k_scale_pages=ks,
                   v_scale_pages=vs)
@@ -596,7 +704,8 @@ def paged_rows(torch, timer, cap):
         ms, lib_ms = timer.pair(kern, lib)
         rows.append(dict(
             name="paged_attention", case=label,
-            shape=list(q.shape) + [bt.shape[1] * PAGE], splits=ns,
+            shape=list(q.shape) + [bt.shape[1] * PAGE],
+            kv_dtype=str(kp.dtype).replace("torch.", ""), splits=ns,
             route=route, route_bound_ms=r_ms,
             route_ref_max_abs_err=route_err, max_abs_err=err,
             max_rel_err=rel, tol=ATTN_TOL, ms=ms,
@@ -692,7 +801,7 @@ def search_kernel_rows(torch, timer):
     return rows
 
 
-def flash_rows(torch, timer, cap):
+def flash_rows(torch, timer):
     """K1 against attention_ref and against the plain statement of its
     route (the tensor-core walk's attention_tf32x3_ref, or the split walk's
     attention_split_ref), the same bits on a second call."""
@@ -702,7 +811,7 @@ def flash_rows(torch, timer, cap):
     from repro_torch.models.layers import attention_ref
     rows = []
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, q, k, v, qp, kp, window, chunk in _attn_cases(torch):
+    for label, q, k, v, qp, kp, window, chunk, cap in _attn_cases(torch):
         kern = lambda: attention.flash_attention(
             q, k, v, q_pos=qp, kv_pos=kp, window=window, attn_cap=cap)
         plain = lambda: attention_ref(q, k, v, q_pos=qp, kv_pos=kp,
@@ -734,8 +843,8 @@ def flash_rows(torch, timer, cap):
         pairs = float(valid.sum()) * q.shape[2]           # x query heads
         # K/V rows that some query may attend, read once per kv head
         slots = float(valid.any(dim=1).sum())
-        nbytes = 4 * (2 * q.numel() + 2 * slots * k.shape[2] * k.shape[3]) \
-            + 4 * (qp.numel() + kp.numel())
+        nbytes = 8 * q.numel() + 4 * (qp.numel() + kp.numel()) + \
+            2 * slots * k.shape[2] * k.shape[3] * k.element_size()
         # the function's operations at the TF32 peak; its route's beside
         # it: 3 TF32 passes (flash_tc), or fp32 FMAs on CUDA cores (split)
         flops = 4 * q.shape[3] * pairs
@@ -746,7 +855,8 @@ def flash_rows(torch, timer, cap):
         ms, lib_ms = timer.pair(kern, lib)
         rows.append(dict(
             name="flash_attention", case=label, shape=list(q.shape) +
-            [k.shape[1]], splits=ns, route=route, route_bound_ms=r_ms,
+            [k.shape[1]], kv_dtype=str(k.dtype).replace("torch.", ""),
+            splits=ns, route=route, route_bound_ms=r_ms,
             route_ref_max_abs_err=route_err,
             max_abs_err=err, max_rel_err=rel, tol=ATTN_TOL,
             ms=ms, plain_ms=timer(plain), library_ms=lib_ms,
@@ -762,7 +872,7 @@ def phase_kernels(torch, timer):
     from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
     cap = 50.0
     rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap) \
-        + flash_rows(torch, timer, cap)
+        + flash_rows(torch, timer)
     gemm_shapes = [("wg_decode", 2, 2304, 9216), ("wg_prefill", 8320, 2304,
                                                    9216),
                    ("wd_decode", 2, 9216, 2304),
@@ -833,6 +943,86 @@ def phase_kernels(torch, timer):
             emit({"phase": "kernel", **rows[-1]})
             del x, qv, w, wdeq, got, again
     torch.cuda.empty_cache()
+    return rows + expert_gemm_rows(torch, timer)
+
+
+def expert_gemm_rows(torch, timer):
+    """K2 and K3 on expert stacks, one launch for all E experts: granite-
+    moe's wg (E 40, C x 1536 x 512) and wd (C x 512 x 1536) at C = 1024
+    (generate's prefill at capacity factor 1.25: the tensor-core route)
+    and at C = 2 and 4 (decode, and run()'s 4-slot decode: skinny), int8,
+    int4 and int2; then K2 on the uniform int8 store's gemma2-2b wq
+    (2304 x 2048) at generate's M = 8320 and 2.  Each against its plain
+    version (GEMM_TOL, TC_ERR_LIMIT on the tensor-core route), the same
+    bits twice, one device launch a call; the library call is torch.bmm
+    (torch.matmul for the 2-d rows) on the dequantized fp32 weight."""
+    from repro_torch.kernels import ops, pack, quant_matmul
+    from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(bits, f"moe_{site}_c{C}", MOE_E, C, K, N)
+             for bits in (8, 4, 2) for C in (1024, 2, 4)
+             for site, K, N in (("wg", 1536, MOE_FF), ("wd", MOE_FF, 1536))]
+    cases += [(8, "int8_store_wq_prefill", None, B * PROMPT, 2304, 2048),
+              (8, "int8_store_wq_decode", None, B, 2304, 2048)]
+    rows = []
+    for bits, label, E, M, K, N in cases:
+        lv = 2 ** (bits - 1) - 1
+        lead = (E,) if E else ()
+        x = torch.randn(lead + (M, K), generator=g, device="cuda")
+        qv = torch.randint(-lv, lv + 1, lead + (K, N), generator=g,
+                           device="cuda", dtype=torch.int8)
+        s = (torch.rand(lead + (N,), generator=g, device="cuda") + 0.5) / \
+            (lv * math.sqrt(K))
+        name = "quant_matmul" if bits == 8 else "packed_matmul"
+        if bits == 8:
+            w = qv
+            kern = lambda: ops.quant_matmul(x, w, s)
+            plain = lambda: quant_matmul_ref(x, w, s)
+        else:
+            w = pack.pack_sub8(qv, bits, axis=-2)
+            kern = lambda: ops.packed_matmul(x, w, s, store_bits=bits)
+            plain = lambda: packed_matmul_ref(x, w, s, bits)
+        what = f"{name}/int{bits}/{label}"
+        got = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two calls on the same inputs "
+                                 "give different bits")
+        err, rel = compare(torch, got, plain(), GEMM_TOL, what)
+        n_launch = timer.launches(kern)
+        if n_launch != 1:
+            raise AssertionError(f"{what}: {n_launch} device launches a "
+                                 "call, want 1")
+        route = quant_matmul.route(M, bits)
+        if route == "tc_2xtf32" and err > TC_ERR_LIMIT:
+            raise AssertionError(f"{what}: max abs err {err} over "
+                                 f"{TC_ERR_LIMIT}")
+        n_e = E or 1
+        wdeq = qv.float() * s[..., None, :]
+        nbytes = 4 * n_e * (M * K + N + M * N) + w.numel()
+        flops = 2.0 * n_e * M * K * N
+        b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
+        r_ms = bound_ms(nbytes, 2 * flops, TF32_FLOP_PER_S)[0] \
+            if route == "tc_2xtf32" else bound_ms(nbytes, flops)[0]
+        lib = (lambda: torch.bmm(x, wdeq)) if E else \
+            (lambda: torch.matmul(x, wdeq))
+        ms, lib_ms = timer.pair(kern, lib)
+        rows.append(dict(
+            name=name, case=f"int{bits}_{label}",
+            shape=([E] if E else []) + [M, K, N], route=route,
+            route_bound_ms=r_ms, max_abs_err=err, max_rel_err=rel,
+            tol=GEMM_TOL, launches_per_call=n_launch,
+            splits=quant_matmul.skinny_splits(w.shape[-2], N, n_sm, n_e)
+            if route == "skinny" else None,
+            ms=ms, plain_ms=timer(plain), library_ms=lib_ms,
+            library_device_ms=timer.device(lib),
+            device_ms=timer.device(kern), host_ms=timer.host(kern),
+            library_host_ms=timer.host(lib), bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", **rows[-1]})
+        del x, qv, w, wdeq, got, again
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -850,7 +1040,7 @@ def make_policy(graph, seed=SEED):
 
 def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
                serve_act_bits=True, device="cuda", max_len=MAX_LEN,
-               n_new=N_NEW, profile=False):
+               n_new=N_NEW, profile=False, cache_dtype=None):
     from repro_torch import kernels
     from repro_torch.serve import ServeEngine
     on_card = torch.device(device).type == "cuda"
@@ -860,7 +1050,9 @@ def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
     t0 = time.perf_counter()
     eng = ServeEngine(model, params, policy=policy, max_len=max_len,
                       weight_store=store, attn_impl=impl,
-                      serve_act_bits=serve_act_bits, device=device)
+                      serve_act_bits=serve_act_bits,
+                      cache_dtype=cache_dtype or torch.float32,
+                      device=device)
     setup_s = time.perf_counter() - t0
     kernels.reset_launch_counts()
     out = eng.generate(tokens, n_new)
@@ -910,16 +1102,52 @@ def device_rows(prof):
                   key=lambda r: -r[1])
 
 
-def profile_call(torch, fn, match=()):
+def range_rows(prof, names):
+    """Device ms and launches of the kernels that ran inside each profiler
+    range of ``names`` (``torch.profiler.record_function``), with the
+    number of ranges traced.  The trace marks a range on the device as
+    the span from its first kernel's start to its last kernel's end; on
+    one stream the kernels that start inside such a span are exactly the
+    range's own."""
+    import bisect
+    from torch.autograd import DeviceType
+    spans, kern = {n: [] for n in names}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_async():
+            continue
+        if e.is_user_annotation():
+            if e.name() in spans:
+                spans[e.name()].append((e.start_ns(),
+                                        e.start_ns() + e.duration_ns()))
+        else:
+            kern.append((e.start_ns(), e.duration_ns()))
+    kern.sort()
+    starts = [k[0] for k in kern]
+    out = {}
+    for n, sp in spans.items():
+        hit = [kern[i] for a, b in sp
+               for i in range(bisect.bisect_left(starts, a),
+                              bisect.bisect_left(starts, b))]
+        out[n] = dict(ms=sum(d for _, d in hit) / 1e6,
+                      calls=sum(d > 0 for _, d in hit), ranges=len(sp))
+    return out
+
+
+def profile_call(torch, fn, match=(), ranges=()):
     """Device time of one ``fn()`` by kernel name, the device launches
     (entries with device time), and the device's busy share of its wall
     time (torch.profiler, CUDA activity only); for each name fragment in
     ``match``, the device ms and launches of the kernels whose names hold
-    it."""
+    it.  ``ranges`` names profiler ranges whose kernels' device ms and
+    launches to report apart (range_rows); the trace then records the
+    host's operators too, which the ranges need, so its wall time and
+    busy share include that tracing."""
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges
+                                      else [])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -934,6 +1162,8 @@ def profile_call(torch, fn, match=()):
     for m in match:
         out[m] = dict(ms=sum(r[1] for r in rows if m in r[0]),
                       calls=sum(r[2] for r in rows if m in r[0]))
+    if ranges:
+        out["ranges"] = range_rows(prof, ranges)
     return out
 
 
@@ -1016,11 +1246,12 @@ def check_serve(torch, a, b, tol, n_layers, vocab, n_new=N_NEW):
 
 
 def init_model(torch):
-    """Full-width gemma2-2b with random weights from SEED, on the card, and
-    the seeded policy."""
+    """Full-width gemma2-2b at GEMMA_LAYERS layers with random weights from
+    SEED, on the card, and the seeded policy."""
+    import dataclasses
     from repro_torch.configs import ARCHS
     from repro_torch.models import LM
-    cfg = ARCHS[ARCH].config
+    cfg = dataclasses.replace(ARCHS[ARCH].config, n_layers=GEMMA_LAYERS)
     model = LM(cfg)
     t0 = time.perf_counter()
     params = model.init(SEED, device="cuda")
@@ -1069,11 +1300,13 @@ def phase_paged_model(torch, cfg, model, eng):
     out = []
     for act, tol in ((False, LOGIT_ATOL), (True, ACT_LOGIT_ATOL)):
         ab = eng.act_bits if act else None
-        dense = model.init_cache(1, PROMPT, device="cuda")
+        dense = model.init_cache(1, PROMPT, dtype=torch.float32,
+                                 device="cuda")
         want, _ = model.prefill(eng.params, {"tokens": toks}, dense, ab,
                                 attn_impl="cuda")
         del dense
-        pool = model.init_paged_cache(1, n + 1, PAGE, device="cuda")
+        pool = model.init_paged_cache(1, n + 1, PAGE, dtype=torch.float32,
+                                      device="cuda")
         for c0 in range(0, PROMPT, CHUNK):
             c = min(CHUNK, PROMPT - c0)
             t = torch.zeros((1, CHUNK), dtype=torch.int64, device="cuda")
@@ -1248,7 +1481,340 @@ def phase_run(torch, cfg, model, params, policy):
     torch.cuda.empty_cache()
     return dict(paged_model=paged,
                 runs={k: v[1] for k, v in recs.items()}, check=check,
-                profile=prof, spec=spec)
+                profile=prof, spec=spec,
+                _streams=dict(reqs=reqs, run=on, gens=gens))
+
+
+# ------------------------------------------------------------- phase moe
+def _moe_gemm_launches(graph, policy, n_repeat, calls):
+    """K2 and K3 launches of ``calls`` model calls on the packed store of
+    ``policy``: one launch per non-empty int8 bucket (K2) and per
+    non-empty int2 / int4 bucket (K3) of each GEMM site and repeat (an
+    expert site's buckets are shared by its E experts: one launch each,
+    not E), the unembedding once a call.  Returns ({kernel: launches},
+    {site: [buckets]})."""
+    from repro_torch.kernels.pack import bucket_of_bits
+    k2 = k3 = 0
+    sites = {}
+    for l in graph.layers:
+        names = sorted({bucket_of_bits(b)
+                        for b in policy.expand_weight_bits(l)} -
+                       {"pruned", "full"})
+        sites[l.name] = names
+        reps = 1 if l.kind == "unembed" else n_repeat
+        k2 += reps * ("int8" in names)
+        k3 += reps * sum(n in ("int2", "int4") for n in names)
+    return dict(quant_matmul=k2 * calls, packed_matmul=k3 * calls), sites
+
+
+def phase_moe(torch):
+    """granite-moe-3b-a800m at published width and depth with random fp32
+    weights from SEED (~13.5 GB) and the seeded kernel-wise policy.
+
+    * generate (2 x 2048 prompt, 16 new): engine A (packed store, the
+      kernels) against engine B (fake store, plain versions) by
+      check_serve's rules at MOE_LOGIT_ATOL; K1 once per layer and call,
+      and the expert GEMMs on one batched K2 / K3 launch per bucket of
+      each site (launches equal _moe_gemm_launches exactly); then the
+      same pair with activation quantization off at MOE_ACT_OFF_ATOL.
+    * run (8 requests, 4 slots, chunk 512) at capacity factor 1.25:
+      prefill s, decode tok/s, TTFT, host syncs (none allowed), launches.
+    * the same run at capacity factor 0 (no token dropped, the reference's
+      smoke setting): each stream against its own generate by the gap
+      rule, as the dense run phase holds them.  At 1.25 a token's drop
+      depends on the batch it rides in, so run and generate may rightly
+      differ there and are not compared.
+    * one profiled generate on engine A: device ms by kernel group and
+      the busy share; a second one that also traces the host gives the
+      device ms inside the MoE dispatch and gather profiler ranges.
+    Returns the records and each path's launches."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    from repro_torch.models.layers import MOE_DISPATCH, MOE_GATHER
+    from repro_torch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    cfg = ARCHS[MOE_ARCH].config
+    model = LM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    init = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                expert_d_ff=cfg.moe.d_ff, vocab=cfg.vocab,
+                capacity_factor=cfg.moe.capacity_factor,
+                seconds=time.perf_counter() - t0,
+                param_bytes=int(sum(t.numel() * t.element_size()
+                                    for blk in params["blocks"]
+                                    for t in blk.values()) +
+                                sum(params[k].numel() * 4 for k in
+                                    ("embed", "unembed", "final_norm"))))
+    emit({"phase": "moe-init", **init})
+    peaks = [int(torch.cuda.max_memory_allocated())]
+    graph = model.graph(seq_len=1, batch=1)
+    policy = make_policy(graph)
+    rng = np.random.default_rng(SEED + 6)
+    tokens = rng.integers(0, cfg.vocab, size=(B, MOE_PROMPT))
+    problems = []
+    a = run_engine(torch, "moe-A", model, params, policy, tokens,
+                   store="packed", impl="cuda", max_len=MOE_MAX_LEN)
+    b = run_engine(torch, "moe-B", model, params, policy, tokens,
+                   store="fake", impl="ref", max_len=MOE_MAX_LEN)
+    a_rec, b_rec = a["rec"], b["rec"]
+    peaks += [a_rec["peak_mem_bytes"], b_rec["peak_mem_bytes"]]
+    check = check_serve(torch, a, b, MOE_LOGIT_ATOL, cfg.n_layers,
+                        cfg.vocab)
+    problems += check["problems"]
+    want, sites = _moe_gemm_launches(graph, policy, cfg.n_repeat,
+                                     1 + N_NEW)
+    got = {k: a_rec["launches"][k] for k in want}
+    if got != want:
+        problems.append(f"moe generate: GEMM launches {got}, want {want} "
+                        "(one a bucket of each site)")
+    emit({"phase": "moe-gemm-launches", "launches": got, "want": want,
+          "buckets": {n: v for n, v in sites.items()
+                      if n.split(".")[-1] in ("wg", "wu", "wd")}})
+    del a, b
+    # the pair with activation quantization off, held at MOE_ACT_OFF_ATOL
+    a0 = run_engine(torch, "moe-A0", model, params, policy, tokens,
+                    store="packed", impl="cuda", serve_act_bits=False,
+                    max_len=MOE_MAX_LEN)
+    b0 = run_engine(torch, "moe-B0", model, params, policy, tokens,
+                    store="fake", impl="ref", serve_act_bits=False,
+                    max_len=MOE_MAX_LEN)
+    peaks += [a0["rec"]["peak_mem_bytes"], b0["rec"]["peak_mem_bytes"]]
+    check0 = check_serve(torch, a0, b0, MOE_ACT_OFF_ATOL, cfg.n_layers,
+                         cfg.vocab)
+    problems += check0["problems"]
+    del a0, b0
+    # continuous batching at capacity factor 1.25
+    reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), k)
+            for n, k in zip(MOE_RUN_PROMPTS, MOE_RUN_NEW)]
+    kw = dict(page_size=PAGE, max_slots=RUN_SLOTS, chunk_tokens=CHUNK)
+    eng = ServeEngine(model, params, policy=policy, max_len=MOE_MAX_LEN,
+                      weight_store="packed", attn_impl="cuda",
+                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, syncs = _syncs_of(torch, lambda: eng.run(reqs, **kw))
+    torch.cuda.synchronize()
+    run = _run_record(torch, "moe-cf1.25", res, time.perf_counter() - t0,
+                      kernels.launch_counts())
+    peaks.append(run["peak_mem_bytes"])
+    st = res["stats"]
+    run.update(host_syncs=syncs, host_syncs_per_step=syncs / max(st.steps,
+                                                                 1))
+    emit({"phase": "moe-run", "run": run["run"], "host_syncs": syncs})
+    lr = run["launches"]
+    if syncs:
+        problems.append(f"moe run: {syncs} host syncs in {st.steps} steps")
+    if lr["paged_attention"] != cfg.n_layers * st.steps or \
+            lr["flash_attention"] or not (lr["quant_matmul"] and
+                                          lr["packed_matmul"]):
+        problems.append(f"moe run: launches {lr} over {st.steps} steps")
+    if st.tokens_out != sum(MOE_RUN_NEW):
+        problems.append(f"moe run: tokens_out {st.tokens_out}")
+    # one profiled generate: device time by kernel group and busy share
+    prof, gemm_problems = traced_gemm_launches(
+        lambda: profile_call(torch, lambda: eng.generate(tokens, N_NEW)),
+        "moe generate")
+    problems += gemm_problems
+    emit({"phase": "moe-profile", **prof})
+    # and one that also traces the host, for the device time inside the
+    # MoE dispatch and gather ranges (one of each a layer and model call)
+    split = profile_call(torch, lambda: eng.generate(tokens, N_NEW),
+                         ranges=(MOE_DISPATCH, MOE_GATHER))
+    ranged = split["ranges"]
+    moe_split = dict(device_ms=split["device_ms"],
+                     groups={g: v["ms"] for g, v in split["groups"].items()},
+                     ranges=ranged, ranges_per_name=cfg.n_layers * (1 + N_NEW),
+                     other_ms=split["device_ms"] -
+                     sum(v["ms"] for v in ranged.values()) -
+                     sum(v["ms"] for v in split["groups"].values()))
+    prof["split"] = moe_split
+    emit({"phase": "moe-dispatch", **moe_split})
+    for n, v in ranged.items():
+        if not v["ranges"] or not v["calls"]:
+            problems.append(f"moe profile: no kernel traced in range {n}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # capacity factor 0: run() against generate() per request
+    cfg0 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.0))
+    eng = ServeEngine(LM(cfg0), params, policy=policy, max_len=MOE_MAX_LEN,
+                      weight_store="packed", attn_impl="cuda",
+                      device="cuda")
+    run0, _, _, gl0 = _run_and_generate(torch, "moe-cf0", eng, reqs, kw,
+                                        problems)
+    peaks.append(run0["peak_mem_bytes"])
+    emit({"phase": "moe-run-cf0", "first_differences":
+          run0["first_differences"], "generate_launches": gl0})
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(init=init, engine_a=a_rec, engine_b=b_rec,
+               check=check, check_act_off=check0,
+               gemm_launches=dict(got=got, want=want),
+               run=run, run_cf0=run0, profile=prof,
+               peak_mem_bytes=max(peaks),
+               seconds=time.perf_counter() - t_phase, problems=problems)
+    emit({"phase": "moe", "seconds": out["seconds"],
+          "peak_mem_bytes": out["peak_mem_bytes"], "problems": problems})
+    if problems:
+        raise AssertionError("moe checks failed: " + "; ".join(problems))
+    return out
+
+
+# ------------------------------------------------------------- phase 5b
+def _pool_bytes(cfg, max_slots, max_len, page, elem_bytes):
+    """Bytes of the paged pool ServeEngine.run allocates: max_slots
+    sequences at max_len plus the trash page, K and V of elem_bytes an
+    element and int32 positions, per layer."""
+    pages = max_slots * -(-max_len // page) + 1
+    slots = cfg.n_layers * pages * page
+    return slots * (2 * cfg.n_kv_heads * cfg.hdim * elem_bytes + 4)
+
+
+def _run_and_generate(torch, label, eng, reqs, kw, problems):
+    """``eng.run(reqs)`` (its launches and record), then each request's
+    ``generate`` (their launches summed); every run stream held to its
+    generate by the gap rule.  Returns (run record, run outputs, generate
+    streams and gaps, generate launches)."""
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.run(reqs, **kw)
+    torch.cuda.synchronize()
+    rec = _run_record(torch, label, res, time.perf_counter() - t0,
+                      kernels.launch_counts())
+    nl = eng.model.cfg.n_layers
+    st = res["stats"]
+    if rec["launches"]["paged_attention"] != nl * st.steps or \
+            rec["launches"]["flash_attention"]:
+        problems.append(f"run {label}: attention launches "
+                        f"{rec['launches']} over {st.steps} steps")
+    kernels.reset_launch_counts()
+    gens = []
+    for toks, n_new in reqs:
+        out = eng.generate(toks[None], n_new)
+        gens.append((out["tokens"][0], out["top2_gap"][:, 0]))
+    gen_launches = kernels.launch_counts()
+    want = nl * sum(1 + n for _, n in reqs)
+    if gen_launches["flash_attention"] != want:
+        problems.append(f"generate {label}: flash_attention launched "
+                        f"{gen_launches['flash_attention']} times, want "
+                        f"{want}")
+    firsts = []
+    for i, (out, (want_toks, gaps)) in enumerate(zip(res["outputs"], gens)):
+        f = _check_streams(f"{label}/{i}", out, want_toks, gaps,
+                           ACT_LOGIT_ATOL, problems)
+        if f:
+            firsts.append(f)
+    rec["first_differences"] = firsts
+    rec["generate_launches"] = gen_launches
+    return rec, res["outputs"], gens, gen_launches
+
+
+def phase_cache_and_store(torch, cfg, model, params, policy, fp32):
+    """gemma2-2b over a bf16 pool and cache, then in the uniform int8
+    weight store, on the run phase's 8 requests.
+
+    bf16: engine A's packed store and policy with
+    ``cache_dtype=torch.bfloat16``: run() against each request's
+    generate() by the gap rule (as the fp32 pool is held), and both
+    against their fp32 twins (the run phase's streams) by the gap rule at
+    BF16_GAP_TOL; the pool's bytes beside the fp32 pool's.
+    int8 store: ``model.quantize_params_int8(params)`` served with no
+    policy: generate's prefill logits against the fp32 engine's
+    (mean |lf - lq| / std(lf) < INT8_REL_LIMIT, the reference's test), K2
+    on every GEMM (launches = GEMM sites x model calls, traced: one device
+    launch a call) and no K3, and run() against generate() by the gap
+    rule."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    reqs, problems, out = fp32["reqs"], [], {}
+    kw = dict(page_size=PAGE, max_slots=RUN_SLOTS, chunk_tokens=CHUNK)
+    # ---- bf16 cache and pool
+    eng = ServeEngine(model, params, policy=policy, max_len=MAX_LEN,
+                      weight_store="packed", attn_impl="cuda",
+                      cache_dtype=torch.bfloat16, device="cuda")
+    rec, outs, gens, gl = _run_and_generate(torch, "bf16", eng, reqs, kw,
+                                            problems)
+    twins = []
+    for i, (o, (g_toks, _), (f_toks, f_gaps)) in enumerate(
+            zip(outs, gens, fp32["gens"])):
+        for what, got in (("run", o), ("generate", g_toks)):
+            f = _check_streams(f"bf16-{what}-vs-fp32/{i}", got, f_toks,
+                               f_gaps, BF16_GAP_TOL, problems)
+            if f:
+                twins.append(f)
+    rec.update(twin_first_differences=twins, twin_tol=BF16_GAP_TOL,
+               pool_bytes=_pool_bytes(cfg, RUN_SLOTS, MAX_LEN, PAGE, 2),
+               fp32_pool_bytes=_pool_bytes(cfg, RUN_SLOTS, MAX_LEN, PAGE,
+                                           4))
+    emit({"phase": "bf16-run", **rec})
+    out["bf16"] = rec
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- the uniform int8 store
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab,
+                                                  size=(B, PROMPT))
+    f = run_engine(torch, "fp32", model, params, None, tokens, store="fake",
+                   impl="cuda")
+    t0 = time.perf_counter()
+    qparams = model.quantize_params_int8(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    q = run_engine(torch, "int8", model, qparams, None, tokens,
+                   store="fake", impl="cuda", profile=True)
+    lf, lq = f["logits"], q["logits"]
+    rel = float((lf - lq).abs().mean() / lf.std().clamp(min=1e-6))
+    if not rel < INT8_REL_LIMIT:
+        problems.append(f"int8 store: prefill logits rel {rel} >= "
+                        f"{INT8_REL_LIMIT}")
+    la = q["rec"]["launches"]
+    sites = 7 * cfg.n_layers + 1          # q k v o, g u d a layer; unembed
+    want = dict(quant_matmul=sites * (1 + N_NEW), packed_matmul=0,
+                flash_attention=cfg.n_layers * (1 + N_NEW))
+    for name, n in want.items():
+        if la[name] != n:
+            problems.append(f"int8 store generate: {name} launched "
+                            f"{la[name]} times, want {n}")
+    eng = ServeEngine(model, qparams, max_len=MAX_LEN, attn_impl="cuda",
+                      device="cuda")
+    rec, _, _, gl = _run_and_generate(torch, "int8-store", eng, reqs, kw,
+                                      problems)
+    if rec["launches"]["packed_matmul"] or gl["packed_matmul"]:
+        problems.append("int8 store: K3 launched")
+    rec.update(prefill_logit_rel=rel, rel_limit=INT8_REL_LIMIT,
+               quantize_s=quant_s, generate=q["rec"],
+               generate_fp32=f["rec"],
+               weight_hbm_bytes=eng.weight_hbm_bytes())
+    emit({"phase": "int8-store", **{k: v for k, v in rec.items()
+                                    if k not in ("generate",
+                                                 "generate_fp32")}})
+    out["int8"] = rec
+    del eng, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["problems"] = problems
+    emit({"phase": "cache-store", "seconds": out["seconds"],
+          "problems": problems})
+    if problems:
+        raise AssertionError("bf16 / int8-store checks failed: " +
+                             "; ".join(problems))
+    return out
 
 
 class _Sessions:
@@ -1337,7 +1903,8 @@ def step_costs(torch, timer, cfg, eng, k):
     dev = eng.device
     starts = SPEC_STARTS
     nb = pages_needed(MAX_LEN, PAGE)
-    pool = eng.model.init_paged_cache(4, 4 * nb + 1, PAGE, device=dev)
+    pool = eng.model.init_paged_cache(4, 4 * nb + 1, PAGE,
+                                      dtype=torch.float32, device=dev)
     bt = (torch.arange(4 * nb, dtype=torch.int32, device=dev) + 1
           ).reshape(4, nb)
     for entry in pool:
@@ -2258,10 +2825,13 @@ def main(argv=None) -> int:
     cfg, model, params, policy = init_model(torch)
     rec_a, rec_b, checks = phase_serve(torch, cfg, model, params, policy)
     run = phase_run(torch, cfg, model, params, policy)
+    store = phase_cache_and_store(torch, cfg, model, params, policy,
+                                  run.pop("_streams"))
     search, substrate = phase_search(torch, cfg, model, params, policy)
     del params                  # the serving phases' weights
     gc.collect()
     torch.cuda.empty_cache()
+    moe = phase_moe(torch)
     train = phase_train(torch, cfg, model, card, substrate)
     launches = dict(rec_a["launches"])
     launches["paged_attention"] = \
@@ -2269,12 +2839,25 @@ def main(argv=None) -> int:
     for r in search["runs"]:
         name = "fake_quant" if r["mode"] == "quant" else "binary_matmul"
         launches[name] = r["launches"][name]
+    gen = {"generate": rec_a["launches"],
+           "generate_bf16": store["bf16"]["generate_launches"],
+           "generate_int8_store": store["int8"]["generate"]["launches"],
+           "moe_generate": moe["engine_a"]["launches"]}
+    runs = {"run": run["runs"]["overlap"]["launches"],
+            "run_bf16": store["bf16"]["launches"],
+            "run_int8_store": store["int8"]["launches"],
+            "moe_run": moe["run"]["launches"],
+            "moe_run_cf0": moe["run_cf0"]["launches"]}
     by_path = {"fake_quant": {"search": launches["fake_quant"],
                               "qat": train["qat"]["launches"]["fake_quant"]}}
+    for name in ("flash_attention", "quant_matmul", "packed_matmul",
+                 "paged_attention"):
+        by_path[name] = {p: c[name] for p, c in {**gen, **runs}.items()}
     launches["fake_quant"] = sum(by_path["fake_quant"].values())
     kernels = summarize(rows, launches, by_path)
     result = {"card": card, "kernel_rows": rows, "engine_a": rec_a,
               "engine_b": rec_b, "checks": checks, "run": run,
+              "cache_and_store": store, "moe": moe,
               "search": search, "train": train, "kernels": kernels,
               "seconds": time.perf_counter() - t0}
     if args.out:

@@ -1,4 +1,5 @@
-"""Architecture configs (copies of ``repro.configs``' dense families).
+"""Architecture configs (copies of ``repro.configs``' dense and MoE
+families).
 
 ``get(arch_id)`` returns an :class:`ArchSpec` with the full production
 config and a reduced smoke config of the same family.

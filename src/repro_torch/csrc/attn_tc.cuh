@@ -2,7 +2,8 @@
 // (flash_attention.cu) and K4's chunk steps (paged_attention.cu): attn_tc,
 // templated on where its K/V rows come from (DenseSlots: K1's rows;
 // PagedSlots: K4's logical slots behind a block table) and on their type
-// (fp32, or int8 pages with per-(slot, head) scales), writing either the
+// (fp32, bf16, or int8 pages with per-(slot, head) scales: KvType in
+// attn_tile.cuh), writing either the
 // normalised output or, for a walk split across blocks, each split's
 // unnormalised (m, l, acc) for the fixed-order merge of attn_tile.cuh
 // (combine_cols).
@@ -36,10 +37,17 @@
 //    KB at D = 256, one block an SM.  A double buffer of K and V does not
 //    fit beside a 128-row Q, so K and V take turns: V(t) is copied
 //    (cp.async, 16 bytes at a time) while S(t) = Q K(t)^T runs, and K(t + 1)
-//    while P(t) V(t) runs.  int8 pages are copied as bytes into a 16 KB
-//    staging area (with their scales) and, once landed, dequantized into
-//    the fp32 tile with the single fp32 multiply by the (slot, head) scale
-//    that the plain version makes.
+//    while P(t) V(t) runs.  bf16 and int8 rows are copied as they are
+//    stored into one staging area (16 KB at D = 256 for bf16, 8 KB for
+//    int8, with int8's scales) and, once landed, converted into the fp32
+//    tile: bf16 exactly (its hi TF32 part is exact and its lo part zero,
+//    so the three passes spend one on zeros: a two-pass variant is later
+//    work), int8 with the single fp32 multiply by the (slot, head) scale
+//    that the plain version makes.  With one staging area the order is:
+//    K(t) converted, then V(t)'s copy started while S(t) runs; V(t)
+//    converted, then K(t + 1)'s copy started while P(t) V(t) runs (two
+//    staging areas would not fit beside the fp32 tiles at D = 256 for
+//    bf16).
 //  * P never leaves the registers: the score accumulator's layout is the
 //    A fragment's once the K index of each 8-row step of P V is permuted
 //    (logical t4 -> row 2 t4, t4 + 4 -> row 2 t4 + 1, the V fragments
@@ -81,10 +89,11 @@ constexpr int TDN = DMAX / 8;         // m16n8 output tiles of a row (max)
 
 // Dynamic shared memory of attn_tc: the block's pre-scaled Q rows, one K
 // tile and one V tile, fp32 rows of D + 4 floats (199,680 bytes at D =
-// 256), and for int8 pages the staged bytes of a K and a V tile.
-inline size_t tc_smem_bytes(int D, bool quant) {
+// 256), and for bf16 or int8 rows the staging area of one tile as stored
+// (216,064 bytes in all at D = 256 for bf16).
+inline size_t tc_smem_bytes(int D, int kt) {
   return sizeof(float) * (size_t)(TROWS + 2 * BKV) * (D + 4) +
-         (quant ? 2 * (size_t)BKV * D : 0);
+         (kt != KV_F32 ? (size_t)BKV * D * kv_bytes(kt) : 0);
 }
 
 // hi and lo TF32 parts of v: hi = rna(v), lo = rna(v - hi)
@@ -95,11 +104,13 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
 }
 
 // What every attn_tc launch takes besides its K/V source.  k / v: K1's
-// (B, Skv, Hkv, D) rows or K4's (P, ps, Hkv, D) pages, fp32 or int8 (with
-// kscale / vscale, one float per (slot, head)); the K/V row of (slot, kv
-// head h) is flat * Hkv + h, flat from the source's meta().  NS == 1
-// writes o (B, Sq, Hq, D); NS > 1 writes each split's (m, l) into pm / pl
-// and its acc into pacc (attn_tile.cuh: partial_row).
+// (B, Skv, Hkv, D) rows or K4's (P, ps, Hkv, D) pages, fp32, bf16 or int8
+// (with kscale / vscale, one float per (slot, head)); the K/V row of
+// (slot, kv head h) is flat * Hkv + h, flat from the source's meta().
+// vec: bf16 / int8 rows staged in 16-byte copies (D times the element
+// size a multiple of 16, and k, v 16-byte aligned), else 4-byte copies.
+// NS == 1 writes o (B, Sq, Hq, D); NS > 1 writes each split's (m, l) into
+// pm / pl and its acc into pacc (attn_tile.cuh: partial_row).
 struct TcArgs {
   const float* q;
   const int* qpos;
@@ -111,7 +122,7 @@ struct TcArgs {
   float* pm;
   float* pl;
   float* pacc;
-  int B, Sq, Hq, Hkv, D, G, BQ, NS, causal, window, vec8;
+  int B, Sq, Hq, Hkv, D, G, BQ, NS, causal, window, vec;
   float cap, scale;
 };
 
@@ -227,9 +238,10 @@ __device__ __forceinline__ void real_range(const int* qp, int n, int* red,
 // One block per (q tile of BQ = TROWS / G positions, split, kv head, batch
 // row) on a 1-d grid, the last q tiles first.  DT: the head dim fixed at
 // compile time (gemma2-2b's 256), or 0 for any D (a multiple of 8 up to
-// DMAX, read at run time); a fixed D takes the branch off every output
-// tile of P V, so the tiles' MMA chains can overlap.  QUANT: int8 K/V.
-template <class Slots, bool QUANT, int DT>
+// DMAX, read at run time: granite-moe's 64); a fixed D takes the branch
+// off every output tile of P V, so the tiles' MMA chains can overlap.  KT:
+// the K/V element type (KvType).
+template <class Slots, int KT, int DT>
 __global__ void __launch_bounds__(TNT, 1)
 attn_tc(const TcArgs a, const Slots src) {
   extern __shared__ float4 tc_smem[];
@@ -238,8 +250,10 @@ attn_tc(const TcArgs a, const Slots src) {
   float* Qs = reinterpret_cast<float*>(tc_smem);   // [TROWS][DS]
   float* Ks = Qs + TROWS * DS;                      // [BKV][DS]
   float* Vs = Ks + BKV * DS;                        // [BKV][DS]
-  int8_t* K8 = reinterpret_cast<int8_t*>(Vs + BKV * DS);   // [BKV][D]
-  int8_t* V8 = K8 + BKV * D;                                // [BKV][D]
+  constexpr bool STAGED = KT != KV_F32;
+  constexpr int ES = kv_bytes(KT);
+  // bf16 / int8: one tile's rows as stored, [BKV][D * ES] bytes
+  unsigned char* ST = reinterpret_cast<unsigned char*>(Vs + BKV * DS);
   __shared__ int kps[2][BKV], kfl[2][BKV];   // a tile's positions, rows
   __shared__ int mpos[TNT], mfl[TNT];        // 8 tiles' from tile mt0 on
   __shared__ float ksc[BKV], vsc[BKV];       // int8: the staged scales
@@ -309,23 +323,24 @@ attn_tc(const TcArgs a, const Slots src) {
     return t;
   };
   // Starts the copy of the tile in buffer u of `src_` (k or v) as one
-  // cp.async group: fp32 rows straight into `dst`, int8 rows into `st`
-  // with their scales into `sc`; empty slots zero-filled.
+  // cp.async group: fp32 rows straight into `dst`, bf16 / int8 rows into
+  // ST (int8's scales into `sc`); empty slots zero-filled.
   auto start_copy = [&](const void* src_, const float* scl, float* dst,
-                        int8_t* st, float* sc, int u) {
-    if (QUANT) {
-      const int8_t* s8 = static_cast<const int8_t*>(src_);
-      const int CH = a.vec8 ? 16 : 4, C = D / CH;
+                        float* sc, int u) {
+    if (STAGED) {
+      const unsigned char* sb = static_cast<const unsigned char*>(src_);
+      const int RB = D * ES;                 // bytes of a row
+      const int CH = a.vec ? 16 : 4, C = RB / CH;
       for (int i = tid; i < BKV * C; i += TNT) {
-        const int j = i / C, d = (i % C) * CH;
+        const int j = i / C, c = (i % C) * CH;
         const bool ok = kps[u][j] != SENT;
-        const size_t off = ((size_t)kfl[u][j] * Hkv + h) * D + d;
-        if (a.vec8)
-          rt::cp_async16(st + j * D + d, ok ? s8 + off : s8, ok);
+        const size_t off = ((size_t)kfl[u][j] * Hkv + h) * RB + c;
+        if (a.vec)
+          rt::cp_async16(ST + j * RB + c, ok ? sb + off : sb, ok);
         else
-          rt::cp_async4(st + j * D + d, ok ? s8 + off : s8, ok);
+          rt::cp_async4(ST + j * RB + c, ok ? sb + off : sb, ok);
       }
-      if (tid < BKV) {
+      if (KT == KV_I8 && tid < BKV) {
         const bool ok = kps[u][tid] != SENT;
         const size_t row = (size_t)kfl[u][tid] * Hkv + h;
         rt::cp_async4(sc + tid, ok ? scl + row : scl, ok);
@@ -341,20 +356,24 @@ attn_tc(const TcArgs a, const Slots src) {
     }
     rt::cp_async_commit();
   };
-  // int8: the landed tile in `st` times its scales into the fp32 `dst`
-  // (one fp32 product an element), then a barrier.
-  auto dequant = [&](const int8_t* st, const float* sc, float* dst) {
-    if (QUANT) {
-      for (int i = tid; i < BKV * D4; i += TNT) {
-        const int j = i / D4, d = (i % D4) * 4;
-        const char4 c = *reinterpret_cast<const char4*>(st + j * D + d);
+  // bf16 / int8: the tile landed in ST into the fp32 `dst` (bf16
+  // exactly; int8 times its scales, one fp32 product an element), then a
+  // barrier: ST is free again.
+  auto convert = [&](const float* sc, float* dst) {
+    for (int i = tid; i < BKV * D4; i += TNT) {
+      const int j = i / D4, d = (i % D4) * 4;
+      float4 val;
+      if (KT == KV_I8) {
+        const char4 c = *reinterpret_cast<const char4*>(ST + j * D + d);
         const float f = sc[j];
-        *reinterpret_cast<float4*>(dst + j * DS + d) =
-            make_float4((float)c.x * f, (float)c.y * f, (float)c.z * f,
-                        (float)c.w * f);
+        val = make_float4((float)c.x * f, (float)c.y * f, (float)c.z * f,
+                          (float)c.w * f);
+      } else {
+        val = bf16x4(ST + (j * D + d) * 2);
       }
-      __syncthreads();
+      *reinterpret_cast<float4*>(dst + j * DS + d) = val;
     }
+    __syncthreads();
   };
 
   // thread state: rows r0 and r0 + 8 of the block (rows g, g + 8 of the
@@ -369,14 +388,22 @@ attn_tc(const TcArgs a, const Slots src) {
     for (int e = 0; e < 4; ++e) acc[jn][e] = 0.f;
 
   int cur = next_live(wk.t0, 0), u = 0;
-  if (cur < wk.t1) start_copy(a.k, a.kscale, Ks, K8, ksc, 0);
+  if (cur < wk.t1) start_copy(a.k, a.kscale, Ks, ksc, 0);
   while (cur < wk.t1) {
-    // Vs is free: the last P V has ended
-    start_copy(a.v, a.vscale, Vs, V8, vsc, u);
-    const int nxt = next_live(cur + 1, u ^ 1);
-    rt::cp_async_wait<1>();          // K(cur) has landed
-    __syncthreads();
-    dequant(K8, ksc, Ks);
+    int nxt;
+    if (STAGED) {
+      rt::cp_async_wait<0>();        // K(cur) has landed in ST
+      __syncthreads();
+      convert(ksc, Ks);              // Ks is free: the last S has ended
+      start_copy(a.v, a.vscale, Vs, vsc, u);
+      nxt = next_live(cur + 1, u ^ 1);
+    } else {
+      // Vs is free: the last P V has ended
+      start_copy(a.v, a.vscale, Vs, vsc, u);
+      nxt = next_live(cur + 1, u ^ 1);
+      rt::cp_async_wait<1>();        // K(cur) has landed
+      __syncthreads();
+    }
 
     // S = Q K^T, 16 x 32 per warp, three TF32 passes chained in the MMA's
     // accumulator (tests/test_torch_tc_attention.py: enough at D = 256)
@@ -456,14 +483,20 @@ attn_tc(const TcArgs a, const Slots src) {
     }
 
     __syncthreads();                 // every warp has read Ks
-    if (nxt < wk.t1) {
-      start_copy(a.k, a.kscale, Ks, K8, ksc, u ^ 1);
-      rt::cp_async_wait<1>();        // V(cur) has landed
+    if (STAGED) {
+      rt::cp_async_wait<0>();        // V(cur) has landed in ST
+      __syncthreads();
+      convert(vsc, Vs);
+      if (nxt < wk.t1) start_copy(a.k, a.kscale, Ks, ksc, u ^ 1);
     } else {
-      rt::cp_async_wait<0>();
+      if (nxt < wk.t1) {
+        start_copy(a.k, a.kscale, Ks, ksc, u ^ 1);
+        rt::cp_async_wait<1>();      // V(cur) has landed
+      } else {
+        rt::cp_async_wait<0>();
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    dequant(V8, vsc, Vs);
 
     // O = O * alpha + P V: each 16 x 8 output tile's three passes over the
     // tile's 32 rows go into a zeroed accumulator, then one round-to-
@@ -524,13 +557,14 @@ attn_tc(const TcArgs a, const Slots src) {
   }
 }
 
-// Launch attn_tc over `src` on `stream`: grid n_qt * NS * Hkv * B blocks;
-// returns the first CUDA error of the setup or the launch.
-template <class Slots, bool QUANT>
+// Launch attn_tc over `src` with K/V elements of type KT on `stream`:
+// grid n_qt * NS * Hkv * B blocks; returns the first CUDA error of the
+// setup or the launch.
+template <class Slots, int KT>
 int launch_tc(const TcArgs& a, const Slots& src, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(a.D, QUANT);
-  auto kern = a.D == DMAX ? attn_tc<Slots, QUANT, DMAX>
-                          : attn_tc<Slots, QUANT, 0>;
+  const size_t smem = tc_smem_bytes(a.D, KT);
+  auto kern = a.D == DMAX ? attn_tc<Slots, KT, DMAX>
+                          : attn_tc<Slots, KT, 0>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);

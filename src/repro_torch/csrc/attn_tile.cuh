@@ -24,8 +24,35 @@
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace attn {
+
+// Element type of the K/V rows a walk reads: fp32, bf16 (converted to fp32
+// as it is staged, exactly: a bf16 value is the top half of an fp32), or
+// int8 with one fp32 scale per (slot, head).  The online softmax and the
+// output stay fp32 whatever the type, as in the reference's kernels.
+enum KvType { KV_F32 = 0, KV_BF16 = 1, KV_I8 = 2 };
+
+// Bytes of one stored K/V element of type KT.
+__host__ __device__ constexpr int kv_bytes(int kt) {
+  return kt == KV_F32 ? 4 : (kt == KV_BF16 ? 2 : 1);
+}
+
+// The two bf16 values packed in u (element 0 in the low half, as a
+// little-endian load lays them out), as exact fp32 values.
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// Four consecutive bf16 values (8 bytes, 8-byte aligned) as fp32.
+__device__ __forceinline__ float4 bf16x4(const unsigned char* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
 
 constexpr int NT = 256;            // threads per block
 constexpr int ROWS = 32;           // query rows (position x head) per block

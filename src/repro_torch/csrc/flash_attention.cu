@@ -5,7 +5,9 @@
 // Replaces the TPU kernel repro/kernels/attention.py::flash_attention
 // (_flash_kernel at :124, pallas_call at :181).  Layouts are the
 // reference's: q (B, Sq, Hq, D), k / v (B, Skv, Hkv, D), q_pos (B, Sq),
-// kv_pos (B, Skv) int32, o (B, Sq, Hq, D), all fp32 and contiguous.
+// kv_pos (B, Skv) int32, o (B, Sq, Hq, D), all contiguous; q and o fp32,
+// k and v fp32 or bf16 (a bf16 cache, converted to fp32 as its tiles are
+// staged: the reference upcasts in its kernel the same way).
 //
 // Bound on an H100: prefill by its operations, 4 D flops per attended
 // (query head, key) pair, at the TF32 tensor-core peak of 495 TFLOP/s
@@ -33,7 +35,9 @@
 //    tiles, and writes its rows' unnormalised (m, l, acc) into fp32
 //    partials the wrapper allocates; split_combine merges them in split
 //    order (attn_tile.cuh: write_partial, combine_cols).  At gemma2-2b
-//    decode NS = 33: 264 blocks of 4 tiles each.  The split walk
+//    decode NS = 33: 264 blocks of 4 tiles each.  A bf16 cache's tiles are
+//    copied as they are stored into a double-buffered staging area and
+//    converted into one fp32 K and one fp32 V tile once they land.  The split walk
 //    double-buffers its K/V tiles with cp.async, so the copy of the next
 //    live tile overlaps tile_update (attn_tile.cuh, fp32 FMAs on CUDA
 //    cores) on the current one (K in 4-byte copies, since its rows are
@@ -59,29 +63,47 @@ namespace {
 
 using namespace attn;
 
-// Shared memory of the split walk: Q, two K tiles (rows of D + 1), two V
-// tiles and P, ~165 KB at D = 256.
-inline size_t split_smem_bytes(int D) {
+// fp32 K/V tiles the split walk holds: two (the copies land in them) for
+// fp32, one for bf16 (converted from the staging area).
+__host__ __device__ constexpr int split_bufs(int kt) {
+  return kt == KV_F32 ? 2 : 1;
+}
+
+// Shared memory of the split walk: Q, the K tiles (rows of D + 1), the V
+// tiles and P, ~165 KB at D = 256 for fp32; for bf16 one fp32 K and V
+// tile and two K and two V tiles as stored, ~168 KB.
+inline size_t split_smem_bytes(int D, int kt) {
+  const int nb = split_bufs(kt);
   return sizeof(float) *
-         ((size_t)ROWS * (D + 1) + 2 * (size_t)BKV * (D + 1) +
-          2 * (size_t)BKV * D + (size_t)ROWS * (BKV + 1));
+             ((size_t)ROWS * (D + 1) + nb * (size_t)BKV * (D + 1) +
+              nb * (size_t)BKV * D + (size_t)ROWS * (BKV + 1)) +
+         (kt == KV_F32 ? 0 : 4 * (size_t)BKV * D * kv_bytes(kt));
 }
 
 // One block per (split s, kv head, batch row), the block's query tile at
-// q0 = 0 (Sq <= BQ); split s walks KV tiles [s * tps, (s + 1) * tps).
+// q0 = 0 (Sq <= BQ); split s walks KV tiles [s * tps, (s + 1) * tps).  KT:
+// KV_F32 or KV_BF16.
+template <int KT>
 __global__ void __launch_bounds__(NT)
-flash_split(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const int* __restrict__ qpos,
+flash_split(const float* __restrict__ q, const void* __restrict__ k,
+            const void* __restrict__ v, const int* __restrict__ qpos,
             const int* __restrict__ kvpos, float* __restrict__ pm,
             float* __restrict__ pl, float* __restrict__ pacc, int Sq,
             int Skv, int Hq, int Hkv, int D, int G, int BQ, int causal,
             int window, float cap, float scale, int NS, int tps) {
   extern __shared__ float smem[];
+  constexpr int NB = split_bufs(KT);
   const int DS = D + 1;
   float* Qs = smem;
-  float* Ks0 = Qs + ROWS * DS;                 // [2][BKV][D + 1]
-  float* Vs0 = Ks0 + 2 * BKV * DS;             // [2][BKV][D]
-  float* Ps = Vs0 + 2 * BKV * D;
+  float* Ks0 = Qs + ROWS * DS;                 // [NB][BKV][D + 1]
+  float* Vs0 = Ks0 + NB * BKV * DS;            // [NB][BKV][D]
+  float* Ps = Vs0 + NB * BKV * D;
+  // bf16: [2][K, V][BKV][D] as stored
+  unsigned char* raw = reinterpret_cast<unsigned char*>(Ps + ROWS * (BKV + 1));
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const unsigned char* kb = static_cast<const unsigned char*>(k);
+  const unsigned char* vb = static_cast<const unsigned char*>(v);
   __shared__ int kps[2][BKV];
   __shared__ int qps[ROWS];
   __shared__ int qlo, qhi;
@@ -114,25 +136,60 @@ flash_split(const float* __restrict__ q, const float* __restrict__ k,
     }
     return t;
   };
-  // Starts the copy of tile t into buffer u (rows past Skv zero-filled).
+  // Starts the copy of tile t into buffer u (rows past Skv zero-filled):
+  // fp32 rows into the fp32 tiles, bf16 rows into the staging area.
   auto start_copy = [&](int t, int u) {
+    const int kv0 = t * BKV;
+    if (KT == KV_BF16) {
+      const int RB = 2 * D, C = RB / 16;     // 16-byte chunks of a row
+      unsigned char* kr = raw + (size_t)(2 * u) * BKV * RB;
+      unsigned char* vr = kr + (size_t)BKV * RB;
+      for (int i = tid; i < BKV * C; i += NT) {
+        const int j = i / C, c = (i % C) * 16;
+        const bool ok = kv0 + j < Skv;
+        const size_t off =
+            (((size_t)b * Skv + kv0 + j) * Hkv + h) * RB + c;
+        rt::cp_async16(kr + j * RB + c, ok ? kb + off : kb, ok);
+        rt::cp_async16(vr + j * RB + c, ok ? vb + off : vb, ok);
+      }
+      rt::cp_async_commit();
+      return;
+    }
     float* Ks = Ks0 + u * BKV * DS;
     float* Vs = Vs0 + u * BKV * D;
-    const int kv0 = t * BKV;
     for (int i = tid; i < BKV * D; i += NT) {
       const int j = i / D, d = i % D;
       const bool ok = kv0 + j < Skv;
       const size_t off = (((size_t)b * Skv + kv0 + j) * Hkv + h) * D + d;
-      rt::cp_async4(Ks + j * DS + d, ok ? k + off : k, ok);
+      rt::cp_async4(Ks + j * DS + d, ok ? kf + off : kf, ok);
     }
     const int D4 = D / 4;
     for (int i = tid; i < BKV * D4; i += NT) {
       const int j = i / D4, d = (i % D4) * 4;
       const bool ok = kv0 + j < Skv;
       const size_t off = (((size_t)b * Skv + kv0 + j) * Hkv + h) * D + d;
-      rt::cp_async16(Vs + j * D + d, ok ? v + off : v, ok);
+      rt::cp_async16(Vs + j * D + d, ok ? vf + off : vf, ok);
     }
     rt::cp_async_commit();
+  };
+  // bf16: the landed tile of buffer u into the fp32 K (rows of D + 1) and
+  // V tiles, then a barrier.
+  auto convert = [&](int u) {
+    const int RB = 2 * D, D4 = D / 4;
+    const unsigned char* kr = raw + (size_t)(2 * u) * BKV * RB;
+    const unsigned char* vr = kr + (size_t)BKV * RB;
+    for (int i = tid; i < BKV * D4; i += NT) {
+      const int j = i / D4, d = (i % D4) * 4;
+      const float4 kv4 = bf16x4(kr + j * RB + 2 * d);
+      float* kd = Ks0 + j * DS + d;
+      kd[0] = kv4.x;
+      kd[1] = kv4.y;
+      kd[2] = kv4.z;
+      kd[3] = kv4.w;
+      *reinterpret_cast<float4*>(Vs0 + j * D + d) =
+          bf16x4(vr + j * RB + 2 * d);
+    }
+    __syncthreads();
   };
 
   float m_i = -INFINITY, l_i = 0.f;
@@ -151,8 +208,10 @@ flash_split(const float* __restrict__ q, const float* __restrict__ k,
       rt::cp_async_wait<0>();
     }
     __syncthreads();
+    if (KT == KV_BF16) convert(u);
     if (warp_live) {
-      const Tiles t{Qs, Ks0 + u * BKV * DS, Vs0 + u * BKV * D, Ps};
+      const int ub = KT == KV_BF16 ? 0 : u;
+      const Tiles t{Qs, Ks0 + ub * BKV * DS, Vs0 + ub * BKV * D, Ps};
       tile_update(t, kps[u], qps[r], r, l8, D, causal, window, cap, m_i,
                   l_i, acc);
     }
@@ -183,6 +242,37 @@ __global__ void split_combine(const float* __restrict__ pm,
 
 }  // namespace
 
+namespace {
+
+template <int KT>
+int launch_split(const float* qf, const void* k, const void* v,
+                 const int* qp, const int* kp, float* of, void* ml,
+                 void* pacc, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                 int G, int BQ, int causal, int window, int n_splits,
+                 float cap, float scale, cudaStream_t st) {
+  const int n_tiles = (Skv + BKV - 1) / BKV;
+  const int tps = (n_tiles + n_splits - 1) / n_splits;
+  float* pm = static_cast<float*>(ml);
+  float* pl = pm + (size_t)B * Hq * n_splits * Sq;
+  float* pa = static_cast<float*>(pacc);
+  const size_t smem = split_smem_bytes(D, KT);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_split<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_split<KT><<<dim3(n_splits, Hkv, B), NT, smem, st>>>(
+      qf, k, v, qp, kp, pm, pl, pa, Sq, Skv, Hq, Hkv, D, G, BQ, causal,
+      window, cap, scale, n_splits, tps);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  split_combine<<<dim3(Sq, Hq, B), (D + 3) / 4, 0, st>>>(pm, pl, pa, of, Sq,
+                                                          Hq, D, n_splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// kv_type: KV_F32 or KV_BF16 (k and v of that type; q and o fp32).
 // window <= 0: no window; cap <= 0: no softcap.  n_splits <= 1 runs the
 // tensor-core walk (attn_tc over DenseSlots); n_splits > 1 needs Sq <= 32
 // / G and runs the split walk, with `ml` holding 2 x B Hq n_splits Sq
@@ -192,44 +282,37 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, const void* q_pos,
                                    const void* kv_pos, void* o, void* ml,
                                    void* pacc, int B, int Sq, int Skv, int Hq,
-                                   int Hkv, int D, int causal, int window,
-                                   int n_splits, float cap, float scale,
-                                   void* stream) {
+                                   int Hkv, int D, int kv_type, int causal,
+                                   int window, int n_splits, float cap,
+                                   float scale, void* stream) {
   if (D % TPR != 0 || D % 4 != 0 || D > DMAX || Hq % Hkv != 0 ||
-      Hq / Hkv > ROWS)
+      Hq / Hkv > ROWS || (kv_type != KV_F32 && kv_type != KV_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv, BQ = ROWS / G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
   float* of = static_cast<float*>(o);
   if (n_splits <= 1) {
     if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    TcArgs a{qf, qp, kf, vf, nullptr, nullptr, of, nullptr, nullptr,
-             nullptr, B, Sq, Hq, Hkv, D, G, TROWS / G, 1, causal, window, 0,
+    // bf16 rows staged in 16-byte copies (2 D bytes a row, D % 8 == 0;
+    // the wrapper requires 16-byte aligned k and v)
+    TcArgs a{qf, qp, k, v, nullptr, nullptr, of, nullptr, nullptr,
+             nullptr, B, Sq, Hq, Hkv, D, G, TROWS / G, 1, causal, window, 1,
              cap, scale};
-    return launch_tc<DenseSlots, false>(a, DenseSlots{kp, Skv}, st);
+    if (kv_type == KV_BF16)
+      return launch_tc<DenseSlots, KV_BF16>(a, DenseSlots{kp, Skv}, st);
+    return launch_tc<DenseSlots, KV_F32>(a, DenseSlots{kp, Skv}, st);
   }
   const int n_tiles = (Skv + BKV - 1) / BKV;
   if (Sq > BQ || n_splits > n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tps = (n_tiles + n_splits - 1) / n_splits;
-  float* pm = static_cast<float*>(ml);
-  float* pl = pm + (size_t)B * Hq * n_splits * Sq;
-  float* pa = static_cast<float*>(pacc);
-  const size_t smem = split_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_split<<<dim3(n_splits, Hkv, B), NT, smem, st>>>(
-      qf, kf, vf, qp, kp, pm, pl, pa, Sq, Skv, Hq, Hkv, D, G, BQ, causal,
-      window, cap, scale, n_splits, tps);
-  int e = static_cast<int>(cudaGetLastError());
-  if (e != 0) return e;
-  split_combine<<<dim3(Sq, Hq, B), (D + 3) / 4, 0, st>>>(pm, pl, pa, of, Sq,
-                                                          Hq, D, n_splits);
-  return static_cast<int>(cudaGetLastError());
+  if (kv_type == KV_BF16)
+    return launch_split<KV_BF16>(qf, k, v, qp, kp, of, ml, pacc, B, Sq, Skv,
+                                 Hq, Hkv, D, G, BQ, causal, window, n_splits,
+                                 cap, scale, st);
+  return launch_split<KV_F32>(qf, k, v, qp, kp, of, ml, pacc, B, Sq, Skv, Hq,
+                              Hkv, D, G, BQ, causal, window, n_splits, cap,
+                              scale, st);
 }

@@ -27,6 +27,14 @@
 // Every shape applies the per-channel scale to the finished fp32
 // accumulator once, where the Pallas kernels apply it, and sums in a fixed
 // order: two calls give the same bits.
+//
+// Expert batching: an MoE layer's E experts contract their own (C, K)
+// dispatch rows with their own weight in one launch (the reference's
+// einsum "ecd,edf->ecf").  Both shapes take the expert as blockIdx.z and
+// per-expert strides (Strides) for x, the stored weight, the scales and y;
+// a plain GEMM is the batch of one.  The route is chosen by the per-expert
+// row count M, and gemm_stream's cluster stays within one expert (cluster
+// dims 1 x S x 1).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +48,13 @@ namespace rt {
 namespace cg = cooperative_groups;
 
 constexpr int SKINNY_M = 8;
+
+// Elements between consecutive experts of each operand: x (M K), the
+// stored weight (ceil(K / F) N bytes), the scales (N) and y (M N) for
+// contiguous (E, ...) stacks.
+struct Strides {
+  size_t x, w, s, y;
+};
 
 // ---------------------------------------------------------- tensor cores
 // gemm_tc: y = (x @ w) * scale on TF32 tensor cores at fp32 accuracy.
@@ -179,7 +194,7 @@ struct PackedStage {
 template <class W, bool VA>
 __global__ void __launch_bounds__(CNT, 1)
 gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
-        int K, int N) {
+        int K, int N, Strides bs) {
   extern __shared__ float4 tc_smem[];
   float* As = reinterpret_cast<float*>(tc_smem);               // [CST][CBM][CAP]
   int8_t* Bs = reinterpret_cast<int8_t*>(As + CST * CBM * CAP);  // [CST][BYTES]
@@ -188,7 +203,11 @@ gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
   const int wm = (warp % 4) * 32, wn = (warp / 4) * 64;
   const int m0 = blockIdx.y * CBM, n0 = blockIdx.x * CBN;
   const int nk = (K + CBK - 1) / CBK;
-  const W w = wsrc;
+  W w = wsrc;                              // this block's expert
+  x += blockIdx.z * bs.x;
+  y += blockIdx.z * bs.y;
+  w.w += blockIdx.z * bs.w;
+  w.scale += blockIdx.z * bs.s;
 
   auto stage = [&](int slot, int kt) {
     const int k0 = kt * CBK;
@@ -308,19 +327,19 @@ gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
   }
 }
 
-// Launch gemm_tc over weight source `w` on `stream`; returns the first
-// CUDA error of the setup or the launch.
+// Launch gemm_tc over weight source `w` for E experts on `stream`;
+// returns the first CUDA error of the setup or the launch.
 template <class W>
-int launch_tc(const float* x, const W& w, float* y, int M, int K, int N,
-              cudaStream_t stream) {
+int launch_tc(const float* x, const W& w, float* y, int E, int M, int K,
+              int N, const Strides& bs, cudaStream_t stream) {
   const size_t smem = CST * (sizeof(float) * CBM * CAP + W::BYTES);
   const bool va = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   auto kern = va ? gemm_tc<W, true> : gemm_tc<W, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + CBN - 1) / CBN, (M + CBM - 1) / CBM);
-  kern<<<grid, CNT, smem, stream>>>(x, w, y, M, K, N);
+  dim3 grid((N + CBN - 1) / CBN, (M + CBM - 1) / CBM, E);
+  kern<<<grid, CNT, smem, stream>>>(x, w, y, M, K, N, bs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -449,18 +468,22 @@ constexpr size_t stream_smem_bytes() {
   return ring > red ? ring : red;
 }
 
-// One block per (column tile, K split); the S = gridDim.y splits of a
-// column tile form one cluster.  Two blocks an SM (128 registers) except
-// at M = 8 and for byte loads (VW = 1), which would spill there.  Mr:
-// x's real rows (<= M); per: packed rows a split (the last split's run is
-// cut at Kp).
+// One block per (column tile, K split, expert); the S = gridDim.y splits
+// of a column tile form one cluster, within one expert (blockIdx.z).  Two
+// blocks an SM (128 registers) except at M = 8 and for byte loads (VW =
+// 1), which would spill there.  Mr: x's real rows (<= M); per: packed rows
+// a split (the last split's run is cut at Kp).
 template <int BITS, int M, int VW>
 __global__ void __launch_bounds__(SNT, M <= 4 && VW > 1 ? 2 : 1)
 gemm_stream(const float* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ scale, float* __restrict__ y, int Mr,
-            int K, int N, int per) {
+            int K, int N, int per, Strides bs) {
   constexpr int F = 8 / BITS;
   constexpr int XK = SXR * F;               // K rows of x a chunk
+  x += blockIdx.z * bs.x;                   // this block's expert
+  w += blockIdx.z * bs.w;
+  scale += blockIdx.z * bs.s;
+  y += blockIdx.z * bs.y;
   extern __shared__ float4 stream_smem[];
   float* xs = reinterpret_cast<float*>(stream_smem);   // [2][XK][M]
   __shared__ float bsum[M * SCOLS];         // the block's sums, [m][col]
@@ -583,12 +606,12 @@ gemm_stream(const float* __restrict__ x, const int8_t* __restrict__ w,
 
 template <int BITS, int M, int VW>
 int launch_stream(const float* x, const int8_t* w, const float* scale,
-                  float* y, int Mr, int K, int N, int splits,
-                  cudaStream_t stream) {
+                  float* y, int E, int Mr, int K, int N, int splits,
+                  const Strides& bs, cudaStream_t stream) {
   constexpr int F = 8 / BITS;
   const int Kp = (K + F - 1) / F;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + SCOLS - 1) / SCOLS, splits, 1);
+  cfg.gridDim = dim3((N + SCOLS - 1) / SCOLS, splits, E);
   cfg.blockDim = dim3(SNT, 1, 1);
   cfg.dynamicSmemBytes = stream_smem_bytes<BITS, M>();
   cfg.stream = stream;
@@ -601,7 +624,7 @@ int launch_stream(const float* x, const int8_t* w, const float* scale,
   cfg.numAttrs = 1;
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, gemm_stream<BITS, M, VW>, x, w, scale, y, Mr,
-                         K, N, (Kp + splits - 1) / splits);
+                         K, N, (Kp + splits - 1) / splits, bs);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -610,47 +633,61 @@ int launch_stream(const float* x, const int8_t* w, const float* scale,
 // alignment allow
 template <int BITS, int M>
 int launch_stream_m(const float* x, const int8_t* w, const float* scale,
-                    float* y, int Mr, int K, int N, int splits,
-                    cudaStream_t stream) {
+                    float* y, int E, int Mr, int K, int N, int splits,
+                    const Strides& bs, cudaStream_t stream) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(w);
   if (N % 16 == 0 && a % 16 == 0)
-    return launch_stream<BITS, M, 16>(x, w, scale, y, Mr, K, N, splits,
-                                      stream);
+    return launch_stream<BITS, M, 16>(x, w, scale, y, E, Mr, K, N, splits,
+                                      bs, stream);
   if (N % 4 == 0 && a % 4 == 0)
-    return launch_stream<BITS, M, 4>(x, w, scale, y, Mr, K, N, splits,
-                                     stream);
-  return launch_stream<BITS, M, 1>(x, w, scale, y, Mr, K, N, splits, stream);
+    return launch_stream<BITS, M, 4>(x, w, scale, y, E, Mr, K, N, splits,
+                                     bs, stream);
+  return launch_stream<BITS, M, 1>(x, w, scale, y, E, Mr, K, N, splits, bs,
+                                   stream);
 }
 
-// One launch on `stream`: gemm_tc for M > SKINNY_M, else gemm_stream with
-// `splits` K splits (1 .. SMAX_SPLIT); returns the first CUDA error of
-// the setup or the launch.
+// One launch on `stream` for E experts of M rows each (contiguous (E, M,
+// K) x, (E, ceil(K / F), N) w, (E, N) scales, (E, M, N) y; E = 1 for a
+// plain GEMM): gemm_tc for M > SKINNY_M, else gemm_stream with `splits` K
+// splits (1 .. SMAX_SPLIT); returns the first CUDA error of the setup or
+// the launch.
 template <int BITS>
 int launch_gemm(const float* x, const int8_t* w, const float* scale, float* y,
-                int M, int K, int N, int splits, cudaStream_t stream) {
+                int E, int M, int K, int N, int splits,
+                cudaStream_t stream) {
+  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int F = 8 / BITS;
+  const Strides bs{(size_t)M * K, (size_t)((K + F - 1) / F) * N, (size_t)N,
+                   (size_t)M * N};
   if (M > SKINNY_M) {
     const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
     if constexpr (BITS == 8) {
       if (vec)
-        return launch_tc(x, Int8Stage<true>{w, scale}, y, M, K, N, stream);
-      return launch_tc(x, Int8Stage<false>{w, scale}, y, M, K, N, stream);
+        return launch_tc(x, Int8Stage<true>{w, scale}, y, E, M, K, N, bs,
+                         stream);
+      return launch_tc(x, Int8Stage<false>{w, scale}, y, E, M, K, N, bs,
+                       stream);
     } else {
       if (vec)
-        return launch_tc(x, PackedStage<BITS, true>{w, scale}, y, M, K, N,
-                         stream);
-      return launch_tc(x, PackedStage<BITS, false>{w, scale}, y, M, K, N,
-                       stream);
+        return launch_tc(x, PackedStage<BITS, true>{w, scale}, y, E, M, K,
+                         N, bs, stream);
+      return launch_tc(x, PackedStage<BITS, false>{w, scale}, y, E, M, K,
+                       N, bs, stream);
     }
   }
   if (splits < 1 || splits > SMAX_SPLIT)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 1)
-    return launch_stream_m<BITS, 1>(x, w, scale, y, M, K, N, splits, stream);
+    return launch_stream_m<BITS, 1>(x, w, scale, y, E, M, K, N, splits, bs,
+                                    stream);
   if (M <= 2)
-    return launch_stream_m<BITS, 2>(x, w, scale, y, M, K, N, splits, stream);
+    return launch_stream_m<BITS, 2>(x, w, scale, y, E, M, K, N, splits, bs,
+                                    stream);
   if (M <= 4)
-    return launch_stream_m<BITS, 4>(x, w, scale, y, M, K, N, splits, stream);
-  return launch_stream_m<BITS, 8>(x, w, scale, y, M, K, N, splits, stream);
+    return launch_stream_m<BITS, 4>(x, w, scale, y, E, M, K, N, splits, bs,
+                                    stream);
+  return launch_stream_m<BITS, 8>(x, w, scale, y, E, M, K, N, splits, bs,
+                                  stream);
 }
 
 }  // namespace rt

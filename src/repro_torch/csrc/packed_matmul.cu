@@ -24,13 +24,16 @@
 // (PackedStage) and each field unpacked where the MMA fragment is built
 // (int4 and int2 are exact in TF32, so two passes give fp32 accuracy);
 // the scale multiplies the finished accumulator once, where the Pallas
-// kernel applies it.
+// kernel applies it.  An MoE expert stack's int4 and int2 buckets run as
+// one launch each for all the experts (the expert is blockIdx.z).
 #include "gemm_tiles.cuh"
 
-// splits: gemm_stream's K splits (M <= 8; ignored above).
+// E experts of M rows each (E = 1: one GEMM): x (E, M, K), pw (E,
+// ceil(K / F), N), scale (E, N), y (E, M, N), all contiguous.  splits:
+// gemm_stream's K splits (M <= 8; ignored above).
 extern "C" int packed_matmul_f32(const void* x, const void* pw,
-                                 const void* scale, void* y, int M, int K,
-                                 int N, int splits, int store_bits,
+                                 const void* scale, void* y, int E, int M,
+                                 int K, int N, int splits, int store_bits,
                                  void* stream) {
   const float* xf = static_cast<const float*>(x);
   const int8_t* w = static_cast<const int8_t*>(pw);
@@ -38,8 +41,8 @@ extern "C" int packed_matmul_f32(const void* x, const void* pw,
   float* yf = static_cast<float*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (store_bits == 4)
-    return rt::launch_gemm<4>(xf, w, s, yf, M, K, N, splits, st);
+    return rt::launch_gemm<4>(xf, w, s, yf, E, M, K, N, splits, st);
   if (store_bits == 2)
-    return rt::launch_gemm<2>(xf, w, s, yf, M, K, N, splits, st);
+    return rt::launch_gemm<2>(xf, w, s, yf, E, M, K, N, splits, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,14 @@
 // K4: causal GQA attention for q tiles of k left-aligned tokens per
 // sequence over the paged KV pool (chunked-prefill chunks, decode tokens at
-// k = 1), with sliding-window, softcap and sentinel masks and fp32 or int8
-// pages.
+// k = 1), with sliding-window, softcap and sentinel masks and fp32, bf16
+// or int8 pages.
 //
 // Replaces the TPU kernel repro/kernels/attention.py::paged_prefill_attention
 // (_paged_kernel at :206, pallas_call at :347; paged_decode_attention at
 // :357 is its k = 1 wrapper).  Layouts are the reference's: q (B, k, Hq, D)
-// fp32; k / v pages (P, ps, Hkv, D) fp32 or int8; pos pages (P, ps) int32;
+// fp32; k / v pages (P, ps, Hkv, D) fp32, bf16 or int8 (KvType,
+// attn_tile.cuh; bf16 converted to fp32 exactly as it is staged, as the
+// reference upcasts in its kernel); pos pages (P, ps) int32;
 // block tables (B, nb) int32; q_pos (B, k) int32, real tokens in columns
 // 0..c-1 in ascending order and POS_SENTINEL after; int8 pools add
 // per-(slot, head) scale pages (P, ps, Hkv) fp32; o (B, k, Hq, D) fp32.
@@ -73,7 +75,9 @@
 //    against bank conflicts) with their (slot, head) scales, and each
 //    element is multiplied by its scale where decode_update reads it: the
 //    same single fp32 product as the plain version's
-//    gather-then-dequantize.  A slot lives in page
+//    gather-then-dequantize; bf16 pages are staged as stored (rows padded
+//    by 64 bytes, so that the 8-byte reads of a half-warp's two K rows
+//    fall on distinct banks) and converted where decode_update reads them.  A slot lives in page
 //    block_tables[row, s / ps] at offset s % ps, so with 16-slot pages a
 //    tile spans two table entries.
 //  * paged_combine merges the splits in split order with no atomics
@@ -101,6 +105,7 @@ using namespace attn;
 
 // ------------------------------------------------------- split walk
 constexpr int KPAD8 = 32;   // int8 row padding, bytes
+constexpr int KPAD16 = 64;  // bf16 row padding, bytes
 
 // A staged tile as decode_update reads it: fp32 rows of D floats.
 struct F32Tile {
@@ -133,20 +138,40 @@ struct I8Tile {
   }
 };
 
-// Bytes of one staged K or V tile.
-__host__ __device__ inline size_t split_tile_bytes(int D, bool quant) {
-  return quant ? (size_t)BKV * (D + KPAD8) : sizeof(float) * BKV * D;
+// bf16 rows of 2 D bytes (stride RS), converted where they are read.
+struct Bf16Tile {
+  const unsigned char* K;
+  const unsigned char* V;
+  int RS;
+  __device__ __forceinline__ float4 k4(int j, int d) const {
+    return bf16x4(K + j * RS + 2 * d);
+  }
+  __device__ __forceinline__ float v(int c, int d) const {
+    return __uint_as_float(
+        static_cast<uint32_t>(
+            *reinterpret_cast<const unsigned short*>(V + c * RS + 2 * d))
+        << 16);
+  }
+};
+
+// Bytes of one staged K or V row, and of a tile, for element type kt.
+__host__ __device__ inline int split_row_bytes(int D, int kt) {
+  return kt == KV_F32 ? 4 * D : (kt == KV_BF16 ? 2 * D + KPAD16 : D + KPAD8);
+}
+__host__ __device__ inline size_t split_tile_bytes(int D, int kt) {
+  return (size_t)BKV * split_row_bytes(D, kt);
 }
 
 // Dynamic shared memory of the split walk: Q (R x D, pre-scaled), then two
 // K and two V tiles.
-inline size_t split_smem_bytes(int R, int D, bool quant) {
-  return sizeof(float) * (size_t)R * D + 4 * split_tile_bytes(D, quant);
+inline size_t split_smem_bytes(int R, int D, int kt) {
+  return sizeof(float) * (size_t)R * D + 4 * split_tile_bytes(D, kt);
 }
 
-// One block per (split s, kv head h, row b).  VEC: int8 rows in 16-byte
-// copies (D % 16 == 0 and 16-byte aligned pages), else 4-byte copies.
-template <bool QUANT, bool VEC>
+// One block per (split s, kv head h, row b).  KT: the pages' KvType.  VEC:
+// bf16 / int8 rows in 16-byte copies (2 D or D a multiple of 16 and
+// 16-byte aligned pages), else 4-byte copies.
+template <int KT, bool VEC>
 __global__ void __launch_bounds__(NT)
 paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
             const void* __restrict__ vpages, const int* __restrict__ pos,
@@ -160,7 +185,7 @@ paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
   const int R = k * G;
   float* Qs = reinterpret_cast<float*>(smem4);
   unsigned char* tiles = reinterpret_cast<unsigned char*>(Qs + R * D);
-  const size_t tb = split_tile_bytes(D, QUANT);
+  const size_t tb = split_tile_bytes(D, KT);
   __shared__ int kps[2][BKV];
   __shared__ long long kslot[2][BKV];   // flat (page, slot) of each slot
   __shared__ float ksc[2][BKV], vsc[2][BKV];
@@ -209,8 +234,8 @@ paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
   const int per = (n_t + NS - 1) / NS;
   const int t_end = min(n_t, (s + 1) * per);
   const int* btrow = bt + (size_t)b * nb;
-  const int8_t* k8 = static_cast<const int8_t*>(kpages);
-  const int8_t* v8 = static_cast<const int8_t*>(vpages);
+  const unsigned char* k8 = static_cast<const unsigned char*>(kpages);
+  const unsigned char* v8 = static_cast<const unsigned char*>(vpages);
   const float* kf = static_cast<const float*>(kpages);
   const float* vf = static_cast<const float*>(vpages);
 
@@ -258,14 +283,15 @@ paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
   auto start_copy = [&](int u) {
     unsigned char* Kb = tiles + u * tb;
     unsigned char* Vb = tiles + (2 + u) * tb;
-    if (QUANT) {
-      const int RS = D + KPAD8;
+    if (KT != KV_F32) {
+      const int RS = split_row_bytes(D, KT);
+      const int RB = D * kv_bytes(KT);     // bytes of a stored row
       constexpr int CH = VEC ? 16 : 4;
-      const int C = D / CH;
+      const int C = RB / CH;
       for (int i = tid; i < BKV * C; i += NT) {
         const int j = i / C, d = (i - j * C) * CH;
         const bool ok = kps[u][j] != SENT;
-        const size_t off = ((size_t)kslot[u][j] * Hkv + h) * D + d;
+        const size_t off = ((size_t)kslot[u][j] * Hkv + h) * RB + d;
         if (VEC) {
           rt::cp_async16(Kb + j * RS + d, ok ? k8 + off : k8, ok);
           rt::cp_async16(Vb + j * RS + d, ok ? v8 + off : v8, ok);
@@ -274,7 +300,7 @@ paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
           rt::cp_async4(Vb + j * RS + d, ok ? v8 + off : v8, ok);
         }
       }
-      if (tid < BKV) {
+      if (KT == KV_I8 && tid < BKV) {
         const bool ok = kps[u][tid] != SENT;
         const size_t row = (size_t)kslot[u][tid] * Hkv + h;
         rt::cp_async4(&ksc[u][tid], ok ? kscale + row : kscale, ok);
@@ -312,10 +338,14 @@ paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
     __syncthreads();
     const unsigned char* Kb = tiles + u * tb;
     const unsigned char* Vb = tiles + (2 + u) * tb;
-    if (QUANT) {
+    if (KT == KV_I8) {
       const I8Tile kv{reinterpret_cast<const int8_t*>(Kb),
                       reinterpret_cast<const int8_t*>(Vb), ksc[u], vsc[u],
                       D + KPAD8};
+      decode_update(Qs, kv, kps[u], qps, Ss, ms, ls, as, R, D, /*causal=*/1,
+                    window, cap, acc);
+    } else if (KT == KV_BF16) {
+      const Bf16Tile kv{Kb, Vb, 2 * D + KPAD16};
       decode_update(Qs, kv, kps[u], qps, Ss, ms, ls, as, R, D, /*causal=*/1,
                     window, cap, acc);
     } else {
@@ -362,7 +392,7 @@ __global__ void paged_combine(const float* __restrict__ pm,
                              d) = val;
 }
 
-template <bool QUANT, bool VEC>
+template <int KT, bool VEC>
 int launch_split(const void* q, const void* kp, const void* vp,
                  const void* pos, const void* bt, const void* qpos,
                  const void* ks, const void* vs, void* o, void* ml,
@@ -370,15 +400,15 @@ int launch_split(const void* q, const void* kp, const void* vp,
                  int D, int nb, int window, int NS, float cap, float scale,
                  cudaStream_t stream) {
   const int G = Hq / Hkv;
-  const size_t smem = split_smem_bytes(k * G, D, QUANT);
+  const size_t smem = split_smem_bytes(k * G, D, KT);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_split<QUANT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_split<KT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* pm = static_cast<float*>(ml);
   float* pl = pm + (size_t)B * Hq * NS * k;
   float* pa = static_cast<float*>(pacc);
-  paged_split<QUANT, VEC><<<dim3(NS, Hkv, B), NT, smem, stream>>>(
+  paged_split<KT, VEC><<<dim3(NS, Hkv, B), NT, smem, stream>>>(
       static_cast<const float*>(q), kp, vp, static_cast<const int*>(pos),
       static_cast<const int*>(bt), static_cast<const int*>(qpos),
       static_cast<const float*>(ks), static_cast<const float*>(vs), pm, pl,
@@ -392,52 +422,52 @@ int launch_split(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// quant != 0: int8 pages with scale pages k_scale / v_scale; otherwise fp32
-// pages and the scale pointers are ignored.  window <= 0: no window;
-// cap <= 0: no softcap.  tc == 0 runs the decode walk (paged_split +
-// paged_combine, also at n_splits = 1), which takes q tiles of k <= 32 / G
-// columns only; tc != 0 runs the tensor-core walk (attn_tc over
-// PagedSlots) with n_splits splits, merged by paged_combine when
-// n_splits > 1.  kernels/attention.py::paged_walk picks both.  Where the
-// call merges, `ml` holds 2 x B Hq n_splits k floats (m, then l) and
-// `pacc` B Hq n_splits k D floats.  Returns cudaGetLastError() right
-// after the launches.
+// kv_type: the pages' KvType; KV_I8 pages come with scale pages k_scale /
+// v_scale (ignored for the others).  window <= 0: no window; cap <= 0: no
+// softcap.  tc == 0 runs the decode walk (paged_split + paged_combine,
+// also at n_splits = 1), which takes q tiles of k <= 32 / G columns only;
+// tc != 0 runs the tensor-core walk (attn_tc over PagedSlots) with
+// n_splits splits, merged by paged_combine when n_splits > 1.
+// kernels/attention.py::paged_walk picks both.  Where the call merges,
+// `ml` holds 2 x B Hq n_splits k floats (m, then l) and `pacc` B Hq
+// n_splits k D floats.  Returns cudaGetLastError() right after the
+// launches.
 extern "C" int paged_attention_f32(const void* q, const void* k_pages,
                                    const void* v_pages, const void* pos_pages,
                                    const void* block_tables,
                                    const void* q_pos, const void* k_scale,
                                    const void* v_scale, void* o, void* ml,
                                    void* pacc, int B, int k, int P, int ps,
-                                   int Hq, int Hkv, int D, int nb, int quant,
-                                   int window, int tc, int n_splits,
-                                   float cap, float scale, void* stream) {
+                                   int Hq, int Hkv, int D, int nb,
+                                   int kv_type, int window, int tc,
+                                   int n_splits, float cap, float scale,
+                                   void* stream) {
   const bool merged = !tc || n_splits > 1;
   if (D % 8 != 0 || D > DMAX || Hq % Hkv != 0 || Hq / Hkv > ROWS ||
       ps < 1 || nb < 1 || n_splits < 1 ||
+      (kv_type != KV_F32 && kv_type != KV_BF16 && kv_type != KV_I8) ||
       (!tc && k * (Hq / Hkv) > ROWS) ||
-      (quant && (k_scale == nullptr || v_scale == nullptr)) ||
+      (kv_type == KV_I8 && (k_scale == nullptr || v_scale == nullptr)) ||
       (merged && (ml == nullptr || pacc == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = Hq / Hkv;
-  const bool vec = D % 16 == 0 &&
+  // bf16 / int8 rows in 16-byte copies where a row is whole 16-byte
+  // chunks and the pages are 16-byte aligned
+  const bool vec = (D * kv_bytes(kv_type)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
+#define PAGED_SPLIT(KT, VEC)                                                \
+  launch_split<KT, VEC>(q, k_pages, v_pages, pos_pages, block_tables, q_pos, \
+                        k_scale, v_scale, o, ml, pacc, B, k, P, ps, Hq, Hkv,  \
+                        D, nb, window, n_splits, cap, scale, st)
   if (!tc) {
-    if (!quant)
-      return launch_split<false, false>(
-          q, k_pages, v_pages, pos_pages, block_tables, q_pos, k_scale,
-          v_scale, o, ml, pacc, B, k, P, ps, Hq, Hkv, D, nb, window,
-          n_splits, cap, scale, st);
-    return vec ? launch_split<true, true>(
-                     q, k_pages, v_pages, pos_pages, block_tables, q_pos,
-                     k_scale, v_scale, o, ml, pacc, B, k, P, ps, Hq, Hkv, D,
-                     nb, window, n_splits, cap, scale, st)
-               : launch_split<true, false>(
-                     q, k_pages, v_pages, pos_pages, block_tables, q_pos,
-                     k_scale, v_scale, o, ml, pacc, B, k, P, ps, Hq, Hkv, D,
-                     nb, window, n_splits, cap, scale, st);
+    if (kv_type == KV_F32) return PAGED_SPLIT(KV_F32, false);
+    if (kv_type == KV_BF16)
+      return vec ? PAGED_SPLIT(KV_BF16, true) : PAGED_SPLIT(KV_BF16, false);
+    return vec ? PAGED_SPLIT(KV_I8, true) : PAGED_SPLIT(KV_I8, false);
   }
+#undef PAGED_SPLIT
   float* pm = static_cast<float*>(ml);
   float* pl = pm ? pm + (size_t)B * Hq * n_splits * k : nullptr;
   float* pa = static_cast<float*>(pacc);
@@ -448,8 +478,9 @@ extern "C" int paged_attention_f32(const void* q, const void* k_pages,
                  /*causal=*/1, window, vec ? 1 : 0, cap, scale};
   const PagedSlots src{static_cast<const int*>(pos_pages),
                        static_cast<const int*>(block_tables), P, ps, nb};
-  const int e = quant ? launch_tc<PagedSlots, true>(a, src, st)
-                      : launch_tc<PagedSlots, false>(a, src, st);
+  const int e = kv_type == KV_I8    ? launch_tc<PagedSlots, KV_I8>(a, src, st)
+                : kv_type == KV_BF16 ? launch_tc<PagedSlots, KV_BF16>(a, src, st)
+                                     : launch_tc<PagedSlots, KV_F32>(a, src, st);
   if (e != 0 || n_splits == 1) return e;
   paged_combine<<<dim3(k, Hq, B), (D + 3) / 4, 0, st>>>(
       pm, pl, pa, static_cast<float*>(o), k, Hq, D, n_splits);

@@ -17,15 +17,19 @@
 // two passes give fp32 accuracy, and one would not).  The int8 tile is
 // staged as bytes and converted to float as the MMA fragment is built; the
 // scale multiplies the finished accumulator once, where the Pallas kernel
-// applies it.
+// applies it.  An MoE expert stack runs as one launch for all its experts
+// (the expert is blockIdx.z), in place of the reference's einsum over the
+// dequantized stack; the route is chosen by the rows an expert holds.
 #include "gemm_tiles.cuh"
 
-// splits: gemm_stream's K splits (M <= 8; ignored above).
+// E experts of M rows each (E = 1: one GEMM): x (E, M, K), qw (E, K, N),
+// scale (E, N), y (E, M, N), all contiguous.  splits: gemm_stream's K
+// splits (M <= 8; ignored above).
 extern "C" int quant_matmul_f32(const void* x, const void* qw,
-                                const void* scale, void* y, int M, int K,
-                                int N, int splits, void* stream) {
+                                const void* scale, void* y, int E, int M,
+                                int K, int N, int splits, void* stream) {
   return rt::launch_gemm<8>(
       static_cast<const float*>(x), static_cast<const int8_t*>(qw),
-      static_cast<const float*>(scale), static_cast<float*>(y), M, K, N,
+      static_cast<const float*>(scale), static_cast<float*>(y), E, M, K, N,
       splits, static_cast<cudaStream_t>(stream));
 }

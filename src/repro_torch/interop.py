@@ -7,7 +7,9 @@ with torch tensors on ``device``; a packed node is recognised by its
 attributes (``parts``, ``buckets``, ``k``, ``n``, ``out_dtype``), so this
 module imports nothing of the reference.  Any tree of the same shape
 carries over the same way, an AdamW state (int8 ``q``, f32 ``s``, int32
-``t`` leaves) included.  :func:`params_to_numpy` is the inverse.
+``t`` leaves) included, and so does the uniform int8 store's
+``{"q", "s"}`` leaves (``quantize_params_int8``).  :func:`params_to_numpy`
+is the inverse.
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 
 K1 -- :func:`flash_attention`, the flash-attention forward for prefill and
 dense-cache decode: port of ``repro/kernels/attention.py::flash_attention``
-as a CUDA C++ kernel (``csrc/flash_attention.cu``).  q (B, Sq, Hq, D),
-k / v (B, Skv, Hkv, D), q_pos (B, Sq) and kv_pos (B, Skv) int32; causal and
+as a CUDA C++ kernel (``csrc/flash_attention.cu``).  q (B, Sq, Hq, D) f32,
+k / v (B, Skv, Hkv, D) f32 or bf16 (a bf16 cache, converted to f32 as it
+is read), q_pos (B, Sq) and kv_pos (B, Skv) int32; causal and
 sliding-window validity come from comparing positions alone, so ring-buffer
 caches and sentinel tails (``POS_SENTINEL``) need no other argument.
 Prefill runs a walk on TF32 tensor cores with both operands of both
@@ -17,7 +18,8 @@ K4 -- :func:`paged_prefill_attention` (and :func:`paged_decode_attention`,
 its k = 1 wrapper), causal attention for q tiles of k left-aligned tokens
 per sequence over the paged KV pool: port of the reference's function of
 the same name as ``csrc/paged_attention.cu``.  The kernel walks each
-sequence's block-table row itself; int8 pools are dequantized on load.
+sequence's block-table row itself; bf16 pools are converted and int8
+pools dequantized on load.
 Chunk steps run K1's tensor-core walk over the pool's slots (three TF32
 passes; ``ref.paged_attention_split_ref(mm=ref.einsum_tf32x3)`` states
 it); decode tokens, whose q tile holds a few real rows, run a CUDA-core
@@ -44,6 +46,8 @@ from repro_torch.kernels import build
 COUNT = build.LaunchCount("flash_attention")
 PAGED_COUNT = build.LaunchCount("paged_attention")
 MAX_HEAD_DIM = 256      # csrc/flash_attention.cu: DMAX
+# K/V element types the kernels read (csrc/attn_tile.cuh: KvType)
+KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_GROUP = 32          # query heads per kv head that fit one block
 ROWS = BKV = 32         # csrc/attn_tile.cuh: query rows of a block, KV tile
 TC_ROWS = 128           # csrc/attn_tc.cuh: query rows of a tensor-core block
@@ -78,14 +82,17 @@ def split_tiles(Skv: int, n_splits: int):
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("flash_attention", "flash_attention_f32", 8, 9,
+    return build.bind("flash_attention", "flash_attention_f32", 8, 10,
                       tail=(ctypes.c_float, ctypes.c_float))
 
 
 def _check(q, k, v, q_pos, kv_pos):
     dev = q.device
-    for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        build.expect(t, what, torch.float32, 4, dev)
+    build.expect(q, "q", torch.float32, 4, dev)
+    if k.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"k: expected float32 or bfloat16, got {k.dtype}")
+    build.expect(k, "k", k.dtype, 4, dev)
+    build.expect(v, "v", k.dtype, 4, dev)
     build.expect(q_pos, "q_pos", torch.int32, 2, dev)
     build.expect(kv_pos, "kv_pos", torch.int32, 2, dev)
     B, Sq, Hq, D = q.shape
@@ -103,7 +110,8 @@ def _check(q, k, v, q_pos, kv_pos):
 
 def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
                     attn_cap=None):
-    """Tiled flash-attention forward.  Returns (B, Sq, Hq, D) f32."""
+    """Tiled flash-attention forward; k and v f32 or bf16 (one type).
+    Returns (B, Sq, Hq, D) f32."""
     _check(q, k, v, q_pos, kv_pos)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
@@ -128,7 +136,8 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
     ml, pacc = _split_partials(q, ns)
     err = build.launch(_fn(), q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        q_pos.data_ptr(), kv_pos.data_ptr(), o.data_ptr(), ml,
-                       pacc, B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
+                       pacc, B, Sq, Skv, Hq, Hkv, D, KV_TYPES[k.dtype],
+                       int(bool(causal)),
                        int(window or 0), ns, float(attn_cap or 0.0),
                        1.0 / math.sqrt(D))
     COUNT.launches += 1
@@ -227,9 +236,7 @@ def _check_paged(q, k_pages, v_pages, pos_pages, block_tables, q_pos,
                  k_scale_pages, v_scale_pages):
     dev = q.device
     build.expect(q, "q", torch.float32, 4, dev)
-    kv_dt = k_pages.dtype
-    if kv_dt not in (torch.float32, torch.int8):
-        raise ValueError(f"k_pages: expected float32 or int8, got {kv_dt}")
+    kv_dt = k_pages.dtype          # one of KV_TYPES: the caller checked it
     build.expect(k_pages, "k_pages", kv_dt, 4, dev)
     build.expect(v_pages, "v_pages", kv_dt, 4, dev)
     build.expect(pos_pages, "pos_pages", torch.int32, 2, dev)
@@ -267,8 +274,8 @@ def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
                             k_scale_pages=None, v_scale_pages=None):
     """Causal attention over the paged KV pool for q tiles of k tokens.
 
-    q: (B, k, Hq, D) f32; ``*_pages``: (P, page_size, Hkv, D) f32 or int8,
-    ``pos_pages`` (P, page_size) int32; block_tables: (B, nb) int32
+    q: (B, k, Hq, D) f32; ``*_pages``: (P, page_size, Hkv, D) f32, bf16
+    or int8, ``pos_pages`` (P, page_size) int32; block_tables: (B, nb) int32
     physical page ids; q_pos: (B, k) int32, real tokens left-aligned in
     ascending position order and padded columns ``POS_SENTINEL``.  int8
     pools pass ``k_scale_pages`` / ``v_scale_pages`` (P, page_size, Hkv)
@@ -278,6 +285,9 @@ def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
     and they differ between the two versions: the kernel returns exact
     zeros for a row whose columns are all sentinel, the plain version lets
     a sentinel query attend every written slot (as the reference does)."""
+    if k_pages.dtype not in KV_TYPES:
+        raise ValueError(f"k_pages: expected float32, bfloat16 or int8, got "
+                         f"{k_pages.dtype}")
     quant = k_pages.dtype == torch.int8
     if quant != (k_scale_pages is not None) or \
             quant != (v_scale_pages is not None):
@@ -314,7 +324,8 @@ def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
         pos_pages.data_ptr(), block_tables.data_ptr(), q_pos.data_ptr(),
         k_scale_pages.data_ptr() if quant else None,
         v_scale_pages.data_ptr() if quant else None, o.data_ptr(), ml, pacc,
-        B, k, P, ps, Hq, Hkv, D, nb, int(quant), int(window or 0),
+        B, k, P, ps, Hq, Hkv, D, nb, KV_TYPES[k_pages.dtype],
+        int(window or 0),
         int(walk == "tc"), ns, float(attn_cap or 0.0), 1.0 / math.sqrt(D))
     PAGED_COUNT.launches += 1
     build.check(build.load(PAGED_COUNT.name), err, PAGED_COUNT.name)

@@ -4,7 +4,8 @@
 mixed-QBN policy compiles to: one launch per non-empty bucket (K3 for
 int2 / int4, K2 for int8), a plain matmul for the bf16 ``full`` bucket,
 implicit zeros for pruned channels, and the per-bucket outputs scattered
-back into the policy's channel order.  The reference pads every operand
+back into the policy's channel order; an MoE expert stack takes the same
+launches, each for all its experts at once.  The reference pads every operand
 to its block grid here; the CUDA kernels mask their ragged edges
 themselves, so nothing is padded: :func:`binary_matmul` (B6) and
 :func:`fake_quant_channels` (B5) are their kernels' wrappers as they are.
@@ -24,20 +25,25 @@ __all__ = ["quant_matmul", "packed_matmul", "packed_mixed_matmul",
 
 
 def packed_mixed_matmul(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
-    """y = x @ dequant(w) for a 2-d PackedWeight.  x (M, K) f32."""
-    M, K = x.shape
+    """y = x @ dequant(w) for a 2-d PackedWeight, x (M, K) f32; or for an
+    expert stack, x (E, C, K) and a PackedWeight with leading dim E, whose
+    experts share one bucket split of the columns (bits are per output
+    channel): one batched launch per bucket for all E experts, and one
+    ``index_copy_`` along the last axis."""
+    K = x.shape[-1]
     if K != w.k:
         raise ValueError(f"x has K={K}, weight has K={w.k}")
-    out = torch.zeros((M, w.n), dtype=torch.float32, device=x.device)
+    out = torch.zeros(x.shape[:-1] + (w.n,), dtype=torch.float32,
+                      device=x.device)
     for (name, _), part in zip(w.buckets, w.parts):
         if name == "pruned":
             continue
         if name == "full":
             y = x.to(torch.float32) @ part[0].to(torch.float32)
         elif name == "int8":
-            y = quant_matmul(x, part[0], part[1].reshape(-1))
+            y = quant_matmul(x, part[0], part[1])
         else:
-            y = packed_matmul(x, part[0], part[1].reshape(-1),
+            y = packed_matmul(x, part[0], part[1],
                               store_bits=STORE_BITS[name])
-        out.index_copy_(1, w.index(name), y)
+        out.index_copy_(x.ndim - 1, w.index(name), y)
     return out.to(x.dtype)

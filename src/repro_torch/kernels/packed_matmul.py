@@ -24,19 +24,20 @@ COUNT = build.LaunchCount("packed_matmul")
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("packed_matmul", "packed_matmul_f32", 4, 5)
+    return build.bind("packed_matmul", "packed_matmul_f32", 4, 6)
 
 
 def packed_matmul(x: torch.Tensor, pw: torch.Tensor, scale: torch.Tensor, *,
                   store_bits: int) -> torch.Tensor:
     """x (M, K) f32; pw (ceil(K/f), N) int8 with f = 8 / store_bits;
-    scale (N,) f32 -> (M, N) f32."""
+    scale (N,) f32 -> (M, N) f32; or an expert stack, a leading E on all
+    three, in one launch."""
     if store_bits not in SUB8_FACTORS:
         raise ValueError(f"store_bits must be 2 or 4, got {store_bits}")
     f = SUB8_FACTORS[store_bits]
-    check_gemm(x, pw, scale, rows=-(-x.shape[1] // f))
+    check_gemm(x, pw, scale, rows=-(-x.shape[-1] // f))
     if x.device.type == "cpu":
         return ref.packed_matmul_ref(x, pw, scale, store_bits)
     if x.device.type != "cuda":
         raise ValueError(f"packed_matmul: no kernel for {x.device}")
-    return launch_gemm(_fn(), COUNT, x, pw, scale, pw.shape[0], store_bits)
+    return launch_gemm(_fn(), COUNT, x, pw, scale, pw.shape[-2], store_bits)

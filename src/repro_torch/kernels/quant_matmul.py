@@ -8,7 +8,9 @@ x split into two TF32 parts (fp32 accuracy; :func:`route` names it, and
 weight-streaming launch on CUDA cores whose K splits are summed inside
 the launch (:func:`skinny_splits`; :func:`skinny_cut` states the cut).
 K3 (``packed_matmul.py``) shares the rule, the launch shapes and
-:func:`launch_gemm`.  The wrapper runs the plain version
+:func:`launch_gemm`.  An MoE expert stack (x (E, C, K), weight (E, K, N),
+scale (E, N)) is one launch for all E experts, routed by the rows ``C``
+an expert holds.  The wrapper runs the plain version
 (``ref.quant_matmul_ref``) for CPU tensors and the kernel for CUDA
 tensors; there is no fallback between them.
 """
@@ -29,7 +31,7 @@ MAX_SPLITS = 8        # gemm_stream: blocks of a cluster (portable limit)
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("quant_matmul", "quant_matmul_f32", 4, 4)
+    return build.bind("quant_matmul", "quant_matmul_f32", 4, 5)
 
 
 def route(M: int, bits: int = 8) -> str:
@@ -41,9 +43,10 @@ def route(M: int, bits: int = 8) -> str:
     return "skinny" if M <= SKINNY_M else "tc_2xtf32"
 
 
-def skinny_splits(rows: int, N: int, n_sm: int) -> int:
+def skinny_splits(rows: int, N: int, n_sm: int, batch: int = 1) -> int:
     """K splits of a skinny (M <= SKINNY_M) launch of ``rows`` packed rows
-    by N columns on a card of ``n_sm`` SMs, from shapes alone.
+    by N columns (for each of ``batch`` experts) on a card of ``n_sm``
+    SMs, from shapes alone.
 
     The S splits of a 128-column tile run as one thread-block cluster and
     are summed inside the launch, so S is at most ``MAX_SPLITS``.  Two
@@ -51,8 +54,9 @@ def skinny_splits(rows: int, N: int, n_sm: int) -> int:
     SM and round down: a grid just over that would start a second, nearly
     empty wave.  Each split keeps at least one 128-row chunk (fewer rows
     would cost more in its prologue and the cluster's sum than they save).
-    N wide enough to fill the card alone (the unembedding) takes 1."""
-    col_tiles = -(-N // SKINNY_COLS)
+    N wide enough to fill the card alone (the unembedding), or an expert
+    stack whose column tiles do, takes 1."""
+    col_tiles = -(-N // SKINNY_COLS) * batch
     return max(1, min(MAX_SPLITS, (2 * n_sm) // col_tiles,
                       -(-rows // SKINNY_CHUNK)))
 
@@ -66,27 +70,37 @@ def skinny_cut(rows: int, splits: int):
 
 
 def check_gemm(x, w, scale, rows: int):
-    """Validate a GEMM call; ``rows`` is the stored K extent of ``w``."""
-    build.expect(x, "x", torch.float32, 2, x.device)
-    build.expect(w, "weight", torch.int8, 2, x.device)
-    build.expect(scale, "scale", torch.float32, 1, x.device)
-    if w.shape[0] != rows or scale.shape[0] != w.shape[1]:
+    """Validate a GEMM call, plain (x (M, K), w (rows, N), scale (N,)) or
+    expert-batched (a leading E on all three); ``rows`` is the stored K
+    extent of ``w``."""
+    nd = x.ndim
+    if nd not in (2, 3):
+        raise ValueError(f"x: expected (M, K) or (E, M, K), got "
+                         f"{tuple(x.shape)}")
+    build.expect(x, "x", torch.float32, nd, x.device)
+    build.expect(w, "weight", torch.int8, nd, x.device)
+    build.expect(scale, "scale", torch.float32, nd - 1, x.device)
+    if (w.shape[-2] != rows or scale.shape[-1] != w.shape[-1]
+            or x.shape[:-2] != w.shape[:-2]
+            or scale.shape[:-1] != w.shape[:-2]):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, weight "
                          f"{tuple(w.shape)}, scale {tuple(scale.shape)}")
 
 
 def launch_gemm(fn, count, x, w, scale, rows, *extra):
-    """Allocate, launch ``fn`` on the current stream (one launch), count,
-    check."""
-    M, K = x.shape
-    N = w.shape[1]
-    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    if M == 0 or N == 0:
+    """Allocate, launch ``fn`` on the current stream (one launch for all
+    experts of a batched call), count, check."""
+    M, K = x.shape[-2:]
+    N = w.shape[-1]
+    E = x.shape[0] if x.ndim == 3 else 1
+    y = torch.empty(x.shape[:-1] + (N,), dtype=torch.float32,
+                    device=x.device)
+    if y.numel() == 0:
         return y
-    splits = skinny_splits(rows, N, build.sm_count(x.device)) \
+    splits = skinny_splits(rows, N, build.sm_count(x.device), E) \
         if route(M) == "skinny" else 1
     err = build.launch(fn, x, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                       y.data_ptr(), M, K, N, splits, *extra)
+                       y.data_ptr(), E, M, K, N, splits, *extra)
     count.launches += 1
     build.check(build.load(count.name), err, count.name)
     return y
@@ -94,10 +108,12 @@ def launch_gemm(fn, count, x, w, scale, rows, *extra):
 
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) f32; qw (K, N) int8; scale (N,) f32 -> (M, N) f32."""
-    check_gemm(x, qw, scale, rows=x.shape[1])
+    """x (M, K) f32; qw (K, N) int8; scale (N,) f32 -> (M, N) f32; or an
+    expert stack, x (E, C, K), qw (E, K, N), scale (E, N) -> (E, C, N),
+    in one launch."""
+    check_gemm(x, qw, scale, rows=x.shape[-1])
     if x.device.type == "cpu":
         return ref.quant_matmul_ref(x, qw, scale)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul: no kernel for {x.device}")
-    return launch_gemm(_fn(), COUNT, x, qw, scale, x.shape[1])
+    return launch_gemm(_fn(), COUNT, x, qw, scale, x.shape[-1])

@@ -34,8 +34,11 @@ FULL_BITS = 24
 
 def quant_matmul_ref(x: torch.Tensor, qw: torch.Tensor,
                      scale: torch.Tensor) -> torch.Tensor:
-    """x: (M, K) f32; qw: (K, N) int8; scale: (N,) f32 per out channel."""
-    w = qw.to(torch.float32) * scale[None, :].to(torch.float32)
+    """x: (M, K) f32; qw: (K, N) int8; scale: (N,) f32 per out channel.
+    An expert stack adds a leading dim E to all three (x (E, M, K), qw
+    (E, K, N), scale (E, N)): each expert's product, as the reference's
+    einsum ``"ecd,edf->ecf"`` on the dequantized stack."""
+    w = qw.to(torch.float32) * scale[..., None, :].to(torch.float32)
     return (x.to(torch.float32) @ w).to(x.dtype)
 
 
@@ -55,14 +58,16 @@ def quant_matmul_tf32x2_ref(x: torch.Tensor, qw: torch.Tensor,
     the per-channel scale.  Tests only; no card path runs it."""
     xf, w = x.to(torch.float32), qw.to(torch.float32)
     hi = tf32_rna(xf)
-    return (hi @ w + tf32_rna(xf - hi) @ w) * scale[None, :].to(torch.float32)
+    return (hi @ w + tf32_rna(xf - hi) @ w) * \
+        scale[..., None, :].to(torch.float32)
 
 
 def packed_matmul_ref(x: torch.Tensor, pw: torch.Tensor, scale: torch.Tensor,
                       store_bits: int) -> torch.Tensor:
     """Unpack (kernels.pack format) then :func:`quant_matmul_ref`.
-    x: (M, K); pw: (ceil(K/f), N) int8 packed along K; scale: (N,) f32."""
-    q = unpack_sub8(pw, store_bits, k=x.shape[1], axis=0)
+    x: (M, K); pw: (ceil(K/f), N) int8 packed along K; scale: (N,) f32;
+    or an expert stack of each, as :func:`quant_matmul_ref` takes."""
+    q = unpack_sub8(pw, store_bits, k=x.shape[-1], axis=-2)
     return quant_matmul_ref(x, q, scale)
 
 

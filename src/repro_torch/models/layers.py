@@ -1,7 +1,8 @@
 """Core LM layers (port of ``repro/models/layers.py``, the attention and
-dense-FFN parts): RMSNorm, RoPE, softcap, per-token activation fake-quant,
-GQA attention over a dense KV or the paged pool, SwiGLU, and the
-``linear`` that routes a weight to its store's contraction.
+FFN parts): RMSNorm, RoPE, softcap, per-token activation fake-quant,
+GQA attention over a dense KV or the paged pool, SwiGLU, the
+capacity-based top-k MoE FFN, and the ``linear`` / ``expert_linear``
+that route a weight to its store's contraction.
 
 Attention dispatches on ``impl``: ``"ref"`` is the chunked running-softmax
 scan (:func:`attention_ref`, the oracle; :func:`paged_attention_ref`
@@ -10,7 +11,10 @@ paged kernel K4 (``kernels/attention.py``), in place of the reference's
 ``"pallas"``.
 The reference's sharding helpers ``wcol`` / ``wrow`` / ``constrain`` have
 no meaning on one card; with the reference's ``deq`` they become
-:func:`linear`, which contracts a packed weight without materializing it.
+:func:`linear` and :func:`expert_linear`, which contract a stored weight
+(a PackedWeight, or the uniform int8 store's ``{"q", "s"}``) without
+materializing it.  The port has no mesh, so ``moe_ffn(local_dispatch=True)``
+is the plain dispatch, as the reference's is without a mesh.
 """
 from __future__ import annotations
 
@@ -28,15 +32,45 @@ POS_SENTINEL = torch.iinfo(torch.int32).max
 
 
 # --------------------------------------------------------------------- basics
+def is_int8_leaf(w) -> bool:
+    """A leaf of the uniform int8 store (``LM.quantize_params_int8``):
+    ``{"q": int8 (..., K, N), "s": f32 (..., 1, N)}``."""
+    return isinstance(w, dict) and "q" in w
+
+
 def linear(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` over the last axis of x.  A PackedWeight goes to
-    ``ops.packed_mixed_matmul`` (one K2/K3 launch per bucket on the card);
-    a dense weight is a plain matmul."""
+    ``ops.packed_mixed_matmul`` (one K2/K3 launch per bucket on the card),
+    an int8-store leaf to K2 with its per-channel scale (nothing
+    dequantizes the weight); a dense weight is a plain matmul."""
     if isinstance(w, PackedWeight):
         from repro_torch.kernels.ops import packed_mixed_matmul
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         return packed_mixed_matmul(x2, w).reshape(x.shape[:-1] + (w.n,))
+    if is_int8_leaf(w):
+        from repro_torch.kernels.quant_matmul import quant_matmul
+        q = w["q"]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        return quant_matmul(x2, q, w["s"].reshape(-1)).reshape(
+            x.shape[:-1] + (q.shape[-1],))
     return x @ w
+
+
+def expert_linear(x: torch.Tensor, w) -> torch.Tensor:
+    """Each expert's rows times its own weight: x (E, C, K) against an
+    (E, K, N) stack -> (E, C, N), the reference's ``"ecd,edf->ecf"``.  A
+    PackedWeight stack and an int8-store stack take one batched K2 / K3
+    launch per bucket for all E experts; a dense stack is a plain batched
+    matmul (the reference computes it outside any Pallas kernel)."""
+    x = x.contiguous()
+    if isinstance(w, PackedWeight):
+        from repro_torch.kernels.ops import packed_mixed_matmul
+        return packed_mixed_matmul(x, w)
+    if is_int8_leaf(w):
+        from repro_torch.kernels.quant_matmul import quant_matmul
+        q = w["q"]
+        return quant_matmul(x, q, w["s"].reshape(q.shape[0], q.shape[-1]))
+    return torch.bmm(x, w)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -220,3 +254,131 @@ def swiglu(x, p, act_bits=None):
     x = maybe_quant_act(x, act_bits)
     h = F.silu(linear(x, p["wg"])) * linear(x, p["wu"])
     return linear(h, p["wd"])
+
+
+# ----------------------------------------------------------------------- MoE
+# profiler ranges of the MoE dispatch and gather (plain PyTorch kernels)
+MOE_DISPATCH, MOE_GATHER = "moe_dispatch", "moe_gather"
+
+
+def _n_phys(w) -> int:
+    """Leading (physical expert) extent of an expert stack of any store."""
+    if isinstance(w, PackedWeight):
+        return w.parts[0][0].shape[0]
+    return (w["q"] if is_int8_leaf(w) else w).shape[0]
+
+
+def moe_capacity(T: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Rows a dispatch buffer holds per expert: T when ``capacity_factor
+    <= 0`` (nothing dropped), else ``min(T, max(8, ceil(T K / E cf)))``."""
+    if capacity_factor <= 0:
+        return T
+    return min(T, max(8, int(math.ceil(T * top_k / n_experts *
+                                        capacity_factor))))
+
+
+def moe_route(probs: torch.Tensor, top_k: int):
+    """Each token's ``top_k`` experts and their renormalized gates from
+    router probs (T, E): ``lax.top_k``'s choice, ties to the lower expert
+    index (a stable descending sort; ``torch.topk`` promises no order
+    among equal values), gates divided by ``max(sum, 1e-9)``.  Returns
+    (gate_v (T, K) f32, gate_i (T, K) int64)."""
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_v, gate_i = order.values[:, :top_k], order.indices[:, :top_k]
+    return gate_v / torch.clamp(gate_v.sum(-1, keepdim=True), min=1e-9), \
+        gate_i
+
+
+def _position_in_expert(eidx: torch.Tensor, n_phys: int) -> torch.Tensor:
+    """Each (token, slot) pair's position among the pairs routed to its
+    expert, in token-major order: the reference's ``cumsum(one_hot) - 1``
+    read at the pair's expert.  Computed as the pair's rank in a stable
+    sort by expert less the rank of its expert's first pair (a cumsum
+    down the (T*K, E) one-hot runs its columns one after another on the
+    card: ~5 ms a layer at a 2 x 2048 prefill)."""
+    n = eidx.shape[0]
+    sorted_e, order = torch.sort(eidx, stable=True)
+    first = torch.searchsorted(sorted_e, torch.arange(
+        n_phys, device=eidx.device, dtype=sorted_e.dtype))
+    rank = torch.empty_like(order).index_copy_(
+        0, order, torch.arange(n, device=eidx.device))
+    return rank - first[eidx]
+
+
+def moe_ffn(x, p, *, n_experts, top_k, capacity_factor=1.25, act_bits=None,
+            local_dispatch=False):
+    """Capacity-based top-k MoE with index dispatch.  x: (..., d);
+    p: {router (d, E), wg / wu (E_phys, d, ff), wd (E_phys, ff, d)} in any
+    weight store.  Returns (out like x, router probs (T, E)).  Tokens
+    beyond an expert's capacity are dropped (their residual path alone
+    remains); ``capacity_factor <= 0`` drops nothing.  ``local_dispatch``
+    splits the dispatch per data shard under a mesh in the reference; the
+    port runs on one card without a mesh, where the reference takes the
+    plain path too."""
+    return _moe_ffn_impl(x, p, n_experts=n_experts, top_k=top_k,
+                         capacity_factor=capacity_factor, act_bits=act_bits)
+
+
+def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits):
+    """The reference's ``_moe_ffn_impl`` step for step: router logits in the
+    model dtype and softmax in f32; top-k with ties to the lower expert (a
+    stable descending sort, as ``lax.top_k``); gates renormalized by
+    ``max(sum, 1e-9)``; position in expert as the reference's cumsum over
+    the (token, slot) pairs in token-major order gives it
+    (:func:`_position_in_expert`); pairs at or past capacity dropped.
+    The dispatch buffer (E_phys, C, d) is a gather of the activation-
+    quantized tokens: each kept pair writes its token id once into its
+    (expert, position) cell (an index copy, no atomics: the card stays
+    deterministic), empty cells read a zero row.  SwiGLU runs per expert
+    through :func:`expert_linear`, and each pair gathers its expert's
+    output row back, weighted by its gate, summed over the K slots.
+    The dispatch (router softmax to the filled buffer) and the gather run
+    inside the profiler ranges ``MOE_DISPATCH`` and ``MOE_GATHER``, which
+    a profile reads to split their device time from the rest."""
+    orig_shape = x.shape
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    T = xt.shape[0]
+    E, K = n_experts, top_k
+    E_phys = _n_phys(p["wg"])          # >= E when experts are padded (EP)
+    C = moe_capacity(T, E, K, capacity_factor)
+    dev = x.device
+
+    logits = linear(xt, p["router"]).to(torch.float32)
+    with torch.profiler.record_function(MOE_DISPATCH):
+        probs = torch.softmax(logits, dim=-1)                  # (T, E)
+        gate_v, gate_i = moe_route(probs, K)                   # (T, K)
+
+        eidx = gate_i.reshape(-1)                              # (T*K,)
+        pos = _position_in_expert(eidx, E_phys)
+        keep = pos < C
+        trash = E_phys * C                      # the zero row / dropped cell
+        cell = torch.where(keep, eidx * C + pos, torch.full_like(pos, trash))
+
+        xq = maybe_quant_act(xt, act_bits)
+        xpad = torch.cat([xq, xq.new_zeros((1, d))])           # row T: zeros
+        src = torch.full((trash + 1,), T, dtype=torch.int64, device=dev)
+        tok = torch.arange(T * K, device=dev) // K             # pair -> token
+        src.index_copy_(0, cell, tok)    # kept cells are written once each
+        buf = xpad.index_select(0, src[:trash]).reshape(E_phys, C, d)
+
+    h = F.silu(expert_linear(buf, p["wg"])) * expert_linear(buf, p["wu"])
+    out_buf = expert_linear(h, p["wd"])                        # (E_phys, C, d)
+
+    with torch.profiler.record_function(MOE_GATHER):
+        opad = torch.cat([out_buf.reshape(trash, d),
+                          out_buf.new_zeros((1, d))])
+        gathered = opad.index_select(0, cell)                  # (T*K, d)
+        weighted = gathered * gate_v.reshape(-1)[:, None].to(gathered.dtype)
+        out = weighted.reshape(T, K, d).sum(dim=1)
+    return out.reshape(orig_shape), probs
+
+
+def moe_aux_loss(probs, gate_i, n_experts):
+    """Switch-style load-balance loss from router probs + top-1
+    assignment."""
+    frac_tokens = (gate_i[:, :1].long() == torch.arange(
+        n_experts, device=probs.device)).to(torch.float32).mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    return n_experts * torch.sum(frac_tokens * frac_probs)

@@ -1,12 +1,15 @@
-"""Config-driven decoder LM, dense-attention families (port of
-``repro/models/transformer.py``).
+"""Config-driven decoder LM, attention families with dense or MoE FFNs
+(port of ``repro/models/transformer.py``).
 
 Covers what ``ServeEngine.generate`` and ``run`` / ``serve`` run: GQA
-attention with RoPE, the sliding window and the softcaps, dense SwiGLU
-FFNs, ``prefill`` and ``decode_step`` over the dense KV cache (fp32 or int8
-with per-(position, head) scales), and ``decode_step_paged`` and
-``model_step`` over the paged pool (``init_paged_cache``), and the
-training loss (``loss``, with per-repeat rematerialisation).  Parameters
+attention with RoPE, the sliding window and the softcaps, dense SwiGLU and
+capacity-based top-k MoE FFNs, ``prefill`` and ``decode_step`` over the
+dense KV cache (bf16 by default, fp32, or int8 with per-(position, head)
+scales), and ``decode_step_paged`` and ``model_step`` over the paged pool
+(``init_paged_cache``), and the training loss (``loss``, with per-repeat
+rematerialisation and the MoE load-balance term).  Weights may arrive in
+the uniform int8 store (:meth:`LM.quantize_params_int8`: ``{"q", "s"}``
+leaves) or the packed store (``quant.apply.apply_policy_packed``).  Parameters
 keep the reference's pytree: ``{"blocks": tuple per pattern position of
 dicts of (n_repeat, ...) stacked tensors, "final_norm", "unembed",
 "embed"}``.  A Python loop over the stacked repeats takes the place of
@@ -36,17 +39,23 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import backend
 from repro_torch.kernels.pack import PackedWeight
 from repro_torch.models.api import BlockDef, LMConfig
-from repro_torch.models.layers import (POS_SENTINEL, attention, linear,
-                                       maybe_quant_act, paged_attention,
-                                       rmsnorm, rope, softcap, swiglu)
+from repro_torch.models.layers import (POS_SENTINEL, attention,
+                                       is_int8_leaf, linear, maybe_quant_act,
+                                       moe_ffn, paged_attention, rmsnorm,
+                                       rope, softcap, swiglu)
 from repro_torch.quant.linear_quant import FULL_BITS
 from repro_torch.quant.policy import LayerInfo, QuantizableGraph
 
 NOT_PORTED = {
     "mamba": "ROADMAP.md A10 (mamba blocks)",
     "cross_attn": "ROADMAP.md A10 (cross-attention memory cache)",
-    "moe": "ROADMAP.md A10 (MoE FFN)",
 }
+
+# leaves that quantize_params_int8 stores as {"q", "s"} (the reference's
+# set, mamba's included)
+MATMUL_LEAVES = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd",
+                           "router", "w_xz", "w_bc", "w_dt", "w_out",
+                           "embed", "unembed"})
 
 
 # physical page 0 of every paged pool is the never-allocated trash page
@@ -67,6 +76,19 @@ def _kv_quant(x):
     s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
     return q, s
+
+
+def _kv_dtype(dtype: torch.dtype, kv_bits: Optional[int]) -> torch.dtype:
+    """K/V element type of a cache: int8 for ``kv_bits=8`` (which wins over
+    ``dtype``, as in the reference), else ``dtype`` (bf16 or fp32: what
+    the attention kernels read)."""
+    if kv_bits not in (None, 8):
+        raise ValueError(f"unsupported kv_bits {kv_bits!r}")
+    if kv_bits == 8:
+        return torch.int8
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"unsupported cache dtype {dtype}: bf16 or fp32")
+    return dtype
 
 
 def _kv_deq(cache, key):
@@ -148,10 +170,20 @@ def _save_dots(ctx, op, *args, **kwargs):
         else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _slice_leaf(v, key):
+    """``v[key]`` of one stacked leaf: a tensor, a PackedWeight (``int``
+    key: :meth:`PackedWeight.take`; slice: :meth:`PackedWeight.prefix`)
+    or an int8-store ``{"q", "s"}`` pair (views, no copy)."""
+    if isinstance(v, PackedWeight):
+        return v.take(key) if isinstance(key, int) else v.prefix(key.stop)
+    if is_int8_leaf(v):
+        return {"q": v["q"][key], "s": v["s"][key]}
+    return v[key]
+
+
 def _repeat(tree: Dict[str, Any], r: int) -> Dict[str, Any]:
-    """Repeat ``r`` of a dict of stacked tensors / PackedWeights (views)."""
-    return {k: (v.take(r) if isinstance(v, PackedWeight) else v[r])
-            for k, v in tree.items()}
+    """Repeat ``r`` of a dict of stacked leaves (views)."""
+    return {k: _slice_leaf(v, r) for k, v in tree.items()}
 
 
 class LM:
@@ -190,9 +222,15 @@ class LM:
                  "wk": lin(d, R, d, cfg.n_kv_heads * hd),
                  "wv": lin(d, R, d, cfg.n_kv_heads * hd),
                  "wo": lin(cfg.n_heads * hd, R, cfg.n_heads * hd, d)}
-            if bdef.has_ffn:
-                if bdef.use_moe:
-                    raise _not_ported("moe")
+            if bdef.has_ffn and bdef.use_moe:
+                m = cfg.moe
+                ep = m.n_experts_phys
+                p.update(ffn_norm=zeros(R, d),
+                         router=lin(d, R, d, m.n_experts),
+                         wg=lin(d, R, ep, d, m.d_ff),
+                         wu=lin(d, R, ep, d, m.d_ff),
+                         wd=lin(m.d_ff, R, ep, m.d_ff, d))
+            elif bdef.has_ffn:
                 p.update(ffn_norm=zeros(R, d), wg=lin(d, R, d, cfg.d_ff),
                          wu=lin(d, R, d, cfg.d_ff),
                          wd=lin(cfg.d_ff, R, cfg.d_ff, d))
@@ -257,54 +295,91 @@ class LM:
                     k = kq.to(torch.float32) * ks[..., None]
                     vq, vs = _kv_quant(v)
                     v = vq.to(torch.float32) * vs[..., None]
+                elif cache["k"].dtype != k.dtype:
+                    # a narrow float cache (bf16): attend its round trip,
+                    # the values the chunked paged path reads back, so
+                    # run() == generate() whatever the cache dtype
+                    k = k.to(cache["k"].dtype).to(k.dtype)
+                    v = v.to(cache["v"].dtype).to(v.dtype)
         chunk = k.shape[1] if S == 1 else 1024
         out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
                         window=window, attn_cap=cfg.attn_softcap, chunk=chunk,
                         impl=attn_impl)
         return x + linear(out.reshape(B, S, Hq * hd), bp["wo"])
 
+    def _ffn(self, bp, bdef: BlockDef, x, act_bits=None):
+        """FFN + residual.  Returns (x, aux): the MoE load-balance term
+        ``E * sum(mean(probs)^2)`` of the reference's ``_ffn``, or None for
+        a dense FFN."""
+        cfg = self.cfg
+        h = rmsnorm(x, bp["ffn_norm"], cfg.norm_eps)
+        if bdef.use_moe:
+            m = cfg.moe
+            out, probs = moe_ffn(h, bp, n_experts=m.n_experts, top_k=m.top_k,
+                                 capacity_factor=m.capacity_factor,
+                                 act_bits=act_bits,
+                                 local_dispatch=m.local_dispatch)
+            frac = probs.mean(dim=0)
+            return x + out, m.n_experts * torch.sum(frac * frac)
+        return x + swiglu(h, bp, act_bits=act_bits), None
+
     def _apply_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                      write_pos=None, act_bits=None, attn_impl=None,
                      block_tables=None):
+        """One block; returns (x, aux) (aux None without an MoE FFN)."""
         if bdef.kind not in ("attn", "local_attn"):
             raise _not_ported(bdef.kind)
         x = self._attn_block(bp, bdef, x, q_pos=q_pos, mode=mode, cache=cache,
                              write_pos=write_pos, act_bits=act_bits,
                              attn_impl=attn_impl, block_tables=block_tables)
         if bdef.has_ffn:
-            if bdef.use_moe:
-                raise _not_ported("moe")
-            h = rmsnorm(x, bp["ffn_norm"], self.cfg.norm_eps)
-            x = x + swiglu(h, bp, act_bits=act_bits)
-        return x
+            return self._ffn(bp, bdef, x, act_bits=act_bits)
+        return x, None
 
     def _stack(self, params, x, cache, act_bits, remat=False, **kw):
         """Run every block: loop over the params' repeats (``n_repeat``, or
         a draft prefix's depth), then pattern positions.  ``cache`` None
         runs without one (the full-sequence forward).  ``remat`` (that
         forward only) checkpoints each repeat: True saves nothing inside
-        it, ``"dots"`` saves its matmul outputs."""
+        it, ``"dots"`` saves its matmul outputs.  Returns (x, aux): the
+        sum of the MoE blocks' load-balance terms, 0.0 without any."""
         cfg = self.cfg
 
         def one_repeat(x, r):
+            aux = []
             for p_idx, bdef in enumerate(cfg.pattern):
                 ab = None if act_bits is None else float(act_bits[r][p_idx])
-                x = self._apply_block(
+                x, a = self._apply_block(
                     _repeat(params["blocks"][p_idx], r), bdef, x,
                     cache=None if cache is None else _repeat(cache[p_idx], r),
                     act_bits=ab, **kw)
-            return x
+                if a is not None:
+                    aux.append(a)
+            return x, aux
 
         ctx = {}
         if remat == "dots":
             ctx["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts, _save_dots)
+        total = 0.0
         for r in range(params["blocks"][0]["norm"].shape[0]):
-            x = checkpoint(one_repeat, x, r, use_reentrant=False, **ctx) \
-                if remat else one_repeat(x, r)
-        return x
+            x, aux = checkpoint(one_repeat, x, r, use_reentrant=False,
+                                **ctx) if remat else one_repeat(x, r)
+            for a in aux:
+                total = total + a
+        return x, total
 
     # --------------------------------------------------------------- helpers
+    def _embed_tokens(self, params, tokens, grad=False):
+        """Embedding rows of ``tokens``: an int8-store embedding is a row
+        gather times the row scale (plain PyTorch: the reference runs no
+        kernel there); a dense one is a plain lookup, or with ``grad``
+        :class:`_EmbedLookup` (deterministic backward)."""
+        emb = params["embed"]
+        if is_int8_leaf(emb):
+            return emb["q"][tokens].to(emb["s"].dtype) * emb["s"][tokens]
+        return _EmbedLookup.apply(emb, tokens) if grad else emb[tokens]
+
     def logits_of(self, params, x):
         cfg = self.cfg
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -314,23 +389,55 @@ class LM:
             lg = torch.where(valid, lg, torch.full_like(lg, -1e30))
         return lg
 
+    # ------------------------------------------------- int8 serving weights
+    def quantize_params_int8(self, params):
+        """Deployment transform of the reference: every matmul weight ->
+        ``{"q": int8, "s": f32}``.  Scales are per output channel (last
+        axis), reduced over the contraction axis (``ndim - 2``), so a
+        stacked leaf keeps its leading (repeat, expert) dims in both; the
+        embedding gets per-row scales.  Norms and other leaves stay as
+        they are.  The forward contracts the stored bytes on K2
+        (``layers.linear``, ``layers.expert_linear``) and gathers the
+        embedding's rows times their scale."""
+
+        def one(name, w):
+            if name not in MATMUL_LEAVES or not isinstance(w, torch.Tensor) \
+                    or w.ndim < 2 or w.dtype == torch.int8:
+                return w
+            red = 1 if name == "embed" else w.ndim - 2
+            wf = w.to(torch.float32)
+            amax = wf.abs().amax(dim=red, keepdim=True)
+            s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+            q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+            return {"q": q, "s": s.to(torch.float32)}
+
+        def walk(node, name=None):
+            if isinstance(node, dict):
+                return {k: walk(v, k) for k, v in node.items()}
+            if isinstance(node, (tuple, list)):
+                return type(node)(walk(v) for v in node)
+            return one(name, node)
+
+        return walk(params)
+
     def apply(self, params, batch, act_bits=None, attn_impl=None,
               remat=False):
         """Full-sequence forward of ``batch["tokens"]`` (B, S), causal, no
-        cache.  Returns (logits (B, S, V), aux_loss 0.0), as the
-        reference's ``apply`` does for these families.  act_bits: optional
+        cache.  Returns (logits (B, S, V), aux_loss): the MoE blocks'
+        load-balance terms summed, 0.0 for dense FFNs, as the reference's
+        ``apply``.  act_bits: optional
         (n_repeat, len(pattern)) activation QBNs on the host; attn_impl:
         layers.ATTN_IMPLS; remat: False, True or ``"dots"``
         (:meth:`_stack`).  Differentiable: the embedding's gradient is
         deterministic (:class:`_EmbedLookup`)."""
         tokens = batch["tokens"]
-        x = _EmbedLookup.apply(params["embed"], tokens.long())
+        x = self._embed_tokens(params, tokens.long(), grad=True)
         B, S, _ = x.shape
         q_pos = torch.arange(S, dtype=torch.int32,
                              device=x.device).repeat(B, 1)
-        x = self._stack(params, x, None, act_bits, remat=remat, q_pos=q_pos,
-                        mode="train", attn_impl=attn_impl)
-        return self.logits_of(params, x), 0.0
+        x, aux = self._stack(params, x, None, act_bits, remat=remat,
+                             q_pos=q_pos, mode="train", attn_impl=attn_impl)
+        return self.logits_of(params, x), aux
 
     def loss(self, params, batch, act_bits=None, remat=False):
         """Mean next-token NLL over the positions with ``labels >= 0``,
@@ -351,20 +458,19 @@ class LM:
 
     # ---------------------------------------------------------------- caches
     def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16,
                    kv_bits: Optional[int] = None,
                    device: backend.DeviceLike = None):
         """Per-pattern-position cache dicts with leading dim n_repeat:
-        ``k``/``v`` (R, B, W, Hkv, hd), ``pos`` (R, B, W) int32 starting at
-        the sentinel, and with ``kv_bits=8`` int8 K/V plus ``k_s``/``v_s``
-        (R, B, W, Hkv) f32 scales.  ``W`` is ``max_len``, or the window for
-        ``local_attn`` blocks.  K/V are fp32 (the reference also offers
-        bf16, which the port's kernels do not take).  Runs on the card
-        unless ``device`` says otherwise."""
+        ``k``/``v`` (R, B, W, Hkv, hd) in ``dtype`` (the reference's
+        default, bf16; or fp32), ``pos`` (R, B, W) int32 starting at the
+        sentinel, and with ``kv_bits=8`` (which wins over ``dtype``) int8
+        K/V plus ``k_s``/``v_s`` (R, B, W, Hkv) f32 scales.  ``W`` is
+        ``max_len``, or the window for ``local_attn`` blocks.  Runs on the
+        card unless ``device`` says otherwise."""
         device = backend.resolve_device(device)
         cfg = self.cfg
-        if kv_bits not in (None, 8):
-            raise ValueError(f"unsupported kv_bits {kv_bits!r}")
-        kv_dt = torch.int8 if kv_bits == 8 else torch.float32
+        kv_dt = _kv_dtype(dtype, kv_bits)
         R, Hkv, hd = cfg.n_repeat, cfg.n_kv_heads, cfg.hdim
         caches = []
         for bdef in cfg.pattern:
@@ -389,12 +495,14 @@ class LM:
         return tuple(caches)
 
     def init_paged_cache(self, n_slots: int, num_pages: int, page_size: int,
+                         dtype: torch.dtype = torch.bfloat16,
                          kv_bits: Optional[int] = None,
                          n_repeat: Optional[int] = None,
                          device: backend.DeviceLike = None):
         """Paged KV pool for the continuous-batching engine, per pattern
         position (all ``"paged"``: attention kinds only): ``k``/``v``
-        (R, P, page_size, Hkv, hd) fp32, or int8 with ``kv_bits=8`` plus
+        (R, P, page_size, Hkv, hd) in ``dtype`` (bf16 by default, as the
+        reference's; or fp32), or int8 with ``kv_bits=8`` plus
         ``k_s``/``v_s`` (R, P, page_size, Hkv) f32 per-(slot, head)
         scales, and ``pos`` (R, P, page_size) int32 starting at the
         sentinel.  Page 0 is the trash page.  ``n_slots`` is the decode
@@ -408,9 +516,7 @@ class LM:
         if not 1 <= R <= cfg.n_repeat:
             raise ValueError(f"n_repeat override {R} outside 1.."
                              f"{cfg.n_repeat}")
-        if kv_bits not in (None, 8):
-            raise ValueError(f"unsupported kv_bits {kv_bits!r}")
-        kv_dt = torch.int8 if kv_bits == 8 else torch.float32
+        kv_dt = _kv_dtype(dtype, kv_bits)
         shape = (R, num_pages, page_size, cfg.n_kv_heads, cfg.hdim)
         caches = []
         for bdef in cfg.pattern:
@@ -434,7 +540,8 @@ class LM:
         repeats of ``params``, sharing embed, final_norm and unembed, as the
         reference's.  Every stacked leaf of ``params["blocks"]`` is sliced
         ``[:draft_layers]`` (a ``PackedWeight`` through
-        :meth:`PackedWeight.prefix`): views, no copy.  The entry points run
+        :meth:`PackedWeight.prefix`, an int8-store leaf both halves):
+        views, no copy.  The entry points run
         it against a cache stacked to the same depth
         (``init_paged_cache(n_repeat=draft_layers)``); with
         ``draft_layers == n_repeat`` the draft is the target."""
@@ -442,10 +549,8 @@ class LM:
             raise ValueError(
                 f"draft_layers={draft_layers} outside 1..{self.cfg.n_repeat}"
                 f" (cfg.n_repeat)")
-        blocks = tuple(
-            {k: (v.prefix(draft_layers) if isinstance(v, PackedWeight)
-                 else v[:draft_layers]) for k, v in bp.items()}
-            for bp in params["blocks"])
+        blocks = tuple({k: _slice_leaf(v, slice(0, draft_layers))
+                        for k, v in bp.items()} for bp in params["blocks"])
         return {**params, "blocks": blocks}
 
     # ------------------------------------------------------------ prefill
@@ -455,12 +560,12 @@ class LM:
         optional (n_repeat, len(pattern)) activation QBNs; attn_impl:
         layers.ATTN_IMPLS."""
         tokens = batch["tokens"]
-        x = params["embed"][tokens]
+        x = self._embed_tokens(params, tokens)
         B, S, _ = x.shape
         q_pos = torch.arange(S, dtype=torch.int32,
                              device=x.device).repeat(B, 1)
-        x = self._stack(params, x, cache, act_bits, q_pos=q_pos,
-                        mode="prefill", attn_impl=attn_impl)
+        x, _ = self._stack(params, x, cache, act_bits, q_pos=q_pos,
+                           mode="prefill", attn_impl=attn_impl)
         return self.logits_of(params, x[:, -1:, :]), cache
 
     # ------------------------------------------------------------- decode
@@ -469,13 +574,13 @@ class LM:
         """One decode step.  tokens: (B, 1) int; pos: the int position the
         tokens occupy.  Updates ``cache`` in place; returns (logits
         (B, 1, V), cache)."""
-        x = params["embed"][tokens]
+        x = self._embed_tokens(params, tokens)
         B = x.shape[0]
         q_pos = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=x.device)
-        x = self._stack(params, x, cache, act_bits, q_pos=q_pos,
-                        mode="decode", write_pos=int(pos),
-                        attn_impl=attn_impl)
+        x, _ = self._stack(params, x, cache, act_bits, q_pos=q_pos,
+                           mode="decode", write_pos=int(pos),
+                           attn_impl=attn_impl)
         return self.logits_of(params, x), cache
 
     # ------------------------------------------------------ paged decode
@@ -486,11 +591,11 @@ class LM:
         the position each sequence's token occupies (``POS_SENTINEL`` for
         idle lanes, whose writes land in the trash page).  Updates the
         pool in place; returns (logits (B, 1, V), cache)."""
-        x = params["embed"][tokens.long()]
+        x = self._embed_tokens(params, tokens.long())
         pos = pos.to(torch.int32)
-        x = self._stack(params, x, cache, act_bits, q_pos=pos[:, None],
-                        mode="decode", write_pos=pos,
-                        block_tables=block_tables, attn_impl=attn_impl)
+        x, _ = self._stack(params, x, cache, act_bits, q_pos=pos[:, None],
+                           mode="decode", write_pos=pos,
+                           block_tables=block_tables, attn_impl=attn_impl)
         return self.logits_of(params, x), cache
 
     # ------------------------------------------- unified token-budget step
@@ -507,12 +612,12 @@ class LM:
         logit_cols: (R,) -- each row's last real column, returns
         (R, 1, V) -- or (R, C), one logits row per listed column, returns
         (R, C, V).  Returns (logits, cache)."""
-        x = params["embed"][tokens.long()]
+        x = self._embed_tokens(params, tokens.long())
         q_pos = positions.to(torch.int32)
         bt_rows = block_tables.index_select(0, slot_map.long())
-        x = self._stack(params, x, cache, act_bits, q_pos=q_pos,
-                        mode="decode", write_pos=q_pos, block_tables=bt_rows,
-                        attn_impl=attn_impl)
+        x, _ = self._stack(params, x, cache, act_bits, q_pos=q_pos,
+                           mode="decode", write_pos=q_pos, block_tables=bt_rows,
+                           attn_impl=attn_impl)
         cols = logit_cols.long()
         if cols.ndim == 1:
             cols = cols[:, None]
@@ -569,9 +674,15 @@ class LM:
                 R * d * kvd, -1)
             add(f"{nm}.wo", pre + ("wo",), qd, d, R * toks * qd * d,
                 R * qd * d, -1)
-            if bdef.has_ffn:
-                if bdef.use_moe:
-                    raise _not_ported("moe")
+            if bdef.has_ffn and bdef.use_moe:
+                m = cfg.moe
+                eff_toks = toks * m.top_k / m.n_experts
+                for site, cin, cout in (("wg", d, m.d_ff), ("wu", d, m.d_ff),
+                                        ("wd", m.d_ff, d)):
+                    add(f"{nm}.{site}", pre + (site,), cin, cout,
+                        R * m.n_experts * eff_toks * cin * cout,
+                        R * m.n_experts * cin * cout, -1, kind="expert")
+            elif bdef.has_ffn:
                 add(f"{nm}.wg", pre + ("wg",), d, cfg.d_ff,
                     R * toks * d * cfg.d_ff, R * d * cfg.d_ff, -1)
                 add(f"{nm}.wu", pre + ("wu",), d, cfg.d_ff,

@@ -3,14 +3,16 @@ policy containers (a copy of ``repro.quant.policy``) and policy
 application."""
 from repro_torch.quant.apply import (apply_policy_packed,
                                      apply_policy_to_params)
-from repro_torch.quant.linear_quant import (FULL_BITS, fake_quant,
+from repro_torch.quant.linear_quant import (FULL_BITS, dequant_int8,
+                                            fake_quant,
                                             fake_quant_per_channel,
                                             fake_quant_per_token,
-                                            quant_pack_sub8)
+                                            quant_pack_int8, quant_pack_sub8)
 from repro_torch.quant.policy import (Granularity, LayerInfo, QuantMode,
                                       QuantizableGraph, QuantPolicy)
 
 __all__ = ["FULL_BITS", "fake_quant", "fake_quant_per_channel",
-           "fake_quant_per_token", "quant_pack_sub8", "Granularity",
+           "fake_quant_per_token", "quant_pack_int8", "dequant_int8",
+           "quant_pack_sub8", "Granularity",
            "LayerInfo", "QuantMode", "QuantizableGraph", "QuantPolicy",
            "apply_policy_to_params", "apply_policy_packed"]

@@ -4,7 +4,9 @@
 (BINARIZE) every searched weight into f32 tensors on the search-time grid;
 ``apply_policy_packed`` turns every searched weight of a QUANT policy into
 a bucketed sub-byte :class:`PackedWeight`.  Stacked (n_repeat, K, N)
-weights quantize with scales reduced over the stack, as in the reference.
+weights and MoE expert stacks (n_repeat, E, K, N) quantize with one bit
+width per output channel, shared by every repeat and expert, and scales
+reduced over the stack, as in the reference.
 """
 from __future__ import annotations
 

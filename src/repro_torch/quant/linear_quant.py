@@ -114,6 +114,33 @@ def fake_quant_per_token(x: torch.Tensor, bits) -> torch.Tensor:
     return _quant_dequant(xf, amax, b).to(dtype)
 
 
+def quant_pack_int8(w: torch.Tensor, bits, axis: int = -1):
+    """Quantize ``w`` to a stored int8 form with per-channel f32 scales:
+    channels with QBN in [1, 8] round to int8 on their own grid, QBN 0
+    stores zeros, and QBNs above 8 clamp to 8.  Returns ``(q int8, scale,
+    eff_bits)``, ``scale`` and ``eff_bits`` shaped to broadcast against
+    ``q`` along ``axis`` (the reference's layout)."""
+    w = w.to(torch.float32)
+    axis = axis % w.ndim
+    red = tuple(d for d in range(w.ndim) if d != axis)
+    amax = w.abs().amax(dim=red, keepdim=True)
+    b = torch.as_tensor(bits, dtype=torch.float32, device=w.device)
+    if b.ndim > 0:
+        shape = [1] * w.ndim
+        shape[axis] = w.shape[axis]
+        b = b.reshape(shape)
+    b = torch.clamp(b, 0.0, 8.0)
+    scale, lv = channel_scale(amax, b)
+    q = torch.clamp(torch.round(w / scale), -lv, lv)
+    q = torch.where(b <= 0.5, torch.zeros_like(q), q)
+    return q.to(torch.int8), scale.to(torch.float32), b
+
+
+def dequant_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quant_pack_int8`: ``q * scale`` in f32."""
+    return q.to(torch.float32) * scale
+
+
 def _bucket_ids(bits: np.ndarray) -> np.ndarray:
     """Vectorised ``kernels.pack.bucket_of_bits``: the index into
     ``pack.BUCKETS`` of every channel's storage bucket."""

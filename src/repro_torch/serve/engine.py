@@ -9,7 +9,13 @@ two weight stores:
   numerics, full-size footprint); their matmuls are plain ``x @ w``;
 * ``weight_store="packed"`` -- the bucketed sub-byte store
   (``quant.apply.apply_policy_packed``), whose matmuls run one CUDA kernel
-  per bucket on the card (K3 for int2 / int4, K2 for int8).
+  per bucket on the card (K3 for int2 / int4, K2 for int8; an MoE expert
+  stack one launch per bucket for all its experts).
+
+Params that arrive already in the uniform int8 store
+(``LM.quantize_params_int8``) are served as they are, every matmul on K2,
+as the reference's engine serves them.  The KV cache and pool hold
+``cache_dtype`` (fp32 by default, or bf16) or, with ``kv_bits=8``, int8.
 
 Attention runs on the CUDA kernels by default (``attn_impl="cuda"``: K1
 over the dense cache, K4 over the paged pool); ``attn_impl="ref"`` is the
@@ -47,7 +53,7 @@ import torch
 
 from repro_torch import backend
 from repro_torch.kernels.pack import PackedWeight
-from repro_torch.models.layers import ATTN_IMPLS
+from repro_torch.models.layers import ATTN_IMPLS, is_int8_leaf
 from repro_torch.models.transformer import LM
 from repro_torch.quant.apply import apply_policy_packed, apply_policy_to_params
 from repro_torch.quant.linear_quant import FULL_BITS
@@ -61,7 +67,10 @@ from repro_torch.serve.step_loop import StepLoop
 __all__ = ["ServeEngine", "ServeStats", "sample_tokens"]
 
 def _leaves(tree):
-    if isinstance(tree, dict):
+    """Weight leaves: tensors, PackedWeights and int8-store pairs."""
+    if is_int8_leaf(tree):
+        yield tree
+    elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     elif isinstance(tree, (tuple, list)):
@@ -88,10 +97,13 @@ class ServeEngine:
                  graph=None, max_len: int = 512,
                  weight_store: str = "fake", attn_impl: str = "cuda",
                  kv_bits: Optional[int] = None, serve_act_bits: bool = True,
+                 cache_dtype: torch.dtype = torch.float32,
                  device: backend.DeviceLike = None):
         """As the reference's engine, with ``attn_impl`` in
-        ``("cuda", "ref")``, an fp32 KV cache (``kv_bits=None``) or int8
-        (``kv_bits=8``), and an explicit ``device`` (the card when None;
+        ``("cuda", "ref")``, a KV cache in ``cache_dtype`` (fp32 or bf16;
+        ``kv_bits=8`` stores int8 instead) for the dense cache, the paged
+        pool, the monolithic path's prefill cache and the speculative
+        draft's pool, and an explicit ``device`` (the card when None;
         ``params`` must already live there)."""
         self.device = backend.resolve_device(device)
         if weight_store not in ("fake", "packed"):
@@ -112,6 +124,10 @@ class ServeEngine:
         self.weight_store = weight_store
         self.attn_impl = attn_impl
         self.kv_bits = kv_bits
+        if cache_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"unsupported cache_dtype {cache_dtype}: "
+                             "torch.float32 or torch.bfloat16")
+        self.cache_dtype = cache_dtype
         self.act_bits = None
         if policy is not None:
             graph = graph or model.graph(seq_len=1, batch=1)
@@ -124,6 +140,12 @@ class ServeEngine:
                     graph, [policy.act_bits.get(l.name, float(FULL_BITS))
                             for l in graph.layers])
         self.params = params
+        # a packed store's bucket indices go up now: made on a first step,
+        # the copy would stall the overlapped loop
+        for leaf in _leaves(params):
+            if isinstance(leaf, PackedWeight):
+                for name, _ in leaf.buckets:
+                    leaf.index(name)
         # distinct input shapes seen per entry point: the port's analogue
         # of the reference's jit-variant counter.  The chunked loop keeps
         # trace_counts["model_step"] at <= 2 whatever the prompt lengths.
@@ -182,12 +204,15 @@ class ServeEngine:
 
     def weight_hbm_bytes(self) -> Dict[str, int]:
         """Stored weight bytes by leaf kind: ``packed`` (PackedWeight
-        buffers + scales), ``int8`` (always 0: the port has no uniform int8
-        store yet), ``dense`` (everything else) and ``total``."""
+        buffers + scales), ``int8`` (the uniform int8 store's ``{"q", "s"}``
+        leaves), ``dense`` (everything else) and ``total``."""
         out = {"packed": 0, "int8": 0, "dense": 0}
         for leaf in _leaves(self.params):
             if isinstance(leaf, PackedWeight):
                 out["packed"] += leaf.hbm_bytes()
+            elif isinstance(leaf, dict):
+                out["int8"] += sum(t.numel() * t.element_size()
+                                   for t in leaf.values())
             else:
                 out["dense"] += leaf.numel() * leaf.element_size()
         out["total"] = out["packed"] + out["int8"] + out["dense"]
@@ -218,8 +243,8 @@ class ServeEngine:
             raise ValueError(f"prompt {S} + n_new {n_new} exceeds max_len "
                              f"{self.max_len}")
         model, dev = self.model, self.device
-        cache = model.init_cache(B, self.max_len, kv_bits=self.kv_bits,
-                                 device=dev)
+        cache = model.init_cache(B, self.max_len, dtype=self.cache_dtype,
+                                 kv_bits=self.kv_bits, device=dev)
         stats = ServeStats(n_requests=B)
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                device=dev)
@@ -426,6 +451,7 @@ class ServeEngine:
         if num_pages is None:
             num_pages = max_slots * blocks_per_seq + 1      # +1: trash page
         cache = self.model.init_paged_cache(max_slots, num_pages, page_size,
+                                            dtype=self.cache_dtype,
                                             kv_bits=self.kv_bits,
                                             device=self.device)
         sched = Scheduler(max_slots, page_size, blocks_per_seq,
@@ -482,16 +508,16 @@ class ServeEngine:
             params = model.draft_prefix_params(self.params, d)
             act = None if self.act_bits is None else self.act_bits[:d]
             dcache = model.init_paged_cache(
-                max_slots, num_pages, page_size, kv_bits=self.kv_bits,
-                n_repeat=d, device=self.device)
+                max_slots, num_pages, page_size, dtype=self.cache_dtype,
+                kv_bits=self.kv_bits, n_repeat=d, device=self.device)
         else:                                     # "lowbit"
             params = self.params
             act = np.full((cfg.n_repeat, len(cfg.pattern)),
                           4.0 if draft_act_bits is None
                           else float(draft_act_bits), np.float32)
             dcache = model.init_paged_cache(
-                max_slots, num_pages, page_size, kv_bits=8,
-                device=self.device)
+                max_slots, num_pages, page_size, dtype=self.cache_dtype,
+                kv_bits=8, device=self.device)
         return {"params": params, "cache": dcache, "act": act, "k": draft_k,
                 "frontier": {}}
 
@@ -652,7 +678,8 @@ class ServeEngine:
         cache length only pads the KV store: prefill logits come from the
         in-flight K/V)."""
         L = paged_kv.pages_needed(req.prompt_len, page_size) * page_size
-        dense = self.model.init_cache(1, L, kv_bits=self.kv_bits,
+        dense = self.model.init_cache(1, L, dtype=self.cache_dtype,
+                                      kv_bits=self.kv_bits,
                                       device=self.device)
         toks = torch.as_tensor(req.tokens[None].astype(np.int64),
                                device=self.device)

@@ -67,7 +67,8 @@ def test_prefill_decode_logits_match_reference(arch, kv_bits, impl, act):
         j_act = jnp.full((cfg.n_repeat, len(cfg.pattern)), act, jnp.float32)
         t_act = np.full((cfg.n_repeat, len(cfg.pattern)), act, np.float32)
     jc = jm.init_cache(B, max_len, dtype=jnp.float32, kv_bits=kv_bits)
-    tc = tm.init_cache(B, max_len, kv_bits=kv_bits, device="cpu")
+    tc = tm.init_cache(B, max_len, dtype=torch.float32, kv_bits=kv_bits,
+                       device="cpu")
     jl, jc = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks)}, jc, j_act)
     tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks).long()}, tc,
                         t_act, attn_impl=impl)
@@ -129,3 +130,20 @@ def test_unported_families_name_their_roadmap_item():
         tm.init(0, device="cpu")
     with pytest.raises(KeyError):
         get("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_families_no_longer_raise(arch):
+    """The MoE families left the unported list: the registry hands them
+    out and the model builds, runs and graphs them."""
+    spec = get(arch)
+    assert spec.family == "moe"
+    tm = LM(spec.smoke)
+    tp = tm.init(0, device="cpu")
+    logits, aux = tm.apply(tp, {"tokens": torch.zeros((1, 4),
+                                                      dtype=torch.int64)})
+    assert logits.shape == (1, 4, spec.smoke.vocab_padded)
+    assert float(aux) > 0
+    assert {l.kind for l in tm.graph(seq_len=4, batch=1).layers} >= \
+        {"expert"}

@@ -222,7 +222,8 @@ def test_model_step_and_decode_step_paged_match_reference(arch, kv_bits,
     cfg = jm.cfg
     rng = np.random.default_rng(5)
     jc = jm.init_paged_cache(3, 9, 4, dtype=jnp.float32, kv_bits=kv_bits)
-    tc = tm.init_paged_cache(3, 9, 4, kv_bits=kv_bits, device="cpu")
+    tc = tm.init_paged_cache(3, 9, 4, dtype=torch.float32, kv_bits=kv_bits,
+                             device="cpu")
     bt = _pool_tables()
     slot_map = np.arange(3, dtype=np.int32)
     jstep = jax.jit(jm.model_step, static_argnames=("attn_impl",))
@@ -256,8 +257,9 @@ def test_model_step_chunks_match_prefill_logits():
     S = 13                                           # past window 8
     toks = rng.integers(0, tm.cfg.vocab, size=(1, S))
     want, _ = tm.prefill(tp, {"tokens": _t(toks)},
-                         tm.init_cache(1, 16, device="cpu"))
-    pool = tm.init_paged_cache(1, 5, 4, device="cpu")
+                         tm.init_cache(1, 16, dtype=torch.float32,
+                                       device="cpu"))
+    pool = tm.init_paged_cache(1, 5, 4, dtype=torch.float32, device="cpu")
     bt = _t(np.array([[4, 2, 1, 3]], np.int32))
     for c0 in range(0, S, 5):
         n = min(5, S - c0)
