@@ -106,6 +106,34 @@ run exits non-zero:
               profiled generate (device ms by kernel group, busy share)
               and one with the host traced too (device ms inside the MoE
               dispatch and gather profiler ranges); the peak memory.
+   ssm     -- mamba2-780m at published width and depth (48 layers, d_model
+              1536, 48 heads of 64, d_state 128, chunk 256), random fp32
+              weights: its fp32 noise floor (the forwards of the kernels'
+              store and of the plain fp32 path against an fp64 evaluation,
+              ssm-floor; the kernels no farther from it than the plain
+              path); how far engines A and B part with depth, activation
+              QBN 8 and off (ssm-drift, reported); generate (2 x 2048 +
+              16) on engine A at QBN 8 (no K1 or K4 and exactly one K2 /
+              K3 launch per bucket of w_xz, w_bc, w_out and the
+              unembedding a model call), and A against B with activation
+              quantization off, held at LOGIT_ATOL plus twice the plain
+              path's fp64 distance; QBN 8 held on the first
+              SSM_GATE_LAYERS layers (A / B at ACT_LOGIT_ATOL, and run()
+              on 8 requests against generate); a profiled prefill with
+              the host traced (device ms inside the SSD chunk scan's
+              profiler ranges, every K2 / K3 launch in the trace) and a
+              profiled generate (device ms by kernel group, busy share,
+              launches per decode token); run() on 8 requests with
+              prefill left to the engine (monolithic; chunked,
+              speculative and serve() refused before any model call;
+              streams against generate by the gap rule at the act-off
+              tolerance; exact launch counts); then the jamba hybrid at
+              HYBRID_CUT's reduced width (one 8-layer period, d_model
+              2048): its noise floor, A against B with activation
+              quantization off (K1 once per attention layer and call,
+              exact K2 / K3 counts), and run() on 4 requests the same way
+              at QBN 8, with K1, K4 and the expert-batched K2 / K3
+              launched.
 7. train   -- the paper's pipeline after the search, on its CIF10-7CNN
               substrate: the Trainer (AdamW, 40 steps, checkpoints every
               10) uninterrupted and preempted at step 25, resumed from
@@ -120,16 +148,21 @@ run exits non-zero:
               B5 exactly 8 launches a step and B6 none, one step's
               straight-through gradients bit for bit the plain
               statement's, a profiled step with B5's device ms apart
-              (train-qat); 2 training steps of full-width gemma2-2b
-              (LM.loss at 1 x 512 tokens, remat=True, 8-bit AdamW) run
-              twice from one seed, losses and every leaf bit for bit, the
-              remat=False loss equal, peak memory (train-lm).
+              (train-qat); 2 training steps (LM.loss at 1 x 512 tokens,
+              remat=True, 8-bit AdamW) of full-width gemma2-2b and of
+              granite-moe-3b-a800m at published width and depth, each
+              run twice from one seed, losses, the last gradients and
+              every leaf bit for bit, the remat=False loss equal, peak
+              memory; for granite-moe first C2's probe, two gradients with
+              the row gathers' plain CUDA backward, its differing leaves
+              reported, not checked (train-lm).
 
 The line before the last lists every kernel with its launches on its path
 (K1-K3: gemma2-2b's generate; K4: its run; B5: the QUANT search plus QAT;
 B6: the BINARIZE search), ``launches_by_path`` for the kernels that more
 than one path runs (K1-K4: the generate and run of each serving phase,
-granite-moe's included; B5: search, QAT) and its times; the last line is
+granite-moe's, mamba2-780m's and jamba's included; B5: search, QAT) and
+its times; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it prints no
 result and exits 2.  It imports neither JAX nor the reference package.
@@ -267,6 +300,34 @@ MOE_LOGIT_ATOL = 0.25
 # 3.0e-5 on the prefill logits (a wrong bucket, expert or gate moves them
 # by O(0.1-1))
 MOE_ACT_OFF_ATOL = LOGIT_ATOL
+
+# phase ssm: mamba2-780m at published width and depth (48 layers, d_model
+# 1536, d_inner 3072, 48 heads of 64, d_state 128, d_conv 4, chunk 256,
+# vocab 50280 padded to 50304): generate at 2 x 2048 + 16, run on 8
+# requests; then the jamba hybrid at a reduced width (HYBRID_CUT)
+SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "jamba-1.5-large-398b"
+SSM_PROMPT, SSM_MAX_LEN = 2048, 2112
+# jamba-1.5-large-398b does not fit one card at published width (one MoE
+# layer's 16 experts are 16 x 3 x 8192 x 24576 fp32 weights, ~39 GB): one
+# pattern period (8 of 72 layers: 7 mamba + 1 attention, MoE on the odd
+# positions), d_model 8192 -> 2048, 64 q / 8 kv heads -> 16 / 2 (head dim
+# 128 kept), dense and expert d_ff 24576 -> 4096; 16 experts top-2 at
+# capacity factor 1.25, the SSM block (d_state 128, d_conv 4, expand 2,
+# heads of 64, chunk 256) and vocab 65536 as published: ~2.2 B
+# parameters, ~9 GB in fp32
+HYBRID_CUT = dict(n_layers=8, d_model=2048, n_heads=16, n_kv_heads=2,
+                  d_ff=4096)
+HYBRID_EXPERT_D_FF = 4096
+HYBRID_E, HYBRID_TOP_K = 16, 2       # as published
+HYBRID_RUN_PROMPTS = (1024, 515, 97, 17)
+HYBRID_RUN_NEW = (8, 12, 16, 10)
+# mamba2-780m's A / B pair with the policy's activation QBN 8 is held on
+# its first SSM_GATE_LAYERS layers (the same weights): deeper, the two
+# engines part chaotically (each rounding flip moves a whole step, and the
+# recurrent state carries it to every later position), which
+# SSM_DRIFT_DEPTHS measures on the full forward at these depths
+SSM_GATE_LAYERS = 2
+SSM_DRIFT_DEPTHS = (1, 2, 4, 8, 16, 32, 48)
 
 # phase run: 8 requests over 4 slots, so later requests reuse freed pages
 RUN_PROMPTS = (4160, 3100, 2050, 1030, 515, 260, 97, 33)
@@ -462,7 +523,9 @@ def _attn_cases(torch):
     layers), the last decode step against the global cache and the local
     ring, in fp32 and in a bf16 cache, and an early decode step (position
     40) against the global cache; granite-moe's prefill of 2 x 2048 (D 64,
-    G 3, no softcap) and its last decode step of generate."""
+    G 3, no softcap) and its last decode step of generate; the jamba
+    hybrid's the same (16 q / 2 kv heads of 128 at HYBRID_CUT: G 8, no
+    softcap)."""
     cfg_h, cfg_kv, D, cap = 8, 4, 256, 50.0
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -517,6 +580,24 @@ def _attn_cases(torch):
     kp[:, :last + 1] = torch.arange(last + 1, dtype=torch.int32,
                                     device="cuda")
     yield "moe_decode", qd, kc, vc, qp, kp, None, MOE_MAX_LEN, None
+    del q, k, v, kc, vc
+    # the jamba hybrid at HYBRID_CUT
+    Hq, Hkv = HYBRID_CUT["n_heads"], HYBRID_CUT["n_kv_heads"]
+    D = HYBRID_CUT["d_model"] // Hq
+    ar = torch.arange(SSM_PROMPT, dtype=torch.int32,
+                      device="cuda").repeat(B, 1)
+    q = randn(B, SSM_PROMPT, Hq, D)
+    k, v = randn(B, SSM_PROMPT, Hkv, D), randn(B, SSM_PROMPT, Hkv, D)
+    yield "hybrid_prefill", q, k, v, ar, ar, None, 1024, None
+    last = SSM_PROMPT + N_NEW - 1
+    qd = randn(B, 1, Hq, D)
+    qp = torch.full((B, 1), last, dtype=torch.int32, device="cuda")
+    kc, vc = randn(B, SSM_MAX_LEN, Hkv, D), randn(B, SSM_MAX_LEN, Hkv, D)
+    kp = torch.full((B, SSM_MAX_LEN), SENT, dtype=torch.int32,
+                    device="cuda")
+    kp[:, :last + 1] = torch.arange(last + 1, dtype=torch.int32,
+                                    device="cuda")
+    yield "hybrid_decode", qd, kc, vc, qp, kp, None, SSM_MAX_LEN, None
 
 
 def _attn_library(torch, q, k, v, q_pos, kv_pos, window):
@@ -585,7 +666,9 @@ def _paged_cases(torch):
     512-wide tile, the tensor-core walk) and the draft's 2-column call
     over an int8 pool (the decode walk); then a chunk and decode tokens
     over a bf16 pool, and granite-moe's chunk and decode tokens (D 64,
-    G 3, no softcap; its run's prompts are at most 2048 tokens)."""
+    G 3, no softcap; its run's prompts are at most 2048 tokens), and the
+    jamba hybrid's last decode step of its 4-request run (D 128, G 8, no
+    softcap)."""
     chunk = [(4160, 3648, 512), (512, 0, 512), (1254, 1024, 230), (0, 0, 0)]
     dec = [(4176, 4175, 1), (4171, 4170, 1), (4161, 4160, 1),
            (4101, 4100, 1)]
@@ -617,6 +700,13 @@ def _paged_cases(torch):
             (530, 529, 1)]
     yield "moe_chunk", mchunk, CHUNK, None, None, moe
     yield "moe_decode", mdec, 1, None, None, moe
+    Hkv = HYBRID_CUT["n_kv_heads"]
+    hybrid = dict(Hkv=Hkv, G=HYBRID_CUT["n_heads"] // Hkv,
+                  D=HYBRID_CUT["d_model"] // HYBRID_CUT["n_heads"],
+                  max_len=SSM_MAX_LEN, cap=None)
+    hdec = [(n + k, n + k - 1, 1)
+            for n, k in zip(HYBRID_RUN_PROMPTS, HYBRID_RUN_NEW)]
+    yield "hybrid_decode", hdec, 1, None, None, hybrid
 
 
 def paged_rows(torch, timer, cap):
@@ -881,7 +971,22 @@ def phase_kernels(torch, timer):
                    ("wd_chunk", 2048, 9216, 2304),
                    ("wg_draft", 8, 2304, 9216),
                    ("wd_draft", 8, 9216, 2304),
-                   ("ragged", 37, 1001, 333)]
+                   ("ragged", 37, 1001, 333),
+                   # mamba2-780m (phase ssm): prefill at 2 x 2048, decode
+                   ("mamba_wxz_prefill", 4096, 1536, 6144),
+                   ("mamba_wxz_decode", 2, 1536, 6144),
+                   ("mamba_wout_prefill", 4096, 3072, 1536),
+                   ("mamba_wout_decode", 2, 3072, 1536),
+                   ("mamba_wbc_prefill", 4096, 1536, 256),
+                   ("mamba_unembed_decode", 2, 1536, 50304),
+                   # the jamba hybrid at HYBRID_CUT (d_model 2048, d_inner
+                   # 4096): its A / B prefill at 2 x 2048, decode
+                   ("hybrid_wxz_prefill", 4096, 2048, 8192),
+                   ("hybrid_wxz_decode", 2, 2048, 8192),
+                   ("hybrid_wout_prefill", 4096, 4096, 2048),
+                   ("hybrid_wout_decode", 2, 4096, 2048),
+                   ("hybrid_wbc_prefill", 4096, 2048, 256),
+                   ("hybrid_unembed_decode", 2, 2048, 65536)]
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for bits, name in ((8, "quant_matmul"), (4, "packed_matmul"),
@@ -951,18 +1056,28 @@ def expert_gemm_rows(torch, timer):
     moe's wg (E 40, C x 1536 x 512) and wd (C x 512 x 1536) at C = 1024
     (generate's prefill at capacity factor 1.25: the tensor-core route)
     and at C = 2 and 4 (decode, and run()'s 4-slot decode: skinny), int8,
-    int4 and int2; then K2 on the uniform int8 store's gemma2-2b wq
+    int4 and int2; the jamba hybrid's the same way at HYBRID_CUT (E 16,
+    C x 2048 x 4096 and C x 4096 x 2048; C = 640 at its A / B prefill of
+    2 x 2048 tokens, 2 and 4 in decode); then K2 on the uniform int8
+    store's gemma2-2b wq
     (2304 x 2048) at generate's M = 8320 and 2.  Each against its plain
     version (GEMM_TOL, TC_ERR_LIMIT on the tensor-core route), the same
     bits twice, one device launch a call; the library call is torch.bmm
     (torch.matmul for the 2-d rows) on the dequantized fp32 weight."""
     from repro_torch.kernels import ops, pack, quant_matmul
     from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
+    from repro_torch.models.layers import moe_capacity
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = [(bits, f"moe_{site}_c{C}", MOE_E, C, K, N)
-             for bits in (8, 4, 2) for C in (1024, 2, 4)
-             for site, K, N in (("wg", 1536, MOE_FF), ("wd", MOE_FF, 1536))]
+    d_h, ff_h = HYBRID_CUT["d_model"], HYBRID_EXPERT_D_FF
+    c_h = moe_capacity(B * SSM_PROMPT, HYBRID_E, HYBRID_TOP_K, 1.25)
+    cases = [(bits, f"{tag}_{site}_c{C}", E, C, K, N)
+             for tag, E, Cs, d, ff in (("moe", MOE_E, (1024, 2, 4), 1536,
+                                        MOE_FF),
+                                       ("hybrid", HYBRID_E, (c_h, 2, 4),
+                                        d_h, ff_h))
+             for bits in (8, 4, 2) for C in Cs
+             for site, K, N in (("wg", d, ff), ("wd", ff, d))]
     cases += [(8, "int8_store_wq_prefill", None, B * PROMPT, 2304, 2048),
               (8, "int8_store_wq_decode", None, B, 2304, 2048)]
     rows = []
@@ -1668,6 +1783,432 @@ def phase_moe(torch):
           "peak_mem_bytes": out["peak_mem_bytes"], "problems": problems})
     if problems:
         raise AssertionError("moe checks failed: " + "; ".join(problems))
+    return out
+
+
+# ------------------------------------------------------------- phase ssm
+def _param_bytes(params) -> int:
+    from repro_torch.core.ddpg import tree_leaves
+    return int(sum(t.numel() * t.element_size()
+                   for t in tree_leaves(params)))
+
+
+def _attn_layers(cfg) -> int:
+    """Attention layers of a config: K1 (prefill, dense decode) and K4
+    (paged decode) launch once in each per model call."""
+    return cfg.n_repeat * sum(b.kind != "mamba" for b in cfg.pattern)
+
+
+def _gemm_check(problems, what, launches, graph, policy, n_repeat, calls):
+    """K2 / K3 launches of ``calls`` model calls against the exact count
+    of _moe_gemm_launches (one a bucket of each site and repeat)."""
+    want, _ = _moe_gemm_launches(graph, policy, n_repeat, calls)
+    got = {k: launches[k] for k in want}
+    if got != want:
+        problems.append(f"{what}: GEMM launches {got}, want {want} (one a "
+                        "bucket of each site)")
+    return want
+
+
+def _fp64_floor(torch, model, params, graph, policy, tokens):
+    """The noise floor of ``model`` at fp32 under ``policy``'s weights,
+    activation quantization off: the full forward (``LM.apply``, every
+    position of ``tokens``) of the fake store in fp32 (B) and in fp64
+    (F: every step of the port's plain path then runs in fp64), and of
+    the packed store on the kernels (A).  Returns |A - F| and |B - F| over
+    the real vocabulary (mean, max, and max at the last position, whose
+    logits generate's prefill returns) and F's standard deviation."""
+    from repro_torch.core.ddpg import tree_map
+    from repro_torch.quant.apply import (apply_policy_packed,
+                                         apply_policy_to_params)
+    V = model.cfg.vocab
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    with torch.no_grad():
+        fake = apply_policy_to_params(params, graph, policy)
+        lb = model.apply(fake, batch)[0][..., :V]
+        lf = model.apply(tree_map(lambda t: t.double(), fake),
+                         batch)[0][..., :V]
+        del fake
+        la = model.apply(apply_policy_packed(params, graph, policy),
+                         batch, attn_impl="cuda")[0][..., :V]
+    out = dict(fp64_logit_std=float(lf.std()))
+    for name, lg in (("a", la), ("b", lb)):
+        e = (lg.double() - lf).abs()
+        out.update({f"{name}_mean": float(e.mean()),
+                    f"{name}_max": float(e.max()),
+                    f"{name}_last_max": float(e[:, -1].max())})
+    del la, lb, lf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _state_run(torch, label, eng, reqs, graph, policy, problems,
+               tol=ACT_LOGIT_ATOL):
+    """``eng.run(reqs)`` with ``prefill`` left to the engine on a pattern
+    with recurrent state: chunked and speculative runs and open-loop
+    serving refused before any model call; the run monolithic, each
+    stream held to its own ``generate`` by the gap rule; K1 once per
+    attention layer and admission (generate: and model call), K4 once
+    per attention layer and decode step, K2 / K3 exactly one launch per
+    bucket of each site and model call, in the run and in the
+    generates.  Returns the run record."""
+    from repro_torch import kernels
+    from repro_torch.serve import FrontEnd
+    cfg = eng.model.cfg
+    na = _attn_layers(cfg)
+    kw = dict(page_size=PAGE, max_slots=RUN_SLOTS)
+    for bad in (dict(prefill="chunked"), dict(speculative=True), None):
+        kernels.reset_launch_counts()
+        calls = dict(eng.call_counts)
+        try:
+            if bad is None:
+                eng.serve(FrontEnd(), **kw)
+            else:
+                eng.run(reqs, **kw, **bad)
+            problems.append(f"{label}: {bad or 'serve()'} did not raise")
+        except ValueError:
+            pass
+        if dict(eng.call_counts) != calls or \
+                any(kernels.launch_counts().values()):
+            problems.append(f"{label}: {bad or 'serve()'} called the "
+                            "model before raising")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.run(reqs, **kw)
+    torch.cuda.synchronize()
+    rec = _run_record(torch, label, res, time.perf_counter() - t0,
+                      kernels.launch_counts())
+    st, lr = res["stats"], rec["launches"]
+    rec["mode"] = st.mode
+    if st.mode != "monolithic":
+        problems.append(f"{label}: mode {st.mode}, want monolithic")
+    if lr["flash_attention"] != na * len(reqs) or \
+            lr["paged_attention"] != na * st.steps:
+        problems.append(f"{label}: attention launches {lr} over "
+                        f"{len(reqs)} admissions and {st.steps} steps")
+    rec["gemm_want"] = _gemm_check(problems, label, lr, graph, policy,
+                                   cfg.n_repeat, len(reqs) + st.steps)
+    kernels.reset_launch_counts()
+    gens = []
+    for toks, n_new in reqs:
+        out = eng.generate(toks[None], n_new)
+        gens.append((out["tokens"][0], out["top2_gap"][:, 0]))
+    gl = kernels.launch_counts()
+    calls = sum(1 + n for _, n in reqs)
+    if gl["flash_attention"] != na * calls or gl["paged_attention"]:
+        problems.append(f"{label}: generate attention launches {gl}")
+    _gemm_check(problems, label + " generate", gl, graph, policy,
+                cfg.n_repeat, calls)
+    rec["generate_launches"] = gl
+    rec["first_differences"] = [
+        f for i, (out, (want, gaps)) in enumerate(zip(res["outputs"], gens))
+        if (f := _check_streams(f"{label}/{i}", out, want, gaps, tol,
+                                problems))]
+    emit({"phase": label + "-check", "mode": st.mode, "tol": tol,
+          "first_differences": rec["first_differences"],
+          "generate_launches": gl, "gemm_want": rec["gemm_want"]})
+    return rec
+
+
+def _act_drift(torch, model, params, graph, policy, tokens):
+    """How far apart the full forwards (``LM.apply``, every position of
+    ``tokens``) of the packed store on the kernels (A) and of the fake
+    store on the plain versions (B) lie on the first d pattern repeats of
+    ``params``, for each d in SSM_DRIFT_DEPTHS: with the policy's
+    activation QBNs and with activation quantization off, max and mean
+    |A - B| over the real vocabulary, and B's standard deviation.
+    Measured, not held: it shows at which depth the pair parts."""
+    import dataclasses
+    from repro_torch.models import LM
+    from repro_torch.quant.apply import (apply_policy_packed,
+                                         apply_policy_to_params)
+    cfg, V = model.cfg, model.cfg.vocab
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    bits = model.block_act_bits(graph, [policy.act_bits[l.name]
+                                        for l in graph.layers])
+    pa = apply_policy_packed(params, graph, policy)
+    pb = apply_policy_to_params(params, graph, policy)
+    rows = []
+    with torch.no_grad():
+        for d in SSM_DRIFT_DEPTHS:
+            n = d * len(cfg.pattern)
+            m = LM(dataclasses.replace(cfg, n_layers=n))
+            row = dict(layers=n)
+            for tag, ab in (("act8", bits[:d]), ("act_off", None)):
+                la = m.apply(model.draft_prefix_params(pa, d), batch,
+                             act_bits=ab, attn_impl="cuda")[0][..., :V]
+                lb = m.apply(model.draft_prefix_params(pb, d), batch,
+                             act_bits=ab)[0][..., :V]
+                e = (la - lb).abs()
+                row[tag] = dict(max=float(e.max()), mean=float(e.mean()),
+                                b_std=float(lb.std()))
+                del la, lb, e
+            rows.append(row)
+    del pa, pb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ssm(torch):
+    """mamba2-780m at published width and depth with random fp32 weights
+    from SEED (~3.4 GB) and the seeded kernel-wise policy, then the jamba
+    hybrid at HYBRID_CUT's reduced width.
+
+    * the noise floor (_fp64_floor): with activation quantization off,
+      the kernels' forward must be as close to an fp64 evaluation as the
+      plain fp32 forward is: mean |A - F| <= mean |B - F| + LOGIT_ATOL.
+      On random weights 48 layers deep, fp32 rounding grows with depth
+      (an H100 run: |B - F| up to 1.5 at some of the 4096 positions,
+      mean 2.4e-3, logits' std 0.94), so no fixed logits tolerance from
+      the shallower models holds here.
+    * the drift (_act_drift): engine A's and B's forwards on the first
+      1 ... 48 layers, with activation QBN 8 and with it off, reported.
+    * generate (2 x 2048 prompt, 16 new) on engine A with the policy's
+      activation QBN 8, the served configuration: finite, no K1 or K4 (no
+      attention layer) and K2 / K3 exactly one launch per bucket of w_xz,
+      w_bc, w_out and the unembedding a model call; then engine A against
+      engine B (fake store, plain versions) with activation quantization
+      off: prefill logits and streams by check_serve's rules at
+      LOGIT_ATOL plus twice B's distance from F at the last position (two
+      fp32 evaluations each that close to F).
+    * activation QBN 8 held on the first SSM_GATE_LAYERS layers (the same
+      weights, a policy of their own): the A / B pair by check_serve's
+      rules at ACT_LOGIT_ATOL, and run() on 8 requests (prompts 2048 ...
+      17) against generate by _state_run's rules.
+    * where the time goes: a profiled prefill with the host traced (device
+      ms inside the SSD_SCAN ranges, one a layer; its trace taken until it
+      holds every K2 / K3 launch, traced_gemm_launches) and a profiled
+      generate (device ms by kernel group, busy share, launches per decode
+      step by difference; the GEMM launches its trace shows beside the
+      wrappers' count, as a trace of ~77,000 kernels can drop records).
+    * run on the same 8 requests at full depth with prefill left to the
+      engine, activation quantization off: monolithic, streams against
+      generate by the gap rule at the act-off pair's tolerance
+      (_state_run).
+    * jamba (7 mamba + 1 attention, MoE on the odd positions) at
+      HYBRID_CUT: its own noise floor, engine A against engine B with
+      activation quantization off by check_serve's rules at LOGIT_ATOL
+      plus twice its B's fp64 distance (K1 once per attention layer and
+      model call, K2 / K3 exactly one launch per bucket of each site, the
+      experts' included), then run on 4 requests at activation QBN 8 by
+      _state_run's rules, with K1, K4 and the expert-batched K2 / K3
+      launched.
+    Returns the records and each path's launches."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    from repro_torch.models.ssm import SSD_SCAN
+    from repro_torch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    problems = []
+    cfg = ARCHS[SSM_ARCH].config
+    model = LM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    s_cfg = cfg.ssm
+    init = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                d_inner=s_cfg.d_inner(cfg.d_model),
+                heads=s_cfg.n_heads(cfg.d_model), head_dim=s_cfg.head_dim,
+                d_state=s_cfg.d_state, d_conv=s_cfg.d_conv,
+                chunk=s_cfg.chunk, vocab=cfg.vocab,
+                vocab_padded=cfg.vocab_padded,
+                seconds=time.perf_counter() - t0,
+                param_bytes=_param_bytes(params))
+    emit({"phase": "ssm-init", **init})
+    peaks = [int(torch.cuda.max_memory_allocated())]
+    graph = model.graph(seq_len=1, batch=1)
+    policy = make_policy(graph)
+    rng = np.random.default_rng(SEED + 8)
+    tokens = rng.integers(0, cfg.vocab, size=(B, SSM_PROMPT))
+    floor = _fp64_floor(torch, model, params, graph, policy, tokens)
+    tol0 = LOGIT_ATOL + 2 * floor["b_last_max"]
+    floor["act_off_tol"] = tol0
+    emit({"phase": "ssm-floor", **floor})
+    if floor["a_mean"] > floor["b_mean"] + LOGIT_ATOL:
+        problems.append(f"ssm: the kernels' forward is farther from fp64 "
+                        f"than the plain one: {floor}")
+    drift = _act_drift(torch, model, params, graph, policy, tokens)
+    emit({"phase": "ssm-drift", "depths": drift})
+    # the served configuration: activation QBN 8, on the kernels
+    a = run_engine(torch, "ssm-A", model, params, policy, tokens,
+                   store="packed", impl="cuda", max_len=SSM_MAX_LEN)
+    a_rec, la = a["rec"], a["rec"]["launches"]
+    peaks.append(a_rec["peak_mem_bytes"])
+    if not bool(torch.isfinite(a["logits"]).all()) or \
+            a["tokens"].shape != (B, N_NEW) or a["tokens"].min() < 0 or \
+            a["tokens"].max() >= cfg.vocab:
+        problems.append("ssm-A: non-finite logits or tokens out of shape "
+                        "or range")
+    if la["flash_attention"] or la["paged_attention"]:
+        problems.append(f"ssm generate: attention launched {la}")
+    want = _gemm_check(problems, "ssm generate", la, graph, policy,
+                       cfg.n_repeat, 1 + N_NEW)
+    emit({"phase": "ssm-gemm-launches", "launches": la, "want": want})
+    del a
+    # A against B with activation quantization off, at the noise floor
+    # (no attention layer: check_serve then wants 0 K1 launches)
+    a0 = run_engine(torch, "ssm-A0", model, params, policy, tokens,
+                    store="packed", impl="cuda", serve_act_bits=False,
+                    max_len=SSM_MAX_LEN)
+    b0 = run_engine(torch, "ssm-B0", model, params, policy, tokens,
+                    store="fake", impl="ref", serve_act_bits=False,
+                    max_len=SSM_MAX_LEN)
+    peaks += [a0["rec"]["peak_mem_bytes"], b0["rec"]["peak_mem_bytes"]]
+    check0 = check_serve(torch, a0, b0, tol0, 0, cfg.vocab)
+    problems += check0["problems"]
+    del a0, b0
+    # activation QBN 8 held where the pair has not parted yet
+    gcfg = dataclasses.replace(cfg, n_layers=SSM_GATE_LAYERS)
+    gmodel = LM(gcfg)
+    gparams = model.draft_prefix_params(params, SSM_GATE_LAYERS)
+    ggraph = gmodel.graph(seq_len=1, batch=1)
+    gpolicy = make_policy(ggraph)
+    ga = run_engine(torch, "ssm-gate-A", gmodel, gparams, gpolicy, tokens,
+                    store="packed", impl="cuda", max_len=SSM_MAX_LEN)
+    gb = run_engine(torch, "ssm-gate-B", gmodel, gparams, gpolicy, tokens,
+                    store="fake", impl="ref", max_len=SSM_MAX_LEN)
+    gate = check_serve(torch, ga, gb, ACT_LOGIT_ATOL, 0, cfg.vocab)
+    problems += gate["problems"]
+    _gemm_check(problems, "ssm-gate generate", ga["rec"]["launches"],
+                ggraph, gpolicy, gcfg.n_repeat, 1 + N_NEW)
+    del ga, gb
+    reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), k)
+            for n, k in zip(MOE_RUN_PROMPTS, MOE_RUN_NEW)]
+    geng = ServeEngine(gmodel, gparams, policy=gpolicy, max_len=SSM_MAX_LEN,
+                       weight_store="packed", attn_impl="cuda",
+                       device="cuda")
+    gate_run = _state_run(torch, "ssm-gate-run", geng, reqs, ggraph,
+                          gpolicy, problems)
+    del geng, gparams
+    gc.collect()
+    # where the time goes
+    eng = ServeEngine(model, params, policy=policy, max_len=SSM_MAX_LEN,
+                      weight_store="packed", attn_impl="cuda",
+                      device="cuda")
+    pre, gemm_problems = traced_gemm_launches(
+        lambda: profile_call(torch, lambda: eng.generate(tokens, 0),
+                             ranges=(SSD_SCAN,)), "ssm prefill")
+    problems += gemm_problems
+    ssd = pre["ranges"][SSD_SCAN]
+    if ssd["ranges"] != cfg.n_layers or not ssd["calls"]:
+        problems.append(f"ssm profile: SSD ranges {ssd}, want one a layer")
+    kernels.reset_launch_counts()
+    prof = profile_call(torch, lambda: eng.generate(tokens, N_NEW))
+    calls = kernels.launch_counts()
+    g = prof["groups"]
+    where = dict(
+        device_ms=prof["device_ms"], wall_s=prof["wall_s"],
+        busy_share=prof["busy_share"],
+        kernel_launches=prof["kernel_launches"],
+        gemm_trace={n: dict(calls=calls[n], device_launches=sum(
+            g[k]["calls"] for k in grps)) for n, grps in GEMM_GROUPS.items()},
+        prefill_device_ms=pre["device_ms"],
+        prefill_launches=pre["kernel_launches"],
+        prefill_gemm_launches=pre["gemm_launches"],
+        prefill_trace_shortfalls=pre["trace_shortfalls"],
+        ssd_ms=ssd["ms"], ssd_launches=ssd["calls"],
+        ssd_share_of_prefill=ssd["ms"] / max(pre["device_ms"], 1e-9),
+        prefill_gemm_ms={k: pre["groups"][k]["ms"]
+                         for k in ("k2_tc", "k2_skinny", "k3_tc",
+                                   "k3_skinny")},
+        gemm_ms={k: g[k]["ms"] for k in ("k2_tc", "k2_skinny", "k3_tc",
+                                         "k3_skinny")},
+        launches_per_decode_step=(prof["kernel_launches"] -
+                                  pre["kernel_launches"]) / N_NEW,
+        decode_device_ms_per_step=(prof["device_ms"] - pre["device_ms"]) /
+        N_NEW, top=prof["top"])
+    where["launches_per_decode_token"] = where["launches_per_decode_step"] / B
+    emit({"phase": "ssm-profile", **where})
+    del eng
+    gc.collect()
+    eng = ServeEngine(model, params, policy=policy, max_len=SSM_MAX_LEN,
+                      weight_store="packed", attn_impl="cuda",
+                      serve_act_bits=False, device="cuda")
+    run = _state_run(torch, "ssm-run", eng, reqs, graph, policy, problems,
+                     tol=tol0)
+    peaks.append(run["peak_mem_bytes"])
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the jamba hybrid at a reduced width
+    base = ARCHS[HYBRID_ARCH].config
+    hcfg = dataclasses.replace(base, **HYBRID_CUT, moe=dataclasses.replace(
+        base.moe, d_ff=HYBRID_EXPERT_D_FF))
+    hmodel = LM(hcfg)
+    torch.cuda.reset_peak_memory_stats()
+    hparams = hmodel.init(SEED, device="cuda")
+    hinit = dict(arch=hcfg.name, cut=dict(HYBRID_CUT,
+                                          expert_d_ff=HYBRID_EXPERT_D_FF),
+                 published=dict(n_layers=base.n_layers,
+                                d_model=base.d_model, n_heads=base.n_heads,
+                                n_kv_heads=base.n_kv_heads, d_ff=base.d_ff,
+                                expert_d_ff=base.moe.d_ff),
+                 pattern=[b.kind + ("+moe" if b.use_moe else "")
+                          for b in hcfg.pattern],
+                 experts=hcfg.moe.n_experts, top_k=hcfg.moe.top_k,
+                 capacity_factor=hcfg.moe.capacity_factor,
+                 vocab=hcfg.vocab, param_bytes=_param_bytes(hparams))
+    emit({"phase": "hybrid-init", **hinit})
+    hgraph = hmodel.graph(seq_len=1, batch=1)
+    hpolicy = make_policy(hgraph)
+    htokens = rng.integers(0, hcfg.vocab, size=(B, SSM_PROMPT))
+    hfloor = _fp64_floor(torch, hmodel, hparams, hgraph, hpolicy, htokens)
+    htol = LOGIT_ATOL + 2 * hfloor["b_last_max"]
+    hfloor["act_off_tol"] = htol
+    emit({"phase": "hybrid-floor", **hfloor})
+    if hfloor["a_mean"] > hfloor["b_mean"] + LOGIT_ATOL:
+        problems.append(f"hybrid: the kernels' forward is farther from "
+                        f"fp64 than the plain one: {hfloor}")
+    ha = run_engine(torch, "hybrid-A0", hmodel, hparams, hpolicy, htokens,
+                    store="packed", impl="cuda", serve_act_bits=False,
+                    max_len=SSM_MAX_LEN)
+    hb = run_engine(torch, "hybrid-B0", hmodel, hparams, hpolicy, htokens,
+                    store="fake", impl="ref", serve_act_bits=False,
+                    max_len=SSM_MAX_LEN)
+    peaks += [ha["rec"]["peak_mem_bytes"], hb["rec"]["peak_mem_bytes"]]
+    hcheck = check_serve(torch, ha, hb, htol, _attn_layers(hcfg),
+                         hcfg.vocab)
+    problems += hcheck["problems"]
+    hcheck["gemm_want"] = _gemm_check(
+        problems, "hybrid generate", ha["rec"]["launches"], hgraph, hpolicy,
+        hcfg.n_repeat, 1 + N_NEW)
+    del ha, hb
+    heng = ServeEngine(hmodel, hparams, policy=hpolicy, max_len=SSM_MAX_LEN,
+                       weight_store="packed", attn_impl="cuda",
+                       device="cuda")
+    hreqs = [(rng.integers(0, hcfg.vocab, size=n).astype(np.int32), k)
+             for n, k in zip(HYBRID_RUN_PROMPTS, HYBRID_RUN_NEW)]
+    hrun = _state_run(torch, "hybrid-run", heng, hreqs, hgraph, hpolicy,
+                      problems)
+    if not all(hrun["launches"][k] for k in ("flash_attention",
+                                             "paged_attention",
+                                             "quant_matmul",
+                                             "packed_matmul")):
+        problems.append(f"hybrid run: a kernel not launched "
+                        f"{hrun['launches']}")
+    peaks.append(hrun["peak_mem_bytes"])
+    del heng, hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(init=init, floor=floor, drift=drift, engine_a=a_rec,
+               check_act_off=check0, gate=gate, gate_run=gate_run,
+               gemm_launches=dict(got=la, want=want), profile=where,
+               run=run, hybrid_init=hinit, hybrid_floor=hfloor,
+               hybrid_check=hcheck, hybrid_run=hrun,
+               peak_mem_bytes=max(peaks),
+               seconds=time.perf_counter() - t_phase, problems=problems)
+    emit({"phase": "ssm", "seconds": out["seconds"],
+          "peak_mem_bytes": out["peak_mem_bytes"], "problems": problems})
+    if problems:
+        raise AssertionError("ssm checks failed: " + "; ".join(problems))
     return out
 
 
@@ -2671,12 +3212,44 @@ def train_qat(torch, model, params, graph, val, data, best):
     return rec
 
 
+def _unpinned_grads_equal(torch, model, batch):
+    """C2's probe: two ``LM.loss`` gradients from one seed with the row
+    gathers' backward left to ``index_select``'s own CUDA backward (the
+    embedding and MoE dispatch and gather without ``layers.gather_rows``'s
+    deterministic sum).  Returns the number of leaves whose bits differ;
+    not a check: the path runs the pinned backward."""
+    from repro_torch.core.ddpg import tree_leaves
+    from repro_torch.models import layers, transformer
+    from repro_torch.train.loop import value_and_grad
+    pinned = layers.gather_rows
+
+    def plain(table, idx):
+        return table.index_select(0, idx.reshape(-1)).reshape(
+            idx.shape + table.shape[1:])
+
+    params = model.init(SEED + 1, "cuda")
+    layers.gather_rows = transformer.gather_rows = plain
+    try:
+        grads = [tree_leaves(value_and_grad(
+            lambda p: model.loss(p, batch, remat=True), params)[1])
+            for _ in range(2)]
+    finally:
+        layers.gather_rows = transformer.gather_rows = pinned
+    differ = sum(not torch.equal(a, b) for a, b in zip(*grads))
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return differ
+
+
 def train_lm(torch, cfg, model):
-    """LM_TRAIN_STEPS training steps of full-width, full-depth gemma2-2b
-    (LM.loss at 1 x LM_TRAIN_LEN tokens with remat=True, backward, one
-    8-bit AdamW update), run twice from one seed: the losses and every
-    parameter leaf equal bit for bit.  The remat=False loss of step 1
-    must equal the remat=True one.  Peak memory is this phase's."""
+    """LM_TRAIN_STEPS training steps of ``model`` at full width (LM.loss
+    at 1 x LM_TRAIN_LEN tokens with remat=True, backward, one 8-bit AdamW
+    update), run twice from one seed: the losses, the last step's
+    gradients and every parameter leaf equal bit for bit.  The
+    remat=False loss of step 1 must equal the remat=True one.  Peak
+    memory is this call's.  On an MoE model, C2's probe
+    (_unpinned_grads_equal) runs first."""
     from repro_torch.core.ddpg import tree_leaves
     from repro_torch.data import TokenStream
     from repro_torch.optim import AdamW
@@ -2685,6 +3258,10 @@ def train_lm(torch, cfg, model):
     opt = AdamW(lr=1e-4, state_bits=8)
     stream = TokenStream(vocab=cfg.vocab)
     batches = [stream.batch(i, 1, LM_TRAIN_LEN) for i in range(LM_TRAIN_STEPS)]
+    unpinned = None
+    if cfg.moe is not None:
+        unpinned = _unpinned_grads_equal(torch, model,
+                                         upload_batch(batches[0], dev))
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
@@ -2702,37 +3279,42 @@ def train_lm(torch, cfg, model):
             loss, g = value_and_grad(
                 lambda p: model.loss(p, tb, remat=True), params)
             params, state, m = opt.update(params, g, state)
-            del g
             torch.cuda.synchronize()
             steps.append(dict(seconds=time.perf_counter() - t0, loss=loss,
                               grad_norm=m["grad_norm"]))
-        return params, steps, (loss_nr if first else None)
+            if i + 1 < len(batches):
+                del g
+        return params, g, steps, (loss_nr if first else None)
 
-    params, steps, loss_nr = one_run(True)
+    params, g, steps, loss_nr = one_run(True)
     peak = torch.cuda.max_memory_allocated()
     kept = [t.cpu() for t in tree_leaves(params)]
-    del params
+    kept_g = [t.cpu() for t in tree_leaves(g)]
+    del params, g
     gc.collect()
     torch.cuda.empty_cache()
-    params2, steps2, _ = one_run(False)
+    params2, g2, steps2, _ = one_run(False)
     n_leaves = len(kept)
     differ = sum(not torch.equal(a.to(dev), b)
                  for a, b in zip(kept, tree_leaves(params2)))
+    grads_differ = sum(not torch.equal(a.to(dev), b)
+                       for a, b in zip(kept_g, tree_leaves(g2)))
     losses_equal = all(torch.equal(a["loss"], b["loss"])
                        for a, b in zip(steps, steps2))
     remat_equal = bool(torch.equal(loss_nr, steps[0]["loss"]))
-    del params2, kept
+    del params2, g2, kept, kept_g
     gc.collect()
     torch.cuda.empty_cache()
     problems = []
-    if differ or not losses_equal:
-        problems.append(f"two gemma2-2b training runs differ: {differ} "
-                        f"leaves, losses equal {losses_equal}")
+    if differ or grads_differ or not losses_equal:
+        problems.append(f"two {cfg.name} training runs differ: {differ} "
+                        f"parameter and {grads_differ} gradient leaves, "
+                        f"losses equal {losses_equal}")
     if not remat_equal:
         problems.append(f"remat=False loss {float(loss_nr)} != remat=True "
                         f"{float(steps[0]['loss'])}")
     if not all(np.isfinite(float(s["loss"])) for s in steps + steps2):
-        problems.append("non-finite gemma2-2b loss")
+        problems.append(f"non-finite {cfg.name} loss")
 
     def fl(st):
         return [dict(seconds=s["seconds"], loss=float(s["loss"]),
@@ -2740,8 +3322,10 @@ def train_lm(torch, cfg, model):
     rec = dict(arch=cfg.name, layers=cfg.n_layers, tokens=[1, LM_TRAIN_LEN],
                remat=True, state_bits=8, steps=fl(steps),
                steps_repeat=fl(steps2), leaves=n_leaves,
-               leaves_differing=differ, losses_equal=losses_equal,
+               leaves_differing=differ, grad_leaves_differing=grads_differ,
+               losses_equal=losses_equal,
                loss_remat_false=float(loss_nr), remat_equal=remat_equal,
+               unpinned_grad_leaves_differing=unpinned,
                resident_bytes_before=resident, peak_mem_bytes=peak,
                peak_mem_bytes_both=torch.cuda.max_memory_allocated(),
                problems=problems)
@@ -2751,8 +3335,9 @@ def train_lm(torch, cfg, model):
 
 def phase_train(torch, cfg, lm, card, sub):
     """The Trainer, the roofline reward, QAT (on the search phase's
-    substrate, val images and best QUANT policy) and one gemma2-2b
-    training step."""
+    substrate, val images and best QUANT policy), and the LM training
+    steps of gemma2-2b and of granite-moe-3b-a800m at published width and
+    depth (C2's check: MoE training bit-reproducible)."""
     import tempfile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
@@ -2762,9 +3347,13 @@ def phase_train(torch, cfg, lm, card, sub):
     qat = train_qat(torch, sub["model"], sub["params"], sub["graph"],
                     sub["val"], sub["data"], sub["best"])
     lm_rec = train_lm(torch, cfg, lm)
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    moe_cfg = ARCHS[MOE_ARCH].config
+    moe_rec = train_lm(torch, moe_cfg, LM(moe_cfg))
     recs = dict(trainer=trainer, roofline=roof, qat=qat, lm=lm_rec,
-                seconds=time.perf_counter() - t0)
-    problems = [p for r in (trainer, roof, qat, lm_rec)
+                lm_moe=moe_rec, seconds=time.perf_counter() - t0)
+    problems = [p for r in (trainer, roof, qat, lm_rec, moe_rec)
                 for p in r["problems"]]
     emit({"phase": "train", "seconds": recs["seconds"]})
     if problems:
@@ -2832,6 +3421,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe = phase_moe(torch)
+    ssm = phase_ssm(torch)
     train = phase_train(torch, cfg, model, card, substrate)
     launches = dict(rec_a["launches"])
     launches["paged_attention"] = \
@@ -2842,12 +3432,18 @@ def main(argv=None) -> int:
     gen = {"generate": rec_a["launches"],
            "generate_bf16": store["bf16"]["generate_launches"],
            "generate_int8_store": store["int8"]["generate"]["launches"],
-           "moe_generate": moe["engine_a"]["launches"]}
+           "moe_generate": moe["engine_a"]["launches"],
+           "ssm_generate": ssm["engine_a"]["launches"],
+           "ssm_gate_generate": ssm["gate"]["launches_a"],
+           "hybrid_generate": ssm["hybrid_check"]["launches_a"]}
     runs = {"run": run["runs"]["overlap"]["launches"],
             "run_bf16": store["bf16"]["launches"],
             "run_int8_store": store["int8"]["launches"],
             "moe_run": moe["run"]["launches"],
-            "moe_run_cf0": moe["run_cf0"]["launches"]}
+            "moe_run_cf0": moe["run_cf0"]["launches"],
+            "ssm_run": ssm["run"]["launches"],
+            "ssm_gate_run": ssm["gate_run"]["launches"],
+            "hybrid_run": ssm["hybrid_run"]["launches"]}
     by_path = {"fake_quant": {"search": launches["fake_quant"],
                               "qat": train["qat"]["launches"]["fake_quant"]}}
     for name in ("flash_attention", "quant_matmul", "packed_matmul",
@@ -2857,7 +3453,7 @@ def main(argv=None) -> int:
     kernels = summarize(rows, launches, by_path)
     result = {"card": card, "kernel_rows": rows, "engine_a": rec_a,
               "engine_b": rec_b, "checks": checks, "run": run,
-              "cache_and_store": store, "moe": moe,
+              "cache_and_store": store, "moe": moe, "ssm": ssm,
               "search": search, "train": train, "kernels": kernels,
               "seconds": time.perf_counter() - t0}
     if args.out:

@@ -1,5 +1,5 @@
-"""Architecture configs (copies of ``repro.configs``' dense and MoE
-families).
+"""Architecture configs (copies of ``repro.configs``' dense, MoE, SSM and
+hybrid families).
 
 ``get(arch_id)`` returns an :class:`ArchSpec` with the full production
 config and a reduced smoke config of the same family.

@@ -73,11 +73,63 @@ def expert_linear(x: torch.Tensor, w) -> torch.Tensor:
     return torch.bmm(x, w)
 
 
+def _select_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return table.index_select(0, idx.reshape(-1)).reshape(
+        idx.shape + table.shape[1:])
+
+
+class _RowGather(torch.autograd.Function):
+    """``table.index_select(0, idx)`` (any ``idx`` shape) whose backward is
+    deterministic: the rows of repeated indices are summed by PyTorch's
+    sort-based ``index_put_`` (stable sort, each row's terms added in
+    index order), with deterministic algorithms switched on for that one
+    call.  ``index_select``'s own CUDA backward sums them with atomics,
+    in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return _select_rows(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        was = torch.are_deterministic_algorithms_enabled()
+        warn = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            gt = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
+            gt.index_put_((idx,), g, accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(was, warn_only=warn)
+        return gt, None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (int64, any shape) of ``table``: a plain
+    ``index_select``, whose gradient, when one is taken, is summed
+    deterministically (:class:`_RowGather`), so two training runs from
+    one seed give the same bits on the card.  The embedding lookup and
+    the MoE dispatch and gather take their rows through it."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _RowGather.apply(table, idx)
+    return _select_rows(table, idx)
+
+
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32, or wider: the reference's ``astype(float32)`` on the
+    model's fp32 and bf16 tensors, while an fp64 tensor stays fp64, so an
+    fp64 evaluation of a forward (a check's noise floor) is fp64
+    throughout."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    xf = x.to(torch.float32)
+    xf = at_least_f32(x)
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (y * (1.0 + w.to(torch.float32))).to(dt)
+    return (y * (1.0 + at_least_f32(w))).to(dt)
 
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
@@ -332,7 +384,9 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits):
     (expert, position) cell (an index copy, no atomics: the card stays
     deterministic), empty cells read a zero row.  SwiGLU runs per expert
     through :func:`expert_linear`, and each pair gathers its expert's
-    output row back, weighted by its gate, summed over the K slots.
+    output row back, weighted by its gate, summed over the K slots.  Both
+    row gathers go through :func:`gather_rows`, whose backward sums
+    repeated rows deterministically.
     The dispatch (router softmax to the filled buffer) and the gather run
     inside the profiler ranges ``MOE_DISPATCH`` and ``MOE_GATHER``, which
     a profile reads to split their device time from the rest."""
@@ -361,7 +415,7 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits):
         src = torch.full((trash + 1,), T, dtype=torch.int64, device=dev)
         tok = torch.arange(T * K, device=dev) // K             # pair -> token
         src.index_copy_(0, cell, tok)    # kept cells are written once each
-        buf = xpad.index_select(0, src[:trash]).reshape(E_phys, C, d)
+        buf = gather_rows(xpad, src[:trash]).reshape(E_phys, C, d)
 
     h = F.silu(expert_linear(buf, p["wg"])) * expert_linear(buf, p["wu"])
     out_buf = expert_linear(h, p["wd"])                        # (E_phys, C, d)
@@ -369,7 +423,7 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits):
     with torch.profiler.record_function(MOE_GATHER):
         opad = torch.cat([out_buf.reshape(trash, d),
                           out_buf.new_zeros((1, d))])
-        gathered = opad.index_select(0, cell)                  # (T*K, d)
+        gathered = gather_rows(opad, cell)                     # (T*K, d)
         weighted = gathered * gate_v.reshape(-1)[:, None].to(gathered.dtype)
         out = weighted.reshape(T, K, d).sum(dim=1)
     return out.reshape(orig_shape), probs

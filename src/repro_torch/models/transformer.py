@@ -1,18 +1,22 @@
-"""Config-driven decoder LM, attention families with dense or MoE FFNs
-(port of ``repro/models/transformer.py``).
+"""Config-driven decoder LM: attention and Mamba2 (SSD) blocks with dense
+or MoE FFNs (port of ``repro/models/transformer.py``).
 
 Covers what ``ServeEngine.generate`` and ``run`` / ``serve`` run: GQA
-attention with RoPE, the sliding window and the softcaps, dense SwiGLU and
-capacity-based top-k MoE FFNs, ``prefill`` and ``decode_step`` over the
-dense KV cache (bf16 by default, fp32, or int8 with per-(position, head)
-scales), and ``decode_step_paged`` and ``model_step`` over the paged pool
-(``init_paged_cache``), and the training loss (``loss``, with per-repeat
-rematerialisation and the MoE load-balance term).  Weights may arrive in
-the uniform int8 store (:meth:`LM.quantize_params_int8`: ``{"q", "s"}``
-leaves) or the packed store (``quant.apply.apply_policy_packed``).  Parameters
-keep the reference's pytree: ``{"blocks": tuple per pattern position of
+attention with RoPE, the sliding window and the softcaps, Mamba2 blocks
+(``models/ssm.py``), dense SwiGLU and capacity-based top-k MoE FFNs,
+``prefill`` and ``decode_step`` over the dense cache (K/V in bf16 by
+default, fp32, or int8 with per-(position, head) scales; a mamba block's
+recurrent ``"state"``), and ``decode_step_paged`` and ``model_step`` over
+the paged pool (``init_paged_cache``; ``model_step`` takes all-paged
+patterns only, as the reference's), and the training loss (``loss``,
+with per-repeat rematerialisation and the MoE load-balance term).
+Weights may arrive in the uniform int8 store
+(:meth:`LM.quantize_params_int8`: ``{"q", "s"}`` leaves) or the packed
+store (``quant.apply.apply_policy_packed``).  Parameters keep the
+reference's pytree: ``{"blocks": tuple per pattern position of
 dicts of (n_repeat, ...) stacked tensors, "final_norm", "unembed",
-"embed"}``.  A Python loop over the stacked repeats takes the place of
+"embed"}`` (a mamba block's weights in its ``"mamba"`` sub-dict).  A
+Python loop over the stacked repeats takes the place of
 ``lax.scan``; its depth is the params' own, so the speculative draft's
 prefix view (``draft_prefix_params``) runs through the same entry points.
 
@@ -38,17 +42,21 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import backend
 from repro_torch.kernels.pack import PackedWeight
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.api import BlockDef, LMConfig
 from repro_torch.models.layers import (POS_SENTINEL, attention,
-                                       is_int8_leaf, linear, maybe_quant_act,
-                                       moe_ffn, paged_attention, rmsnorm,
-                                       rope, softcap, swiglu)
+                                       gather_rows, is_int8_leaf, linear,
+                                       maybe_quant_act, moe_ffn,
+                                       paged_attention, rmsnorm, rope,
+                                       softcap, swiglu)
 from repro_torch.quant.linear_quant import FULL_BITS
 from repro_torch.quant.policy import LayerInfo, QuantizableGraph
 
+# block kinds and front ends the port does not run yet
 NOT_PORTED = {
-    "mamba": "ROADMAP.md A10 (mamba blocks)",
     "cross_attn": "ROADMAP.md A10 (cross-attention memory cache)",
+    "vision_stub": "ROADMAP.md A10 (cross-attention memory cache)",
+    "audio_stub": "ROADMAP.md A10 (audio_stub front end)",
 }
 
 # leaves that quantize_params_int8 stores as {"q", "s"} (the reference's
@@ -135,33 +143,6 @@ def _kv_write_paged(cache, k, v, wp, block_tables):
     cache["pos"][fp, fs] = wp.reshape(-1).to(torch.int32)
 
 
-class _EmbedLookup(torch.autograd.Function):
-    """``embed[tokens]`` whose backward is deterministic: rows of repeated
-    tokens are summed by PyTorch's sort-based ``index_put_`` (stable sort,
-    each row's terms added in token order), with deterministic algorithms
-    switched on for that one call, so two training runs from one seed
-    give the same bits."""
-
-    @staticmethod
-    def forward(ctx, embed, tokens):
-        ctx.save_for_backward(tokens)
-        ctx.embed_shape = embed.shape
-        return embed[tokens]
-
-    @staticmethod
-    def backward(ctx, g):
-        (tokens,) = ctx.saved_tensors
-        was = torch.are_deterministic_algorithms_enabled()
-        warn = torch.is_deterministic_algorithms_warn_only_enabled()
-        torch.use_deterministic_algorithms(True)
-        try:
-            ge = torch.zeros(ctx.embed_shape, dtype=g.dtype, device=g.device)
-            ge.index_put_((tokens,), g, accumulate=True)
-        finally:
-            torch.use_deterministic_algorithms(was, warn_only=warn)
-        return ge, None
-
-
 def _save_dots(ctx, op, *args, **kwargs):
     """``remat="dots"``: keep the outputs of the 2-d matmuls (the weight
     products; ``layers.linear`` is ``aten.mm``), recompute the rest, as
@@ -172,12 +153,15 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _slice_leaf(v, key):
     """``v[key]`` of one stacked leaf: a tensor, a PackedWeight (``int``
-    key: :meth:`PackedWeight.take`; slice: :meth:`PackedWeight.prefix`)
-    or an int8-store ``{"q", "s"}`` pair (views, no copy)."""
+    key: :meth:`PackedWeight.take`; slice: :meth:`PackedWeight.prefix`),
+    an int8-store ``{"q", "s"}`` pair, or a dict of such (a mamba block's
+    ``"mamba"`` weights or cache entry), leaf by leaf (views, no copy)."""
     if isinstance(v, PackedWeight):
         return v.take(key) if isinstance(key, int) else v.prefix(key.stop)
     if is_int8_leaf(v):
         return {"q": v["q"][key], "s": v["s"][key]}
+    if isinstance(v, dict):
+        return {k: _slice_leaf(x, key) for k, x in v.items()}
     return v[key]
 
 
@@ -213,15 +197,22 @@ class LM:
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=device)
 
+        if cfg.frontend is not None:
+            raise _not_ported(cfg.frontend)
         blocks = []
         for bdef in cfg.pattern:
-            if bdef.kind not in ("attn", "local_attn"):
+            p = {"norm": zeros(R, d)}
+            if bdef.kind in ("attn", "local_attn"):
+                p.update(wq=lin(d, R, d, cfg.n_heads * hd),
+                         wk=lin(d, R, d, cfg.n_kv_heads * hd),
+                         wv=lin(d, R, d, cfg.n_kv_heads * hd),
+                         wo=lin(cfg.n_heads * hd, R, cfg.n_heads * hd, d))
+            elif bdef.kind == "mamba":
+                p["mamba"] = ssm_mod.init_mamba_params(
+                    lambda fan_in, *s: lin(fan_in, R, *s),
+                    lambda *s: zeros(R, *s), d, cfg.ssm)
+            else:
                 raise _not_ported(bdef.kind)
-            p = {"norm": zeros(R, d),
-                 "wq": lin(d, R, d, cfg.n_heads * hd),
-                 "wk": lin(d, R, d, cfg.n_kv_heads * hd),
-                 "wv": lin(d, R, d, cfg.n_kv_heads * hd),
-                 "wo": lin(cfg.n_heads * hd, R, cfg.n_heads * hd, d)}
             if bdef.has_ffn and bdef.use_moe:
                 m = cfg.moe
                 ep = m.n_experts_phys
@@ -235,8 +226,6 @@ class LM:
                          wu=lin(d, R, d, cfg.d_ff),
                          wd=lin(cfg.d_ff, R, cfg.d_ff, d))
             blocks.append(p)
-        if cfg.frontend is not None:
-            raise _not_ported("cross_attn")
         return {"blocks": tuple(blocks), "final_norm": zeros(d),
                 "unembed": lin(d, d, cfg.vocab_padded),
                 "embed": lin(d, cfg.vocab_padded, d)}
@@ -323,15 +312,42 @@ class LM:
             return x + out, m.n_experts * torch.sum(frac * frac)
         return x + swiglu(h, bp, act_bits=act_bits), None
 
+    def _mamba_block(self, bp, x, *, mode, cache, act_bits=None):
+        """Mamba2 block + residual: the full forward (``cache`` None), a
+        prefill that fills ``cache``, or one decode step (``mode``
+        "decode") over it.  The cache's planes are written in place: the
+        prefill's state and its conv window cast to the planes' dtypes,
+        as the reference casts them; decode's fp32 window into a conv
+        plane :meth:`_stack` has promoted to fp32, as the reference's
+        decode returns it.  Paged decode runs every lane of the batch;
+        idle lanes update state that nothing reads."""
+        cfg = self.cfg
+        h = maybe_quant_act(rmsnorm(x, bp["norm"], cfg.norm_eps), act_bits)
+        if mode == "decode":
+            out, new = ssm_mod.mamba_decode_step(bp["mamba"], h, cache,
+                                                 cfg.ssm, cfg.d_model)
+        else:
+            out, new = ssm_mod.mamba_forward(bp["mamba"], h, cfg.ssm,
+                                             cfg.d_model)
+        if cache is not None:
+            cache["state"].copy_(new["state"])
+            cache["conv"].copy_(new["conv"])
+        return x + out
+
     def _apply_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                      write_pos=None, act_bits=None, attn_impl=None,
                      block_tables=None):
         """One block; returns (x, aux) (aux None without an MoE FFN)."""
-        if bdef.kind not in ("attn", "local_attn"):
+        if bdef.kind == "mamba":
+            x = self._mamba_block(bp, x, mode=mode, cache=cache,
+                                  act_bits=act_bits)
+        elif bdef.kind in ("attn", "local_attn"):
+            x = self._attn_block(bp, bdef, x, q_pos=q_pos, mode=mode,
+                                 cache=cache, write_pos=write_pos,
+                                 act_bits=act_bits, attn_impl=attn_impl,
+                                 block_tables=block_tables)
+        else:
             raise _not_ported(bdef.kind)
-        x = self._attn_block(bp, bdef, x, q_pos=q_pos, mode=mode, cache=cache,
-                             write_pos=write_pos, act_bits=act_bits,
-                             attn_impl=attn_impl, block_tables=block_tables)
         if bdef.has_ffn:
             return self._ffn(bp, bdef, x, act_bits=act_bits)
         return x, None
@@ -342,8 +358,17 @@ class LM:
         runs without one (the full-sequence forward).  ``remat`` (that
         forward only) checkpoints each repeat: True saves nothing inside
         it, ``"dots"`` saves its matmul outputs.  Returns (x, aux): the
-        sum of the MoE blocks' load-balance terms, 0.0 without any."""
+        sum of the MoE blocks' load-balance terms, 0.0 without any.
+
+        A decode step first promotes a mamba entry's conv plane to fp32
+        (once: the reference's decode returns the window in fp32 whatever
+        the cache dtype, so a bf16 plane holds only the prefill's rounded
+        window and every later entry stays fp32)."""
         cfg = self.cfg
+        if cache is not None and kw.get("mode") == "decode":
+            for entry in cache:
+                if "conv" in entry and entry["conv"].dtype != torch.float32:
+                    entry["conv"] = entry["conv"].to(torch.float32)
 
         def one_repeat(x, r):
             aux = []
@@ -370,15 +395,15 @@ class LM:
         return x, total
 
     # --------------------------------------------------------------- helpers
-    def _embed_tokens(self, params, tokens, grad=False):
+    def _embed_tokens(self, params, tokens):
         """Embedding rows of ``tokens``: an int8-store embedding is a row
         gather times the row scale (plain PyTorch: the reference runs no
-        kernel there); a dense one is a plain lookup, or with ``grad``
-        :class:`_EmbedLookup` (deterministic backward)."""
+        kernel there); a dense one a lookup through
+        :func:`layers.gather_rows` (deterministic backward)."""
         emb = params["embed"]
         if is_int8_leaf(emb):
             return emb["q"][tokens].to(emb["s"].dtype) * emb["s"][tokens]
-        return _EmbedLookup.apply(emb, tokens) if grad else emb[tokens]
+        return gather_rows(emb, tokens)
 
     def logits_of(self, params, x):
         cfg = self.cfg
@@ -428,10 +453,11 @@ class LM:
         ``apply``.  act_bits: optional
         (n_repeat, len(pattern)) activation QBNs on the host; attn_impl:
         layers.ATTN_IMPLS; remat: False, True or ``"dots"``
-        (:meth:`_stack`).  Differentiable: the embedding's gradient is
-        deterministic (:class:`_EmbedLookup`)."""
+        (:meth:`_stack`).  Differentiable: the gradients of the embedding
+        and of the MoE dispatch and gather are summed deterministically
+        (:func:`layers.gather_rows`)."""
         tokens = batch["tokens"]
-        x = self._embed_tokens(params, tokens.long(), grad=True)
+        x = self._embed_tokens(params, tokens.long())
         B, S, _ = x.shape
         q_pos = torch.arange(S, dtype=torch.int32,
                              device=x.device).repeat(B, 1)
@@ -466,14 +492,20 @@ class LM:
         default, bf16; or fp32), ``pos`` (R, B, W) int32 starting at the
         sentinel, and with ``kv_bits=8`` (which wins over ``dtype``) int8
         K/V plus ``k_s``/``v_s`` (R, B, W, Hkv) f32 scales.  ``W`` is
-        ``max_len``, or the window for ``local_attn`` blocks.  Runs on the
-        card unless ``device`` says otherwise."""
+        ``max_len``, or the window for ``local_attn`` blocks.  A mamba
+        block's entry is its recurrent state (``ssm.init_mamba_cache``:
+        ``state`` fp32, ``conv`` in ``dtype``).  Runs on the card unless
+        ``device`` says otherwise."""
         device = backend.resolve_device(device)
         cfg = self.cfg
         kv_dt = _kv_dtype(dtype, kv_bits)
         R, Hkv, hd = cfg.n_repeat, cfg.n_kv_heads, cfg.hdim
         caches = []
         for bdef in cfg.pattern:
+            if bdef.kind == "mamba":
+                caches.append(ssm_mod.init_mamba_cache(
+                    batch, cfg.d_model, cfg.ssm, dtype, (R,), device))
+                continue
             if bdef.kind not in ("attn", "local_attn"):
                 raise _not_ported(bdef.kind)
             W = max_len if (bdef.kind != "local_attn" or cfg.window is None) \
@@ -499,17 +531,18 @@ class LM:
                          kv_bits: Optional[int] = None,
                          n_repeat: Optional[int] = None,
                          device: backend.DeviceLike = None):
-        """Paged KV pool for the continuous-batching engine, per pattern
-        position (all ``"paged"``: attention kinds only): ``k``/``v``
+        """Paged decode cache for the continuous-batching engine, per
+        pattern position, keyed by ``cfg.cache_kinds()``: a ``"paged"``
+        (attention) entry is a pool of ``k``/``v``
         (R, P, page_size, Hkv, hd) in ``dtype`` (bf16 by default, as the
         reference's; or fp32), or int8 with ``kv_bits=8`` plus
         ``k_s``/``v_s`` (R, P, page_size, Hkv) f32 per-(slot, head)
         scales, and ``pos`` (R, P, page_size) int32 starting at the
-        sentinel.  Page 0 is the trash page.  ``n_slots`` is the decode
-        width, which the attention kinds' pool does not depend on (the
-        reference sizes its non-paged kinds by it).  ``n_repeat``
-        overrides the stack depth.  Runs on the card unless ``device``
-        says otherwise."""
+        sentinel, page 0 the trash page; a ``"state"`` (mamba) entry is
+        the dense recurrent state with batch axis ``n_slots`` (one lane
+        per scheduler slot), as :meth:`init_cache` builds it.
+        ``n_repeat`` overrides the stack depth.  Runs on the card unless
+        ``device`` says otherwise."""
         device = backend.resolve_device(device)
         cfg = self.cfg
         R = cfg.n_repeat if n_repeat is None else n_repeat
@@ -520,6 +553,10 @@ class LM:
         shape = (R, num_pages, page_size, cfg.n_kv_heads, cfg.hdim)
         caches = []
         for bdef in cfg.pattern:
+            if bdef.kind == "mamba":
+                caches.append(ssm_mod.init_mamba_cache(
+                    n_slots, cfg.d_model, cfg.ssm, dtype, (R,), device))
+                continue
             if bdef.kind not in ("attn", "local_attn"):
                 raise _not_ported(bdef.kind)
             one = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
@@ -611,7 +648,16 @@ class LM:
         slot_map: (R,) int; block_tables: (n_slots, nb) int32;
         logit_cols: (R,) -- each row's last real column, returns
         (R, 1, V) -- or (R, C), one logits row per listed column, returns
-        (R, C, V).  Returns (logits, cache)."""
+        (R, C, V).  Returns (logits, cache).  The pattern's cache kinds
+        must all be ``"paged"``: recurrent state cannot take a chunk, and
+        such patterns serve through the monolithic path, as in the
+        reference."""
+        kinds = self.cfg.cache_kinds()
+        if any(kd != "paged" for kd in kinds):
+            raise ValueError(
+                "model_step requires a pure paged-cache pattern (attn / "
+                f"local_attn only); got cache kinds {kinds} -- serve hybrid "
+                "architectures through the monolithic prefill path")
         x = self._embed_tokens(params, tokens.long())
         q_pos = positions.to(torch.int32)
         bt_rows = block_tables.index_select(0, slot_map.long())
@@ -662,18 +708,28 @@ class LM:
 
         d, hd = cfg.d_model, cfg.hdim
         for p_idx, bdef in enumerate(cfg.pattern):
-            if bdef.kind not in ("attn", "local_attn"):
-                raise _not_ported(bdef.kind)
             pre, nm = ("blocks", p_idx), f"p{p_idx}"
-            qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
-            add(f"{nm}.wq", pre + ("wq",), d, qd, R * toks * d * qd,
-                R * d * qd, -1)
-            add(f"{nm}.wk", pre + ("wk",), d, kvd, R * toks * d * kvd,
-                R * d * kvd, -1)
-            add(f"{nm}.wv", pre + ("wv",), d, kvd, R * toks * d * kvd,
-                R * d * kvd, -1)
-            add(f"{nm}.wo", pre + ("wo",), qd, d, R * toks * qd * d,
-                R * qd * d, -1)
+            if bdef.kind in ("attn", "local_attn"):
+                qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+                add(f"{nm}.wq", pre + ("wq",), d, qd, R * toks * d * qd,
+                    R * d * qd, -1)
+                add(f"{nm}.wk", pre + ("wk",), d, kvd, R * toks * d * kvd,
+                    R * d * kvd, -1)
+                add(f"{nm}.wv", pre + ("wv",), d, kvd, R * toks * d * kvd,
+                    R * d * kvd, -1)
+                add(f"{nm}.wo", pre + ("wo",), qd, d, R * toks * qd * d,
+                    R * qd * d, -1)
+            elif bdef.kind == "mamba":
+                s = cfg.ssm
+                di = s.d_inner(d)
+                add(f"{nm}.w_xz", pre + ("mamba", "w_xz"), d, 2 * di,
+                    R * toks * d * 2 * di, R * d * 2 * di, -1)
+                add(f"{nm}.w_bc", pre + ("mamba", "w_bc"), d, 2 * s.d_state,
+                    R * toks * d * 2 * s.d_state, R * d * 2 * s.d_state, -1)
+                add(f"{nm}.w_out", pre + ("mamba", "w_out"), di, d,
+                    R * toks * di * d, R * di * d, -1)
+            else:
+                raise _not_ported(bdef.kind)
             if bdef.has_ffn and bdef.use_moe:
                 m = cfg.moe
                 eff_toks = toks * m.top_k / m.n_experts

@@ -301,8 +301,9 @@ class ServeEngine:
 
         requests: each a :class:`Request`, a ``{"tokens", "n_new",
         "temperature"?, "seed"?}`` dict, or a ``(tokens, n_new)`` tuple
-        with a 1-D prompt.  ``prefill="chunked"`` (the default) submits
-        them all to a :class:`FrontEnd` and drains :meth:`serve`: one
+        with a 1-D prompt.  ``prefill="chunked"`` (the default when every
+        cache kind is ``"paged"``) submits them all to a
+        :class:`FrontEnd` and drains :meth:`serve`: one
         ``model_step`` per step, every in-flight sequence contributing up
         to ``chunk_tokens`` (default ``page_size``) prompt tokens or one
         decode token under ``token_budget`` real tokens (default
@@ -310,8 +311,12 @@ class ServeEngine:
         ``overlap`` selects the pipelined step loop; both settings give the
         same streams.  ``prefill="monolithic"`` prefills each admitted
         request alone (K1), scatters it into the pool and decodes the
-        batch through ``decode_step_paged``.  ``num_pages`` defaults to
-        ``max_slots`` sequences at ``max_len`` plus the trash page; a
+        batch through ``decode_step_paged``; it is the default, and the
+        only mode, for patterns with recurrent (mamba) ``"state"``
+        entries, which cannot take a chunk: forcing ``"chunked"`` or
+        ``speculative=True`` on them raises before any model call, as in
+        the reference.  ``num_pages`` defaults to ``max_slots``
+        sequences at ``max_len`` plus the trash page; a
         smaller pool throttles admission and requeues prefills that cannot
         grow.
 
@@ -330,13 +335,19 @@ class ServeEngine:
         order], "stats": ServeStats}``."""
         reqs = [as_request(i, r) for i, r in enumerate(requests)]
         kinds = self.model.cfg.cache_kinds()
+        chunkable = all(kd == "paged" for kd in kinds)
         if prefill is None:
-            prefill = "chunked"
+            prefill = "chunked" if chunkable else "monolithic"
         if prefill not in ("chunked", "monolithic"):
             raise ValueError(f"unknown prefill mode {prefill!r}")
+        if prefill == "chunked" and not chunkable:
+            raise ValueError(
+                f"prefill='chunked' needs all-paged cache kinds, got "
+                f"{kinds}: recurrent/memory blocks cannot chunk -- use "
+                "prefill='monolithic'")
         if speculative:
             # fail fast, before any model call
-            if not all(kd == "paged" for kd in kinds):
+            if not chunkable:
                 raise ValueError(
                     f"speculative=True needs all-paged cache kinds, got "
                     f"{kinds}: recurrent/memory blocks cannot run the "
@@ -393,11 +404,18 @@ class ServeEngine:
         synchronously (acceptance needs token values).  The knobs are
         :meth:`run`'s.  Returns ``{"outputs": {rid: np.ndarray}, "stats":
         ServeStats, "shed": [rid, ...]}``; shed requests have empty
-        streams."""
+        streams.  Chunked only: a pattern whose cache kinds are not all
+        ``"paged"`` raises, as in the reference (it serves through
+        ``run(prefill="monolithic")``)."""
+        kinds = self.model.cfg.cache_kinds()
+        if not all(kd == "paged" for kd in kinds):
+            raise ValueError(
+                f"open-loop serving needs all-paged cache kinds, got "
+                f"{kinds}: recurrent/memory blocks cannot chunk -- serve "
+                "hybrid patterns through run(prefill='monolithic')")
         if speculative:
             self._validate_draft_args(draft_k, draft_policy, draft_layers,
                                       draft_act_bits)
-        kinds = self.model.cfg.cache_kinds()
         chunk = chunk_tokens if chunk_tokens is not None else page_size
         if token_budget is not None:
             budget = token_budget

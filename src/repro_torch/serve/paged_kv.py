@@ -208,10 +208,14 @@ def write_prefill(paged_cache, dense_cache, kinds: Sequence[str], slot: int,
     (sliding-window) cache copies exactly the positions it kept; every
     plane of the entry (k / v, ``pos``, int8 scale pages) copies the same
     way.  Reads the positions on the host (a device sync: this is the
-    monolithic path).  ``slot`` is unused by the attention kinds the port
-    serves.  Returns ``paged_cache``."""
+    monolithic path).  A ``"state"`` (mamba) entry copies whole, every
+    plane, into batch lane ``slot``.  Returns ``paged_cache``."""
     blocks_np = np.asarray(list(blocks), np.int64)
     for kind, pool, pre in zip(kinds, paged_cache, dense_cache):
+        if kind == "state":
+            for key in pool:
+                pool[key][:, slot] = pre[key][:, 0].to(pool[key].dtype)
+            continue
         if kind != "paged":
             raise ValueError(f"write_prefill: cache kind {kind!r} is not "
                              "ported (ROADMAP.md A10)")

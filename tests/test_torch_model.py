@@ -120,13 +120,20 @@ def test_block_act_bits_and_graph_match_reference():
 
 
 def test_unported_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        get("jamba-1.5-large-398b")
+    """The vision and audio families, and a cross-attention block or an
+    audio front end on a ported family, raise naming their own item."""
+    with pytest.raises(NotImplementedError, match="A10.*cross-attention"):
+        get("llama-3.2-vision-90b")
+    with pytest.raises(NotImplementedError, match="A10.*audio_stub"):
+        get("musicgen-large")
     import dataclasses
     from repro_torch.configs.base import dense
     smoke = ARCHS["gemma2-2b"].smoke
-    tm = LM(dataclasses.replace(smoke, pattern=(dense("mamba"),)))
-    with pytest.raises(NotImplementedError, match="A10"):
+    tm = LM(dataclasses.replace(smoke, pattern=(dense("cross_attn"),)))
+    with pytest.raises(NotImplementedError, match="A10.*cross-attention"):
+        tm.init(0, device="cpu")
+    tm = LM(dataclasses.replace(smoke, frontend="audio_stub"))
+    with pytest.raises(NotImplementedError, match="A10.*audio_stub"):
         tm.init(0, device="cpu")
     with pytest.raises(KeyError):
         get("no-such-arch")

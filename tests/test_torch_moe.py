@@ -5,8 +5,9 @@ Seeded numpy inputs go through the reference's ``_moe_ffn_impl`` and the
 port's ``moe_ffn``, and the reference's smoke models (granite-moe,
 llama4-scout) cross over with ``interop.params_from_numpy``.  Outputs
 must agree to rtol = atol = 1e-4 (both sides compute in f32 and differ
-in summation order).  Routing must be the same experts in the same order
-first: a router-probability difference at f32 rounding can swap a
+in summation order), gradients to rtol 1e-4 / atol 1e-5
+(``GRAD_TOL``, tests/test_torch_train.py).  Routing must be the same
+experts in the same order first: a router-probability difference at f32 rounding can swap a
 token's k-th and (k+1)-th expert and move its output by O(1), so a token
 whose adjacent top-(k+1) probabilities lie within ``TIE`` of each other
 is left out of both comparisons (the gap rule, applied to routing);
@@ -40,6 +41,7 @@ from repro_torch.quant.policy import QuantMode, QuantPolicy  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)      # tests/test_torch_train.py
 TIE = 1e-6
 MOE_ARCHS = ["granite-moe-3b-a800m", "llama4-scout-17b-a16e"]
 
@@ -155,6 +157,41 @@ def test_moe_lm_matches_reference(arch):
         tl, tc = tm.decode_step(tp, _t(tok).long(), tc, 10 + i,
                                 attn_impl="cuda")
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("cf", [0.0, 1.25])
+def test_moe_lm_grads_match_reference(arch, cf):
+    """value_and_grad of LM.loss against jax.value_and_grad of the
+    reference's, every leaf at GRAD_TOL (tests/test_torch_train.py), at
+    capacity factor 0 (nothing dropped) and 1.25 (over-capacity pairs
+    dropped; their gradient is the residual path's alone): the dispatch's
+    and the gather's index_select backwards, the gates' and the router's
+    gradients included."""
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.interop import params_to_numpy
+    base = JARCHS[arch].smoke
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=cf))
+    jm, jp, tm, tp = _pair(arch, cfg)
+    rng = np.random.default_rng(12)
+    batch = {"tokens": rng.integers(0, cfg.vocab, size=(2, 12)),
+             "labels": rng.integers(0, cfg.vocab, size=(2, 12))}
+    batch = {k: v.astype(np.int32) for k, v in batch.items()}
+    batch["labels"][0, -3:] = -1
+    jl, jg = jax.jit(jax.value_and_grad(jm.loss))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tg = value_and_grad(lambda p: tm.loss(p, {k: _t(v) for k, v in
+                                                  batch.items()}), tp)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    tleaves = jax.tree.leaves(params_to_numpy(tg))
+    jleaves = jax.tree.leaves(jax.tree.map(np.asarray, jg))
+    assert len(tleaves) == len(jleaves)
+    for a, b in zip(tleaves, jleaves):
+        np.testing.assert_allclose(np.asarray(a), b, **GRAD_TOL)
+    router = [np.asarray(a) for p, a in jax.tree_util.tree_flatten_with_path(
+        params_to_numpy(tg))[0] if "router" in jax.tree_util.keystr(p)]
+    assert router and all(np.abs(r).sum() > 0 for r in router)
 
 
 def test_moe_local_dispatch_no_mesh_is_identity():
