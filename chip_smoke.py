@@ -47,7 +47,13 @@ run exits non-zero:
               expert-batched K2 / K3 (granite's wg and wd over 40 experts
               at C = 1024, 2 and 4 rows, one launch for all experts, the
               library call torch.bmm on the dequantized stack) and K2 on
-              the uniform int8 store's gemma2-2b wq.
+              the uniform int8 store's gemma2-2b wq; musicgen-large's K1
+              prefill and decode at D 64, G 1, and llama-3.2-vision's
+              cross-attention K1 rows, non-causal over the 1600-token
+              memory (prefill, decode in fp32 and bf16; the library call
+              SDPA without a causal mask); K2 / K3 at vision's wg
+              (4096 and 2 rows x 8192 x 28672), its unembedding (2 x 8192
+              x 128256) and musicgen's wg (4096 x 2048 x 8192).
 3. serve   -- ServeEngine.generate on gemma2-2b at full width, cut to
               GEMMA_LAYERS layers, with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
@@ -134,6 +140,29 @@ run exits non-zero:
               exact K2 / K3 counts), and run() on 4 requests the same way
               at QBN 8, with K1, K4 and the expert-batched K2 / K3
               launched.
+   frontends -- musicgen-large at published width and depth (48 layers,
+              d_model 2048, 32 heads of 64 over 32 kv heads, 3.22 B
+              parameters), seeded frame embeddings: its fp64 floor over
+              2 x 2064 frames, engine A against engine B (activation
+              quantization off) over LM.prefill of 2048 frames and 16
+              teacher-forced LM.decode_step calls, every step's logits
+              within LOGIT_ATOL plus twice B's fp64 distance of B's and
+              of A's own LM.apply, K1 48 launches a call, exact K2 / K3
+              counts; activation QBN 8 held on its first 2 layers; a
+              profiled prefill + step; 2 training steps through
+              launch.train.make_data_fn (1 x 512 frames, remat, 8-bit
+              AdamW) twice, bit for bit; then llama-3.2-vision-90b cut to
+              one 5-layer period at published width (4 self + 1 cross,
+              6.46 B parameters), 2 x 2048 tokens beside seeded image
+              embeddings: an fp64 evaluation of the prefill's last
+              logits, one block's weights converted at a time; A against
+              B over 16 greedy tokens on a dense fp32 cache (K1 5 a call,
+              exact K2 / K3 counts with the cross block's wk / wv at
+              prefill only); the same prompts through batch-1 prefills,
+              write_prefill of "paged" and "memory" entries and 16
+              decode_step_paged steps (4 K4 and 1 K1 a step, streams
+              against the dense run's by the gap rule); engine A over a
+              bf16 cache, streams by the gap rule at BF16_GAP_TOL.
 7. train   -- the paper's pipeline after the search, on its CIF10-7CNN
               substrate: the Trainer (AdamW, 40 steps, checkpoints every
               10) uninterrupted and preempted at step 25, resumed from
@@ -161,7 +190,8 @@ The line before the last lists every kernel with its launches on its path
 (K1-K3: gemma2-2b's generate; K4: its run; B5: the QUANT search plus QAT;
 B6: the BINARIZE search), ``launches_by_path`` for the kernels that more
 than one path runs (K1-K4: the generate and run of each serving phase,
-granite-moe's, mamba2-780m's and jamba's included; B5: search, QAT) and
+granite-moe's, mamba2-780m's, jamba's, musicgen's and vision's
+included; B5: search, QAT) and
 its times; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it prints no
@@ -328,6 +358,21 @@ HYBRID_RUN_NEW = (8, 12, 16, 10)
 # SSM_DRIFT_DEPTHS measures on the full forward at these depths
 SSM_GATE_LAYERS = 2
 SSM_DRIFT_DEPTHS = (1, 2, 4, 8, 16, 32, 48)
+
+# phase frontends: musicgen-large at published width and depth (48 layers,
+# d_model 2048, 32 heads of 64 over 32 kv heads, d_ff 8192, vocab 2048;
+# frame embeddings in place of tokens): prefill of 2 x 2048 seeded frames
+# (x 0.3, tests/test_models.py:18's scale), then 16 teacher-forced
+# decode steps; llama-3.2-vision-90b cut to one 5-layer period of its 100
+# layers (4 self-attention + 1 cross-attention, d_model 8192, 64 q / 8 kv
+# heads of 128, d_ff 28672, vocab 128256, 1600 image tokens as
+# published): 2 x 2048 prompt tokens beside seeded image embeddings (x
+# 0.3), 16 greedy tokens; musicgen trained 2 steps at 1 x 512 frames
+AUDIO_ARCH, VISION_ARCH = "musicgen-large", "llama-3.2-vision-90b"
+AUDIO_HEADS, VISION_IMG, VISION_LAYERS = 32, 1600, 5
+FE_PROMPT, FE_MAX_LEN = 2048, 2064
+FE_SCALE = 0.3
+FE_GATE_LAYERS = 2                  # musicgen's QBN-8 pair (cf. ssm's)
 
 # phase run: 8 requests over 4 slots, so later requests reuse freed pages
 RUN_PROMPTS = (4160, 3100, 2050, 1030, 515, 260, 97, 33)
@@ -518,14 +563,19 @@ def phase_build():
 
 # --------------------------------------------------------------- phase 2
 def _attn_cases(torch):
-    """(label, q, k, v, q_pos, kv_pos, window, chunk, cap) at the serving
-    paths' shapes: gemma2-2b's prefill of 2 x 4160 tokens (global and local
-    layers), the last decode step against the global cache and the local
-    ring, in fp32 and in a bf16 cache, and an early decode step (position
-    40) against the global cache; granite-moe's prefill of 2 x 2048 (D 64,
-    G 3, no softcap) and its last decode step of generate; the jamba
-    hybrid's the same (16 q / 2 kv heads of 128 at HYBRID_CUT: G 8, no
-    softcap)."""
+    """(label, q, k, v, q_pos, kv_pos, window, chunk, cap, causal) at the
+    serving paths' shapes: gemma2-2b's prefill of 2 x 4160 tokens (global
+    and local layers), the last decode step against the global cache and
+    the local ring, in fp32 and in a bf16 cache, and an early decode step
+    (position 40) against the global cache; granite-moe's prefill of 2 x
+    2048 (D 64, G 3, no softcap) and its last decode step of generate; the
+    jamba hybrid's the same (16 q / 2 kv heads of 128 at HYBRID_CUT: G 8,
+    no softcap); musicgen-large's prefill of 2 x 2048 frames and its last
+    decode step against the 2064-frame cache (32 q / 32 kv heads of 64:
+    G 1); llama-3.2-vision's cross-attention, non-causal with every key at
+    position 0: the prefill's 2 x 2048 queries over the 1600-token image
+    memory and a decode query over it in fp32 and in a bf16 cache (64 q /
+    8 kv heads of 128: G 8)."""
     cfg_h, cfg_kv, D, cap = 8, 4, 256, 50.0
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -535,8 +585,8 @@ def _attn_cases(torch):
     ar = torch.arange(PROMPT, dtype=torch.int32, device="cuda").repeat(B, 1)
     q = randn(B, PROMPT, cfg_h, D)
     k, v = randn(B, PROMPT, cfg_kv, D), randn(B, PROMPT, cfg_kv, D)
-    yield "prefill_global", q, k, v, ar, ar, None, 1024, cap
-    yield "prefill_window4096", q, k, v, ar, ar, 4096, 1024, cap
+    yield "prefill_global", q, k, v, ar, ar, None, 1024, cap, True
+    yield "prefill_window4096", q, k, v, ar, ar, 4096, 1024, cap, True
     last = PROMPT + N_NEW - 1                     # position of the last token
     qd = randn(B, 1, cfg_h, D)
     qp = torch.full((B, 1), last, dtype=torch.int32, device="cuda")
@@ -544,25 +594,25 @@ def _attn_cases(torch):
     kp = torch.full((B, MAX_LEN), 2**31 - 1, dtype=torch.int32, device="cuda")
     kp[:, :last + 1] = torch.arange(last + 1, dtype=torch.int32,
                                     device="cuda")
-    yield "decode_global", qd, kc, vc, qp, kp, None, MAX_LEN, cap
+    yield "decode_global", qd, kc, vc, qp, kp, None, MAX_LEN, cap, True
     W = 4096                                      # local layers' ring buffer
     ring = torch.arange(last + 1 - W, last + 1, dtype=torch.int32,
                         device="cuda")
     kr = torch.empty((B, W), dtype=torch.int32, device="cuda")
     kr[:, (ring % W).long()] = ring
     yield "decode_ring4096", qd, kc[:, :W].contiguous(), \
-        vc[:, :W].contiguous(), qp, kr, W, W, cap
+        vc[:, :W].contiguous(), qp, kr, W, W, cap, True
     # a bf16 cache (ServeEngine(cache_dtype=torch.bfloat16))
     kb, vb = kc.bfloat16(), vc.bfloat16()
-    yield "decode_global_bf16", qd, kb, vb, qp, kp, None, MAX_LEN, cap
+    yield "decode_global_bf16", qd, kb, vb, qp, kp, None, MAX_LEN, cap, True
     yield "decode_ring4096_bf16", qd, kb[:, :W].contiguous(), \
-        vb[:, :W].contiguous(), qp, kr, W, W, cap
+        vb[:, :W].contiguous(), qp, kr, W, W, cap, True
     del kb, vb
     # one query at position 40 over the whole cache: most splits are empty
     qs = torch.full((B, 1), 40, dtype=torch.int32, device="cuda")
     ks = torch.full((B, MAX_LEN), SENT, dtype=torch.int32, device="cuda")
     ks[:, :41] = torch.arange(41, dtype=torch.int32, device="cuda")
-    yield "decode_short", qd, kc, vc, qs, ks, None, MAX_LEN, cap
+    yield "decode_short", qd, kc, vc, qs, ks, None, MAX_LEN, cap, True
     del q, k, v, kc, vc
     # granite-moe-3b-a800m: 24 q / 8 kv heads of 64, no softcap
     Hq, Hkv, D = 24, 8, 64
@@ -570,7 +620,7 @@ def _attn_cases(torch):
                       device="cuda").repeat(B, 1)
     q = randn(B, MOE_PROMPT, Hq, D)
     k, v = randn(B, MOE_PROMPT, Hkv, D), randn(B, MOE_PROMPT, Hkv, D)
-    yield "moe_prefill", q, k, v, ar, ar, None, 1024, None
+    yield "moe_prefill", q, k, v, ar, ar, None, 1024, None, True
     last = MOE_PROMPT + N_NEW - 1
     qd = randn(B, 1, Hq, D)
     qp = torch.full((B, 1), last, dtype=torch.int32, device="cuda")
@@ -579,7 +629,7 @@ def _attn_cases(torch):
                     device="cuda")
     kp[:, :last + 1] = torch.arange(last + 1, dtype=torch.int32,
                                     device="cuda")
-    yield "moe_decode", qd, kc, vc, qp, kp, None, MOE_MAX_LEN, None
+    yield "moe_decode", qd, kc, vc, qp, kp, None, MOE_MAX_LEN, None, True
     del q, k, v, kc, vc
     # the jamba hybrid at HYBRID_CUT
     Hq, Hkv = HYBRID_CUT["n_heads"], HYBRID_CUT["n_kv_heads"]
@@ -588,7 +638,7 @@ def _attn_cases(torch):
                       device="cuda").repeat(B, 1)
     q = randn(B, SSM_PROMPT, Hq, D)
     k, v = randn(B, SSM_PROMPT, Hkv, D), randn(B, SSM_PROMPT, Hkv, D)
-    yield "hybrid_prefill", q, k, v, ar, ar, None, 1024, None
+    yield "hybrid_prefill", q, k, v, ar, ar, None, 1024, None, True
     last = SSM_PROMPT + N_NEW - 1
     qd = randn(B, 1, Hq, D)
     qp = torch.full((B, 1), last, dtype=torch.int32, device="cuda")
@@ -597,13 +647,45 @@ def _attn_cases(torch):
                     device="cuda")
     kp[:, :last + 1] = torch.arange(last + 1, dtype=torch.int32,
                                     device="cuda")
-    yield "hybrid_decode", qd, kc, vc, qp, kp, None, SSM_MAX_LEN, None
+    yield "hybrid_decode", qd, kc, vc, qp, kp, None, SSM_MAX_LEN, None, True
+    del q, k, v, kc, vc
+    # musicgen-large: 32 q / 32 kv heads of 64 (G 1), no softcap
+    Hq = Hkv = AUDIO_HEADS
+    D = 64
+    ar = torch.arange(FE_PROMPT, dtype=torch.int32,
+                      device="cuda").repeat(B, 1)
+    q = randn(B, FE_PROMPT, Hq, D)
+    k, v = randn(B, FE_PROMPT, Hkv, D), randn(B, FE_PROMPT, Hkv, D)
+    yield "audio_prefill", q, k, v, ar, ar, None, 1024, None, True
+    last = FE_PROMPT + N_NEW - 1
+    qd = randn(B, 1, Hq, D)
+    qp = torch.full((B, 1), last, dtype=torch.int32, device="cuda")
+    kc, vc = randn(B, FE_MAX_LEN, Hkv, D), randn(B, FE_MAX_LEN, Hkv, D)
+    kp = torch.arange(FE_MAX_LEN, dtype=torch.int32,
+                      device="cuda").repeat(B, 1)
+    yield "audio_decode", qd, kc, vc, qp, kp, None, FE_MAX_LEN, None, True
+    del q, k, v, kc, vc
+    # llama-3.2-vision-90b's cross-attention: 64 q / 8 kv heads of 128
+    # over the 1600-token memory, every key at position 0, non-causal
+    Hq, Hkv, D = 64, 8, 128
+    ar = torch.arange(FE_PROMPT, dtype=torch.int32,
+                      device="cuda").repeat(B, 1)
+    zp = torch.zeros((B, VISION_IMG), dtype=torch.int32, device="cuda")
+    q = randn(B, FE_PROMPT, Hq, D)
+    k, v = randn(B, VISION_IMG, Hkv, D), randn(B, VISION_IMG, Hkv, D)
+    yield "cross_prefill", q, k, v, ar, zp, None, 1024, None, False
+    qd = randn(B, 1, Hq, D)
+    qp = torch.full((B, 1), last, dtype=torch.int32, device="cuda")
+    yield "cross_decode", qd, k, v, qp, zp, None, VISION_IMG, None, False
+    yield "cross_decode_bf16", qd, k.bfloat16(), v.bfloat16(), qp, zp, \
+        None, VISION_IMG, None, False
 
 
-def _attn_library(torch, q, k, v, q_pos, kv_pos, window):
+def _attn_library(torch, q, k, v, q_pos, kv_pos, window, causal=True):
     """F.scaled_dot_product_attention with the position mask and GQA
     expanded beforehand (SDPA has no softcap: it is timed without it; a
-    bf16 K/V is upcast beforehand, outside the timed call)."""
+    bf16 K/V is upcast beforehand, outside the timed call); a non-causal
+    call masks the sentinel slots only."""
     import torch.nn.functional as F
     k, v = k.float(), v.float()
     G = q.shape[2] // k.shape[2]
@@ -611,7 +693,9 @@ def _attn_library(torch, q, k, v, q_pos, kv_pos, window):
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
     qp, kp = q_pos[:, None, :, None].long(), kv_pos[:, None, None, :].long()
-    mask = (kp != 2**31 - 1) & (kp <= qp)
+    mask = kp != 2**31 - 1
+    if causal:
+        mask = mask & (kp <= qp)
     if window is not None:
         mask &= kp > qp - window
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -901,12 +985,14 @@ def flash_rows(torch, timer):
     from repro_torch.models.layers import attention_ref
     rows = []
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, q, k, v, qp, kp, window, chunk, cap in _attn_cases(torch):
+    for label, q, k, v, qp, kp, window, chunk, cap, causal in \
+            _attn_cases(torch):
         kern = lambda: attention.flash_attention(
-            q, k, v, q_pos=qp, kv_pos=kp, window=window, attn_cap=cap)
+            q, k, v, q_pos=qp, kv_pos=kp, causal=causal, window=window,
+            attn_cap=cap)
         plain = lambda: attention_ref(q, k, v, q_pos=qp, kv_pos=kp,
-                                      window=window, attn_cap=cap,
-                                      chunk=chunk)
+                                      causal=causal, window=window,
+                                      attn_cap=cap, chunk=chunk)
         got = kern()
         again = kern()
         torch.cuda.synchronize()
@@ -916,7 +1002,8 @@ def flash_rows(torch, timer):
         err, rel = compare(torch, got, plain(), ATTN_TOL, label)
         ns = attention.decode_splits(q.shape[0], q.shape[1], q.shape[2],
                                      k.shape[2], k.shape[1], n_sm)
-        kw = dict(q_pos=qp, kv_pos=kp, window=window, attn_cap=cap)
+        kw = dict(q_pos=qp, kv_pos=kp, causal=causal, window=window,
+                  attn_cap=cap)
         if ns > 1:
             route, route_ref = "fp32_split", attention_split_ref(
                 q, k, v, **kw, n_splits=ns)
@@ -927,7 +1014,9 @@ def flash_rows(torch, timer):
                                f"{label}/{route}")
         del route_ref
         qq, kk = qp[:, :, None].long(), kp[:, None, :].long()
-        valid = (kk != 2**31 - 1) & (kk <= qq)
+        valid = (kk != 2**31 - 1).repeat(1, qq.shape[1], 1)
+        if causal:
+            valid = valid & (kk <= qq)
         if window is not None:
             valid &= kk > qq - window
         pairs = float(valid.sum()) * q.shape[2]           # x query heads
@@ -941,11 +1030,12 @@ def flash_rows(torch, timer):
         b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
         r_ms = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)[0] \
             if route == "tc_3xtf32" else bound_ms(nbytes, flops)[0]
-        lib = _attn_library(torch, q, k, v, qp, kp, window)
+        lib = _attn_library(torch, q, k, v, qp, kp, window, causal)
         ms, lib_ms = timer.pair(kern, lib)
         rows.append(dict(
             name="flash_attention", case=label, shape=list(q.shape) +
             [k.shape[1]], kv_dtype=str(k.dtype).replace("torch.", ""),
+            causal=causal,
             splits=ns, route=route, route_bound_ms=r_ms,
             route_ref_max_abs_err=route_err,
             max_abs_err=err, max_rel_err=rel, tol=ATTN_TOL,
@@ -958,35 +1048,54 @@ def flash_rows(torch, timer):
 
 
 def phase_kernels(torch, timer):
-    from repro_torch.kernels import ops, pack, quant_matmul
-    from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
     cap = 50.0
     rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap) \
-        + flash_rows(torch, timer)
-    gemm_shapes = [("wg_decode", 2, 2304, 9216), ("wg_prefill", 8320, 2304,
-                                                   9216),
-                   ("wd_decode", 2, 9216, 2304),
-                   ("unembed_decode", 2, 2304, 256000),
-                   ("wg_chunk", 2048, 2304, 9216),
-                   ("wd_chunk", 2048, 9216, 2304),
-                   ("wg_draft", 8, 2304, 9216),
-                   ("wd_draft", 8, 9216, 2304),
-                   ("ragged", 37, 1001, 333),
-                   # mamba2-780m (phase ssm): prefill at 2 x 2048, decode
-                   ("mamba_wxz_prefill", 4096, 1536, 6144),
-                   ("mamba_wxz_decode", 2, 1536, 6144),
-                   ("mamba_wout_prefill", 4096, 3072, 1536),
-                   ("mamba_wout_decode", 2, 3072, 1536),
-                   ("mamba_wbc_prefill", 4096, 1536, 256),
-                   ("mamba_unembed_decode", 2, 1536, 50304),
-                   # the jamba hybrid at HYBRID_CUT (d_model 2048, d_inner
-                   # 4096): its A / B prefill at 2 x 2048, decode
-                   ("hybrid_wxz_prefill", 4096, 2048, 8192),
-                   ("hybrid_wxz_decode", 2, 2048, 8192),
-                   ("hybrid_wout_prefill", 4096, 4096, 2048),
-                   ("hybrid_wout_decode", 2, 4096, 2048),
-                   ("hybrid_wbc_prefill", 4096, 2048, 256),
-                   ("hybrid_unembed_decode", 2, 2048, 65536)]
+        + flash_rows(torch, timer) + gemm_rows(torch, timer, GEMM_SHAPES)
+    return rows + expert_gemm_rows(torch, timer)
+
+
+# (label, M, K, N) of K2's and K3's rows in phase kernels
+GEMM_SHAPES = [("wg_decode", 2, 2304, 9216),
+               ("wg_prefill", 8320, 2304, 9216),
+               ("wd_decode", 2, 9216, 2304),
+               ("unembed_decode", 2, 2304, 256000),
+               ("wg_chunk", 2048, 2304, 9216),
+               ("wd_chunk", 2048, 9216, 2304),
+               ("wg_draft", 8, 2304, 9216),
+               ("wd_draft", 8, 9216, 2304),
+               ("ragged", 37, 1001, 333),
+               # mamba2-780m (phase ssm): prefill at 2 x 2048, decode
+               ("mamba_wxz_prefill", 4096, 1536, 6144),
+               ("mamba_wxz_decode", 2, 1536, 6144),
+               ("mamba_wout_prefill", 4096, 3072, 1536),
+               ("mamba_wout_decode", 2, 3072, 1536),
+               ("mamba_wbc_prefill", 4096, 1536, 256),
+               ("mamba_unembed_decode", 2, 1536, 50304),
+               # the jamba hybrid at HYBRID_CUT (d_model 2048, d_inner
+               # 4096): its A / B prefill at 2 x 2048, decode
+               ("hybrid_wxz_prefill", 4096, 2048, 8192),
+               ("hybrid_wxz_decode", 2, 2048, 8192),
+               ("hybrid_wout_prefill", 4096, 4096, 2048),
+               ("hybrid_wout_decode", 2, 4096, 2048),
+               ("hybrid_wbc_prefill", 4096, 2048, 256),
+               ("hybrid_unembed_decode", 2, 2048, 65536),
+               # llama-3.2-vision-90b (phase frontends): wg at its
+               # 2 x 2048 prefill and at decode, the unembedding at
+               # decode; musicgen-large's wg at its prefill
+               ("vision_wg_prefill", 4096, 8192, 28672),
+               ("vision_wg_decode", 2, 8192, 28672),
+               ("vision_unembed_decode", 2, 8192, 128256),
+               ("audio_wg_prefill", 4096, 2048, 8192)]
+
+
+def gemm_rows(torch, timer, gemm_shapes):
+    """K2 (int8) and K3 (int4, int2) at each (label, M, K, N): against
+    their plain versions, the same bits twice, one device launch a call,
+    tensor-core rows within TC_ERR_LIMIT; timed beside torch.matmul on
+    the dequantized weight."""
+    from repro_torch.kernels import ops, pack, quant_matmul
+    from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
+    rows = []
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for bits, name in ((8, "quant_matmul"), (4, "packed_matmul"),
@@ -1048,7 +1157,7 @@ def phase_kernels(torch, timer):
             emit({"phase": "kernel", **rows[-1]})
             del x, qv, w, wdeq, got, again
     torch.cuda.empty_cache()
-    return rows + expert_gemm_rows(torch, timer)
+    return rows
 
 
 def expert_gemm_rows(torch, timer):
@@ -1601,17 +1710,19 @@ def phase_run(torch, cfg, model, params, policy):
 
 
 # ------------------------------------------------------------- phase moe
-def _moe_gemm_launches(graph, policy, n_repeat, calls):
+def _moe_gemm_launches(graph, policy, n_repeat, calls, skip=()):
     """K2 and K3 launches of ``calls`` model calls on the packed store of
     ``policy``: one launch per non-empty int8 bucket (K2) and per
     non-empty int2 / int4 bucket (K3) of each GEMM site and repeat (an
     expert site's buckets are shared by its E experts: one launch each,
-    not E), the unembedding once a call.  Returns ({kernel: launches},
-    {site: [buckets]})."""
+    not E), the unembedding once a call; the sites named in ``skip`` left
+    out.  Returns ({kernel: launches}, {site: [buckets]})."""
     from repro_torch.kernels.pack import bucket_of_bits
     k2 = k3 = 0
     sites = {}
     for l in graph.layers:
+        if l.name in skip:
+            continue
         names = sorted({bucket_of_bits(b)
                         for b in policy.expand_weight_bits(l)} -
                        {"pruned", "full"})
@@ -1810,25 +1921,32 @@ def _gemm_check(problems, what, launches, graph, policy, n_repeat, calls):
     return want
 
 
-def _fp64_floor(torch, model, params, graph, policy, tokens):
+def _fp64_floor(torch, model, params, graph, policy, tokens, batch=None,
+                tail=1, keep_a=False):
     """The noise floor of ``model`` at fp32 under ``policy``'s weights,
     activation quantization off: the full forward (``LM.apply``, every
-    position of ``tokens``) of the fake store in fp32 (B) and in fp64
-    (F: every step of the port's plain path then runs in fp64), and of
-    the packed store on the kernels (A).  Returns |A - F| and |B - F| over
-    the real vocabulary (mean, max, and max at the last position, whose
-    logits generate's prefill returns) and F's standard deviation."""
+    position of ``tokens``, or of ``batch``'s inputs) of the fake store in
+    fp32 (B) and in fp64 (F: every step of the port's plain path then runs
+    in fp64, the batch's embeddings too), and of the packed store on the
+    kernels (A).  Returns |A - F| and |B - F| over the real vocabulary
+    (mean, max, max at the last position, whose logits generate's prefill
+    returns, and max over the last ``tail`` positions), F's standard
+    deviation, and with ``keep_a`` A's logits at those positions
+    (``a_tail``, on the host)."""
     from repro_torch.core.ddpg import tree_map
     from repro_torch.quant.apply import (apply_policy_packed,
                                          apply_policy_to_params)
     V = model.cfg.vocab
-    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    if batch is None:
+        batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items()}
     with torch.no_grad():
         fake = apply_policy_to_params(params, graph, policy)
         lb = model.apply(fake, batch)[0][..., :V]
         lf = model.apply(tree_map(lambda t: t.double(), fake),
-                         batch)[0][..., :V]
-        del fake
+                         b64)[0][..., :V]
+        del fake, b64
         la = model.apply(apply_policy_packed(params, graph, policy),
                          batch, attn_impl="cuda")[0][..., :V]
     out = dict(fp64_logit_std=float(lf.std()))
@@ -1836,7 +1954,11 @@ def _fp64_floor(torch, model, params, graph, policy, tokens):
         e = (lg.double() - lf).abs()
         out.update({f"{name}_mean": float(e.mean()),
                     f"{name}_max": float(e.max()),
-                    f"{name}_last_max": float(e[:, -1].max())})
+                    f"{name}_last_max": float(e[:, -1].max()),
+                    f"{name}_tail_max": float(e[:, -tail:].max())})
+        del e
+    if keep_a:
+        out["a_tail"] = la[:, -tail:].float().cpu()
     del la, lb, lf
     gc.collect()
     torch.cuda.empty_cache()
@@ -2209,6 +2331,465 @@ def phase_ssm(torch):
           "peak_mem_bytes": out["peak_mem_bytes"], "problems": problems})
     if problems:
         raise AssertionError("ssm checks failed: " + "; ".join(problems))
+    return out
+
+
+# ------------------------------------------------------------- phase 6b
+def _store_bytes(params) -> int:
+    """Stored weight bytes: a PackedWeight's buffers and scales, every
+    other leaf as it is."""
+    from repro_torch.core.ddpg import tree_leaves
+    from repro_torch.kernels.pack import PackedWeight
+    return int(sum(l.hbm_bytes() if isinstance(l, PackedWeight)
+                   else l.numel() * l.element_size()
+                   for l in tree_leaves(params)))
+
+
+def lm_stream(torch, label, model, params, batch, n_new, *, impl,
+              act_bits=None, cache_dtype=None, feed=None):
+    """``LM.prefill`` of ``batch`` over a fresh dense cache, then ``n_new``
+    ``LM.decode_step`` calls, as ``ServeEngine.generate`` runs them (the
+    engine takes token prompts only, so these families are driven
+    through the model's own entry points): step i's input is
+    ``feed(i, token)`` (a teacher-forced frame) or the greedy token.
+    Returns check_serve's record (prefill logits, the greedy token of
+    every step's logits and its top-2 gap, launches) with every step's
+    logits over the real vocabulary (``steps``, (B, 1 + n_new, V), on the
+    host), times and the peak memory."""
+    from repro_torch import kernels
+    cfg = model.cfg
+    x0 = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    Bn, S = x0.shape[:2]
+    dt = cache_dtype or torch.float32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(Bn, S + n_new, dtype=dt, device="cuda")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cache, act_bits,
+                                      attn_impl=impl)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        steps, toks, gaps = [logits[:, -1, :cfg.vocab].float()], [], []
+        t0 = time.perf_counter()
+        for i in range(n_new):
+            top2 = torch.topk(steps[-1], 2, dim=-1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            cur = torch.argmax(steps[-1], dim=-1)
+            toks.append(cur)
+            x = feed(i, cur) if feed is not None else cur[:, None]
+            logits, cache = model.decode_step(params, x, cache, S + i,
+                                              act_bits, attn_impl=impl)
+            steps.append(logits[:, -1, :cfg.vocab].float())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    rec = dict(engine=label, attn_impl=impl, act_bits=act_bits is not None,
+               cache_dtype=str(dt).replace("torch.", ""), batch=Bn,
+               prompt=S, n_new=n_new, prefill_s=prefill_s,
+               decode_s=decode_s, decode_per_s=Bn * n_new / decode_s,
+               peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
+               weight_bytes=_store_bytes(params),
+               launches=kernels.launch_counts())
+    emit({"phase": "frontend-stream", **rec})
+    out = dict(rec=rec, logits=steps[0].cpu(),
+               tokens=torch.stack(toks, 1).cpu().numpy(),
+               gaps=torch.stack(gaps).cpu().numpy(),
+               steps=torch.stack(steps, 1).cpu())
+    del cache, steps, logits
+    return out
+
+
+def _steps_apart(a, b):
+    """Max |A - B| over the step logits two streams share: every step
+    while their tokens agree, up to and including the first step whose
+    logits chose different tokens (later inputs differ)."""
+    bad = np.flatnonzero((a["tokens"] != b["tokens"]).any(axis=0))
+    n = int(bad[0]) + 1 if bad.size else a["steps"].shape[1]
+    return float((a["steps"][:, :n] - b["steps"][:, :n]).abs().max())
+
+
+def _fp64_last_logits(torch, model, params, batch):
+    """The last position's logits of ``LM.apply`` evaluated in fp64 (F),
+    one block's weights converted at a time: a whole fp64 copy of a
+    5-layer llama-3.2-vision period (51.7 GB) does not fit beside its two
+    stores.  The same blocks, in the same order, as ``LM._stack``."""
+    from repro_torch.core.ddpg import tree_map
+    from repro_torch.models.transformer import _repeat
+    cfg = model.cfg
+    d64 = lambda t: tree_map(lambda a: a.double(), t)  # noqa: E731
+    with torch.no_grad():
+        x = model._embed(params, batch).double()
+        Bn, S, _ = x.shape
+        q_pos = torch.arange(S, dtype=torch.int32,
+                             device=x.device).repeat(Bn, 1)
+        img = batch.get("img_embeds")
+        img = None if img is None else img.double()
+        for r in range(cfg.n_repeat):
+            for p_idx, bdef in enumerate(cfg.pattern):
+                bp = d64(_repeat(params["blocks"][p_idx], r))
+                x, _ = model._apply_block(bp, bdef, x, q_pos=q_pos,
+                                          mode="train", cache=None,
+                                          img_embeds=img)
+                del bp
+        head = {"final_norm": params["final_norm"].double(),
+                "unembed": params["unembed"].double()}
+        lf = model.logits_of(head, x[:, -1:])[:, 0, :cfg.vocab]
+        del head, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lf
+
+
+def _audio_frontend(torch, problems):
+    """musicgen-large at published width and depth, random fp32 weights
+    from SEED and the seeded policy: the fp64 floor over all 2064 frames;
+    engine A (packed store, kernels) against engine B (fake store, plain
+    versions), activation quantization off, prefill of 2 x 2048 frames
+    and 16 teacher-forced decode steps, every step's logits within the
+    floor's tolerance of B's and of A's own full forward, the argmax
+    streams by check_serve's rules (K1 once a layer a call), K2 / K3
+    exactly one launch per bucket of each site a call; activation QBN 8
+    held on the first FE_GATE_LAYERS layers; weight bytes, one profiled
+    prefill + decode step (busy share)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.ddpg import tree_leaves
+    from repro_torch.models import LM
+    from repro_torch.quant.apply import (apply_policy_packed,
+                                         apply_policy_to_params)
+    cfg = ARCHS[AUDIO_ARCH].config
+    model = LM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    init = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+                vocab=cfg.vocab, frontend=cfg.frontend,
+                seconds=time.perf_counter() - t0,
+                parameters=int(sum(t.numel() for t in tree_leaves(params))),
+                param_bytes=_param_bytes(params))
+    emit({"phase": "audio-init", **init})
+    peaks = [int(torch.cuda.max_memory_allocated())]
+    graph = model.graph(seq_len=1, batch=1)
+    policy = make_policy(graph)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    frames = FE_SCALE * torch.randn((B, FE_MAX_LEN, cfg.d_model),
+                                    generator=g, device="cuda")
+    prompt = {"embeds": frames[:, :FE_PROMPT]}
+    feed = lambda i, cur: frames[:, FE_PROMPT + i:FE_PROMPT + i + 1]  # noqa
+    floor = _fp64_floor(torch, model, params, graph, policy, None,
+                        batch={"embeds": frames}, tail=N_NEW + 1,
+                        keep_a=True)
+    a_full = floor.pop("a_tail")
+    tol = LOGIT_ATOL + 2 * floor["b_tail_max"]
+    floor["act_off_tol"] = tol
+    emit({"phase": "audio-floor", **floor})
+    if floor["a_mean"] > floor["b_mean"] + LOGIT_ATOL:
+        problems.append(f"audio: the kernels' forward is farther from fp64 "
+                        f"than the plain one: {floor}")
+    pa = apply_policy_packed(params, graph, policy)
+    pb = apply_policy_to_params(params, graph, policy)
+    a = lm_stream(torch, "audio-A0", model, pa, prompt, N_NEW, impl="cuda",
+                  feed=feed)
+    b = lm_stream(torch, "audio-B0", model, pb, prompt, N_NEW, impl="ref",
+                  feed=feed)
+    peaks += [a["rec"]["peak_mem_bytes"], b["rec"]["peak_mem_bytes"]]
+    check = check_serve(torch, a, b, tol, cfg.n_layers, cfg.vocab)
+    problems += check["problems"]
+    check["steps_max_abs_diff"] = float((a["steps"] - b["steps"]).abs().max())
+    check["a_vs_own_apply_max_abs_diff"] = float(
+        (a["steps"] - a_full).abs().max())
+    for key in ("steps_max_abs_diff", "a_vs_own_apply_max_abs_diff"):
+        if check[key] > tol:
+            problems.append(f"audio: {key} {check[key]} > {tol}")
+    check["gemm_want"] = _gemm_check(problems, "audio generate",
+                                     a["rec"]["launches"], graph, policy,
+                                     cfg.n_repeat, 1 + N_NEW)
+    emit({"phase": "audio-check", **{k: check[k] for k in (
+        "steps_max_abs_diff", "a_vs_own_apply_max_abs_diff", "gemm_want")}})
+    a_rec = a["rec"]
+    del a, b, pb, a_full
+    gc.collect()
+    # activation QBN 8 where the pair has not parted yet
+    gcfg = dataclasses.replace(cfg, n_layers=FE_GATE_LAYERS)
+    gmodel = LM(gcfg)
+    gparams = model.draft_prefix_params(params, FE_GATE_LAYERS)
+    ggraph = gmodel.graph(seq_len=1, batch=1)
+    gpolicy = make_policy(ggraph)
+    bits = gmodel.block_act_bits(ggraph, [gpolicy.act_bits[l.name]
+                                          for l in ggraph.layers])
+    ga = lm_stream(torch, "audio-gate-A", gmodel,
+                   apply_policy_packed(gparams, ggraph, gpolicy), prompt,
+                   N_NEW, impl="cuda", act_bits=bits, feed=feed)
+    gb = lm_stream(torch, "audio-gate-B", gmodel,
+                   apply_policy_to_params(gparams, ggraph, gpolicy), prompt,
+                   N_NEW, impl="ref", act_bits=bits, feed=feed)
+    gate = check_serve(torch, ga, gb, ACT_LOGIT_ATOL, FE_GATE_LAYERS,
+                       cfg.vocab)
+    gate["steps_max_abs_diff"] = float((ga["steps"] - gb["steps"]
+                                        ).abs().max())
+    if gate["steps_max_abs_diff"] > ACT_LOGIT_ATOL:
+        gate["problems"].append(f"audio gate: step logits "
+                                f"{gate['steps_max_abs_diff']} apart")
+    problems += gate["problems"]
+    _gemm_check(problems, "audio-gate generate", ga["rec"]["launches"],
+                ggraph, gpolicy, gcfg.n_repeat, 1 + N_NEW)
+    del ga, gb, gparams
+    gc.collect()
+
+    def prefill_and_step():
+        c = model.init_cache(B, FE_PROMPT + 1, dtype=torch.float32,
+                             device="cuda")
+        with torch.no_grad():
+            model.prefill(pa, prompt, c, attn_impl="cuda")
+            model.decode_step(pa, feed(0, None), c, FE_PROMPT,
+                              attn_impl="cuda")
+
+    prefill_and_step()
+    prof = profile_call(torch, prefill_and_step)
+    where = dict(device_ms=prof["device_ms"], wall_s=prof["wall_s"],
+                 busy_share=prof["busy_share"],
+                 kernel_launches=prof["kernel_launches"],
+                 groups={k: v for k, v in prof["groups"].items()
+                         if v["calls"]}, top=prof["top"])
+    emit({"phase": "audio-profile", **where})
+    rec = dict(init=init, floor=floor, engine_a=a_rec, check=check,
+               gate=gate, profile=where,
+               weight_bytes=dict(packed=_store_bytes(pa),
+                                 fp32=init["param_bytes"]),
+               peak_mem_bytes=max(peaks))
+    emit({"phase": "audio", "prefill_s": a_rec["prefill_s"],
+          "decode_frames_per_s": a_rec["decode_per_s"],
+          "weight_bytes": rec["weight_bytes"],
+          "peak_mem_bytes": rec["peak_mem_bytes"],
+          "busy_share": where["busy_share"]})
+    del pa, params, frames, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _vision_paged(torch, model, params, prompt, dense, tol, problems):
+    """Run 2: the dense run's prompts through the paged path, as
+    ``run()``'s monolithic admission does it: a batch-1 prefill per
+    sequence into a dense cache, ``paged_kv.write_prefill`` of its
+    ``"paged"`` and ``"memory"`` entries into lane b of a 2-slot fp32
+    pool (pages of PAGE), then N_NEW ``decode_step_paged`` steps on the
+    greedy tokens.  Streams against the dense run's by the gap rule at
+    ``tol``; exactly one K4 launch per self-attention layer and one K1
+    per cross layer a step (the cross block reads its memory lane)."""
+    from repro_torch import kernels
+    from repro_torch.serve import paged_kv
+    cfg = model.cfg
+    kinds = cfg.cache_kinds()
+    nb = -(-FE_MAX_LEN // PAGE)
+    L = -(-FE_PROMPT // PAGE) * PAGE
+    pool = model.init_paged_cache(B, 1 + B * nb, PAGE, dtype=torch.float32,
+                                  device="cuda")
+    bt = np.arange(1, 1 + B * nb, dtype=np.int32).reshape(B, nb)
+    first = []
+    with torch.no_grad():
+        for r in range(B):
+            c = model.init_cache(1, L, dtype=torch.float32, device="cuda")
+            lg, c = model.prefill(params, {
+                "tokens": prompt["tokens"][r:r + 1],
+                "img_embeds": prompt["img_embeds"][r:r + 1]}, c,
+                attn_impl="cuda")
+            paged_kv.write_prefill(pool, c, kinds, r,
+                                   [int(x) for x in bt[r, :L // PAGE]], PAGE)
+            first.append(lg[0, -1, :cfg.vocab].float())
+            del c, lg
+        last = torch.stack(first)
+        prefill_diff = float((last.cpu() - dense["logits"]).abs().max())
+        bt_t = torch.as_tensor(bt, device="cuda")
+        pos = torch.full((B,), FE_PROMPT, dtype=torch.int32, device="cuda")
+        toks = []
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_NEW):
+            cur = torch.argmax(last, dim=-1)
+            toks.append(cur)
+            lg, pool = model.decode_step_paged(params, cur[:, None], pool,
+                                               bt_t, pos + i,
+                                               attn_impl="cuda")
+            last = lg[:, -1, :cfg.vocab].float()
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    n_cross = cfg.n_repeat * sum(b.kind == "cross_attn" for b in cfg.pattern)
+    n_self = cfg.n_repeat * len(cfg.pattern) - n_cross
+    if launches["paged_attention"] != n_self * N_NEW or \
+            launches["flash_attention"] != n_cross * N_NEW:
+        problems.append(f"vision paged: attention launches {launches}, want "
+                        f"{n_self} K4 and {n_cross} K1 a step")
+    if prefill_diff > tol:
+        problems.append(f"vision paged: batch-1 prefill logits {prefill_diff}"
+                        f" from the dense run's")
+    tokens = torch.stack(toks, 1).cpu().numpy()
+    firsts = [f for r in range(B)
+              if (f := _check_streams(f"vision-paged/{r}", tokens[r],
+                                      dense["tokens"][r],
+                                      dense["gaps"][:, r], tol, problems))]
+    rec = dict(page_size=PAGE, pages=1 + B * nb, launches=launches,
+               prefill_logit_max_abs_diff=prefill_diff, decode_s=decode_s,
+               decode_tok_per_s=B * N_NEW / decode_s,
+               first_differences=firsts, tol=tol)
+    emit({"phase": "vision-paged", **rec})
+    del pool
+    return rec
+
+
+def _vision_frontend(torch, problems):
+    """llama-3.2-vision-90b, one 5-layer period at published width (the
+    depth cut is on the vision-init line), random fp32 weights from SEED
+    and the seeded policy, 2 x 2048 prompt tokens beside seeded image
+    embeddings: F, the fp64 evaluation of the prefill's last logits
+    (_fp64_last_logits); run 1, 16 greedy tokens on a dense fp32 cache,
+    engine A (packed store, kernels) against engine B (fake store, plain
+    versions) with activation quantization off, by check_serve's rules
+    at LOGIT_ATOL plus twice B's distance from F (K1 once a layer a call,
+    the cross block's included), K2 / K3 exactly one launch per bucket
+    of each site a call (the cross block's wk / wv at prefill only); run
+    2 through the paged pool (_vision_paged); run 3, engine A over a bf16
+    cache, its streams against run 1's by the gap rule at BF16_GAP_TOL."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.ddpg import tree_leaves
+    from repro_torch.models import LM
+    from repro_torch.quant.apply import (apply_policy_packed,
+                                         apply_policy_to_params)
+    base = ARCHS[VISION_ARCH].config
+    cfg = dataclasses.replace(base, n_layers=VISION_LAYERS)
+    model = LM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = int(sum(t.numel() for t in tree_leaves(params)))
+    init = dict(arch=cfg.name, layers=cfg.n_layers,
+                reduced=dict(n_layers=[base.n_layers, cfg.n_layers]),
+                pattern=[b.kind for b in cfg.pattern], d_model=cfg.d_model,
+                heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+                vocab=cfg.vocab, n_img_tokens=cfg.n_img_tokens,
+                seconds=time.perf_counter() - t0, parameters=n_params,
+                param_bytes=_param_bytes(params))
+    emit({"phase": "vision-init", **init})
+    graph = model.graph(seq_len=1, batch=1)
+    policy = make_policy(graph)
+    rng = np.random.default_rng(SEED + 11)
+    tokens = rng.integers(0, cfg.vocab, size=(B, FE_PROMPT))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    prompt = {"tokens": torch.as_tensor(tokens, device="cuda"),
+              "img_embeds": FE_SCALE * torch.randn(
+                  (B, cfg.n_img_tokens, cfg.d_model), generator=g,
+                  device="cuda")}
+    pa = apply_policy_packed(params, graph, policy)
+    pb = apply_policy_to_params(params, graph, policy)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks = [int(torch.cuda.max_memory_allocated())]
+    lf = _fp64_last_logits(torch, model, pb, prompt).cpu()
+    a = lm_stream(torch, "vision-A0", model, pa, prompt, N_NEW,
+                  impl="cuda")
+    b = lm_stream(torch, "vision-B0", model, pb, prompt, N_NEW, impl="ref")
+    peaks += [a["rec"]["peak_mem_bytes"], b["rec"]["peak_mem_bytes"]]
+    ea = (a["logits"].double() - lf).abs()
+    eb = (b["logits"].double() - lf).abs()
+    floor = dict(fp64_logit_std=float(lf.std()), a_mean=float(ea.mean()),
+                 a_last_max=float(ea.max()), b_mean=float(eb.mean()),
+                 b_last_max=float(eb.max()))
+    tol = LOGIT_ATOL + 2 * floor["b_last_max"]
+    floor["act_off_tol"] = tol
+    emit({"phase": "vision-floor", **floor})
+    if floor["a_mean"] > floor["b_mean"] + LOGIT_ATOL:
+        problems.append(f"vision: the kernels' prefill is farther from fp64 "
+                        f"than the plain one: {floor}")
+    check = check_serve(torch, a, b, tol, cfg.n_layers, cfg.vocab)
+    problems += check["problems"]
+    check["steps_max_abs_diff"] = _steps_apart(a, b)
+    if check["steps_max_abs_diff"] > tol:
+        problems.append(f"vision: step logits {check['steps_max_abs_diff']}"
+                        f" apart, over {tol}")
+    cross = {f"p{i}.{w}" for i, bd in enumerate(cfg.pattern)
+             if bd.kind == "cross_attn" for w in ("wk", "wv")}
+    w1, _ = _moe_gemm_launches(graph, policy, cfg.n_repeat, 1)
+    wd, _ = _moe_gemm_launches(graph, policy, cfg.n_repeat, N_NEW,
+                               skip=cross)
+    want = {k: w1[k] + wd[k] for k in w1}
+    got = {k: a["rec"]["launches"][k] for k in want}
+    if got != want:
+        problems.append(f"vision generate: GEMM launches {got}, want {want}")
+    check["gemm_want"] = want
+    emit({"phase": "vision-check", "steps_max_abs_diff":
+          check["steps_max_abs_diff"], "gemm_want": want})
+    del b, pb
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged = _vision_paged(torch, model, pa, prompt, a, tol, problems)
+    c = lm_stream(torch, "vision-A0-bf16", model, pa, prompt, N_NEW,
+                  impl="cuda", cache_dtype=torch.bfloat16)
+    bf16 = dict(prefill_logit_max_abs_diff=float(
+        (c["logits"] - a["logits"]).abs().max()), tol=BF16_GAP_TOL,
+        launches=c["rec"]["launches"],
+        first_differences=[f for r in range(B) if (f := _check_streams(
+            f"vision-bf16/{r}", c["tokens"][r], a["tokens"][r],
+            a["gaps"][:, r], BF16_GAP_TOL, problems))])
+    if c["rec"]["launches"] != a["rec"]["launches"]:
+        problems.append(f"vision bf16: launches {c['rec']['launches']}, want "
+                        f"the fp32 run's {a['rec']['launches']}")
+    emit({"phase": "vision-bf16", **bf16})
+    rec = dict(init=init, floor=floor, engine_a=a["rec"], check=check,
+               paged=paged, bf16=bf16, bf16_engine=c["rec"],
+               weight_bytes=dict(packed=_store_bytes(pa),
+                                 fp32=init["param_bytes"]),
+               peak_mem_bytes=max(peaks + [c["rec"]["peak_mem_bytes"]]))
+    emit({"phase": "vision", "prefill_s": a["rec"]["prefill_s"],
+          "decode_tok_per_s": a["rec"]["decode_per_s"],
+          "weight_bytes": rec["weight_bytes"],
+          "peak_mem_bytes": rec["peak_mem_bytes"]})
+    del a, c, pa, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_frontends(torch):
+    """The audio front end and cross-attention's "memory" caches:
+    musicgen-large at published width and depth (_audio_frontend), its
+    training through the launcher's ``make_data_fn`` (2 steps at 1 x 512
+    frames, remat, 8-bit AdamW, twice from one seed, bit for bit:
+    train_lm), then one llama-3.2-vision-90b period at published width
+    (_vision_frontend).  Vision is not trained on the card: its params and
+    gradients alone are 51.6 GB (its gradients are held on the CPU,
+    tests/test_torch_frontends.py)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import make_data_fn
+    from repro_torch.models import LM
+    t_phase = time.perf_counter()
+    problems = []
+    audio = _audio_frontend(torch, problems)
+    cfg = ARCHS[AUDIO_ARCH].config
+    train = train_lm(torch, cfg, LM(cfg), make_data_fn(cfg, 1, LM_TRAIN_LEN))
+    problems += train["problems"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    vision = _vision_frontend(torch, problems)
+    out = dict(audio=audio, audio_train=train, vision=vision,
+               peak_mem_bytes=max(audio["peak_mem_bytes"],
+                                  train["peak_mem_bytes"],
+                                  vision["peak_mem_bytes"]),
+               seconds=time.perf_counter() - t_phase, problems=problems)
+    emit({"phase": "frontends", "seconds": out["seconds"],
+          "peak_mem_bytes": out["peak_mem_bytes"], "problems": problems})
+    if problems:
+        raise AssertionError("frontends checks failed: " +
+                             "; ".join(problems))
     return out
 
 
@@ -3242,22 +3823,25 @@ def _unpinned_grads_equal(torch, model, batch):
     return differ
 
 
-def train_lm(torch, cfg, model):
+def train_lm(torch, cfg, model, data_fn=None):
     """LM_TRAIN_STEPS training steps of ``model`` at full width (LM.loss
     at 1 x LM_TRAIN_LEN tokens with remat=True, backward, one 8-bit AdamW
     update), run twice from one seed: the losses, the last step's
     gradients and every parameter leaf equal bit for bit.  The
     remat=False loss of step 1 must equal the remat=True one.  Peak
     memory is this call's.  On an MoE model, C2's probe
-    (_unpinned_grads_equal) runs first."""
+    (_unpinned_grads_equal) runs first.  The batches are TokenStream's,
+    or ``data_fn(step)``'s (the launcher's ``make_data_fn``)."""
     from repro_torch.core.ddpg import tree_leaves
     from repro_torch.data import TokenStream
     from repro_torch.optim import AdamW
     from repro_torch.train.loop import upload_batch, value_and_grad
     dev = torch.device("cuda")
     opt = AdamW(lr=1e-4, state_bits=8)
-    stream = TokenStream(vocab=cfg.vocab)
-    batches = [stream.batch(i, 1, LM_TRAIN_LEN) for i in range(LM_TRAIN_STEPS)]
+    if data_fn is None:
+        stream = TokenStream(vocab=cfg.vocab)
+        data_fn = lambda i: stream.batch(i, 1, LM_TRAIN_LEN)  # noqa: E731
+    batches = [data_fn(i) for i in range(LM_TRAIN_STEPS)]
     unpinned = None
     if cfg.moe is not None:
         unpinned = _unpinned_grads_equal(torch, model,
@@ -3422,6 +4006,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe = phase_moe(torch)
     ssm = phase_ssm(torch)
+    frontends = phase_frontends(torch)
     train = phase_train(torch, cfg, model, card, substrate)
     launches = dict(rec_a["launches"])
     launches["paged_attention"] = \
@@ -3435,7 +4020,12 @@ def main(argv=None) -> int:
            "moe_generate": moe["engine_a"]["launches"],
            "ssm_generate": ssm["engine_a"]["launches"],
            "ssm_gate_generate": ssm["gate"]["launches_a"],
-           "hybrid_generate": ssm["hybrid_check"]["launches_a"]}
+           "hybrid_generate": ssm["hybrid_check"]["launches_a"],
+           "audio_prefill_decode": frontends["audio"]["check"]["launches_a"],
+           "audio_gate": frontends["audio"]["gate"]["launches_a"],
+           "vision_prefill_decode":
+               frontends["vision"]["check"]["launches_a"],
+           "vision_bf16": frontends["vision"]["bf16"]["launches"]}
     runs = {"run": run["runs"]["overlap"]["launches"],
             "run_bf16": store["bf16"]["launches"],
             "run_int8_store": store["int8"]["launches"],
@@ -3443,7 +4033,8 @@ def main(argv=None) -> int:
             "moe_run_cf0": moe["run_cf0"]["launches"],
             "ssm_run": ssm["run"]["launches"],
             "ssm_gate_run": ssm["gate_run"]["launches"],
-            "hybrid_run": ssm["hybrid_run"]["launches"]}
+            "hybrid_run": ssm["hybrid_run"]["launches"],
+            "vision_paged_decode": frontends["vision"]["paged"]["launches"]}
     by_path = {"fake_quant": {"search": launches["fake_quant"],
                               "qat": train["qat"]["launches"]["fake_quant"]}}
     for name in ("flash_attention", "quant_matmul", "packed_matmul",
@@ -3454,6 +4045,7 @@ def main(argv=None) -> int:
     result = {"card": card, "kernel_rows": rows, "engine_a": rec_a,
               "engine_b": rec_b, "checks": checks, "run": run,
               "cache_and_store": store, "moe": moe, "ssm": ssm,
+              "frontends": frontends,
               "search": search, "train": train, "kernels": kernels,
               "seconds": time.perf_counter() - t0}
     if args.out:

@@ -135,9 +135,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding.  x: (B, S, H, D); pos: (B, S) int32."""
     half = x.shape[-1] // 2
-    freqs = torch.pow(theta, -torch.arange(half, dtype=torch.float32,
+    ft = torch.promote_types(x.dtype, torch.float32)
+    freqs = torch.pow(theta, -torch.arange(half, dtype=ft,
                                            device=x.device) / half)
-    ang = pos.to(torch.float32)[..., None] * freqs            # (B, S, half)
+    ang = pos.to(ft)[..., None] * freqs                       # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -201,15 +202,17 @@ def _mask_scores(s, q_pos, kv_pos, *, causal, window):
 def attention_ref(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
                   attn_cap=None, chunk=1024):
     """GQA attention with a running-softmax scan over KV chunks of
-    ``chunk`` rows: the plain version of kernel K1 and the oracle."""
+    ``chunk`` rows: the plain version of kernel K1 and the oracle.  It
+    computes in fp32, or in fp64 on fp64 inputs (a check's noise floor)."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
-    qf = (q.to(torch.float32) * scale).reshape(B, Sq, Hkv, G, D)
+    ft = torch.promote_types(q.dtype, torch.float32)
+    qf = (q.to(ft) * scale).reshape(B, Sq, Hkv, G, D)
 
     def score(kc, kvp):  # kc: (B, Ck, Hkv, D) -> (B, Hkv, G, Sq, Ck)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.to(torch.float32))
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.to(ft))
         s = softcap(s, attn_cap)
         return _mask_scores(s, q_pos, kvp, causal=causal, window=window)
 
@@ -222,13 +225,12 @@ def attention_ref(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
         m = s.amax(dim=-1, keepdim=True)
         msafe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
         p = torch.exp(s - msafe)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(ft))
         return finish(o, p.sum(dim=-1))
 
-    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=q.device)
-    o = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=ft, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=ft, device=q.device)
+    o = torch.zeros((B, Sq, Hkv, G, D), dtype=ft, device=q.device)
     for c0 in range(0, Skv, chunk):
         kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
         s = score(kc, kv_pos[:, c0:c0 + chunk])              # (B,Hkv,G,Sq,Ck)
@@ -239,7 +241,7 @@ def attention_ref(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
         alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
                             torch.zeros_like(m))
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bhgqk,bkhd->bqhgd", p, vc.to(torch.float32))
+        pv = torch.einsum("bhgqk,bkhd->bqhgd", p, vc.to(ft))
         o = o * alpha.permute(0, 3, 1, 2)[..., None] + pv
         m = m_new
     return finish(o, l)
@@ -399,7 +401,7 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits):
     C = moe_capacity(T, E, K, capacity_factor)
     dev = x.device
 
-    logits = linear(xt, p["router"]).to(torch.float32)
+    logits = at_least_f32(linear(xt, p["router"]))
     with torch.profiler.record_function(MOE_DISPATCH):
         probs = torch.softmax(logits, dim=-1)                  # (T, E)
         gate_v, gate_i = moe_route(probs, K)                   # (T, K)

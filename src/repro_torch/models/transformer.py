@@ -1,21 +1,26 @@
-"""Config-driven decoder LM: attention and Mamba2 (SSD) blocks with dense
-or MoE FFNs (port of ``repro/models/transformer.py``).
+"""Config-driven decoder LM: self- and cross-attention and Mamba2 (SSD)
+blocks with dense or MoE FFNs (port of ``repro/models/transformer.py``).
 
-Covers what ``ServeEngine.generate`` and ``run`` / ``serve`` run: GQA
-attention with RoPE, the sliding window and the softcaps, Mamba2 blocks
-(``models/ssm.py``), dense SwiGLU and capacity-based top-k MoE FFNs,
-``prefill`` and ``decode_step`` over the dense cache (K/V in bf16 by
-default, fp32, or int8 with per-(position, head) scales; a mamba block's
-recurrent ``"state"``), and ``decode_step_paged`` and ``model_step`` over
-the paged pool (``init_paged_cache``; ``model_step`` takes all-paged
-patterns only, as the reference's), and the training loss (``loss``,
-with per-repeat rematerialisation and the MoE load-balance term).
+Covers GQA attention with RoPE, the sliding window and the softcaps,
+cross-attention over image embeddings (``cross_attn`` blocks: no RoPE,
+every query attends every image token), Mamba2 blocks (``models/ssm.py``),
+dense SwiGLU and capacity-based top-k MoE FFNs, the audio front end
+(``frontend="audio_stub"``: frame embeddings ``batch["embeds"]`` in place
+of tokens, no embedding table), ``prefill`` and ``decode_step`` over the
+dense cache (K/V in bf16 by default, fp32, or int8 with per-(position,
+head) scales; a mamba block's recurrent ``"state"``; a cross block's
+``"memory"``, the image K/V written whole at prefill), and
+``decode_step_paged`` and ``model_step`` over the paged pool
+(``init_paged_cache``; ``model_step`` takes all-paged patterns only, as
+the reference's), and the training loss (``loss``, with per-repeat
+rematerialisation and the MoE load-balance term).
 Weights may arrive in the uniform int8 store
 (:meth:`LM.quantize_params_int8`: ``{"q", "s"}`` leaves) or the packed
 store (``quant.apply.apply_policy_packed``).  Parameters keep the
 reference's pytree: ``{"blocks": tuple per pattern position of
 dicts of (n_repeat, ...) stacked tensors, "final_norm", "unembed",
-"embed"}`` (a mamba block's weights in its ``"mamba"`` sub-dict).  A
+"embed"}`` (a mamba block's weights in its ``"mamba"`` sub-dict; no
+``"embed"`` for the audio front end).  A
 Python loop over the stacked repeats takes the place of
 ``lax.scan``; its depth is the params' own, so the speculative draft's
 prefix view (``draft_prefix_params``) runs through the same entry points.
@@ -44,20 +49,13 @@ from repro_torch import backend
 from repro_torch.kernels.pack import PackedWeight
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.api import BlockDef, LMConfig
-from repro_torch.models.layers import (POS_SENTINEL, attention,
+from repro_torch.models.layers import (POS_SENTINEL, at_least_f32, attention,
                                        gather_rows, is_int8_leaf, linear,
                                        maybe_quant_act, moe_ffn,
                                        paged_attention, rmsnorm, rope,
                                        softcap, swiglu)
 from repro_torch.quant.linear_quant import FULL_BITS
 from repro_torch.quant.policy import LayerInfo, QuantizableGraph
-
-# block kinds and front ends the port does not run yet
-NOT_PORTED = {
-    "cross_attn": "ROADMAP.md A10 (cross-attention memory cache)",
-    "vision_stub": "ROADMAP.md A10 (cross-attention memory cache)",
-    "audio_stub": "ROADMAP.md A10 (audio_stub front end)",
-}
 
 # leaves that quantize_params_int8 stores as {"q", "s"} (the reference's
 # set, mamba's included)
@@ -70,10 +68,6 @@ MATMUL_LEAVES = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd",
 # (serve/paged_kv.py owns the lifecycle; defined here because the paged
 # write below routes sentinel lanes to it)
 TRASH_PAGE = 0
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: {NOT_PORTED[what]}")
 
 
 # ----------------------------------------------------- quantized KV caching
@@ -118,6 +112,18 @@ def _kv_write(cache, k, v, pos, slot: int):
         else:
             cache[key][:, slot:slot + S] = val.to(cache[key].dtype)
     cache["pos"][:, slot:slot + S] = pos
+
+
+def _kv_store_full(cache, k, v):
+    """Cross-attention memory: overwrite the whole (fixed-length) cache in
+    place, quantizing per (position, head) when it stores int8."""
+    for key, val in (("k", k), ("v", v)):
+        if cache[key].dtype == torch.int8:
+            q, s = _kv_quant(val)
+            cache[key].copy_(q)
+            cache[key + "_s"].copy_(s)
+        else:
+            cache[key].copy_(val)
 
 
 def _kv_write_paged(cache, k, v, wp, block_tables):
@@ -197,12 +203,10 @@ class LM:
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=device)
 
-        if cfg.frontend is not None:
-            raise _not_ported(cfg.frontend)
         blocks = []
         for bdef in cfg.pattern:
             p = {"norm": zeros(R, d)}
-            if bdef.kind in ("attn", "local_attn"):
+            if bdef.kind in ("attn", "local_attn", "cross_attn"):
                 p.update(wq=lin(d, R, d, cfg.n_heads * hd),
                          wk=lin(d, R, d, cfg.n_kv_heads * hd),
                          wv=lin(d, R, d, cfg.n_kv_heads * hd),
@@ -212,7 +216,7 @@ class LM:
                     lambda fan_in, *s: lin(fan_in, R, *s),
                     lambda *s: zeros(R, *s), d, cfg.ssm)
             else:
-                raise _not_ported(bdef.kind)
+                raise ValueError(bdef.kind)
             if bdef.has_ffn and bdef.use_moe:
                 m = cfg.moe
                 ep = m.n_experts_phys
@@ -226,11 +230,42 @@ class LM:
                          wu=lin(d, R, d, cfg.d_ff),
                          wd=lin(cfg.d_ff, R, cfg.d_ff, d))
             blocks.append(p)
-        return {"blocks": tuple(blocks), "final_norm": zeros(d),
-                "unembed": lin(d, d, cfg.vocab_padded),
-                "embed": lin(d, cfg.vocab_padded, d)}
+        params = {"blocks": tuple(blocks), "final_norm": zeros(d),
+                  "unembed": lin(d, d, cfg.vocab_padded)}
+        if cfg.frontend != "audio_stub":
+            params["embed"] = lin(d, cfg.vocab_padded, d)
+        return params
 
     # ---------------------------------------------------------------- blocks
+    def _cross_block(self, bp, x, *, q_pos, mode, cache, img_embeds,
+                     act_bits=None, attn_impl=None):
+        """Cross-attention + residual: the queries attend every image
+        token, non-causal and without RoPE (every key at position 0, as in
+        the reference).  Outside decode, K / V come from ``img_embeds``
+        (B, n_img, d) and are attended as computed (in fp32; the reference
+        does not round them through the cache's dtype here), and a given
+        ``cache`` (the ``"memory"`` entry) is written whole, in place; at
+        decode they are read from the cache."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+        h = maybe_quant_act(rmsnorm(x, bp["norm"], cfg.norm_eps), act_bits)
+        q = linear(h, bp["wq"]).reshape(B, S, Hq, hd)
+        if mode == "decode":
+            k, v = _kv_deq(cache, "k"), _kv_deq(cache, "v")
+        else:
+            Si = img_embeds.shape[1]
+            k = linear(img_embeds, bp["wk"]).reshape(B, Si, Hkv, hd)
+            v = linear(img_embeds, bp["wv"]).reshape(B, Si, Hkv, hd)
+            if cache is not None:
+                _kv_store_full(cache, k, v)
+        kv_pos = torch.zeros(k.shape[:2], dtype=torch.int32, device=k.device)
+        chunk = k.shape[1] if S == 1 else 1024
+        out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=False,
+                        attn_cap=cfg.attn_softcap, chunk=chunk,
+                        impl=attn_impl)
+        return x + linear(out.reshape(B, S, Hq * hd), bp["wo"])
+
     def _attn_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                     write_pos=None, act_bits=None, attn_impl=None,
                     block_tables=None):
@@ -336,18 +371,22 @@ class LM:
 
     def _apply_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                      write_pos=None, act_bits=None, attn_impl=None,
-                     block_tables=None):
-        """One block; returns (x, aux) (aux None without an MoE FFN)."""
+                     block_tables=None, img_embeds=None):
+        """One block; returns (x, aux) (aux None without an MoE FFN).  A
+        cross block reads its dense per-slot ``"memory"`` entry even under
+        block tables, as the reference's."""
         if bdef.kind == "mamba":
             x = self._mamba_block(bp, x, mode=mode, cache=cache,
                                   act_bits=act_bits)
-        elif bdef.kind in ("attn", "local_attn"):
+        elif bdef.kind == "cross_attn":
+            x = self._cross_block(bp, x, q_pos=q_pos, mode=mode, cache=cache,
+                                  img_embeds=img_embeds, act_bits=act_bits,
+                                  attn_impl=attn_impl)
+        else:
             x = self._attn_block(bp, bdef, x, q_pos=q_pos, mode=mode,
                                  cache=cache, write_pos=write_pos,
                                  act_bits=act_bits, attn_impl=attn_impl,
                                  block_tables=block_tables)
-        else:
-            raise _not_ported(bdef.kind)
         if bdef.has_ffn:
             return self._ffn(bp, bdef, x, act_bits=act_bits)
         return x, None
@@ -395,6 +434,13 @@ class LM:
         return x, total
 
     # --------------------------------------------------------------- helpers
+    def _embed(self, params, batch):
+        """The stack's input: ``batch["embeds"]`` (B, S, d) for the audio
+        front end, else the embedding rows of ``batch["tokens"]``."""
+        if self.cfg.frontend == "audio_stub":
+            return batch["embeds"]
+        return self._embed_tokens(params, batch["tokens"].long())
+
     def _embed_tokens(self, params, tokens):
         """Embedding rows of ``tokens``: an int8-store embedding is a row
         gather times the row scale (plain PyTorch: the reference runs no
@@ -447,8 +493,10 @@ class LM:
 
     def apply(self, params, batch, act_bits=None, attn_impl=None,
               remat=False):
-        """Full-sequence forward of ``batch["tokens"]`` (B, S), causal, no
-        cache.  Returns (logits (B, S, V), aux_loss): the MoE blocks'
+        """Full-sequence forward of ``batch["tokens"]`` (B, S) (or
+        ``batch["embeds"]`` (B, S, d) for the audio front end; cross blocks
+        attend ``batch["img_embeds"]`` (B, n_img, d)), causal, no cache.
+        Returns (logits (B, S, V), aux_loss): the MoE blocks'
         load-balance terms summed, 0.0 for dense FFNs, as the reference's
         ``apply``.  act_bits: optional
         (n_repeat, len(pattern)) activation QBNs on the host; attn_impl:
@@ -456,13 +504,13 @@ class LM:
         (:meth:`_stack`).  Differentiable: the gradients of the embedding
         and of the MoE dispatch and gather are summed deterministically
         (:func:`layers.gather_rows`)."""
-        tokens = batch["tokens"]
-        x = self._embed_tokens(params, tokens.long())
+        x = self._embed(params, batch)
         B, S, _ = x.shape
         q_pos = torch.arange(S, dtype=torch.int32,
                              device=x.device).repeat(B, 1)
         x, aux = self._stack(params, x, None, act_bits, remat=remat,
-                             q_pos=q_pos, mode="train", attn_impl=attn_impl)
+                             q_pos=q_pos, mode="train", attn_impl=attn_impl,
+                             img_embeds=batch.get("img_embeds"))
         return self.logits_of(params, x), aux
 
     def loss(self, params, batch, act_bits=None, remat=False):
@@ -473,11 +521,11 @@ class LM:
         logits, aux = self.apply(params, batch, act_bits=act_bits,
                                  remat=remat)
         labels = batch["labels"].long()
-        lf = logits.to(torch.float32)
+        lf = at_least_f32(logits)
         lse = torch.logsumexp(lf, dim=-1)
         gold = torch.gather(lf, -1, torch.clamp(labels, min=0)[..., None]
                             )[..., 0]
-        mask = (labels >= 0).to(torch.float32)
+        mask = (labels >= 0).to(lf.dtype)
         nll = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(),
                                                            min=1.0)
         return nll + 0.01 * aux
@@ -494,8 +542,10 @@ class LM:
         K/V plus ``k_s``/``v_s`` (R, B, W, Hkv) f32 scales.  ``W`` is
         ``max_len``, or the window for ``local_attn`` blocks.  A mamba
         block's entry is its recurrent state (``ssm.init_mamba_cache``:
-        ``state`` fp32, ``conv`` in ``dtype``).  Runs on the card unless
-        ``device`` says otherwise."""
+        ``state`` fp32, ``conv`` in ``dtype``); a cross block's the image
+        memory, ``k``/``v`` (R, B, n_img_tokens, Hkv, hd) in the K/V type
+        (with the scales under ``kv_bits=8``) and no ``pos``.  Runs on the
+        card unless ``device`` says otherwise."""
         device = backend.resolve_device(device)
         cfg = self.cfg
         kv_dt = _kv_dtype(dtype, kv_bits)
@@ -506,18 +556,21 @@ class LM:
                 caches.append(ssm_mod.init_mamba_cache(
                     batch, cfg.d_model, cfg.ssm, dtype, (R,), device))
                 continue
-            if bdef.kind not in ("attn", "local_attn"):
-                raise _not_ported(bdef.kind)
-            W = max_len if (bdef.kind != "local_attn" or cfg.window is None) \
-                else min(max_len, cfg.window)
+            if bdef.kind == "cross_attn":
+                W = cfg.n_img_tokens
+            elif bdef.kind != "local_attn" or cfg.window is None:
+                W = max_len
+            else:
+                W = min(max_len, cfg.window)
             one = {
                 "k": torch.zeros((R, batch, W, Hkv, hd), dtype=kv_dt,
                                  device=device),
                 "v": torch.zeros((R, batch, W, Hkv, hd), dtype=kv_dt,
                                  device=device),
-                "pos": torch.full((R, batch, W), POS_SENTINEL,
-                                  dtype=torch.int32, device=device),
             }
+            if bdef.kind != "cross_attn":
+                one["pos"] = torch.full((R, batch, W), POS_SENTINEL,
+                                        dtype=torch.int32, device=device)
             if kv_bits == 8:
                 one["k_s"] = torch.ones((R, batch, W, Hkv),
                                         dtype=torch.float32, device=device)
@@ -540,7 +593,11 @@ class LM:
         scales, and ``pos`` (R, P, page_size) int32 starting at the
         sentinel, page 0 the trash page; a ``"state"`` (mamba) entry is
         the dense recurrent state with batch axis ``n_slots`` (one lane
-        per scheduler slot), as :meth:`init_cache` builds it.
+        per scheduler slot), as :meth:`init_cache` builds it; a
+        ``"memory"`` (cross) entry the dense image memory ``k``/``v``
+        (R, n_slots, n_img_tokens, Hkv, hd) in ``dtype`` whatever
+        ``kv_bits`` is, as the reference's (``paged_kv.write_prefill``
+        therefore refuses an int8 dense memory).
         ``n_repeat`` overrides the stack depth.  Runs on the card unless
         ``device`` says otherwise."""
         device = backend.resolve_device(device)
@@ -557,8 +614,14 @@ class LM:
                 caches.append(ssm_mod.init_mamba_cache(
                     n_slots, cfg.d_model, cfg.ssm, dtype, (R,), device))
                 continue
-            if bdef.kind not in ("attn", "local_attn"):
-                raise _not_ported(bdef.kind)
+            if bdef.kind == "cross_attn":
+                mem = (R, n_slots, cfg.n_img_tokens, cfg.n_kv_heads,
+                       cfg.hdim)
+                mem_dt = _kv_dtype(dtype, None)
+                caches.append({key: torch.zeros(mem, dtype=mem_dt,
+                                                device=device)
+                               for key in ("k", "v")})
+                continue
             one = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
                    "v": torch.zeros(shape, dtype=kv_dt, device=device),
                    "pos": torch.full(shape[:3], POS_SENTINEL,
@@ -592,26 +655,30 @@ class LM:
 
     # ------------------------------------------------------------ prefill
     def prefill(self, params, batch, cache, act_bits=None, attn_impl=None):
-        """Run the prompt ``batch["tokens"]`` (B, S), fill ``cache`` in
-        place, return (last-token logits (B, 1, V), cache).  act_bits:
-        optional (n_repeat, len(pattern)) activation QBNs; attn_impl:
+        """Run the prompt ``batch["tokens"]`` (B, S) (``batch["embeds"]``
+        for the audio front end; cross blocks take ``batch["img_embeds"]``
+        and write their memory), fill ``cache`` in place, return
+        (last-token logits (B, 1, V), cache).  act_bits: optional
+        (n_repeat, len(pattern)) activation QBNs; attn_impl:
         layers.ATTN_IMPLS."""
-        tokens = batch["tokens"]
-        x = self._embed_tokens(params, tokens)
+        x = self._embed(params, batch)
         B, S, _ = x.shape
         q_pos = torch.arange(S, dtype=torch.int32,
                              device=x.device).repeat(B, 1)
         x, _ = self._stack(params, x, cache, act_bits, q_pos=q_pos,
-                           mode="prefill", attn_impl=attn_impl)
+                           mode="prefill", attn_impl=attn_impl,
+                           img_embeds=batch.get("img_embeds"))
         return self.logits_of(params, x[:, -1:, :]), cache
 
     # ------------------------------------------------------------- decode
     def decode_step(self, params, tokens, cache, pos: int, act_bits=None,
                     attn_impl=None):
-        """One decode step.  tokens: (B, 1) int; pos: the int position the
-        tokens occupy.  Updates ``cache`` in place; returns (logits
-        (B, 1, V), cache)."""
-        x = self._embed_tokens(params, tokens)
+        """One decode step.  tokens: (B, 1) int (for the audio front end,
+        (B, 1, d) frame embeddings); pos: the int position the tokens
+        occupy.  Updates ``cache`` in place; returns (logits (B, 1, V),
+        cache)."""
+        x = tokens if self.cfg.frontend == "audio_stub" else \
+            self._embed_tokens(params, tokens.long())
         B = x.shape[0]
         q_pos = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=x.device)
@@ -709,13 +776,15 @@ class LM:
         d, hd = cfg.d_model, cfg.hdim
         for p_idx, bdef in enumerate(cfg.pattern):
             pre, nm = ("blocks", p_idx), f"p{p_idx}"
-            if bdef.kind in ("attn", "local_attn"):
+            if bdef.kind in ("attn", "local_attn", "cross_attn"):
                 qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
                 add(f"{nm}.wq", pre + ("wq",), d, qd, R * toks * d * qd,
                     R * d * qd, -1)
-                add(f"{nm}.wk", pre + ("wk",), d, kvd, R * toks * d * kvd,
+                kv_toks = cfg.n_img_tokens * batch \
+                    if bdef.kind == "cross_attn" else toks
+                add(f"{nm}.wk", pre + ("wk",), d, kvd, R * kv_toks * d * kvd,
                     R * d * kvd, -1)
-                add(f"{nm}.wv", pre + ("wv",), d, kvd, R * toks * d * kvd,
+                add(f"{nm}.wv", pre + ("wv",), d, kvd, R * kv_toks * d * kvd,
                     R * d * kvd, -1)
                 add(f"{nm}.wo", pre + ("wo",), qd, d, R * toks * qd * d,
                     R * qd * d, -1)
@@ -729,7 +798,7 @@ class LM:
                 add(f"{nm}.w_out", pre + ("mamba", "w_out"), di, d,
                     R * toks * di * d, R * di * d, -1)
             else:
-                raise _not_ported(bdef.kind)
+                raise ValueError(bdef.kind)
             if bdef.has_ffn and bdef.use_moe:
                 m = cfg.moe
                 eff_toks = toks * m.top_k / m.n_experts

@@ -163,6 +163,22 @@ class ServeEngine:
         self._draft_step = self._counted("draft_step", model.model_step)
         self._draft_tail = self._counted("draft_tail", model.model_step)
 
+    def _refuse_frontend(self, what: str) -> None:
+        """The engine serves token prompts only: a config with a front end
+        (audio frame embeddings, vision's image embeddings) raises before
+        any model call.  The reference's engine fails on both inside the
+        model (no frame embeddings; no image embeddings for the
+        cross-attention prefill); their paths are ``LM.prefill`` /
+        ``decode_step`` (and ``decode_step_paged`` over ``"memory"``
+        entries that ``paged_kv.write_prefill`` fills)."""
+        cfg = self.model.cfg
+        if cfg.frontend is not None:
+            raise ValueError(
+                f"ServeEngine.{what}: {cfg.name} has the {cfg.frontend} "
+                "front end, whose inputs are embeddings, not token "
+                "prompts; drive LM.prefill / LM.decode_step with "
+                "batch['embeds'] or batch['img_embeds'] instead")
+
     def _counted(self, name, fn):
         """``fn`` counting its calls (``call_counts``) and its distinct
         input shapes (``trace_counts``)."""
@@ -238,6 +254,7 @@ class ServeEngine:
         the reference's threefry stream, so sampled outputs agree with it
         in distribution only.
         """
+        self._refuse_frontend("generate")
         B, S = tokens.shape
         if S + n_new > self.max_len:
             raise ValueError(f"prompt {S} + n_new {n_new} exceeds max_len "
@@ -333,6 +350,7 @@ class ServeEngine:
         Each request's stream is the one ``generate`` gives it alone with
         its seed.  Returns ``{"outputs": [np.ndarray per request, submit
         order], "stats": ServeStats}``."""
+        self._refuse_frontend("run")
         reqs = [as_request(i, r) for i, r in enumerate(requests)]
         kinds = self.model.cfg.cache_kinds()
         chunkable = all(kd == "paged" for kd in kinds)
@@ -407,6 +425,7 @@ class ServeEngine:
         streams.  Chunked only: a pattern whose cache kinds are not all
         ``"paged"`` raises, as in the reference (it serves through
         ``run(prefill="monolithic")``)."""
+        self._refuse_frontend("serve")
         kinds = self.model.cfg.cache_kinds()
         if not all(kd == "paged" for kd in kinds):
             raise ValueError(

@@ -209,16 +209,26 @@ def write_prefill(paged_cache, dense_cache, kinds: Sequence[str], slot: int,
     plane of the entry (k / v, ``pos``, int8 scale pages) copies the same
     way.  Reads the positions on the host (a device sync: this is the
     monolithic path).  A ``"state"`` (mamba) entry copies whole, every
-    plane, into batch lane ``slot``.  Returns ``paged_cache``."""
+    plane, into batch lane ``slot``, and a ``"memory"`` (cross-attention)
+    entry its ``k`` and ``v`` whole into lane ``slot``.  A memory entry
+    holds K/V in the pool's float type whatever ``kv_bits`` is (as the
+    reference's ``init_paged_cache``), so an int8 dense memory (a
+    ``kv_bits=8`` prefill) is refused: the reference copies its int8
+    codes without their scales.  Returns ``paged_cache``."""
+    for kind, pre in zip(kinds, dense_cache):
+        if kind == "memory" and (pre["k"].dtype == torch.int8 or
+                                 "k_s" in pre):
+            raise ValueError(
+                "write_prefill: a cross-attention memory entry stores K/V in "
+                "the pool's float type whatever kv_bits is; an int8 "
+                "(kv_bits=8) dense prefill would land as raw int8 codes "
+                "without their scales -- prefill the memory in float")
     blocks_np = np.asarray(list(blocks), np.int64)
     for kind, pool, pre in zip(kinds, paged_cache, dense_cache):
-        if kind == "state":
+        if kind in ("state", "memory"):
             for key in pool:
                 pool[key][:, slot] = pre[key][:, 0].to(pool[key].dtype)
             continue
-        if kind != "paged":
-            raise ValueError(f"write_prefill: cache kind {kind!r} is not "
-                             "ported (ROADMAP.md A10)")
         pos = pre["pos"][0, 0].cpu().numpy()             # same across R
         j = np.nonzero(pos != POS_SENTINEL)[0]
         p = pos[j].astype(np.int64)

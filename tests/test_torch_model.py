@@ -119,24 +119,38 @@ def test_block_act_bits_and_graph_match_reference():
     assert tp.model_size_bits(tg) == jp.model_size_bits(jg)
 
 
-def test_unported_families_name_their_roadmap_item():
-    """The vision and audio families, and a cross-attention block or an
-    audio front end on a ported family, raise naming their own item."""
-    with pytest.raises(NotImplementedError, match="A10.*cross-attention"):
-        get("llama-3.2-vision-90b")
-    with pytest.raises(NotImplementedError, match="A10.*audio_stub"):
-        get("musicgen-large")
-    import dataclasses
-    from repro_torch.configs.base import dense
-    smoke = ARCHS["gemma2-2b"].smoke
-    tm = LM(dataclasses.replace(smoke, pattern=(dense("cross_attn"),)))
-    with pytest.raises(NotImplementedError, match="A10.*cross-attention"):
-        tm.init(0, device="cpu")
-    tm = LM(dataclasses.replace(smoke, frontend="audio_stub"))
-    with pytest.raises(NotImplementedError, match="A10.*audio_stub"):
-        tm.init(0, device="cpu")
+def test_registry_holds_every_reference_architecture():
+    """The port's registry holds every architecture of the reference's,
+    each config equal to its reference counterpart (published and smoke),
+    and still raises KeyError on an unknown id."""
+    assert sorted(ARCHS) == sorted(JARCHS)
+    for arch, jspec in JARCHS.items():
+        spec = get(arch)
+        assert spec.family == jspec.family
+        for ours, theirs in ((spec.config, jspec.config),
+                             (spec.smoke, jspec.smoke)):
+            assert repr(ours) == repr(theirs)
     with pytest.raises(KeyError):
         get("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llama-3.2-vision-90b"])
+def test_engine_refuses_front_end_configs(arch):
+    """generate, run and serve refuse a config with a front end (audio
+    frames, vision's image embeddings) with a ValueError before any model
+    call: their inputs are embeddings, which the engine's token prompts
+    do not carry (the reference's engine fails inside the model)."""
+    from repro_torch.serve import FrontEnd, ServeEngine
+    tm = LM(ARCHS[arch].smoke)
+    eng = ServeEngine(tm, tm.init(0, device="cpu"), max_len=16,
+                      device="cpu")
+    toks = np.zeros((1, 4), np.int32)
+    for call in (lambda: eng.generate(toks, 2),
+                 lambda: eng.run([(toks[0], 2)], page_size=4, max_slots=1),
+                 lambda: eng.serve(FrontEnd(), page_size=4, max_slots=1)):
+        with pytest.raises(ValueError, match="front end"):
+            call()
+    assert not any(eng.call_counts.values())
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
