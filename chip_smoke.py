@@ -185,6 +185,20 @@ run exits non-zero:
               memory; for granite-moe first C2's probe, two gradients with
               the row gathers' plain CUDA backward, its differing leaves
               reported, not checked (train-lm).
+8. shard   -- A11 on the card: a one-rank NCCL group and the 1x1 host
+              mesh.  (a) compressed_allreduce of gemma2-2b's LM.loss
+              gradients (GEMMA_LAYERS, 1 x 512) equals the _q8-dequantized
+              gradients bit for bit, with the exchange's ms and its bytes
+              against fp32 (shard-exchange); (b) two steps of
+              make_train_step(compress_pod=True) on DTensors, twice, bit
+              for bit, and bit for bit the plain step on q8-dequantized
+              gradients (shard-train); the dry-run counts of that step
+              (launch/dryrun.count_step: flops, bytes) give its H100
+              roofline (fp32, TF32 off), and the measured step may not
+              beat its largest term (shard-roofline); (c) LM.prefill at
+              2 x 2048 with DTensor params and cache equals the unsharded
+              prefill bit for bit, with as many K1 launches
+              (shard-prefill).
 
 The line before the last lists every kernel with its launches on its path
 (K1-K3: gemma2-2b's generate; K4: its run; B5: the QUANT search plus QAT;
@@ -3945,6 +3959,256 @@ def phase_train(torch, cfg, lm, card, sub):
     return recs
 
 
+# ----------------------------------------------------------------- shard
+SHARD_TRAIN_LEN = 512               # (b)'s step: 1 x 512, as train-lm's
+SHARD_PREFILL = (2, 2048)           # (c)
+SHARD_EXCHANGE_REPS = 3
+
+
+def _dtensors(tree, specs, mesh):
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.sharding import specs as sh
+    return sh.tree_map_with_path(
+        lambda p, t: distribute_tensor(t, mesh, sh.to_placements(
+            specs if sh.is_spec(specs) else sh.spec_at(specs, p), mesh)),
+        tree)
+
+
+def _local(tree):
+    from repro_torch.core.ddpg import tree_map
+    return tree_map(lambda t: t.to_local() if hasattr(t, "to_local")
+                    else t, tree)
+
+
+def _leaves_equal(a, b) -> int:
+    """How many leaves of two trees differ (bit for bit)."""
+    from repro_torch.core.ddpg import tree_leaves
+    return sum(not torch_equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return x.shape == y.shape and x.dtype == y.dtype and \
+        bool(torch.equal(x, y))
+
+
+def phase_shard(torch, cfg, model, device="cuda", impl="cuda",
+                train_len=SHARD_TRAIN_LEN, prefill=SHARD_PREFILL):
+    """A11 on one card (the port's launch/, sharding/ and the model's mesh
+    hooks): (a) the compressed exchange, (b) the compressed train step on
+    the 1x1 host mesh and its roofline, (c) the sharded prefill (module
+    docstring, phase 8).  ``device`` / ``impl`` let a CPU rehearsal run the
+    same checks at a smoke size."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.core.ddpg import tree_leaves, tree_map
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import hidden_rules, make_train_step
+    from repro_torch.models.api import ShapeCfg
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import specs as sh
+    from repro_torch.sharding.collectives import (_q8, compressed_allreduce,
+                                                  exchanged_bytes)
+    from repro_torch.sharding.ctx import sharding_rules
+    from repro_torch.train.loop import upload_batch, value_and_grad
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    mesh = make_host_mesh(device)
+    problems = []
+    world = dist.get_world_size()
+    stream = TokenStream(vocab=cfg.vocab)
+    batches = [upload_batch(stream.batch(i, 1, train_len), dev)
+               for i in range(2)]
+
+    # (a) the compressed exchange on LM.loss gradients
+    params = model.init(SEED + 2, device)
+    loss, grads = value_and_grad(
+        lambda p: model.loss(p, batches[0], remat=True), params)
+    times = []
+    for _ in range(SHARD_EXCHANGE_REPS):
+        sync()
+        t0 = time.perf_counter()
+        out = compressed_allreduce({"g": grads, "l": loss})
+        sync()
+        times.append(time.perf_counter() - t0)
+
+    def deq(g):
+        if g.ndim == 0 or g.numel() < 256:
+            return g
+        q, sc = _q8(g.to(torch.float32))
+        return (q.to(torch.float32) * sc).to(g.dtype)
+    want = tree_map(deq, grads)
+    differ = _leaves_equal(out["g"], want) + (
+        not torch_equal(out["l"], loss))
+    nbytes = exchanged_bytes(grads)
+    if differ:
+        problems.append(f"compressed exchange at n=1 differs from the "
+                        f"q8-dequantized gradients in {differ} leaves")
+    rec_a = dict(world=world, cards=torch.cuda.device_count() if cuda else 0,
+                 leaves=len(tree_leaves(grads)), leaves_differing=differ,
+                 exchange_ms=sorted(times)[len(times) // 2] * 1e3,
+                 exchange_ms_all=[t * 1e3 for t in times],
+                 payload_bytes=nbytes["compressed"],
+                 fp32_bytes=nbytes["fp32"],
+                 ratio=nbytes["compressed"] / nbytes["fp32"])
+    emit({"phase": "shard-exchange", **rec_a})
+    del out, want, grads, loss
+
+    # (b) make_train_step(compress_pod=True) on the 1x1 mesh, twice, and
+    # the plain step on q8-dequantized gradients
+    opt = AdamW(lr=1e-4, state_bits=8)
+    step = make_train_step(model, opt, lr=1e-4, compress_pod=True)
+    rules = hidden_rules(mesh)
+    pspecs = sh.param_specs(params, mesh, cfg)
+
+    def sharded_args(i):
+        p = model.init(SEED + 2, device)
+        st = opt.init(p)
+        return (_dtensors(p, pspecs, mesh),
+                _dtensors(st, sh.opt_specs(st, pspecs, mesh), mesh),
+                _dtensors(batches[i], sh.batch_specs(batches[i], mesh),
+                          mesh))
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def sharded_run():
+        P, S, _ = sharded_args(0)
+        losses, ts = [], []
+        with sharding_rules(mesh, rules):
+            for i in range(2):
+                B = _dtensors(batches[i], sh.batch_specs(batches[i], mesh),
+                              mesh)
+                sync()
+                t0 = time.perf_counter()
+                P, S, m = step(P, S, B)
+                sync()
+                ts.append(time.perf_counter() - t0)
+                losses.append(m["loss"].to_local())
+        return _local(P), _local(S), losses, ts
+
+    del params                  # (a)'s; each run below makes its own
+    run1 = sharded_run()
+    p = model.init(SEED + 2, device)
+    st = opt.init(p)
+    plain_losses, plain_ts = [], []
+    for i in range(2):
+        sync()
+        t0 = time.perf_counter()
+        loss, g = value_and_grad(
+            lambda q: model.loss(q, batches[i], remat=True), p)
+        g = tree_map(deq, g)
+        p, st, _ = opt.update(p, g, st, lr=1e-4)
+        del g
+        sync()
+        plain_ts.append(time.perf_counter() - t0)
+        plain_losses.append(loss)
+    vs_plain = _leaves_equal(run1[0], p) + _leaves_equal(run1[1], st)
+    del p, st
+    run2 = sharded_run()
+    twice = _leaves_equal(run1[0], run2[0]) + _leaves_equal(run1[1], run2[1])
+    losses_equal = all(torch_equal(a, b) for a, b in
+                       zip(run1[2], plain_losses)) and \
+        all(torch_equal(a, b) for a, b in zip(run1[2], run2[2]))
+    if twice or vs_plain or not losses_equal:
+        problems.append(f"compressed train step: {twice} leaves differ "
+                        f"between two runs, {vs_plain} from the plain step "
+                        f"on q8-dequantized gradients, losses equal "
+                        f"{losses_equal}")
+    rec_b = dict(layers=cfg.n_layers, tokens=[1, train_len],
+                 step_s=run1[3] + run2[3], plain_step_s=plain_ts,
+                 losses=[float(x) for x in run1[2]],
+                 leaves_differing_twice=twice,
+                 leaves_differing_vs_plain=vs_plain,
+                 losses_equal=losses_equal,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated()
+                 if cuda else None)
+    emit({"phase": "shard-train", **rec_b})
+    del run1, run2
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the dry run's counts of that step on the 1x1 mesh, and its roofline
+    counted = count_step(step, sharded_args(0), mesh, rules)
+    cell = dict(arch=cfg.name, shape="train_1x512", mesh="host_1x1",
+                devices=1, dtype="float32",
+                tf32=bool(torch.backends.cuda.matmul.allow_tf32),
+                mesh_axes=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                **counted)
+    row = roofline.analyze_cell(cell, cfg, ShapeCfg("train_1x512", train_len,
+                                                    1, "train"))
+    measured = min(rec_b["step_s"][1:]) if len(rec_b["step_s"]) > 1 \
+        else rec_b["step_s"][0]
+    rec_r = dict(flops=counted["stats"]["flops_per_device"],
+                 bytes=counted["stats"]["bytes_traffic_per_device"],
+                 peak_flops=row["peak_flops"], t_compute_s=row["t_compute_s"],
+                 t_memory_s=row["t_memory_s"],
+                 t_collective_s=row["t_collective_s"],
+                 dominant=row["dominant"], bound_s=row["bound_s"],
+                 model_flops=row["model_flops"],
+                 useful_ratio=row["useful_ratio"], measured_s=measured,
+                 measured_over_bound=measured / row["bound_s"])
+    emit({"phase": "shard-roofline", **rec_r})
+    if cuda and measured < row["bound_s"]:
+        problems.append(f"the step ({measured:.4f} s) beat its roofline's "
+                        f"largest term ({row['bound_s']:.4f} s): the "
+                        f"constants or the counts are wrong")
+
+    # (c) the sharded prefill against the unsharded one
+    B, S = prefill
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(B, S)).astype(np.int32)).to(dev)
+    params = model.init(SEED, device)
+    reset_launch_counts()
+    cache = model.init_cache(B, S, dtype=torch.float32, device=device)
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache,
+                                  attn_impl=impl)
+    sync()
+    k1_plain = launch_counts()["flash_attention"]
+    cache_s = model.init_cache(B, S, dtype=torch.float32, device=device)
+    P = _dtensors(params, sh.param_specs(params, mesh, cfg), mesh)
+    C = _dtensors(cache_s, sh.cache_specs(cache_s, cfg, mesh, False), mesh)
+    T = _dtensors(tokens, sh.batch_specs(tokens, mesh), mesh)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with sharding_rules(mesh, rules):
+        logits_s, C = model.prefill(P, {"tokens": T}, C, attn_impl=impl)
+    sync()
+    sharded_s = time.perf_counter() - t0
+    k1_sharded = launch_counts()["flash_attention"]
+    logits_differ = not torch_equal(logits_s.to_local(), logits)
+    cache_differ = _leaves_equal(_local(C), cache)
+    if logits_differ or cache_differ or k1_sharded != k1_plain:
+        problems.append(f"sharded prefill: logits differ {logits_differ}, "
+                        f"{cache_differ} cache leaves differ, K1 launches "
+                        f"{k1_sharded} against {k1_plain}")
+    rec_c = dict(batch=B, seq=S, k1_launches=k1_sharded,
+                 k1_launches_plain=k1_plain, logits_differ=logits_differ,
+                 cache_leaves_differing=cache_differ, sharded_s=sharded_s)
+    emit({"phase": "shard-prefill", **rec_c})
+    dist.destroy_process_group()
+    rec = dict(exchange=rec_a, train=rec_b, roofline=rec_r, prefill=rec_c,
+               seconds=time.perf_counter() - t_phase, problems=problems)
+    emit({"phase": "shard", "seconds": rec["seconds"],
+          "problems": problems})
+    if problems:
+        raise AssertionError("shard checks failed: " + "; ".join(problems))
+    return rec
+
+
 # ------------------------------------------------------------------ main
 def summarize(rows, launches, by_path):
     """One entry per kernel: sums over its measured shapes.  ``launches``
@@ -4008,6 +4272,7 @@ def main(argv=None) -> int:
     ssm = phase_ssm(torch)
     frontends = phase_frontends(torch)
     train = phase_train(torch, cfg, model, card, substrate)
+    shard = phase_shard(torch, cfg, model)
     launches = dict(rec_a["launches"])
     launches["paged_attention"] = \
         run["runs"]["overlap"]["launches"]["paged_attention"]
@@ -4046,7 +4311,8 @@ def main(argv=None) -> int:
               "engine_b": rec_b, "checks": checks, "run": run,
               "cache_and_store": store, "moe": moe, "ssm": ssm,
               "frontends": frontends,
-              "search": search, "train": train, "kernels": kernels,
+              "search": search, "train": train, "shard": shard,
+              "kernels": kernels,
               "seconds": time.perf_counter() - t0}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

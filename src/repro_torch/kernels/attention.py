@@ -112,6 +112,7 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
                     attn_cap=None):
     """Tiled flash-attention forward; k and v f32 or bf16 (one type).
     Returns (B, Sq, Hq, D) f32."""
+    build.refuse_dtensor("flash_attention", q, k, v, q_pos, kv_pos)
     _check(q, k, v, q_pos, kv_pos)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
@@ -285,6 +286,9 @@ def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
     and they differ between the two versions: the kernel returns exact
     zeros for a row whose columns are all sentinel, the plain version lets
     a sentinel query attend every written slot (as the reference does)."""
+    build.refuse_dtensor("paged_prefill_attention", q, k_pages, v_pages,
+                         pos_pages, block_tables, q_pos, k_scale_pages,
+                         v_scale_pages)
     if k_pages.dtype not in KV_TYPES:
         raise ValueError(f"k_pages: expected float32, bfloat16 or int8, got "
                          f"{k_pages.dtype}")

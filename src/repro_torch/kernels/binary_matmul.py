@@ -31,6 +31,7 @@ def binary_matmul(x: torch.Tensor, planes: torch.Tensor,
                   alpha: torch.Tensor) -> torch.Tensor:
     """x (M, K) f32; planes (P, K, N) int8 signs; alpha (P, N) f32 ->
     (M, N) f32."""
+    build.refuse_dtensor("binary_matmul", x, planes, alpha)
     if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
         raise NotImplementedError("bf16 inputs to the bit-plane kernel are "
                                   "not ported yet: ROADMAP.md B6")

@@ -118,6 +118,20 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
                            f"{fn(err).decode()}")
 
 
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """Raise a TypeError naming ROADMAP.md A11 when any of ``tensors`` is
+    a DTensor: a kernel takes plain local tensors, and a sharded path
+    hands it its shards (``to_local()``), as ``models.layers`` does."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and type(t) is not torch.Tensor:
+            from torch.distributed.tensor import DTensor
+            if isinstance(t, DTensor):
+                raise TypeError(
+                    f"{kernel} takes no DTensor (ROADMAP.md A11): hand it "
+                    "each rank's local shards (to_local()), as the sharded "
+                    "paths in models/layers.py do")
+
+
 def expect(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int,
            device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``ndim`` dims

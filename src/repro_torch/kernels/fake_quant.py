@@ -35,6 +35,7 @@ def fake_quant_channels(x: torch.Tensor, scale: torch.Tensor,
     """x (M, N) f32; scale / levels / bits (N,) f32 -> (M, N) f32.  bits
     <= 0.5 prunes a column, bits >= ``ref.FULL_BITS`` (handed to
     the kernel at every launch) passes it through."""
+    build.refuse_dtensor("fake_quant_channels", x, scale, levels, bits)
     if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
         raise NotImplementedError("bf16 inputs to the fake-quant kernel are "
                                   "not ported yet: ROADMAP.md B5")

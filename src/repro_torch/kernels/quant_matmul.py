@@ -111,6 +111,7 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor,
     """x (M, K) f32; qw (K, N) int8; scale (N,) f32 -> (M, N) f32; or an
     expert stack, x (E, C, K), qw (E, K, N), scale (E, N) -> (E, C, N),
     in one launch."""
+    build.refuse_dtensor("quant_matmul", x, qw, scale)
     check_gemm(x, qw, scale, rows=x.shape[-1])
     if x.device.type == "cpu":
         return ref.quant_matmul_ref(x, qw, scale)

@@ -9,12 +9,17 @@ scan (:func:`attention_ref`, the oracle; :func:`paged_attention_ref`
 gathers the pool's pages first), ``"cuda"`` the flash kernel K1 or the
 paged kernel K4 (``kernels/attention.py``), in place of the reference's
 ``"pallas"``.
-The reference's sharding helpers ``wcol`` / ``wrow`` / ``constrain`` have
-no meaning on one card; with the reference's ``deq`` they become
-:func:`linear` and :func:`expert_linear`, which contract a stored weight
-(a PackedWeight, or the uniform int8 store's ``{"q", "s"}``) without
-materializing it.  The port has no mesh, so ``moe_ffn(local_dispatch=True)``
-is the plain dispatch, as the reference's is without a mesh.
+The reference's ``wcol`` / ``wrow`` / ``deq`` become :func:`linear` (its
+``role`` is the weight's sharding role, ``"w_col"`` or ``"w_row"``) and
+:func:`expert_linear`, which contract a stored weight (a PackedWeight, or
+the uniform int8 store's ``{"q", "s"}``) without materializing it.
+Under a mesh (``sharding.ctx.sharding_rules``, DTensor arguments) the
+same functions run sharded: DTensor shards the plain ops, and the
+kernels K1 and K2 run on each rank's local shards
+(:func:`_local_attention`, :func:`_sharded_quant_matmul`);
+``moe_ffn(local_dispatch=True)`` splits the dispatch into one group per
+DP shard, as the reference's.  Without a mesh every path is the
+unsharded one.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.pack import PackedWeight
 from repro_torch.quant.linear_quant import FULL_BITS, fake_quant_per_token
+from repro_torch.sharding import ctx
 
 NEG_INF = float("-inf")
 POS_SENTINEL = torch.iinfo(torch.int32).max
@@ -38,22 +44,33 @@ def is_int8_leaf(w) -> bool:
     return isinstance(w, dict) and "q" in w
 
 
-def linear(x: torch.Tensor, w) -> torch.Tensor:
+def linear(x: torch.Tensor, w, role: Optional[str] = "w_col"
+           ) -> torch.Tensor:
     """``x @ w`` over the last axis of x.  A PackedWeight goes to
     ``ops.packed_mixed_matmul`` (one K2/K3 launch per bucket on the card),
     an int8-store leaf to K2 with its per-channel scale (nothing
-    dequantizes the weight); a dense weight is a plain matmul."""
+    dequantizes the weight); a dense weight is a plain matmul.
+
+    ``role`` is the weight's sharding role at use, the reference's
+    ``wcol`` / ``wrow``: ``"w_col"`` (column-parallel, the default),
+    ``"w_row"`` (row-parallel: wo, wd, w_out) or None (the router).  Under
+    a mesh whose rules name the role (``weight_gather``) a dense DTensor
+    weight is constrained to its spec before the product; an int8-store
+    DTensor leaf is contracted shard by shard on K2
+    (:func:`_sharded_quant_matmul`)."""
     if isinstance(w, PackedWeight):
         from repro_torch.kernels.ops import packed_mixed_matmul
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         return packed_mixed_matmul(x2, w).reshape(x.shape[:-1] + (w.n,))
     if is_int8_leaf(w):
+        if ctx.is_dtensor(x) or ctx.is_dtensor(w["q"]):
+            return _sharded_quant_matmul(x, w, batched=False)
         from repro_torch.kernels.quant_matmul import quant_matmul
         q = w["q"]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         return quant_matmul(x2, q, w["s"].reshape(-1)).reshape(
             x.shape[:-1] + (q.shape[-1],))
-    return x @ w
+    return x @ (w if role is None else ctx.constrain(w, role))
 
 
 def expert_linear(x: torch.Tensor, w) -> torch.Tensor:
@@ -62,6 +79,8 @@ def expert_linear(x: torch.Tensor, w) -> torch.Tensor:
     PackedWeight stack and an int8-store stack take one batched K2 / K3
     launch per bucket for all E experts; a dense stack is a plain batched
     matmul (the reference computes it outside any Pallas kernel)."""
+    if is_int8_leaf(w) and (ctx.is_dtensor(x) or ctx.is_dtensor(w["q"])):
+        return _sharded_quant_matmul(x, w, batched=True)
     x = x.contiguous()
     if isinstance(w, PackedWeight):
         from repro_torch.kernels.ops import packed_mixed_matmul
@@ -71,6 +90,80 @@ def expert_linear(x: torch.Tensor, w) -> torch.Tensor:
         q = w["q"]
         return quant_matmul(x, q, w["s"].reshape(q.shape[0], q.shape[-1]))
     return torch.bmm(x, w)
+
+
+def _sharded_quant_matmul(x, w, batched: bool):
+    """K2 under a mesh: ``x`` (..., K) against an int8-store leaf
+    ``{"q": (K, N), "s": (1, N)}`` (``batched``: x (E, C, K) against
+    (E, K, N) / (E, 1, N)), any of them DTensors.  The contraction dim is
+    gathered on both sides; on every other mesh dim the product keeps
+    x's row shard, else q's column shard (and the scales' matching
+    chunk), else nothing; a ``batched`` expert dim sharded on either side
+    is sharded on both.  K2 then runs on the local shards
+    (``to_local()``: the kernel takes no DTensor) and the result is
+    wrapped back, so the kernel still runs under a mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    q, s = w["q"], w["s"]
+    mesh = next(t for t in (x, q, s) if ctx.is_dtensor(t)).device_mesh
+    x, q, s = (ctx.replicated(t, mesh) for t in (x, q, s))
+    tx, tq, ts, to = [], [], [], []
+    for px, pq in zip(x.placements, q.placements):
+        xd = px.dim if isinstance(px, Shard) and px.dim < x.ndim - 1 \
+            else None
+        qd = pq.dim if isinstance(pq, Shard) and pq.dim != q.ndim - 2 \
+            else None
+        if batched and 0 in (xd, qd):              # the expert dim
+            pick = (Shard(0), Shard(0), Shard(0), Shard(0))
+        elif xd is not None:                       # x's rows
+            pick = (Shard(xd), Replicate(), Replicate(), Shard(xd))
+        elif qd is not None:                       # q's columns
+            pick = (Replicate(), Shard(q.ndim - 1), Shard(s.ndim - 1),
+                    Shard(x.ndim - 1))
+        else:
+            pick = (Replicate(),) * 4
+        for lst, p in zip((tx, tq, ts, to), pick):
+            lst.append(p)
+    xl = x.redistribute(mesh, tx).to_local()
+    ql = q.redistribute(mesh, tq).to_local()
+    sl = s.redistribute(mesh, ts).to_local()
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    if batched:
+        yl = quant_matmul(xl.contiguous(), ql,
+                          sl.reshape(ql.shape[0], ql.shape[-1]))
+    else:
+        yl = quant_matmul(xl.reshape(-1, xl.shape[-1]).contiguous(), ql,
+                          sl.reshape(-1)).reshape(
+            xl.shape[:-1] + (ql.shape[-1],))
+    shape = tuple(x.shape[:-1]) + (q.shape[-1],)
+    return DTensor.from_local(yl, mesh, to, run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape):
+    stride, acc = [], 1
+    for d in reversed(shape):
+        stride.append(acc)
+        acc *= d
+    return tuple(reversed(stride))
+
+
+def split_heads(t: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    """(..., H * hd) -> (..., H, hd).  Under a mesh, a last dim split into
+    more shards than H divides is gathered first (``ctx.unshard``):
+    DTensor has no strategy that splits such a shard."""
+    if n_heads % ctx.shards_on(t, -1):
+        t = ctx.unshard(t, [-1])
+    return t.reshape(t.shape[:-1] + (n_heads, hd))
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., H, hd) -> (..., H * hd).  Under a mesh with an axis that H
+    does not divide, the result's last dim is pinned replicated
+    (``ctx.pin_unsharded``): the gradient that a row-parallel weight
+    hands back is sharded there, and the backward of this merge could not
+    split it into heads."""
+    out = t.reshape(t.shape[:-2] + (t.shape[-2] * t.shape[-1],))
+    return ctx.pin_unsharded(out, -1, t.shape[-2])
 
 
 def _select_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -111,7 +204,22 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ``index_select``, whose gradient, when one is taken, is summed
     deterministically (:class:`_RowGather`), so two training runs from
     one seed give the same bits on the card.  The embedding lookup and
-    the MoE dispatch and gather take their rows through it."""
+    the MoE dispatch and gather take their rows through it.  A DTensor
+    table (under a mesh) that is replicated, with replicated indices,
+    takes this same gather on its local tensor (so a 1x1 mesh gives the
+    unsharded bits); any other takes ``F.embedding``, which DTensor
+    shards (a row-sharded table by a masked lookup, whose partial sums
+    are reduced at once: ``ctx.settle``)."""
+    if ctx.is_dtensor(table):
+        from torch.distributed.tensor import DTensor, Replicate
+        if all(isinstance(p, Replicate) for p in table.placements) and (
+                not ctx.is_dtensor(idx) or all(
+                    isinstance(p, Replicate) for p in idx.placements)):
+            idx_l = idx.to_local() if ctx.is_dtensor(idx) else idx
+            return DTensor.from_local(
+                gather_rows(table.to_local(), idx_l), table.device_mesh,
+                table.placements, run_check=False)
+        return ctx.settle(F.embedding(idx, table))
     if table.requires_grad and torch.is_grad_enabled():
         return _RowGather.apply(table, idx)
     return _select_rows(table, idx)
@@ -178,6 +286,9 @@ def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
     (kernel K1).  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); q_pos (B, Sq)
     and kv_pos (B, Skv) int32.  ``chunk`` applies to the ref path only."""
     impl = _check_impl(impl)
+    if any(ctx.is_dtensor(t) for t in (q, k, v)):
+        return _local_attention(q, k, v, q_pos, kv_pos, impl, dict(
+            causal=causal, window=window, attn_cap=attn_cap, chunk=chunk))
     if impl == "cuda":
         from repro_torch.kernels.attention import flash_attention
         return flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
@@ -187,15 +298,56 @@ def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
                          window=window, attn_cap=attn_cap, chunk=chunk)
 
 
+def _local_attention(q, k, v, q_pos, kv_pos, impl, kw):
+    """:func:`attention` under a mesh, on each rank's local shards: every
+    mesh dim that shards q's batch shards q, k, v and both positions'
+    batch; one that shards q's heads, where the kv heads divide, shards
+    q's, k's and v's heads (GQA groups stay whole); any other sharding of
+    the operands is gathered first (a KV sequence sharded over "model",
+    say).  Attention is independent per (batch row, head), so the local
+    results are the global one's shards.  K1 thus runs on local tensors
+    (``impl="cuda"``: the kernel takes no DTensor), and DTensor does not
+    have to search strategies for the 5-d einsums of the plain version,
+    which takes minutes on a 3-d mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = next(t for t in (q, k, v) if ctx.is_dtensor(t)).device_mesh
+    q, k, v, q_pos, kv_pos = (ctx.replicated(t, mesh)
+                              for t in (q, k, v, q_pos, kv_pos))
+    pq, pkv, ppos = [], [], []
+    for size, p in zip(mesh.mesh.shape, q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            pick = (Shard(0), Shard(0), Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2 and k.shape[2] % size == 0:
+            pick = (Shard(2), Shard(2), Replicate())
+        else:
+            pick = (Replicate(),) * 3
+        for lst, x in zip((pq, pkv, ppos), pick):
+            lst.append(x)
+    ql = q.redistribute(mesh, pq).to_local()
+    kl, vl = (t.redistribute(mesh, pkv).to_local() for t in (k, v))
+    qpl, kpl = (t.redistribute(mesh, ppos).to_local() for t in (q_pos, kv_pos))
+    if impl == "cuda":
+        from repro_torch.kernels.attention import flash_attention
+        kw = {key: kw[key] for key in ("causal", "window", "attn_cap")}
+        out = flash_attention(ql, kl, vl, q_pos=qpl, kv_pos=kpl, **kw)
+    else:
+        out = attention_ref(ql, kl, vl, q_pos=qpl, kv_pos=kpl, **kw)
+    return DTensor.from_local(out, mesh, pq, run_check=False, shape=q.shape,
+                              stride=_contiguous_stride(tuple(q.shape)))
+
+
 def _mask_scores(s, q_pos, kv_pos, *, causal, window):
     """s: (B, Hkv, G, Sq, Ck); q_pos (B, Sq); kv_pos (B, Ck)."""
     qp = q_pos[:, None, None, :, None].to(torch.int64)
     kp = kv_pos[:, None, None, None, :].to(torch.int64)
-    mask = torch.ones(s.shape, dtype=torch.bool, device=s.device)
+    mask = None
     if causal:
-        mask &= kp <= qp
+        mask = kp <= qp
     if window is not None:
-        mask &= kp > qp - window
+        inside = kp > qp - window
+        mask = inside if mask is None else mask & inside
+    if mask is None:
+        return s
     return torch.where(mask, s, torch.full_like(s, NEG_INF))
 
 
@@ -307,7 +459,7 @@ def swiglu(x, p, act_bits=None):
     """p: {wg: (d, ff), wu: (d, ff), wd: (ff, d)}."""
     x = maybe_quant_act(x, act_bits)
     h = F.silu(linear(x, p["wg"])) * linear(x, p["wu"])
-    return linear(h, p["wd"])
+    return linear(h, p["wd"], role="w_row")
 
 
 # ----------------------------------------------------------------------- MoE
@@ -366,15 +518,32 @@ def moe_ffn(x, p, *, n_experts, top_k, capacity_factor=1.25, act_bits=None,
     p: {router (d, E), wg / wu (E_phys, d, ff), wd (E_phys, ff, d)} in any
     weight store.  Returns (out like x, router probs (T, E)).  Tokens
     beyond an expert's capacity are dropped (their residual path alone
-    remains); ``capacity_factor <= 0`` drops nothing.  ``local_dispatch``
-    splits the dispatch per data shard under a mesh in the reference; the
-    port runs on one card without a mesh, where the reference takes the
-    plain path too."""
+    remains); ``capacity_factor <= 0`` drops nothing.
+
+    ``local_dispatch`` under a mesh (``ctx.current_mesh()``) with
+    G = pod * data > 1 and T % G == 0 splits the tokens into G groups of
+    T / G, pinned as ``"moe_group"``, and dispatches each group with its
+    own capacity, as the reference's vmap over groups does.  Without a
+    mesh, or when G does not divide T, it is the plain dispatch."""
+    mesh = ctx.current_mesh() if local_dispatch else None
+    if mesh is not None:
+        axes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        G = axes.get("pod", 1) * axes.get("data", 1)
+        T = math.prod(x.shape[:-1])
+        if G > 1 and T % G == 0:
+            d = x.shape[-1]
+            xg = ctx.constrain(x.reshape(G, T // G, d), "moe_group")
+            out, probs = _moe_ffn_impl(
+                xg, p, n_experts=n_experts, top_k=top_k,
+                capacity_factor=capacity_factor, act_bits=act_bits, groups=G)
+            out = ctx.constrain(out, "moe_group")
+            return out.reshape(x.shape), probs
     return _moe_ffn_impl(x, p, n_experts=n_experts, top_k=top_k,
                          capacity_factor=capacity_factor, act_bits=act_bits)
 
 
-def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits):
+def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits,
+                  groups: int = 1):
     """The reference's ``_moe_ffn_impl`` step for step: router logits in the
     model dtype and softmax in f32; top-k with ties to the lower expert (a
     stable descending sort, as ``lax.top_k``); gates renormalized by
@@ -389,6 +558,13 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits):
     output row back, weighted by its gate, summed over the K slots.  Both
     row gathers go through :func:`gather_rows`, whose backward sums
     repeated rows deterministically.
+    ``groups`` > 1 (``moe_ffn``'s local dispatch): x is (G, T / G, d), and
+    each group has its own capacity and its own cells, (group, expert)
+    taking the place of the expert in the sort; the experts run every
+    group's rows in one call, (E_phys, G * C, d).  On DTensors the routing
+    indices are gathered to every rank (``full_tensor``: DTensor has no
+    strategy for the sort-based positions) and the index math runs
+    replicated.
     The dispatch (router softmax to the filled buffer) and the gather run
     inside the profiler ranges ``MOE_DISPATCH`` and ``MOE_GATHER``, which
     a profile reads to split their device time from the rest."""
@@ -398,18 +574,23 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits):
     T = xt.shape[0]
     E, K = n_experts, top_k
     E_phys = _n_phys(p["wg"])          # >= E when experts are padded (EP)
-    C = moe_capacity(T, E, K, capacity_factor)
+    C = moe_capacity(T // groups, E, K, capacity_factor)
     dev = x.device
 
-    logits = at_least_f32(linear(xt, p["router"]))
+    logits = at_least_f32(linear(xt, p["router"], role=None))
     with torch.profiler.record_function(MOE_DISPATCH):
         probs = torch.softmax(logits, dim=-1)                  # (T, E)
         gate_v, gate_i = moe_route(probs, K)                   # (T, K)
 
         eidx = gate_i.reshape(-1)                              # (T*K,)
-        pos = _position_in_expert(eidx, E_phys)
+        if ctx.is_dtensor(eidx):
+            eidx = eidx.full_tensor()
+        if groups > 1:                        # (group, expert) of each pair
+            eidx = eidx + torch.arange(T * K, device=dev) // (
+                T // groups * K) * E_phys
+        pos = _position_in_expert(eidx, groups * E_phys)
         keep = pos < C
-        trash = E_phys * C                      # the zero row / dropped cell
+        trash = groups * E_phys * C             # the zero row / dropped cell
         cell = torch.where(keep, eidx * C + pos, torch.full_like(pos, trash))
 
         xq = maybe_quant_act(xt, act_bits)
@@ -417,12 +598,22 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits):
         src = torch.full((trash + 1,), T, dtype=torch.int64, device=dev)
         tok = torch.arange(T * K, device=dev) // K             # pair -> token
         src.index_copy_(0, cell, tok)    # kept cells are written once each
-        buf = gather_rows(xpad, src[:trash]).reshape(E_phys, C, d)
+        buf = gather_rows(xpad, src[:trash])
+        if groups > 1:
+            buf = buf.reshape(groups, E_phys, C, d).transpose(0, 1)
+        # the buffer's gradient comes back sharded over (expert, row)
+        # from the expert GEMMs; gathered on both dims it flattens back
+        # on every torch release (some refuse a sharded dim 1)
+        buf = ctx.unshard(buf.reshape(E_phys, groups * C, d), [0, 1],
+                          force=True)
 
     h = F.silu(expert_linear(buf, p["wg"])) * expert_linear(buf, p["wu"])
-    out_buf = expert_linear(h, p["wd"])                        # (E_phys, C, d)
+    out_buf = expert_linear(h, p["wd"])                  # (E_phys, G * C, d)
 
     with torch.profiler.record_function(MOE_GATHER):
+        if groups > 1:
+            out_buf = out_buf.reshape(E_phys, groups, C, d).transpose(0, 1)
+        out_buf = ctx.unshard_uneven(out_buf)     # E_phys % shards, say
         opad = torch.cat([out_buf.reshape(trash, d),
                           out_buf.new_zeros((1, d))])
         gathered = gather_rows(opad, cell)                     # (T*K, d)

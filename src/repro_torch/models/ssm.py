@@ -25,7 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.api import SSMCfg
-from repro_torch.models.layers import at_least_f32, linear, rmsnorm
+from repro_torch.models.layers import (_contiguous_stride, at_least_f32,
+                                       linear, rmsnorm, split_heads)
+from repro_torch.sharding import ctx
 
 # profiler range of the SSD chunk scan (plain PyTorch kernels)
 SSD_SCAN = "ssd_chunk_scan"
@@ -56,7 +58,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv.  x: (B, S, di); w: (K, di)."""
     K, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    # the zero rows by concatenation, not F.pad: DTensor's pad strategy
+    # fails to redistribute on some torch releases (2.11)
+    xp = torch.cat([x.new_zeros((x.shape[0], K - 1, x.shape[2])), x], dim=1)
     out = sum(xp[:, i:i + S, :] * w[i] for i in range(K))
     return out + b
 
@@ -121,6 +125,49 @@ def _ssd_chunk_scan(xh, Bm, Cm, dt, A, chunk: int
     return y[:, :S_orig], state
 
 
+def _ssd_scan(xh, Bm, Cm, dt, A, chunk: int):
+    """:func:`_ssd_chunk_scan`, under a mesh on each rank's local shards:
+    the scan is independent per (batch row, head), so every mesh dim that
+    shards xh's batch shards all of them there, one that shards its heads
+    (where it divides H) shards xh's, dt's and A's heads, and any other
+    sharding is gathered first.  DTensor thus never sees the scan's
+    flattening einsums (some torch releases refuse them on a sharded
+    dim)."""
+    if not any(ctx.is_dtensor(t) for t in (xh, Bm, Cm, dt, A)):
+        return _ssd_chunk_scan(xh, Bm, Cm, dt, A, chunk)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = next(t for t in (xh, Bm, Cm, dt, A)
+                if ctx.is_dtensor(t)).device_mesh
+    xh, Bm, Cm, dt, A = (ctx.replicated(t, mesh)
+                         for t in (xh, Bm, Cm, dt, A))
+    H = xh.shape[2]
+    picks = []                          # (xh / y, Bm / Cm, dt, A, state)
+    for size, p in zip(mesh.mesh.shape, xh.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            picks.append((Shard(0), Shard(0), Shard(0), Replicate(),
+                          Shard(0)))
+        elif isinstance(p, Shard) and p.dim == 2 and H % size == 0:
+            picks.append((Shard(2), Replicate(), Shard(2), Shard(0),
+                          Shard(1)))
+        else:
+            picks.append((Replicate(),) * 5)
+    px, pb, pd, pa, ps = (list(c) for c in zip(*picks))
+    y, state = _ssd_chunk_scan(
+        xh.redistribute(mesh, px).to_local(),
+        Bm.redistribute(mesh, pb).to_local(),
+        Cm.redistribute(mesh, pb).to_local(),
+        dt.redistribute(mesh, pd).to_local(),
+        A.redistribute(mesh, pa).to_local(), chunk)
+    B, S, _, P = xh.shape
+    st_shape = (B, H, P, Bm.shape[-1])
+    return (DTensor.from_local(y, mesh, px, run_check=False,
+                               shape=xh.shape,
+                               stride=_contiguous_stride(tuple(xh.shape))),
+            DTensor.from_local(state, mesh, ps, run_check=False,
+                               shape=st_shape,
+                               stride=_contiguous_stride(st_shape)))
+
+
 def _last_conv_window(xz: torch.Tensor, cfg: SSMCfg) -> torch.Tensor:
     """The (d_conv - 1) trailing pre-conv activations, for decode to
     continue from; a prompt shorter than that is padded on the left."""
@@ -147,13 +194,13 @@ def mamba_forward(params, x: torch.Tensor, cfg: SSMCfg, d_model: int):
                     at_least_f32(params["dt_bias"]))
     A = -torch.exp(at_least_f32(params["A_log"]))
 
-    xh = at_least_f32(xi).reshape(Bb, S, H, P)
+    xh = split_heads(at_least_f32(xi), H, P)
     with torch.profiler.record_function(SSD_SCAN):
-        y, state = _ssd_chunk_scan(xh, Bm, Cm, dt, A, cfg.chunk)
+        y, state = _ssd_scan(xh, Bm, Cm, dt, A, cfg.chunk)
     y = y + at_least_f32(params["D"])[:, None] * xh
     y = y.reshape(Bb, S, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_w"])
-    out = linear(y, params["w_out"])
+    out = linear(y, params["w_out"], role="w_row")
     return out, {"state": state, "conv": _last_conv_window(xz, cfg)}
 
 
@@ -202,5 +249,5 @@ def mamba_decode_step(params, x: torch.Tensor, cache, cfg: SSMCfg,
     y = y + at_least_f32(params["D"])[:, None] * xh
     y = y.reshape(Bb, 1, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_w"])
-    out = linear(y, params["w_out"])
+    out = linear(y, params["w_out"], role="w_row")
     return out, {"state": state, "conv": win[:, 1:, :]}

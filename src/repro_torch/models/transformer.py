@@ -51,11 +51,12 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.api import BlockDef, LMConfig
 from repro_torch.models.layers import (POS_SENTINEL, at_least_f32, attention,
                                        gather_rows, is_int8_leaf, linear,
-                                       maybe_quant_act, moe_ffn,
+                                       maybe_quant_act, merge_heads, moe_ffn,
                                        paged_attention, rmsnorm, rope,
-                                       softcap, swiglu)
+                                       softcap, split_heads, swiglu)
 from repro_torch.quant.linear_quant import FULL_BITS
 from repro_torch.quant.policy import LayerInfo, QuantizableGraph
+from repro_torch.sharding.ctx import constrain, settle
 
 # leaves that quantize_params_int8 stores as {"q", "s"} (the reference's
 # set, mamba's included)
@@ -189,11 +190,17 @@ class LM:
         ``torch.Generator`` on ``device`` or an int seed.  The numbers
         differ from ``jax.random``'s; tests that compare the packages carry
         the reference's parameters across with ``interop.params_from_numpy``.
-        All fp32.  Runs on the card unless ``device`` says otherwise."""
+        All fp32.  Runs on the card unless ``device`` says otherwise; on
+        the ``meta`` device it allocates nothing (shapes for the dry run,
+        ``launch/specs.py``)."""
         device = backend.resolve_device(device)
         cfg = self.cfg
-        g = generator if isinstance(generator, torch.Generator) else \
-            backend.make_generator(generator, device)
+        if device.type == "meta":
+            g = None
+        elif isinstance(generator, torch.Generator):
+            g = generator
+        else:
+            g = backend.make_generator(generator, device)
         R, d, hd = cfg.n_repeat, cfg.d_model, cfg.hdim
 
         def lin(fan_in, *shape):
@@ -250,13 +257,13 @@ class LM:
         B, S, _ = x.shape
         Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
         h = maybe_quant_act(rmsnorm(x, bp["norm"], cfg.norm_eps), act_bits)
-        q = linear(h, bp["wq"]).reshape(B, S, Hq, hd)
+        q = split_heads(linear(h, bp["wq"]), Hq, hd)
         if mode == "decode":
             k, v = _kv_deq(cache, "k"), _kv_deq(cache, "v")
         else:
             Si = img_embeds.shape[1]
-            k = linear(img_embeds, bp["wk"]).reshape(B, Si, Hkv, hd)
-            v = linear(img_embeds, bp["wv"]).reshape(B, Si, Hkv, hd)
+            k = split_heads(linear(img_embeds, bp["wk"]), Hkv, hd)
+            v = split_heads(linear(img_embeds, bp["wv"]), Hkv, hd)
             if cache is not None:
                 _kv_store_full(cache, k, v)
         kv_pos = torch.zeros(k.shape[:2], dtype=torch.int32, device=k.device)
@@ -264,7 +271,7 @@ class LM:
         out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=False,
                         attn_cap=cfg.attn_softcap, chunk=chunk,
                         impl=attn_impl)
-        return x + linear(out.reshape(B, S, Hq * hd), bp["wo"])
+        return x + linear(merge_heads(out), bp["wo"], role="w_row")
 
     def _attn_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                     write_pos=None, act_bits=None, attn_impl=None,
@@ -279,11 +286,11 @@ class LM:
         h = rmsnorm(x, bp["norm"], cfg.norm_eps)
         h = maybe_quant_act(h, act_bits)
         window = cfg.window if bdef.kind == "local_attn" else None
-        q = rope(linear(h, bp["wq"]).reshape(B, S, Hq, hd), q_pos,
+        q = rope(split_heads(linear(h, bp["wq"]), Hq, hd), q_pos,
                  cfg.rope_theta)
-        k = rope(linear(h, bp["wk"]).reshape(B, S, Hkv, hd), q_pos,
+        k = rope(split_heads(linear(h, bp["wk"]), Hkv, hd), q_pos,
                  cfg.rope_theta)
-        v = linear(h, bp["wv"]).reshape(B, S, Hkv, hd).contiguous()
+        v = split_heads(linear(h, bp["wv"]), Hkv, hd).contiguous()
         kv_pos = q_pos
         if block_tables is not None:
             wp = write_pos if write_pos.ndim == 2 else write_pos[:, None]
@@ -293,7 +300,7 @@ class LM:
                 q_pos=q_pos, window=window,
                 attn_cap=cfg.attn_softcap, k_scale_pages=cache.get("k_s"),
                 v_scale_pages=cache.get("v_s"), impl=attn_impl)
-            return x + linear(out.reshape(B, S, Hq * hd), bp["wo"])
+            return x + linear(merge_heads(out), bp["wo"], role="w_row")
         if cache is not None:
             W = cache["k"].shape[1]
             if mode == "decode":
@@ -329,7 +336,7 @@ class LM:
         out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
                         window=window, attn_cap=cfg.attn_softcap, chunk=chunk,
                         impl=attn_impl)
-        return x + linear(out.reshape(B, S, Hq * hd), bp["wo"])
+        return x + linear(merge_heads(out), bp["wo"], role="w_row")
 
     def _ffn(self, bp, bdef: BlockDef, x, act_bits=None):
         """FFN + residual.  Returns (x, aux): the MoE load-balance term
@@ -417,6 +424,7 @@ class LM:
                     _repeat(params["blocks"][p_idx], r), bdef, x,
                     cache=None if cache is None else _repeat(cache[p_idx], r),
                     act_bits=ab, **kw)
+                x = constrain(x, "hidden")
                 if a is not None:
                     aux.append(a)
             return x, aux
@@ -438,8 +446,9 @@ class LM:
         """The stack's input: ``batch["embeds"]`` (B, S, d) for the audio
         front end, else the embedding rows of ``batch["tokens"]``."""
         if self.cfg.frontend == "audio_stub":
-            return batch["embeds"]
-        return self._embed_tokens(params, batch["tokens"].long())
+            return constrain(batch["embeds"], "hidden")
+        return constrain(self._embed_tokens(params, batch["tokens"].long()),
+                         "hidden")
 
     def _embed_tokens(self, params, tokens):
         """Embedding rows of ``tokens``: an int8-store embedding is a row
@@ -454,7 +463,8 @@ class LM:
     def logits_of(self, params, x):
         cfg = self.cfg
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        lg = softcap(linear(x, params["unembed"]), cfg.logit_softcap)
+        lg = constrain(linear(x, params["unembed"]), "logits")
+        lg = softcap(lg, cfg.logit_softcap)
         if cfg.vocab_padded != cfg.vocab:   # mask padded vocab entries
             valid = torch.arange(cfg.vocab_padded, device=lg.device) < cfg.vocab
             lg = torch.where(valid, lg, torch.full_like(lg, -1e30))
@@ -523,8 +533,8 @@ class LM:
         labels = batch["labels"].long()
         lf = at_least_f32(logits)
         lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, torch.clamp(labels, min=0)[..., None]
-                            )[..., 0]
+        gold = settle(torch.gather(lf, -1, torch.clamp(labels, min=0)[
+            ..., None]))[..., 0]
         mask = (labels >= 0).to(lf.dtype)
         nll = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(),
                                                            min=1.0)
@@ -679,6 +689,7 @@ class LM:
         cache)."""
         x = tokens if self.cfg.frontend == "audio_stub" else \
             self._embed_tokens(params, tokens.long())
+        x = constrain(x, "hidden")
         B = x.shape[0]
         q_pos = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=x.device)
@@ -695,7 +706,7 @@ class LM:
         the position each sequence's token occupies (``POS_SENTINEL`` for
         idle lanes, whose writes land in the trash page).  Updates the
         pool in place; returns (logits (B, 1, V), cache)."""
-        x = self._embed_tokens(params, tokens.long())
+        x = constrain(self._embed_tokens(params, tokens.long()), "hidden")
         pos = pos.to(torch.int32)
         x, _ = self._stack(params, x, cache, act_bits, q_pos=pos[:, None],
                            mode="decode", write_pos=pos,
@@ -725,7 +736,7 @@ class LM:
                 "model_step requires a pure paged-cache pattern (attn / "
                 f"local_attn only); got cache kinds {kinds} -- serve hybrid "
                 "architectures through the monolithic prefill path")
-        x = self._embed_tokens(params, tokens.long())
+        x = constrain(self._embed_tokens(params, tokens.long()), "hidden")
         q_pos = positions.to(torch.int32)
         bt_rows = block_tables.index_select(0, slot_map.long())
         x, _ = self._stack(params, x, cache, act_bits, q_pos=q_pos,

@@ -15,8 +15,9 @@ other's checkpoints.
 * **keep-k** garbage collection + auto-resume from the newest complete
   step.
 
-``restore`` takes ``device=`` where the reference takes ``shardings=``:
-re-sharding onto another mesh is not ported (ROADMAP.md A11).
+``restore(shardings=)`` places each leaf on a ``DeviceMesh`` of any shape
+(``distribute_tensor``), whatever mesh, if any, saved it; ``save`` takes
+DTensor leaves too (gathered, written by rank 0).
 """
 from __future__ import annotations
 
@@ -28,9 +29,11 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import backend
 from repro_torch.core.ddpg import tree_unflatten
+from repro_torch.sharding.ctx import is_dtensor
 
 # dtypes numpy cannot store, kept as bit patterns of this width
 _BITCAST = {"bfloat16": (torch.int16, np.uint16),
@@ -56,7 +59,10 @@ def path_str(path) -> str:
 
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
-    """A leaf as (stored array, dtype name)."""
+    """A leaf as (stored array, dtype name); a DTensor is gathered whole
+    first (a collective: every rank of its mesh calls ``save``)."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         name = str(t.dtype).replace("torch.", "")
@@ -86,6 +92,14 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
+        """Write ``tree`` as step ``step``.  With DTensor leaves every rank
+        calls this; the leaves are gathered and rank 0 writes (the others
+        return None)."""
+        leaves = [(path, _to_numpy(leaf))
+                  for path, leaf in tree_flatten_with_path(tree)]
+        if dist.is_initialized() and dist.get_rank() != 0 and any(
+                is_dtensor(leaf) for _, leaf in tree_flatten_with_path(tree)):
+            return None
         tmp = self.dir / f"tmp.{step}"
         final = self.dir / f"step_{step:010d}"
         if tmp.exists():
@@ -93,8 +107,7 @@ class CheckpointManager:
         tmp.mkdir(parents=True)
         manifest = {"step": int(step), "leaves": {}, "extra": extra or {}}
         arrays = {}
-        for i, (path, leaf) in enumerate(tree_flatten_with_path(tree)):
-            arr, dt = _to_numpy(leaf)
+        for i, (path, (arr, dt)) in enumerate(leaves):
             key = f"a{i}"
             arrays[key] = arr
             manifest["leaves"][path_str(path)] = {
@@ -125,15 +138,18 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device: backend.DeviceLike = None, shardings: Any = None):
+                device: backend.DeviceLike = None, shardings: Any = None,
+                mesh=None):
         """Restore onto the structure of ``like`` (a template tree whose
         leaves have ``.shape``), as tensors on ``device`` (the card when
-        None).  Returns (step, tree, extra)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto shardings is not ported yet: ROADMAP.md A11 "
-                "(sharding); pass device= instead")
-        device = backend.resolve_device(device)
+        None).  ``shardings``: a tree like ``like`` of DTensor placements
+        (with ``mesh``, a ``DeviceMesh``) or of ``DTensorSpec``s (which
+        carry their mesh); each leaf is then loaded whole on its mesh's
+        device and ``distribute_tensor``-ed onto it, each rank keeping its
+        own shards (no communication), on a mesh of any shape.  Returns
+        (step, tree, extra)."""
+        if shardings is None:
+            device = backend.resolve_device(device)
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -152,5 +168,28 @@ class CheckpointManager:
                 if tuple(arr.shape) != want:
                     raise ValueError(f"shape mismatch for {name}: ckpt "
                                      f"{arr.shape} vs {want}")
-                leaves.append(_from_numpy(arr, meta["dtype"], device))
+                if shardings is None:
+                    leaves.append(_from_numpy(arr, meta["dtype"], device))
+                else:
+                    leaves.append(_distribute(
+                        arr, meta["dtype"], _at(shardings, path), mesh))
         return step, tree_unflatten(like, leaves), manifest.get("extra", {})
+
+
+def _at(tree, path):
+    """The node of ``tree`` at ``path`` (a placements tuple or a
+    ``DTensorSpec`` stops the walk)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _distribute(arr, dtype: str, sharding, mesh):
+    from torch.distributed.tensor import distribute_tensor
+    placements = getattr(sharding, "placements", sharding)
+    mesh = getattr(sharding, "mesh", mesh)
+    if mesh is None:
+        raise ValueError("placements without a mesh: pass mesh= or "
+                         "DTensorSpecs")
+    t = _from_numpy(arr, dtype, torch.device(mesh.device_type))
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
