@@ -33,7 +33,9 @@ run exits non-zero:
               prints its route (K2 and K3: tc_2xtf32 for M > 8, else skinny,
               one launch that sums its K splits in a cluster) and that
               route's bound beside the function's, must make exactly one
-              launch a call, and every tensor-core row must also come within
+              launch a call (counted as the kernel nodes of a CUDA graph
+              that captures the call; a CUPTI trace's count is printed
+              beside it), and every tensor-core row must also come within
               TC_ERR_LIMIT of quant_matmul_ref / packed_matmul_ref. Every
               kernel row must give the same bits on a second call. Every
               bound counts the function's operations at the TF32 peak where
@@ -53,7 +55,15 @@ run exits non-zero:
               memory (prefill, decode in fp32 and bf16; the library call
               SDPA without a causal mask); K2 / K3 at vision's wg
               (4096 and 2 rows x 8192 x 28672), its unembedding (2 x 8192
-              x 128256) and musicgen's wg (4096 x 2048 x 8192).
+              x 128256) and musicgen's wg (4096 x 2048 x 8192).  Last, a
+              bf16 model's rows: K1's prefill (2 x 4160) and decode
+              (against a 4224 bf16 cache) and K4's 4 x 512 chunk and 4 x 1
+              decode over a bf16 pool, each on a bf16 q (BF16_ATTN_TOL,
+              bf16 output); K2 / K3 on a bf16 x at 2 and 8320 x 2304 x
+              9216 and expert-batched at 40 x 1024 x 1536 x 512
+              (BF16_GEMM_TOL, bf16 output, route tc_1xtf32 at M > 8), the
+              library call SDPA on bf16 q, k, v and torch.matmul / bmm on
+              the bf16 dequantized weight.
 3. serve   -- ServeEngine.generate on gemma2-2b at full width, cut to
               GEMMA_LAYERS layers, with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
@@ -68,17 +78,34 @@ run exits non-zero:
               generate (top-2 gap rule), monolithic prefill on the first
               4, launch counts, host syncs per step, and one profiled run
               (device time by kernel group: K4's chunk and decode
-              launches, K2's and K3's GEMMs; one device launch per GEMM
-              call, a trace that lost kernel records taken again, at
-              most TRACE_ATTEMPTS times, as is generate's on engine A).
+              launches, K2's and K3's GEMMs; by route, no more device
+              launches in the trace than GEMM calls, and the records the
+              trace lost reported, as in generate's on engine A).
    cache-store -- gemma2-2b over a bf16 cache and pool (engine A's store
               with cache_dtype=torch.bfloat16): run() against each
               request's generate() by the gap rule, both against the fp32
               twins by the gap rule at BF16_GAP_TOL, the pool's bytes; then
               the uniform int8 store (model.quantize_params_int8): its
               prefill logits against the fp32 engine's (mean |lf - lq| /
-              std(lf) < 0.35), K2 on every GEMM (exact launch count, one
-              device launch a call) and no K3, run() against generate().
+              std(lf) < 0.35), K2 on every GEMM (exact launch count, its
+              trace no more device launches than calls) and no K3, run()
+              against generate().
+   bf16    -- a bf16 model: gemma2-2b at GEMMA_LAYERS layers from
+              LM.init(SEED, dtype=torch.bfloat16), bf16 caches and pools.
+              generate 2 x 4160 + 16 on the dense store (K1 on a bf16 q;
+              cuBLAS bf16 products) and on the packed store (K1, K2, K3 on
+              bf16 q and x): engine A (kernels) against engine B (plain
+              versions), prefill logits within BF16_TWIN_FACTOR x B's
+              distance from B on the fp32 twin (the same parameters
+              upcast, the plain versions in both: a yardstick that no
+              kernel moves), streams by the gap rule at BF16_GAP_TOL,
+              launches equal to A's fp32 twin's; run() of the run phase's 8 requests on the
+              packed store: overlap on == off bitwise, streams against
+              generate (gap rule), launches equal to the twin's run, 0
+              host syncs a step, one profiled run (busy share; no more
+              GEMM device launches than calls by route).  Prints
+              prefill_s, decode tok/s, busy share, weight bytes and peak
+              memory beside the card's name and power limit.
 6. search  -- the AutoQ search on CIF10-7CNN at full width: trains the
               substrate (250 Adam steps, batch 128, as the example does)
               twice from one seed and requires every leaf equal bit for
@@ -230,6 +257,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet: HBM3 bandwidth
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet: fp32, non-tensor
 TF32_FLOP_PER_S = 495e12      # H100 SXM data sheet: TF32 tensor, dense
+BF16_FLOP_PER_S = 989e12      # H100 SXM data sheet: bf16 tensor, dense
 # device-time groups of the profiled runs: kernel-name fragments
 # (attn_tc's K/V source and gemm_tc's weight source name their launches;
 # paged_combine merges the splits of both K4 walks)
@@ -246,7 +274,7 @@ KERNEL_GROUPS = {
 }
 GEMM_GROUPS = {"quant_matmul": ("k2_tc", "k2_skinny"),
                "packed_matmul": ("k3_tc", "k3_skinny")}
-# profiled runs traced again when their trace lost GEMM launch records
+# a pair of timing traces taken again when one came back empty
 TRACE_ATTEMPTS = 3
 
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/test_attention.py:25
@@ -256,6 +284,14 @@ GEMM_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_packed.py:68-69
 # one that chains every MMA into the truncating accumulator ~1.7e-4 (still
 # inside GEMM_TOL by its rtol)
 TC_ERR_LIMIT = 5e-5
+# bf16 q: the kernel and its plain version compute in fp32 (their fp32
+# results within ATTN_TOL) and round once to bf16, so an output differs by
+# at most one bf16 ulp, 2^-7 of its value
+BF16_ATTN_TOL = dict(rtol=2.0**-7, atol=ATTN_TOL["atol"])
+# bf16 x: the kernels and their plain versions sum the same exact fp32
+# products (within GEMM_TOL of each other) and round once to bf16, so an
+# output differs by at most one bf16 ulp beyond that
+BF16_GEMM_TOL = dict(rtol=2.0**-7, atol=GEMM_TOL["atol"])
 # Engines A and B differ in summation order only (fp32 throughout), but
 # many layers deep on random weights a 1e-6 relative difference per GEMM
 # grows;
@@ -334,6 +370,13 @@ INT8_REL_LIMIT = 0.35
 # engines may differ by O(0.1-1): their streams are held to each other by
 # the gap rule at this tolerance
 BF16_GAP_TOL = 1.0
+# phase bf16: engine A's prefill logits (the kernels, bf16 throughout) may
+# be at most this many times as far from engine B's (the plain versions)
+# as B's are from B on the fp32 twin (the same parameters upcast, the plain
+# versions again, so no kernel moves the limit); on the CPU the port's
+# bf16 smoke models sit within 1.4x the reference's twin distance of the
+# reference's (tests/test_torch_bf16_model.py)
+BF16_TWIN_FACTOR = 2.0
 # granite-moe's A / B pair (packed store on the kernels against the fake
 # store on the plain versions, activation QBN 8): besides the act-quant
 # rounding flips of the dense pair, a flip can move a token to another
@@ -409,6 +452,15 @@ def bound_ms(nbytes: float, flops: float, flop_per_s=FP32_FLOP_PER_S):
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+def _attn_tf32_equiv(torch, flops, q, k):
+    """Attention's 4 D operations a pair as TF32-peak work: with a bf16 q
+    and bf16 K/V the scores' half (q k) could run at the bf16 peak, while
+    P V keeps P in fp32, as the reference's kernel does."""
+    if q.dtype == k.dtype == torch.bfloat16:
+        return flops / 2 * TF32_FLOP_PER_S / BF16_FLOP_PER_S + flops / 2
+    return flops
+
+
 def kernel_groups(keyed):
     """Device ms and launches of each KERNEL_GROUPS group from
     ``(kernel name, device ms, calls)`` triples."""
@@ -420,38 +472,76 @@ def kernel_groups(keyed):
 
 
 def traced_gemm_launches(trace, what):
-    """``trace()`` -> a profile with ``groups``, taken until K2's and K3's
-    device launches in it equal their wrappers' counts of the same run:
-    one launch per call.  A CUPTI trace can drop kernel records (plain
-    PyTorch kernels' as well as ours, a few in a run of tens of
-    thousands) but never adds one, so more device launches than calls
-    fail at once and fewer trace the run again, TRACE_ATTEMPTS times at
-    most.  Returns the last profile, with ``gemm_launches`` (the pairs)
-    and ``trace_shortfalls`` (the launches each earlier trace missed),
-    and the problems found."""
+    """``trace()`` -> a profile with ``groups``: K2's and K3's device
+    launches in it, route by route (the kernel-name groups of
+    GEMM_GROUPS: gemm_tc's and gemm_stream's), beside the wrappers'
+    launches of the same run on that route.  A CUPTI trace drops kernel
+    records now and then (cluster launches of gemm_stream among them) but
+    never adds one, so a route with more device launches than calls fails
+    at once, and one with fewer is reported, not failed (``missing``, the
+    records the trace lost).  One launch a call is held exactly where no
+    record can be lost: every GEMM kernel row counts the kernel nodes of a
+    CUDA graph that captures one call (graph_launches), at the paths'
+    shapes.  Returns the profile, with ``gemm_launches``, and the problems
+    found."""
     from repro_torch import kernels
-    shortfalls = []
-    for _ in range(TRACE_ATTEMPTS):
-        kernels.reset_launch_counts()
-        prof = trace()
-        launches = kernels.launch_counts()
-        pairs = {name: dict(calls=launches[name],
-                            device_launches=sum(prof["groups"][g]["calls"]
-                                                for g in grps))
-                 for name, grps in GEMM_GROUPS.items()}
-        prof["gemm_launches"], prof["trace_shortfalls"] = pairs, shortfalls
-        over = [f"{what}: {n} made {p['device_launches']} device launches "
-                f"for {p['calls']} calls" for n, p in pairs.items()
-                if p["device_launches"] > p["calls"]]
-        if over:
-            return prof, over
-        short = sum(p["calls"] - p["device_launches"]
-                    for p in pairs.values())
-        if not short:
-            return prof, []
-        shortfalls.append(short)
-    return prof, [f"{what}: each of {TRACE_ATTEMPTS} traces missed GEMM "
-                  f"launches ({shortfalls}); last {pairs}"]
+    kernels.reset_launch_counts()
+    prof = trace()
+    routes = kernels.launch_routes()
+    pairs, over = {}, []
+    for name, (tc_group, skinny_group) in GEMM_GROUPS.items():
+        for route, group in (("tc", tc_group), ("skinny", skinny_group)):
+            calls = sum(n for r, n in routes[name].items()
+                        if (r == "skinny") == (route == "skinny"))
+            dev = prof["groups"][group]["calls"]
+            pairs[f"{name}/{route}"] = dict(
+                calls=calls, device_launches=dev, missing=calls - dev,
+                kernel=KERNEL_GROUPS[group])
+            if dev > calls:
+                over.append(f"{what}: {name} made {dev} device launches on "
+                            f"its {route} route for {calls} calls")
+    prof["gemm_launches"] = pairs
+    return prof, over
+
+
+def graph_launches(torch, fn) -> int:
+    """Device launches of one ``fn()``, exactly: the kernel nodes of the
+    CUDA graph that captures it (``torch.cuda.graph``, relaxed capture),
+    read through the driver API while the capture is open (a capture
+    records every launch on its stream; a CUPTI trace may drop records).
+    ``fn`` must have run before: its kernels built, its allocations
+    cached."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph()
+    found = {}
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+        status, cid = ctypes.c_int(), ctypes.c_ulonglong()
+        g, deps, ndeps = ctypes.c_void_p(), ctypes.c_void_p(), \
+            ctypes.c_size_t()
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        err = cu.cuStreamGetCaptureInfo_v2(
+            stream, ctypes.byref(status), ctypes.byref(cid),
+            ctypes.byref(g), ctypes.byref(deps), ctypes.byref(ndeps))
+        n = ctypes.c_size_t(0)
+        if err == 0:
+            err = cu.cuGraphGetNodes(g, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * max(n.value, 1))()
+        if err == 0:
+            err = cu.cuGraphGetNodes(g, nodes, ctypes.byref(n))
+        kernels = 0
+        for i in range(n.value if err == 0 else 0):
+            kind = ctypes.c_int(-1)
+            cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                  ctypes.byref(kind))
+            kernels += kind.value == 0       # CU_GRAPH_NODE_TYPE_KERNEL
+        found.update(err=err, kernels=kernels)
+    del graph
+    if found["err"] != 0:
+        raise RuntimeError(f"graph_launches: CUDA driver error "
+                           f"{found['err']} reading the captured graph")
+    return found["kernels"]
 
 
 class Timer:
@@ -489,22 +579,6 @@ class Timer:
             if flush_us > 0 and total_us > 0:
                 return (total_us - flush_us) / self.reps / 1e3
         return None
-
-    def launches(self, fn) -> int:
-        """Device launches (kernels with device time) of one ``fn()``.  A
-        trace that shows none is taken again (TRACE_ATTEMPTS times at
-        most): it can drop a kernel record but never adds one."""
-        from torch.profiler import ProfilerActivity, profile
-        for _ in range(TRACE_ATTEMPTS):
-            self.torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                self.torch.cuda.synchronize()
-            n = sum(e.count for e in prof.key_averages()
-                    if getattr(e, "device_time_total", 0.0) > 0)
-            if n:
-                return n
-        return n
 
     def _event(self, fn) -> float:
         torch = self.torch
@@ -589,7 +663,9 @@ def _attn_cases(torch):
     G 1); llama-3.2-vision's cross-attention, non-causal with every key at
     position 0: the prefill's 2 x 2048 queries over the 1600-token image
     memory and a decode query over it in fp32 and in a bf16 cache (64 q /
-    8 kv heads of 128: G 8)."""
+    8 kv heads of 128: G 8); then a bf16 model's (phase bf16): gemma2-2b's
+    prefill with bf16 q, K and V and its last decode step's bf16 q over a
+    bf16 cache."""
     cfg_h, cfg_kv, D, cap = 8, 4, 256, 50.0
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -693,15 +769,35 @@ def _attn_cases(torch):
     yield "cross_decode", qd, k, v, qp, zp, None, VISION_IMG, None, False
     yield "cross_decode_bf16", qd, k.bfloat16(), v.bfloat16(), qp, zp, \
         None, VISION_IMG, None, False
+    del q, k, v, qd
+    # a bf16 model (phase bf16): gemma2-2b's prefill with bf16 q, K and V,
+    # and its last decode step's bf16 q against a bf16 cache
+    Hq, Hkv, D = cfg_h, cfg_kv, 256
+    ar = torch.arange(PROMPT, dtype=torch.int32, device="cuda").repeat(B, 1)
+    q = randn(B, PROMPT, Hq, D).bfloat16()
+    k, v = randn(B, PROMPT, Hkv, D).bfloat16(), \
+        randn(B, PROMPT, Hkv, D).bfloat16()
+    yield "prefill_global_bf16q", q, k, v, ar, ar, None, 1024, cap, True
+    del q, k, v
+    last = PROMPT + N_NEW - 1
+    qd = randn(B, 1, Hq, D).bfloat16()
+    qp = torch.full((B, 1), last, dtype=torch.int32, device="cuda")
+    kc = randn(B, MAX_LEN, Hkv, D).bfloat16()
+    vc = randn(B, MAX_LEN, Hkv, D).bfloat16()
+    kp = torch.full((B, MAX_LEN), SENT, dtype=torch.int32, device="cuda")
+    kp[:, :last + 1] = torch.arange(last + 1, dtype=torch.int32,
+                                    device="cuda")
+    yield "decode_global_bf16q", qd, kc, vc, qp, kp, None, MAX_LEN, cap, True
 
 
 def _attn_library(torch, q, k, v, q_pos, kv_pos, window, causal=True):
     """F.scaled_dot_product_attention with the position mask and GQA
     expanded beforehand (SDPA has no softcap: it is timed without it; a
-    bf16 K/V is upcast beforehand, outside the timed call); a non-causal
-    call masks the sentinel slots only."""
+    bf16 K/V is upcast beforehand, outside the timed call, unless q is
+    bf16 too: then all three are bf16); a non-causal call masks the
+    sentinel slots only."""
     import torch.nn.functional as F
-    k, v = k.float(), v.float()
+    k, v = k.to(q.dtype), v.to(q.dtype)
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
@@ -716,14 +812,14 @@ def _attn_library(torch, q, k, v, q_pos, kv_pos, window, causal=True):
 
 
 def _paged_pool(torch, g, rows, k, kv_bits=None, dtype=None, Hkv=4, G=2,
-                D=256, max_len=MAX_LEN):
+                D=256, max_len=MAX_LEN, q_dtype=None):
     """A pool of PAGE-slot pages (gemma2-2b's Hkv 4, G 2, D 256 unless
     given) in shuffled order and one q tile of ``k`` columns per row.
     rows: per row (L, c0, c): the row holds positions 0..L-1 and its real
     columns are positions c0..c0+c-1 (the chunk or token just written);
     L == 0 is an idle lane (all-trash table, all-sentinel tile).  Pages are
-    fp32, ``dtype`` (bf16), or int8 with ``kv_bits=8``.  Returns (q, k, v,
-    pos, bt, q_pos, k_s, v_s)."""
+    fp32, ``dtype`` (bf16), or int8 with ``kv_bits=8``; q is fp32 or
+    ``q_dtype``.  Returns (q, k, v, pos, bt, q_pos, k_s, v_s)."""
     nb = max_len // PAGE
     B, P = len(rows), 1 + len(rows) * nb
     perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
@@ -742,6 +838,8 @@ def _paged_pool(torch, g, rows, k, kv_bits=None, dtype=None, Hkv=4, G=2,
     kf = torch.randn((P, PAGE, Hkv, D), generator=g, device="cuda")
     vf = torch.randn((P, PAGE, Hkv, D), generator=g, device="cuda")
     q = torch.randn((B, k, Hkv * G, D), generator=g, device="cuda")
+    if q_dtype is not None:
+        q = q.to(q_dtype)
     if dtype is not None:
         return q, kf.to(dtype), vf.to(dtype), pos, bt, qp, None, None
     if kv_bits != 8:
@@ -766,7 +864,8 @@ def _paged_cases(torch):
     over a bf16 pool, and granite-moe's chunk and decode tokens (D 64,
     G 3, no softcap; its run's prompts are at most 2048 tokens), and the
     jamba hybrid's last decode step of its 4-request run (D 128, G 8, no
-    softcap)."""
+    softcap); last, a bf16 model's chunk and decode tokens (bf16 q over a
+    bf16 pool)."""
     chunk = [(4160, 3648, 512), (512, 0, 512), (1254, 1024, 230), (0, 0, 0)]
     dec = [(4176, 4175, 1), (4171, 4170, 1), (4161, 4160, 1),
            (4101, 4100, 1)]
@@ -805,6 +904,10 @@ def _paged_cases(torch):
     hdec = [(n + k, n + k - 1, 1)
             for n, k in zip(HYBRID_RUN_PROMPTS, HYBRID_RUN_NEW)]
     yield "hybrid_decode", hdec, 1, None, None, hybrid
+    # a bf16 model (phase bf16): bf16 q over a bf16 pool
+    bq = dict(dtype=torch.bfloat16, q_dtype=torch.bfloat16)
+    yield "chunk_bf16q", chunk, CHUNK, None, None, bq
+    yield "decode_bf16q", dec, 1, None, None, bq
 
 
 def paged_rows(torch, timer, cap):
@@ -831,16 +934,20 @@ def paged_rows(torch, timer, cap):
                   v_scale_pages=vs)
         kern = lambda: attention.paged_prefill_attention(*args, **kw)
         plain = lambda: paged_attention_ref(*args, **kw)
+        tol = BF16_ATTN_TOL if q.dtype == torch.bfloat16 else ATTN_TOL
         got = kern()
         again = kern()
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"paged/{label}: two calls on the same "
                                  "inputs give different bits")
+        if got.dtype != q.dtype:
+            raise AssertionError(f"paged/{label}: output {got.dtype}, q "
+                                 f"{q.dtype}")
         want = plain()
         real = [(i, c) for i, (_, _, c) in enumerate(spec) if c]
         pick = lambda t: torch.cat([t[i, :c] for i, c in real])
-        err, rel = compare(torch, pick(got), pick(want), ATTN_TOL,
+        err, rel = compare(torch, pick(got), pick(want), tol,
                            f"paged/{label}")
         shape = (q.shape[0], k, q.shape[2], kp.shape[2], bt.shape[1] * PAGE,
                  n_sm)
@@ -852,7 +959,7 @@ def paged_rows(torch, timer, cap):
             mm = einsum_tf32x3
         route_err, _ = compare(
             torch, pick(got), pick(paged_attention_split_ref(
-                *args, **kw, n_splits=ns, mm=mm)), ATTN_TOL,
+                *args, **kw, n_splits=ns, mm=mm)), tol,
             f"paged/{label}/{route}")
         for i, (L, _, c) in enumerate(spec):
             if not L and bool((got[i] != 0).any()):
@@ -876,12 +983,15 @@ def paged_rows(torch, timer, cap):
         if window is not None:
             valid &= kk > qq - window
         pairs = float(valid.sum()) * q.shape[2]
-        nbytes = n_pages * page_bytes + 8 * q.numel() + \
+        nbytes = n_pages * page_bytes + 2 * q.element_size() * q.numel() + \
             4 * (bt.numel() + qp.numel())
         # the function's operations at the TF32 peak (3 TF32 passes give
-        # fp32 accuracy); its route's beside it: 3 TF32 passes (attn_tc),
+        # fp32 accuracy; a bf16 q over bf16 pages has the scores' half at
+        # the bf16 peak); its route's beside it: 3 TF32 passes (attn_tc),
         # or fp32 FMAs on CUDA cores (the decode walk)
-        b_ms, b_by = bound_ms(nbytes, 4 * D * pairs, TF32_FLOP_PER_S)
+        b_ms, b_by = bound_ms(
+            nbytes, _attn_tf32_equiv(torch, 4 * D * pairs, q, kp),
+            TF32_FLOP_PER_S)
         r_ms = bound_ms(nbytes, 4 * D * pairs)[0] if route == "fp32_split" \
             else bound_ms(nbytes, 3 * 4 * D * pairs, TF32_FLOP_PER_S)[0]
         kg, vg = paged_gather(kp, bt), paged_gather(vp, bt)
@@ -893,10 +1003,11 @@ def paged_rows(torch, timer, cap):
         rows.append(dict(
             name="paged_attention", case=label,
             shape=list(q.shape) + [bt.shape[1] * PAGE],
-            kv_dtype=str(kp.dtype).replace("torch.", ""), splits=ns,
+            kv_dtype=str(kp.dtype).replace("torch.", ""),
+            q_dtype=str(q.dtype).replace("torch.", ""), splits=ns,
             route=route, route_bound_ms=r_ms,
             route_ref_max_abs_err=route_err, max_abs_err=err,
-            max_rel_err=rel, tol=ATTN_TOL, ms=ms,
+            max_rel_err=rel, tol=tol, ms=ms,
             plain_ms=timer(plain), library_ms=lib_ms,
             library_device_ms=timer.device(lib),
             device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by,
@@ -992,7 +1103,8 @@ def search_kernel_rows(torch, timer):
 def flash_rows(torch, timer):
     """K1 against attention_ref and against the plain statement of its
     route (the tensor-core walk's attention_tf32x3_ref, or the split walk's
-    attention_split_ref), the same bits on a second call."""
+    attention_split_ref), the same bits on a second call.  A bf16 q (its
+    output bf16) is held at BF16_ATTN_TOL."""
     from repro_torch.kernels import attention
     from repro_torch.kernels.ref import (attention_split_ref,
                                          attention_tf32x3_ref)
@@ -1007,13 +1119,16 @@ def flash_rows(torch, timer):
         plain = lambda: attention_ref(q, k, v, q_pos=qp, kv_pos=kp,
                                       causal=causal, window=window,
                                       attn_cap=cap, chunk=chunk)
+        tol = BF16_ATTN_TOL if q.dtype == torch.bfloat16 else ATTN_TOL
         got = kern()
         again = kern()
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"{label}: two calls on the same inputs "
                                  "give different bits")
-        err, rel = compare(torch, got, plain(), ATTN_TOL, label)
+        if got.dtype != q.dtype:
+            raise AssertionError(f"{label}: output {got.dtype}, q {q.dtype}")
+        err, rel = compare(torch, got, plain(), tol, label)
         ns = attention.decode_splits(q.shape[0], q.shape[1], q.shape[2],
                                      k.shape[2], k.shape[1], n_sm)
         kw = dict(q_pos=qp, kv_pos=kp, causal=causal, window=window,
@@ -1024,8 +1139,7 @@ def flash_rows(torch, timer):
         else:
             route, route_ref = "tc_3xtf32", attention_tf32x3_ref(q, k, v,
                                                                  **kw)
-        route_err, _ = compare(torch, got, route_ref, ATTN_TOL,
-                               f"{label}/{route}")
+        route_err, _ = compare(torch, got, route_ref, tol, f"{label}/{route}")
         del route_ref
         qq, kk = qp[:, :, None].long(), kp[:, None, :].long()
         valid = (kk != 2**31 - 1).repeat(1, qq.shape[1], 1)
@@ -1036,12 +1150,15 @@ def flash_rows(torch, timer):
         pairs = float(valid.sum()) * q.shape[2]           # x query heads
         # K/V rows that some query may attend, read once per kv head
         slots = float(valid.any(dim=1).sum())
-        nbytes = 8 * q.numel() + 4 * (qp.numel() + kp.numel()) + \
+        nbytes = 2 * q.element_size() * q.numel() + \
+            4 * (qp.numel() + kp.numel()) + \
             2 * slots * k.shape[2] * k.shape[3] * k.element_size()
-        # the function's operations at the TF32 peak; its route's beside
-        # it: 3 TF32 passes (flash_tc), or fp32 FMAs on CUDA cores (split)
+        # the function's operations at the TF32 peak (for a bf16 q and K/V,
+        # the scores' half at the bf16 peak: P stays fp32); its route's
+        # beside it: 3 TF32 passes (flash_tc), or fp32 FMAs on CUDA cores
         flops = 4 * q.shape[3] * pairs
-        b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
+        b_ms, b_by = bound_ms(nbytes, _attn_tf32_equiv(torch, flops, q, k),
+                              TF32_FLOP_PER_S)
         r_ms = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)[0] \
             if route == "tc_3xtf32" else bound_ms(nbytes, flops)[0]
         lib = _attn_library(torch, q, k, v, qp, kp, window, causal)
@@ -1049,10 +1166,10 @@ def flash_rows(torch, timer):
         rows.append(dict(
             name="flash_attention", case=label, shape=list(q.shape) +
             [k.shape[1]], kv_dtype=str(k.dtype).replace("torch.", ""),
-            causal=causal,
+            q_dtype=str(q.dtype).replace("torch.", ""), causal=causal,
             splits=ns, route=route, route_bound_ms=r_ms,
             route_ref_max_abs_err=route_err,
-            max_abs_err=err, max_rel_err=rel, tol=ATTN_TOL,
+            max_abs_err=err, max_rel_err=rel, tol=tol,
             ms=ms, plain_ms=timer(plain), library_ms=lib_ms,
             library_device_ms=timer.device(lib),
             device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
@@ -1065,7 +1182,8 @@ def phase_kernels(torch, timer):
     cap = 50.0
     rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap) \
         + flash_rows(torch, timer) + gemm_rows(torch, timer, GEMM_SHAPES)
-    return rows + expert_gemm_rows(torch, timer)
+    return rows + expert_gemm_rows(torch, timer) + \
+        bf16_gemm_rows(torch, timer)
 
 
 # (label, M, K, N) of K2's and K3's rows in phase kernels
@@ -1102,74 +1220,95 @@ GEMM_SHAPES = [("wg_decode", 2, 2304, 9216),
                ("audio_wg_prefill", 4096, 2048, 8192)]
 
 
-def gemm_rows(torch, timer, gemm_shapes):
-    """K2 (int8) and K3 (int4, int2) at each (label, M, K, N): against
-    their plain versions, the same bits twice, one device launch a call,
-    tensor-core rows within TC_ERR_LIMIT; timed beside torch.matmul on
-    the dequantized weight."""
+def _gemm_row(torch, timer, g, n_sm, bits, label, E, M, K, N,
+              x_dtype=None):
+    """One K2 (``bits`` 8) or K3 (4, 2) row: x (M, K) in ``x_dtype``
+    (fp32 by default) against an int weight on the ``bits`` grid with
+    scales (N,), or an expert stack of E of each (one launch).  Held to
+    its plain version (GEMM_TOL; BF16_GEMM_TOL for a bf16 x, whose output
+    is bf16), the same bits twice, one device launch a call
+    (graph_launches), a tensor-core row
+    on fp32 x within TC_ERR_LIMIT; timed beside torch.matmul / bmm on the
+    dequantized weight (bf16 for a bf16 x).  The bound counts the
+    function's 2 M K N operations at the TF32 peak (an integer weight is
+    exact in TF32), at the bf16 peak for a bf16 x (exact in bf16 too),
+    and x and y in their dtype's bytes; the route's own work beside it:
+    two TF32 passes on the tensor cores (one for a bf16 x), else fp32 on
+    CUDA cores."""
     from repro_torch.kernels import ops, pack, quant_matmul
     from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
-    rows = []
+    x_dtype = x_dtype or torch.float32
+    lv = 2 ** (bits - 1) - 1
+    lead = (E,) if E else ()
+    x = torch.randn(lead + (M, K), generator=g, device="cuda").to(x_dtype)
+    qv = torch.randint(-lv, lv + 1, lead + (K, N), generator=g,
+                       device="cuda", dtype=torch.int8)
+    s = (torch.rand(lead + (N,), generator=g, device="cuda") + 0.5) / \
+        (lv * math.sqrt(K))
+    name = "quant_matmul" if bits == 8 else "packed_matmul"
+    if bits == 8:
+        w = qv
+        kern = lambda: ops.quant_matmul(x, w, s)
+        plain = lambda: quant_matmul_ref(x, w, s)
+    else:
+        w = pack.pack_sub8(qv, bits, axis=-2)
+        kern = lambda: ops.packed_matmul(x, w, s, store_bits=bits)
+        plain = lambda: packed_matmul_ref(x, w, s, bits)
+    what = f"{name}/int{bits}/{label}"
+    bf16 = x_dtype == torch.bfloat16
+    tol = BF16_GEMM_TOL if bf16 else GEMM_TOL
+    got = kern()
+    again = kern()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two calls on the same inputs give "
+                             "different bits")
+    if got.dtype != x_dtype:
+        raise AssertionError(f"{what}: output {got.dtype}, x {x_dtype}")
+    err, rel = compare(torch, got, plain(), tol, what)
+    n_launch = graph_launches(torch, kern)
+    if n_launch != 1:
+        raise AssertionError(f"{what}: {n_launch} device launches a call, "
+                             "want 1")
+    route = quant_matmul.route(M, bits, x_dtype)
+    if route == "tc_2xtf32" and err > TC_ERR_LIMIT:
+        raise AssertionError(f"{what}: max abs err {err} over "
+                             f"{TC_ERR_LIMIT}")
+    n_e = E or 1
+    wdeq = (qv.float() * s[..., None, :]).to(x_dtype)
+    nbytes = n_e * (x.element_size() * (M * K + M * N) + 4 * N) + w.numel()
+    flops = 2.0 * n_e * M * K * N
+    b_ms, b_by = bound_ms(nbytes, flops,
+                          BF16_FLOP_PER_S if bf16 else TF32_FLOP_PER_S)
+    passes = {"tc_2xtf32": 2, "tc_1xtf32": 1}.get(route)
+    r_ms = bound_ms(nbytes, passes * flops, TF32_FLOP_PER_S)[0] if passes \
+        else bound_ms(nbytes, flops)[0]
+    lib = (lambda: torch.bmm(x, wdeq)) if E else \
+        (lambda: torch.matmul(x, wdeq))
+    ms, lib_ms = timer.pair(kern, lib)
+    row = dict(
+        name=name, case=f"int{bits}_{label}",
+        shape=([E] if E else []) + [M, K, N],
+        x_dtype=str(x_dtype).replace("torch.", ""), route=route,
+        route_bound_ms=r_ms, max_abs_err=err, max_rel_err=rel, tol=tol,
+        launches_per_call=n_launch,
+        splits=quant_matmul.skinny_splits(w.shape[-2], N, n_sm, n_e)
+        if route == "skinny" else None,
+        ms=ms, plain_ms=timer(plain), library_ms=lib_ms,
+        library_device_ms=timer.device(lib), device_ms=timer.device(kern),
+        host_ms=timer.host(kern), library_host_ms=timer.host(lib),
+        bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "kernel", **row})
+    return row
+
+
+def gemm_rows(torch, timer, gemm_shapes):
+    """K2 (int8) and K3 (int4, int2) at each (label, M, K, N)
+    (_gemm_row)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for bits, name in ((8, "quant_matmul"), (4, "packed_matmul"),
-                       (2, "packed_matmul")):
-        lv = 2 ** (bits - 1) - 1
-        for label, M, K, N in gemm_shapes:
-            x = torch.randn((M, K), generator=g, device="cuda")
-            qv = torch.randint(-lv, lv + 1, (K, N), generator=g,
-                               device="cuda", dtype=torch.int8)
-            s = (torch.rand((N,), generator=g, device="cuda") + 0.5) / \
-                (lv * math.sqrt(K))
-            if bits == 8:
-                w = qv
-                kern = lambda: ops.quant_matmul(x, w, s)
-                plain = lambda: quant_matmul_ref(x, w, s)
-            else:
-                w = pack.pack_sub8(qv, bits, axis=0)
-                kern = lambda: ops.packed_matmul(x, w, s, store_bits=bits)
-                plain = lambda: packed_matmul_ref(x, w, s, bits)
-            got = kern()
-            again = kern()
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"{name}/int{bits}/{label}: two calls on "
-                                     "the same inputs give different bits")
-            err, rel = compare(torch, got, plain(), GEMM_TOL,
-                               f"{name}/int{bits}/{label}")
-            n_launch = timer.launches(kern)
-            if n_launch != 1:
-                raise AssertionError(f"{name}/int{bits}/{label}: {n_launch} "
-                                     "device launches a call, want 1")
-            wdeq = qv.float() * s[None, :]
-            nbytes = 4 * (M * K + N + M * N) + w.numel()
-            route = quant_matmul.route(M, bits)
-            if route == "tc_2xtf32" and err > TC_ERR_LIMIT:
-                raise AssertionError(f"{name}/int{bits}/{label}: max abs err "
-                                     f"{err} over {TC_ERR_LIMIT}")
-            # the function's 2 M K N operations at the TF32 peak (an integer
-            # weight is exact in TF32); its route's own work beside it: two
-            # TF32 passes on the tensor cores, else fp32 on CUDA cores.
-            # Every tensor-core row (K2 and K3) is held to TC_ERR_LIMIT
-            flops = 2.0 * M * K * N
-            b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
-            r_ms = bound_ms(nbytes, 2 * flops, TF32_FLOP_PER_S)[0] \
-                if route == "tc_2xtf32" else bound_ms(nbytes, flops)[0]
-            lib = lambda: torch.matmul(x, wdeq)
-            ms, lib_ms = timer.pair(kern, lib)
-            rows.append(dict(
-                name=name, case=f"int{bits}_{label}", shape=[M, K, N],
-                route=route, route_bound_ms=r_ms, max_abs_err=err,
-                max_rel_err=rel, tol=GEMM_TOL, launches_per_call=n_launch,
-                splits=quant_matmul.skinny_splits(w.shape[0], N, n_sm)
-                if route == "skinny" else None,
-                ms=ms, plain_ms=timer(plain), library_ms=lib_ms,
-                library_device_ms=timer.device(lib),
-                device_ms=timer.device(kern), host_ms=timer.host(kern),
-                library_host_ms=timer.host(lib), bound_ms=b_ms,
-                bound_by=b_by))
-            emit({"phase": "kernel", **rows[-1]})
-            del x, qv, w, wdeq, got, again
+    rows = [_gemm_row(torch, timer, g, n_sm, bits, label, None, M, K, N)
+            for bits in (8, 4, 2) for label, M, K, N in gemm_shapes]
     torch.cuda.empty_cache()
     return rows
 
@@ -1182,13 +1321,9 @@ def expert_gemm_rows(torch, timer):
     int4 and int2; the jamba hybrid's the same way at HYBRID_CUT (E 16,
     C x 2048 x 4096 and C x 4096 x 2048; C = 640 at its A / B prefill of
     2 x 2048 tokens, 2 and 4 in decode); then K2 on the uniform int8
-    store's gemma2-2b wq
-    (2304 x 2048) at generate's M = 8320 and 2.  Each against its plain
-    version (GEMM_TOL, TC_ERR_LIMIT on the tensor-core route), the same
-    bits twice, one device launch a call; the library call is torch.bmm
-    (torch.matmul for the 2-d rows) on the dequantized fp32 weight."""
-    from repro_torch.kernels import ops, pack, quant_matmul
-    from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
+    store's gemma2-2b wq (2304 x 2048) at generate's M = 8320 and 2
+    (_gemm_row; the library call is torch.bmm, torch.matmul for the 2-d
+    rows)."""
     from repro_torch.models.layers import moe_capacity
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1203,63 +1338,28 @@ def expert_gemm_rows(torch, timer):
              for site, K, N in (("wg", d, ff), ("wd", ff, d))]
     cases += [(8, "int8_store_wq_prefill", None, B * PROMPT, 2304, 2048),
               (8, "int8_store_wq_decode", None, B, 2304, 2048)]
-    rows = []
-    for bits, label, E, M, K, N in cases:
-        lv = 2 ** (bits - 1) - 1
-        lead = (E,) if E else ()
-        x = torch.randn(lead + (M, K), generator=g, device="cuda")
-        qv = torch.randint(-lv, lv + 1, lead + (K, N), generator=g,
-                           device="cuda", dtype=torch.int8)
-        s = (torch.rand(lead + (N,), generator=g, device="cuda") + 0.5) / \
-            (lv * math.sqrt(K))
-        name = "quant_matmul" if bits == 8 else "packed_matmul"
-        if bits == 8:
-            w = qv
-            kern = lambda: ops.quant_matmul(x, w, s)
-            plain = lambda: quant_matmul_ref(x, w, s)
-        else:
-            w = pack.pack_sub8(qv, bits, axis=-2)
-            kern = lambda: ops.packed_matmul(x, w, s, store_bits=bits)
-            plain = lambda: packed_matmul_ref(x, w, s, bits)
-        what = f"{name}/int{bits}/{label}"
-        got = kern()
-        again = kern()
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"{what}: two calls on the same inputs "
-                                 "give different bits")
-        err, rel = compare(torch, got, plain(), GEMM_TOL, what)
-        n_launch = timer.launches(kern)
-        if n_launch != 1:
-            raise AssertionError(f"{what}: {n_launch} device launches a "
-                                 "call, want 1")
-        route = quant_matmul.route(M, bits)
-        if route == "tc_2xtf32" and err > TC_ERR_LIMIT:
-            raise AssertionError(f"{what}: max abs err {err} over "
-                                 f"{TC_ERR_LIMIT}")
-        n_e = E or 1
-        wdeq = qv.float() * s[..., None, :]
-        nbytes = 4 * n_e * (M * K + N + M * N) + w.numel()
-        flops = 2.0 * n_e * M * K * N
-        b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
-        r_ms = bound_ms(nbytes, 2 * flops, TF32_FLOP_PER_S)[0] \
-            if route == "tc_2xtf32" else bound_ms(nbytes, flops)[0]
-        lib = (lambda: torch.bmm(x, wdeq)) if E else \
-            (lambda: torch.matmul(x, wdeq))
-        ms, lib_ms = timer.pair(kern, lib)
-        rows.append(dict(
-            name=name, case=f"int{bits}_{label}",
-            shape=([E] if E else []) + [M, K, N], route=route,
-            route_bound_ms=r_ms, max_abs_err=err, max_rel_err=rel,
-            tol=GEMM_TOL, launches_per_call=n_launch,
-            splits=quant_matmul.skinny_splits(w.shape[-2], N, n_sm, n_e)
-            if route == "skinny" else None,
-            ms=ms, plain_ms=timer(plain), library_ms=lib_ms,
-            library_device_ms=timer.device(lib),
-            device_ms=timer.device(kern), host_ms=timer.host(kern),
-            library_host_ms=timer.host(lib), bound_ms=b_ms, bound_by=b_by))
-        emit({"phase": "kernel", **rows[-1]})
-        del x, qv, w, wdeq, got, again
+    rows = [_gemm_row(torch, timer, g, n_sm, *c) for c in cases]
+    torch.cuda.empty_cache()
+    return rows
+
+
+# K2 / K3 on a bf16 x, as a bf16 model's packed store calls them: (label,
+# experts or None, rows, K, N)
+BF16_GEMM_SHAPES = [("bf16_wg_decode", None, 2, 2304, 9216),
+                    ("bf16_wg_prefill", None, 8320, 2304, 9216),
+                    ("bf16_moe_wg_c1024", MOE_E, 1024, 1536, MOE_FF)]
+
+
+def bf16_gemm_rows(torch, timer):
+    """K2 (int8) and K3 (int4, int2) on a bf16 x with a bf16 output, as a
+    bf16 model's packed store calls them: gemma2-2b's wg at generate's
+    decode (2 rows) and prefill (8320), and granite-moe's expert-batched
+    wg (40 experts x 1024 rows x 1536 x 512, one launch) (_gemm_row)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = [_gemm_row(torch, timer, g, n_sm, bits, *shape,
+                      x_dtype=torch.bfloat16)
+            for bits in (8, 4, 2) for shape in BF16_GEMM_SHAPES]
     torch.cuda.empty_cache()
     return rows
 
@@ -1278,7 +1378,7 @@ def make_policy(graph, seed=SEED):
 
 def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
                serve_act_bits=True, device="cuda", max_len=MAX_LEN,
-               n_new=N_NEW, profile=False, cache_dtype=None):
+               n_new=N_NEW, profile=False, cache_dtype=None, warm=False):
     from repro_torch import kernels
     from repro_torch.serve import ServeEngine
     on_card = torch.device(device).type == "cuda"
@@ -1292,6 +1392,8 @@ def run_engine(torch, label, model, params, policy, tokens, *, store, impl,
                       cache_dtype=cache_dtype or torch.float32,
                       device=device)
     setup_s = time.perf_counter() - t0
+    if warm:                     # the process's first calls at these shapes
+        eng.generate(tokens, n_new)
     kernels.reset_launch_counts()
     out = eng.generate(tokens, n_new)
     launches = kernels.launch_counts()
@@ -2249,7 +2351,6 @@ def phase_ssm(torch):
         prefill_device_ms=pre["device_ms"],
         prefill_launches=pre["kernel_launches"],
         prefill_gemm_launches=pre["gemm_launches"],
-        prefill_trace_shortfalls=pre["trace_shortfalls"],
         ssd_ms=ssd["ms"], ssd_launches=ssd["calls"],
         ssd_share_of_prefill=ssd["ms"] / max(pre["device_ms"], 1e-9),
         prefill_gemm_ms={k: pre["groups"][k]["ms"]
@@ -2817,11 +2918,12 @@ def _pool_bytes(cfg, max_slots, max_len, page, elem_bytes):
     return slots * (2 * cfg.n_kv_heads * cfg.hdim * elem_bytes + 4)
 
 
-def _run_and_generate(torch, label, eng, reqs, kw, problems):
+def _run_and_generate(torch, label, eng, reqs, kw, problems,
+                      tol=ACT_LOGIT_ATOL):
     """``eng.run(reqs)`` (its launches and record), then each request's
     ``generate`` (their launches summed); every run stream held to its
-    generate by the gap rule.  Returns (run record, run outputs, generate
-    streams and gaps, generate launches)."""
+    generate by the gap rule at ``tol``.  Returns (run record, run
+    outputs, generate streams and gaps, generate launches)."""
     from repro_torch import kernels
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2850,8 +2952,8 @@ def _run_and_generate(torch, label, eng, reqs, kw, problems):
                         f"{want}")
     firsts = []
     for i, (out, (want_toks, gaps)) in enumerate(zip(res["outputs"], gens)):
-        f = _check_streams(f"{label}/{i}", out, want_toks, gaps,
-                           ACT_LOGIT_ATOL, problems)
+        f = _check_streams(f"{label}/{i}", out, want_toks, gaps, tol,
+                           problems)
         if f:
             firsts.append(f)
     rec["first_differences"] = firsts
@@ -2950,6 +3052,184 @@ def phase_cache_and_store(torch, cfg, model, params, policy, fp32):
     if problems:
         raise AssertionError("bf16 / int8-store checks failed: " +
                              "; ".join(problems))
+    return out
+
+
+def _cast_tree(torch, tree, dtype):
+    """Every tensor leaf of a parameter tree cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(torch, v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cast_tree(torch, v, dtype) for v in tree)
+    return tree.to(dtype)
+
+
+def _bf16_pair(torch, tag, model, params, twin, policy, tokens, problems):
+    """generate on one store of the bf16 model: engine A (the kernels)
+    against engine B (the plain versions), both bf16 with a bf16 cache,
+    and the fp32 twins of both (the same parameters upcast, an fp32
+    cache), A and its twin timed on their second generate.  A / B:
+    prefill logits within BF16_TWIN_FACTOR x B's distance from its twin
+    (plain versions only, so a fault in a bf16 kernel moves A / B and not
+    the limit), streams by the gap rule at BF16_GAP_TOL; A launches each
+    kernel exactly as often as its twin, B and B's twin none."""
+    cfg = model.cfg
+    store = "packed" if policy is not None else "fake"
+    a = run_engine(torch, f"bf16-{tag}-A", model, params, policy, tokens,
+                   store=store, impl="cuda", cache_dtype=torch.bfloat16,
+                   warm=True)
+    b = run_engine(torch, f"bf16-{tag}-B", model, params, policy, tokens,
+                   store="fake", impl="ref", cache_dtype=torch.bfloat16)
+    t = run_engine(torch, f"bf16-{tag}-twin", model, twin, policy, tokens,
+                   store=store, impl="cuda", cache_dtype=torch.float32,
+                   warm=True)
+    bt = run_engine(torch, f"bf16-{tag}-B-twin", model, twin, policy,
+                    tokens, store="fake", impl="ref",
+                    cache_dtype=torch.float32)
+    for r in (a, b, t, bt):
+        if not bool(torch.isfinite(r["logits"]).all()):
+            problems.append(f"bf16 {r['rec']['engine']}: non-finite logits")
+        if r["tokens"].min() < 0 or r["tokens"].max() >= cfg.vocab:
+            problems.append(f"bf16 {r['rec']['engine']}: tokens out of "
+                            "range")
+    d_ab = float((a["logits"] - b["logits"]).abs().max())
+    d_twin = float((a["logits"] - t["logits"]).abs().max())
+    d_plain = float((b["logits"] - bt["logits"]).abs().max())
+    if d_ab > BF16_TWIN_FACTOR * d_plain:
+        problems.append(f"bf16 {tag}: A / B prefill logits {d_ab} apart, "
+                        f"over {BF16_TWIN_FACTOR} x B's twin distance "
+                        f"{d_plain}")
+    first = None
+    bad = np.argwhere(a["tokens"] != b["tokens"])
+    if bad.size:
+        st = int(bad[:, 1].min())
+        rows = np.unique(bad[bad[:, 1] == st][:, 0])
+        gaps = [float(b["gaps"][st, r]) for r in rows]
+        first = dict(step=st, rows=rows.tolist(), b_top2_gap=gaps)
+        if max(gaps) >= BF16_GAP_TOL:
+            problems.append(f"bf16 {tag}: streams differ at step {st} where "
+                            f"B's top-2 gap is {gaps}")
+    la, lb, lt, lbt = (r["rec"]["launches"] for r in (a, b, t, bt))
+    if la != lt:
+        problems.append(f"bf16 {tag}: launches {la}, its fp32 twin's {lt}")
+    if any(lb.values()) or any(lbt.values()):
+        problems.append(f"bf16 {tag}: engine B or its twin launched "
+                        f"kernels: {lb}, {lbt}")
+    want_k1 = cfg.n_layers * (1 + N_NEW)
+    if la["flash_attention"] != want_k1:
+        problems.append(f"bf16 {tag}: K1 launched {la['flash_attention']} "
+                        f"times, want {want_k1}")
+    gemm = la["quant_matmul"] + la["packed_matmul"]
+    if (policy is None) != (gemm == 0):
+        problems.append(f"bf16 {tag}: GEMM launches {la}")
+    ra = a["rec"]
+    rec = dict(store=tag, prefill_logit_max_abs_diff=d_ab,
+               twin_prefill_logit_max_abs_diff=d_twin,
+               b_twin_prefill_logit_max_abs_diff=d_plain,
+               twin_factor=BF16_TWIN_FACTOR, gap_tol=BF16_GAP_TOL,
+               streams_equal=first is None, first_difference=first,
+               min_b_top2_gap=float(b["gaps"].min()),
+               prefill_s=ra["prefill_s"],
+               decode_tok_per_s=ra["decode_tok_per_s"],
+               peak_mem_bytes=ra["peak_mem_bytes"],
+               weight_hbm_bytes=ra["weight_hbm_bytes"],
+               twin_weight_hbm_bytes=t["rec"]["weight_hbm_bytes"],
+               launches=la, twin_launches=lt,
+               b_prefill_s=b["rec"]["prefill_s"],
+               twin_prefill_s=t["rec"]["prefill_s"],
+               twin_decode_tok_per_s=t["rec"]["decode_tok_per_s"])
+    emit({"phase": "bf16-generate", **rec})
+    return rec
+
+
+def phase_bf16(torch, cfg, model, policy, fp32, card):
+    """A bf16 model served on the kernels: gemma2-2b at published width,
+    GEMMA_LAYERS layers, parameters from ``LM.init(SEED,
+    dtype=torch.bfloat16)`` (the serving phases' fp32 draws, rounded), bf16
+    caches and pools.  generate (B x PROMPT + N_NEW) on the dense store
+    (K1; the weights' products are cuBLAS bf16 GEMMs, fp32 reduction) and
+    with the seeded policy on the packed store (K1, K2, K3 on bf16 q and
+    x): _bf16_pair.  run() of the run phase's 8 requests on the packed
+    store over a bf16 pool: overlap on == off bitwise, every stream
+    against its generate by the gap rule at BF16_GAP_TOL, K1 / K4 / K2 /
+    K3 launches equal to the fp32 twin's run, and one profiled run (0
+    host syncs a step, the busy share; by route no more GEMM device
+    launches than calls).  The card's name and power limit stand beside
+    the numbers."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    problems, out = [], {"card": card}
+    params = model.init(SEED, device="cuda", dtype=torch.bfloat16)
+    twin = _cast_tree(torch, params, torch.float32)
+    torch.cuda.synchronize()
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab,
+                                                  size=(B, PROMPT))
+    out["dense"] = _bf16_pair(torch, "dense", model, params, twin, None,
+                              tokens, problems)
+    out["packed"] = _bf16_pair(torch, "packed", model, params, twin, policy,
+                               tokens, problems)
+    reqs = fp32["reqs"]
+    kw = dict(page_size=PAGE, max_slots=RUN_SLOTS, chunk_tokens=CHUNK)
+    eng = ServeEngine(model, params, policy=policy, max_len=MAX_LEN,
+                      weight_store="packed", attn_impl="cuda",
+                      cache_dtype=torch.bfloat16, device="cuda")
+    rec, outs, _, gl = _run_and_generate(torch, "bf16-model", eng, reqs, kw,
+                                         problems, tol=BF16_GAP_TOL)
+    off = eng.run(reqs, **kw, overlap=False)["outputs"]
+    bitwise = all(np.array_equal(x, y) for x, y in zip(outs, off))
+    if not bitwise:
+        problems.append("bf16 run: overlap on and off give different "
+                        "streams")
+    teng = ServeEngine(model, twin, policy=policy, max_len=MAX_LEN,
+                       weight_store="packed", attn_impl="cuda",
+                       cache_dtype=torch.float32, device="cuda")
+    kernels.reset_launch_counts()
+    teng.run(reqs, **kw)
+    twin_launches = kernels.launch_counts()
+    del teng
+    if rec["launches"] != twin_launches:
+        problems.append(f"bf16 run: launches {rec['launches']}, its fp32 "
+                        f"twin's {twin_launches}")
+    prof, over = traced_gemm_launches(
+        lambda: profile_run(torch, eng, reqs, kw)[1], "bf16 run profile")
+    problems += over
+    if prof["host_syncs"]:
+        problems.append(f"bf16 run: {prof['host_syncs']} host syncs in "
+                        f"{prof['steps']} steps")
+    rec.update(overlap_bitwise=bitwise, twin_launches=twin_launches,
+               pool_bytes=_pool_bytes(cfg, RUN_SLOTS, MAX_LEN, PAGE, 2),
+               weight_hbm_bytes=eng.weight_hbm_bytes(),
+               profile={k: prof[k] for k in (
+                   "device_ms", "wall_s", "busy_share", "steps",
+                   "host_syncs_per_step", "gemm_launches", "groups")})
+    emit({"phase": "bf16-run", **{k: v for k, v in rec.items()
+                                  if k != "generate_launches"}})
+    out["run"] = rec
+    out["generate_launches"] = gl
+    del eng, params, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["problems"] = problems
+    emit({"phase": "bf16", "card": card, "seconds": out["seconds"],
+          "dense": {k: out["dense"][k] for k in (
+              "prefill_s", "decode_tok_per_s", "peak_mem_bytes",
+              "weight_hbm_bytes", "prefill_logit_max_abs_diff",
+              "twin_prefill_logit_max_abs_diff",
+              "b_twin_prefill_logit_max_abs_diff")},
+          "packed": {k: out["packed"][k] for k in (
+              "prefill_s", "decode_tok_per_s", "peak_mem_bytes",
+              "weight_hbm_bytes", "prefill_logit_max_abs_diff",
+              "twin_prefill_logit_max_abs_diff",
+              "b_twin_prefill_logit_max_abs_diff")},
+          "run": {k: rec[k] for k in ("prefill_s", "decode_tok_per_s",
+                                      "peak_mem_bytes")},
+          "run_busy_share": prof["busy_share"],
+          "run_host_syncs_per_step": prof["host_syncs_per_step"],
+          "problems": problems})
+    if problems:
+        raise AssertionError("bf16 checks failed: " + "; ".join(problems))
     return out
 
 
@@ -4262,8 +4542,9 @@ def main(argv=None) -> int:
     cfg, model, params, policy = init_model(torch)
     rec_a, rec_b, checks = phase_serve(torch, cfg, model, params, policy)
     run = phase_run(torch, cfg, model, params, policy)
-    store = phase_cache_and_store(torch, cfg, model, params, policy,
-                                  run.pop("_streams"))
+    streams = run.pop("_streams")
+    store = phase_cache_and_store(torch, cfg, model, params, policy, streams)
+    bf16 = phase_bf16(torch, cfg, model, policy, streams, card)
     search, substrate = phase_search(torch, cfg, model, params, policy)
     del params                  # the serving phases' weights
     gc.collect()
@@ -4282,6 +4563,8 @@ def main(argv=None) -> int:
     gen = {"generate": rec_a["launches"],
            "generate_bf16": store["bf16"]["generate_launches"],
            "generate_int8_store": store["int8"]["generate"]["launches"],
+           "bf16_dense_generate": bf16["dense"]["launches"],
+           "bf16_packed_generate": bf16["packed"]["launches"],
            "moe_generate": moe["engine_a"]["launches"],
            "ssm_generate": ssm["engine_a"]["launches"],
            "ssm_gate_generate": ssm["gate"]["launches_a"],
@@ -4294,6 +4577,7 @@ def main(argv=None) -> int:
     runs = {"run": run["runs"]["overlap"]["launches"],
             "run_bf16": store["bf16"]["launches"],
             "run_int8_store": store["int8"]["launches"],
+            "bf16_run": bf16["run"]["launches"],
             "moe_run": moe["run"]["launches"],
             "moe_run_cf0": moe["run_cf0"]["launches"],
             "ssm_run": ssm["run"]["launches"],
@@ -4309,7 +4593,8 @@ def main(argv=None) -> int:
     kernels = summarize(rows, launches, by_path)
     result = {"card": card, "kernel_rows": rows, "engine_a": rec_a,
               "engine_b": rec_b, "checks": checks, "run": run,
-              "cache_and_store": store, "moe": moe, "ssm": ssm,
+              "cache_and_store": store, "bf16": bf16, "moe": moe,
+              "ssm": ssm,
               "frontends": frontends,
               "search": search, "train": train, "shard": shard,
               "kernels": kernels,

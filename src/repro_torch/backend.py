@@ -12,6 +12,14 @@ The reference computes in full fp32 (``ServeEngine(cache_dtype=float32)``),
 and TF32 keeps about three decimal digits, which would break the parity
 tolerances (rtol 1e-4 for the GEMMs, 2e-4 for attention).
 
+A bf16 model's plain products (the dense store's weights, a packed
+store's bf16 ``full`` bucket) are cuBLAS GEMMs on the card.  They
+accumulate in fp32 there: importing this module turns off
+``allow_bf16_reduced_precision_reduction``, which would otherwise let
+cuBLAS round partial sums to bf16 inside the reduction.  The reference's
+products of bf16 operands (``preferred_element_type`` unset) round only
+their result, and so do the port's kernels K2 and K3 on a bf16 x.
+
 It also makes cuDNN deterministic (``cudnn.deterministic = True``, its
 algorithm autotuner off), process-wide.  The search trains its CNN
 substrate and evaluates policies through cuDNN's convolutions
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cudnn.deterministic = True
 torch.backends.cudnn.benchmark = False

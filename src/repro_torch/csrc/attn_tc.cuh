@@ -110,15 +110,16 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
 // vec: bf16 / int8 rows staged in 16-byte copies (D times the element
 // size a multiple of 16, and k, v 16-byte aligned), else 4-byte copies.
 // NS == 1 writes o (B, Sq, Hq, D); NS > 1 writes each split's (m, l) into
-// pm / pl and its acc into pacc (attn_tile.cuh: partial_row).
+// pm / pl and its acc into pacc (attn_tile.cuh: partial_row).  q and o
+// are of the walk's query type QT (fp32 or bf16).
 struct TcArgs {
-  const float* q;
+  const void* q;
   const int* qpos;
   const void* k;
   const void* v;
   const float* kscale;
   const float* vscale;
-  float* o;
+  void* o;
   float* pm;
   float* pl;
   float* pacc;
@@ -240,8 +241,9 @@ __device__ __forceinline__ void real_range(const int* qp, int n, int* red,
 // compile time (gemma2-2b's 256), or 0 for any D (a multiple of 8 up to
 // DMAX, read at run time: granite-moe's 64); a fixed D takes the branch
 // off every output tile of P V, so the tiles' MMA chains can overlap.  KT:
-// the K/V element type (KvType).
-template <class Slots, int KT, int DT>
+// the K/V element type (KvType).  QT: the query and output type (float or
+// __nv_bfloat16; q staged in fp32, the output rounded once).
+template <class Slots, int KT, int DT, class QT>
 __global__ void __launch_bounds__(TNT, 1)
 attn_tc(const TcArgs a, const Slots src) {
   extern __shared__ float4 tc_smem[];
@@ -271,14 +273,16 @@ attn_tc(const TcArgs a, const Slots src) {
   const int q0 = (n_qt - 1 - rest / NS) * BQ;
   const int rows = BQ * G, nd = D / 8, D4 = D / 4;
   const int* qrow = a.qpos + (size_t)b * Sq;
+  const QT* qg = static_cast<const QT*>(a.q);
 
-  // the block's query rows, pre-scaled; rows past the tile or Sq are zero
+  // the block's query rows, upcast, then pre-scaled; rows past the tile or
+  // Sq are zero
   for (int i = tid; i < TROWS * D4; i += TNT) {
     const int rr = i / D4, d = (i % D4) * 4, qq = rr / G;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (rr < rows && q0 + qq < Sq) {
-      val = *reinterpret_cast<const float4*>(
-          a.q + (((size_t)b * Sq + q0 + qq) * a.Hq + h * G + rr % G) * D + d);
+      val = load4(
+          qg + (((size_t)b * Sq + q0 + qq) * a.Hq + h * G + rr % G) * D + d);
       val = make_float4(val.x * a.scale, val.y * a.scale, val.z * a.scale,
                         val.w * a.scale);
     }
@@ -532,14 +536,14 @@ attn_tc(const TcArgs a, const Slots src) {
     if (r >= rows || q0 + qq >= Sq) continue;
     const int head = h * G + r % G;
     if (NS == 1) {
-      float* orow =
-          a.o + (((size_t)b * Sq + q0 + qq) * a.Hq + head) * D + 2 * t4;
+      QT* orow = static_cast<QT*>(a.o) +
+                 (((size_t)b * Sq + q0 + qq) * a.Hq + head) * D + 2 * t4;
       const float denom = fmaxf(l_i[i], 1e-30f);
 #pragma unroll
       for (int jn = 0; jn < TDN; ++jn)
         if (jn < nd)
-          *reinterpret_cast<float2*>(orow + jn * 8) = make_float2(
-              acc[jn][2 * i] / denom, acc[jn][2 * i + 1] / denom);
+          store2(orow + jn * 8, acc[jn][2 * i] / denom,
+                 acc[jn][2 * i + 1] / denom);
     } else {
       // the split's unnormalised state: (m, l), then acc
       const size_t prow = partial_row(b, head, s, q0 + qq, a.Hq, NS, Sq);
@@ -557,14 +561,14 @@ attn_tc(const TcArgs a, const Slots src) {
   }
 }
 
-// Launch attn_tc over `src` with K/V elements of type KT on `stream`:
-// grid n_qt * NS * Hkv * B blocks; returns the first CUDA error of the
-// setup or the launch.
-template <class Slots, int KT>
+// Launch attn_tc over `src` with K/V elements of type KT and queries and
+// outputs of type QT on `stream`: grid n_qt * NS * Hkv * B blocks;
+// returns the first CUDA error of the setup or the launch.
+template <class Slots, int KT, class QT>
 int launch_tc(const TcArgs& a, const Slots& src, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes(a.D, KT);
-  auto kern = a.D == DMAX ? attn_tc<Slots, KT, DMAX>
-                          : attn_tc<Slots, KT, 0>;
+  auto kern = a.D == DMAX ? attn_tc<Slots, KT, DMAX, QT>
+                          : attn_tc<Slots, KT, 0, QT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);

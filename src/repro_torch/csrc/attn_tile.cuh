@@ -9,7 +9,12 @@
 // K/V tile, 8 threads a row) with load_q, its staging of the query rows,
 // and decode_update (K4's paged_split: only the block's R <= 32 real rows,
 // their work shared among all 256 threads).  Each kernel keeps its own
-// walk over K/V and its own K/V source.
+// walk over K/V and its own K/V source.  The query and output element
+// type QT is fp32 or bf16 (the reference's kernels take q in the model's
+// dtype, upcast and scale it in fp32 and write o in q.dtype): the walks
+// stage q in fp32 (to_f32, load4) and round the fp32 output once where
+// they write it (store2, store4); a QT = float walk is the fp32 code as
+// it was.
 //
 // In tile_update 8 threads own a query row (position x head): each holds
 // 4 of the tile's 32 scores and D / 8 accumulator columns, so the row max
@@ -20,6 +25,7 @@
 // them), and the final divide by max(l, 1e-30) turns an all-masked row
 // into exact zeros.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -54,6 +60,39 @@ __device__ __forceinline__ float4 bf16x4(const unsigned char* p) {
   return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
 }
 
+// Query / output element types (kernels/attention.py: Q_TYPES).
+enum QType { Q_F32 = 0, Q_BF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Four consecutive query values (16-byte aligned fp32, 8-byte aligned
+// bf16) as fp32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return bf16x4(reinterpret_cast<const unsigned char*>(p));
+}
+
+// Output stores from fp32: as they are, or rounded once to the nearest
+// bf16 (ties to even, as PyTorch's .to(torch.bfloat16)).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  store2(p, v.x, v.y);
+  store2(p + 2, v.z, v.w);
+}
+
 constexpr int NT = 256;            // threads per block
 constexpr int ROWS = 32;           // query rows (position x head) per block
 constexpr int TPR = NT / ROWS;     // threads per row
@@ -72,10 +111,12 @@ struct Tiles {
 
 // Stages the block's query rows: the G heads of kv head h at positions
 // q0 .. q0 + BQ - 1 of batch row b (q is (B, Sq, Hq, D), q_pos (B, Sq)),
-// pre-scaled into Qs, with zeros for rows past the tile or past Sq; their
-// positions into qps (0 for those rows).  qlo / qhi get the lowest and
-// highest position of the sub-tile.  Ends with __syncthreads.
-__device__ __forceinline__ void load_q(const float* q, const int* qpos,
+// upcast to fp32 and then pre-scaled into Qs, with zeros for rows past the
+// tile or past Sq; their positions into qps (0 for those rows).  qlo /
+// qhi get the lowest and highest position of the sub-tile.  Ends with
+// __syncthreads.
+template <class QT>
+__device__ __forceinline__ void load_q(const QT* q, const int* qpos,
                                        float* Qs, int* qps, int& qlo,
                                        int& qhi, int b, int h, int q0, int Sq,
                                        int Hq, int D, int G, int BQ,
@@ -88,7 +129,8 @@ __device__ __forceinline__ void load_q(const float* q, const int* qpos,
     const int qq = rr / G;
     float val = 0.f;
     if (rr < rows && q0 + qq < Sq)
-      val = q[(((size_t)b * Sq + q0 + qq) * Hq + h * G + rr % G) * D + d] *
+      val = to_f32(q[(((size_t)b * Sq + q0 + qq) * Hq + h * G + rr % G) *
+                         D + d]) *
             scale;
     Qs[rr * DS + d] = val;
   }

@@ -32,6 +32,16 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(ok ? 4 : 0));
 }
 
+// 4 bytes to shared `dst` of which the first `n` (0, 2 or 4) are read from
+// global `src` (4-byte aligned) and the rest zero-filled: a pair of bf16
+// values whose second lies past the end of its row.
+__device__ __forceinline__ void cp_async4n(void* dst, const void* src,
+                                           int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -5,9 +5,13 @@
 // Replaces the TPU kernel repro/kernels/attention.py::flash_attention
 // (_flash_kernel at :124, pallas_call at :181).  Layouts are the
 // reference's: q (B, Sq, Hq, D), k / v (B, Skv, Hkv, D), q_pos (B, Sq),
-// kv_pos (B, Skv) int32, o (B, Sq, Hq, D), all contiguous; q and o fp32,
-// k and v fp32 or bf16 (a bf16 cache, converted to fp32 as its tiles are
-// staged: the reference upcasts in its kernel the same way).
+// kv_pos (B, Skv) int32, o (B, Sq, Hq, D), all contiguous; q and o fp32
+// or bf16, one type (the reference's kernel upcasts q, scales it in fp32
+// and writes o in q.dtype: the walks stage q in fp32, upcast first and
+// then scaled, and round the output once from the fp32 accumulator), k
+// and v fp32 or bf16 (a bf16 cache, converted to fp32 as its tiles are
+// staged: the reference upcasts in its kernel the same way).  A bf16 q is
+// exact in TF32, so the tensor-core walk's split of it has a zero lo part.
 //
 // Bound on an H100: prefill by its operations, 4 D flops per attended
 // (query head, key) pair, at the TF32 tensor-core peak of 495 TFLOP/s
@@ -82,10 +86,10 @@ inline size_t split_smem_bytes(int D, int kt) {
 
 // One block per (split s, kv head, batch row), the block's query tile at
 // q0 = 0 (Sq <= BQ); split s walks KV tiles [s * tps, (s + 1) * tps).  KT:
-// KV_F32 or KV_BF16.
-template <int KT>
+// KV_F32 or KV_BF16; QT: the query type.
+template <int KT, class QT>
 __global__ void __launch_bounds__(NT)
-flash_split(const float* __restrict__ q, const void* __restrict__ k,
+flash_split(const QT* __restrict__ q, const void* __restrict__ k,
             const void* __restrict__ v, const int* __restrict__ qpos,
             const int* __restrict__ kvpos, float* __restrict__ pm,
             float* __restrict__ pl, float* __restrict__ pacc, int Sq,
@@ -225,28 +229,29 @@ flash_split(const float* __restrict__ q, const void* __restrict__ k,
                   D, m_i, l_i, acc);
 }
 
-// One block per (position, q head, batch row), 4 columns a thread.
+// One block per (position, q head, batch row), 4 columns a thread; o of
+// the query type QT.
+template <class QT>
 __global__ void split_combine(const float* __restrict__ pm,
                               const float* __restrict__ pl,
                               const float* __restrict__ pacc,
-                              float* __restrict__ o, int Sq, int Hq, int D,
+                              QT* __restrict__ o, int Sq, int Hq, int D,
                               int NS) {
   const int qi = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int d = threadIdx.x * 4;
   if (d >= D) return;
   const float4 val = combine_cols(
       pm, pl, pacc, partial_row(b, head, 0, qi, Hq, NS, Sq), Sq, NS, D, d);
-  *reinterpret_cast<float4*>(o + (((size_t)b * Sq + qi) * Hq + head) * D +
-                             d) = val;
+  store4(o + (((size_t)b * Sq + qi) * Hq + head) * D + d, val);
 }
 
 }  // namespace
 
 namespace {
 
-template <int KT>
-int launch_split(const float* qf, const void* k, const void* v,
-                 const int* qp, const int* kp, float* of, void* ml,
+template <int KT, class QT>
+int launch_split(const QT* qf, const void* k, const void* v,
+                 const int* qp, const int* kp, QT* of, void* ml,
                  void* pacc, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                  int G, int BQ, int causal, int window, int n_splits,
                  float cap, float scale, cudaStream_t st) {
@@ -257,43 +262,31 @@ int launch_split(const float* qf, const void* k, const void* v,
   float* pa = static_cast<float*>(pacc);
   const size_t smem = split_smem_bytes(D, KT);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_split<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_split<KT, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_split<KT><<<dim3(n_splits, Hkv, B), NT, smem, st>>>(
+  flash_split<KT, QT><<<dim3(n_splits, Hkv, B), NT, smem, st>>>(
       qf, k, v, qp, kp, pm, pl, pa, Sq, Skv, Hq, Hkv, D, G, BQ, causal,
       window, cap, scale, n_splits, tps);
   int e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
-  split_combine<<<dim3(Sq, Hq, B), (D + 3) / 4, 0, st>>>(pm, pl, pa, of, Sq,
-                                                          Hq, D, n_splits);
+  split_combine<QT><<<dim3(Sq, Hq, B), (D + 3) / 4, 0, st>>>(
+      pm, pl, pa, of, Sq, Hq, D, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// kv_type: KV_F32 or KV_BF16 (k and v of that type; q and o fp32).
-// window <= 0: no window; cap <= 0: no softcap.  n_splits <= 1 runs the
-// tensor-core walk (attn_tc over DenseSlots); n_splits > 1 needs Sq <= 32
-// / G and runs the split walk, with `ml` holding 2 x B Hq n_splits Sq
-// floats (m, then l) and `pacc` B Hq n_splits Sq D floats.  Returns
-// cudaGetLastError() right after the launches.
-extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, const void* q_pos,
-                                   const void* kv_pos, void* o, void* ml,
-                                   void* pacc, int B, int Sq, int Skv, int Hq,
-                                   int Hkv, int D, int kv_type, int causal,
-                                   int window, int n_splits, float cap,
-                                   float scale, void* stream) {
-  if (D % TPR != 0 || D % 4 != 0 || D > DMAX || Hq % Hkv != 0 ||
-      Hq / Hkv > ROWS || (kv_type != KV_F32 && kv_type != KV_BF16))
-    return static_cast<int>(cudaErrorInvalidValue);
+// flash_attention_fwd with q and o of type QT.
+template <class QT>
+int flash_fwd(const void* q, const void* k, const void* v, const void* q_pos,
+              const void* kv_pos, void* o, void* ml, void* pacc, int B,
+              int Sq, int Skv, int Hq, int Hkv, int D, int kv_type,
+              int causal, int window, int n_splits, float cap, float scale,
+              cudaStream_t st) {
   const int G = Hq / Hkv, BQ = ROWS / G;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
+  const QT* qf = static_cast<const QT*>(q);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
-  float* of = static_cast<float*>(o);
+  QT* of = static_cast<QT*>(o);
   if (n_splits <= 1) {
     if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
     // bf16 rows staged in 16-byte copies (2 D bytes a row, D % 8 == 0;
@@ -302,17 +295,47 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
              nullptr, B, Sq, Hq, Hkv, D, G, TROWS / G, 1, causal, window, 1,
              cap, scale};
     if (kv_type == KV_BF16)
-      return launch_tc<DenseSlots, KV_BF16>(a, DenseSlots{kp, Skv}, st);
-    return launch_tc<DenseSlots, KV_F32>(a, DenseSlots{kp, Skv}, st);
+      return launch_tc<DenseSlots, KV_BF16, QT>(a, DenseSlots{kp, Skv}, st);
+    return launch_tc<DenseSlots, KV_F32, QT>(a, DenseSlots{kp, Skv}, st);
   }
   const int n_tiles = (Skv + BKV - 1) / BKV;
   if (Sq > BQ || n_splits > n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kv_type == KV_BF16)
-    return launch_split<KV_BF16>(qf, k, v, qp, kp, of, ml, pacc, B, Sq, Skv,
-                                 Hq, Hkv, D, G, BQ, causal, window, n_splits,
-                                 cap, scale, st);
-  return launch_split<KV_F32>(qf, k, v, qp, kp, of, ml, pacc, B, Sq, Skv, Hq,
-                              Hkv, D, G, BQ, causal, window, n_splits, cap,
-                              scale, st);
+    return launch_split<KV_BF16, QT>(qf, k, v, qp, kp, of, ml, pacc, B, Sq,
+                                     Skv, Hq, Hkv, D, G, BQ, causal, window,
+                                     n_splits, cap, scale, st);
+  return launch_split<KV_F32, QT>(qf, k, v, qp, kp, of, ml, pacc, B, Sq, Skv,
+                                  Hq, Hkv, D, G, BQ, causal, window,
+                                  n_splits, cap, scale, st);
+}
+
+}  // namespace
+
+// kv_type: KV_F32 or KV_BF16 (k and v of that type); q_type: Q_F32 or
+// Q_BF16 (q and o of that type).  window <= 0: no window; cap <= 0: no
+// softcap.  n_splits <= 1 runs the tensor-core walk (attn_tc over
+// DenseSlots); n_splits > 1 needs Sq <= 32 / G and runs the split walk,
+// with `ml` holding 2 x B Hq n_splits Sq floats (m, then l) and `pacc` B
+// Hq n_splits Sq D floats.  Returns cudaGetLastError() right after the
+// launches.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, const void* q_pos,
+                                   const void* kv_pos, void* o, void* ml,
+                                   void* pacc, int B, int Sq, int Skv, int Hq,
+                                   int Hkv, int D, int kv_type, int q_type,
+                                   int causal, int window, int n_splits,
+                                   float cap, float scale, void* stream) {
+  if (D % TPR != 0 || D % 4 != 0 || D > DMAX || Hq % Hkv != 0 ||
+      Hq / Hkv > ROWS || (kv_type != KV_F32 && kv_type != KV_BF16) ||
+      (q_type != Q_F32 && q_type != Q_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_type == Q_BF16)
+    return flash_fwd<__nv_bfloat16>(q, k, v, q_pos, kv_pos, o, ml, pacc, B,
+                                    Sq, Skv, Hq, Hkv, D, kv_type, causal,
+                                    window, n_splits, cap, scale, st);
+  return flash_fwd<float>(q, k, v, q_pos, kv_pos, o, ml, pacc, B, Sq, Skv,
+                          Hq, Hkv, D, kv_type, causal, window, n_splits, cap,
+                          scale, st);
 }

@@ -28,6 +28,15 @@
 // accumulator once, where the Pallas kernels apply it, and sums in a fixed
 // order: two calls give the same bits.
 //
+// Element types: x and y are both fp32 or both bf16 (XT), as the Pallas
+// kernels take x in the model's dtype, accumulate in fp32 and write x's
+// dtype.  A bf16 x is exact in fp32 and in TF32: gemm_tc stages it as
+// stored and builds its fragments with the lo pass dropped (it would be
+// exact zeros), gemm_stream stages it in pairs of values (cp.async moves
+// at least 4 bytes); every product, sum and the scale stay fp32, and a
+// bf16 y is rounded once, to nearest even, where it is written.  The fp32
+// instantiations are the fp32 code as it was.
+//
 // Expert batching: an MoE layer's E experts contract their own (C, K)
 // dispatch rows with their own weight in one launch (the reference's
 // einsum "ecd,edf->ecf").  Both shapes take the expert as blockIdx.z and
@@ -36,6 +45,7 @@
 // row count M, and gemm_stream's cluster stays within one expert (cluster
 // dims 1 x S x 1).
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,6 +58,12 @@ namespace rt {
 namespace cg = cooperative_groups;
 
 constexpr int SKINNY_M = 8;
+
+// A finished fp32 value into y: as it is, or rounded to the nearest bf16.
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // Elements between consecutive experts of each operand: x (M K), the
 // stored weight (ceil(K / F) N bytes), the scales (N) and y (M N) for
@@ -96,6 +112,15 @@ struct Strides {
 constexpr int CBM = 128, CBN = 128, CBK = 32, CST = 3;  // tile, K step, ring
 constexpr int CNT = 256;                                 // threads
 constexpr int CAP = CBK + 4;          // staged x row stride, floats
+// bf16 x rows staged as stored: 80-byte rows, so that the fragment loads
+// (rows g, columns t4) fall on 16 distinct pairs of banks
+constexpr int CAPB = CBK + 8;
+
+// Staged x row stride of gemm_tc, elements of XT.
+template <class XT>
+__host__ __device__ constexpr int x_cap() {
+  return sizeof(XT) == 4 ? CAP : CAPB;
+}
 
 // Weight source of gemm_tc: int8 (K, N) rows staged as bytes.  VEC: 16-byte
 // cp.async copies (N % 16 == 0 and w 16-byte aligned), else byte loads.
@@ -190,14 +215,17 @@ struct PackedStage {
   __device__ float col_scale(int n) const { return scale[n]; }
 };
 
-// VA: x rows in 16-byte copies (K % 4 == 0, x 16-byte aligned).
-template <class W, bool VA>
+// VA: x rows in 16-byte copies (K a multiple of 16 bytes of XT, x 16-byte
+// aligned).  XT: x's and y's element type (float or __nv_bfloat16).
+template <class W, bool VA, class XT>
 __global__ void __launch_bounds__(CNT, 1)
-gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
+gemm_tc(const XT* __restrict__ x, W wsrc, XT* __restrict__ y, int M,
         int K, int N, Strides bs) {
+  constexpr bool XB = sizeof(XT) == 2;     // bf16 x
+  constexpr int XC = x_cap<XT>();
   extern __shared__ float4 tc_smem[];
-  float* As = reinterpret_cast<float*>(tc_smem);               // [CST][CBM][CAP]
-  int8_t* Bs = reinterpret_cast<int8_t*>(As + CST * CBM * CAP);  // [CST][BYTES]
+  XT* As = reinterpret_cast<XT*>(tc_smem);                     // [CST][CBM][XC]
+  int8_t* Bs = reinterpret_cast<int8_t*>(As + CST * CBM * XC);   // [CST][BYTES]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t4 = lane % 4;
   const int wm = (warp % 4) * 32, wn = (warp / 4) * 64;
@@ -211,8 +239,28 @@ gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
 
   auto stage = [&](int slot, int kt) {
     const int k0 = kt * CBK;
-    float* a = As + slot * CBM * CAP;
-    if (VA) {
+    XT* a = As + slot * CBM * XC;
+    if constexpr (XB) {
+      if (VA) {
+        constexpr int CPR = CBK / 8;         // 16-byte chunks per row
+#pragma unroll
+        for (int it = 0; it < CBM * CPR / CNT; ++it) {
+          const int i = tid + it * CNT;
+          const int r = i / CPR, c = (i % CPR) * 8;
+          const int gm = m0 + r, gk = k0 + c;
+          const bool ok = gm < M && gk < K;
+          cp_async16(a + r * XC + c, ok ? x + (size_t)gm * K + gk : x, ok);
+        }
+      } else {                               // element by element, at once
+        for (int it = 0; it < CBM * CBK / CNT; ++it) {
+          const int i = tid + it * CNT;
+          const int r = i / CBK, c = i % CBK;
+          const int gm = m0 + r, gk = k0 + c;
+          a[r * XC + c] = (gm < M && gk < K) ? x[(size_t)gm * K + gk]
+                                             : __float2bfloat16_rn(0.f);
+        }
+      }
+    } else if (VA) {
       constexpr int CPR = CBK / 4;           // 16-byte chunks per row
 #pragma unroll
       for (int it = 0; it < CBM * CPR / CNT; ++it) {
@@ -265,7 +313,7 @@ gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
       stage(pf % CST, pf);
     else
       cp_async_commit();
-    const float* a = As + (kt % CST) * CBM * CAP;
+    const XT* a = As + (kt % CST) * CBM * XC;
     const int8_t* bsm = Bs + (kt % CST) * W::BYTES;
     float part[2][8][4];                   // this K step's accumulator
 #pragma unroll
@@ -280,13 +328,24 @@ gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = wm + i * 16 + g;
-        const float v[4] = {a[r * CAP + kk + t4], a[(r + 8) * CAP + kk + t4],
-                            a[r * CAP + kk + t4 + 4],
-                            a[(r + 8) * CAP + kk + t4 + 4]};
+        if constexpr (XB) {                  // exact in TF32: no lo part
+          ahi[i][0] = __float_as_uint(__bfloat162float(a[r * XC + kk + t4]));
+          ahi[i][1] =
+              __float_as_uint(__bfloat162float(a[(r + 8) * XC + kk + t4]));
+          ahi[i][2] =
+              __float_as_uint(__bfloat162float(a[r * XC + kk + t4 + 4]));
+          ahi[i][3] = __float_as_uint(
+              __bfloat162float(a[(r + 8) * XC + kk + t4 + 4]));
+        } else {
+          const float v[4] = {a[r * CAP + kk + t4],
+                              a[(r + 8) * CAP + kk + t4],
+                              a[r * CAP + kk + t4 + 4],
+                              a[(r + 8) * CAP + kk + t4 + 4]};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ahi[i][e] = tf32_rna(v[e]);
-          alo[i][e] = tf32_rna(v[e] - __uint_as_float(ahi[i][e]));
+          for (int e = 0; e < 4; ++e) {
+            ahi[i][e] = tf32_rna(v[e]);
+            alo[i][e] = tf32_rna(v[e] - __uint_as_float(ahi[i][e]));
+          }
         }
       }
 #pragma unroll
@@ -297,7 +356,7 @@ gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           mma_tf32(part[i][j], ahi[i], b0, b1);
-          mma_tf32(part[i][j], alo[i], b0, b1);
+          if constexpr (!XB) mma_tf32(part[i][j], alo[i], b0, b1);
         }
       }
     }
@@ -321,7 +380,7 @@ gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int m = m0 + wm + i * 16 + g + (e >> 1) * 8;
-        if (m < M) y[(size_t)m * N + n] = acc[i][j][e] * sc;
+        if (m < M) put(y + (size_t)m * N + n, acc[i][j][e] * sc);
       }
     }
   }
@@ -329,12 +388,13 @@ gemm_tc(const float* __restrict__ x, W wsrc, float* __restrict__ y, int M,
 
 // Launch gemm_tc over weight source `w` for E experts on `stream`;
 // returns the first CUDA error of the setup or the launch.
-template <class W>
-int launch_tc(const float* x, const W& w, float* y, int E, int M, int K,
-              int N, const Strides& bs, cudaStream_t stream) {
-  const size_t smem = CST * (sizeof(float) * CBM * CAP + W::BYTES);
-  const bool va = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  auto kern = va ? gemm_tc<W, true> : gemm_tc<W, false>;
+template <class W, class XT>
+int launch_tc(const XT* x, const W& w, XT* y, int E, int M, int K, int N,
+              const Strides& bs, cudaStream_t stream) {
+  const size_t smem = CST * (sizeof(XT) * CBM * x_cap<XT>() + W::BYTES);
+  const bool va = (K * sizeof(XT)) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kern = va ? gemm_tc<W, true, XT> : gemm_tc<W, false, XT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -364,7 +424,11 @@ int launch_tc(const float* x, const W& w, float* y, int E, int M, int K,
 //    two-slot ring, laid out [k][m] so that a packed row's F x M values are
 //    one vector read, a broadcast across the 8 column lanes), zero-filled
 //    for rows m >= M and for fields at or past K, so the fields past K of
-//    the last packed row add exact zeros whatever they hold.
+//    the last packed row add exact zeros whatever they hold.  A bf16 x is
+//    staged as it is stored, in 4-byte pairs of consecutive k laid out
+//    [k / 2][m] (load_xb picks a pair's half), from the even k at or
+//    below the chunk's first; the wrapper requires an even K and a 4-byte
+//    aligned x.
 //  * M is a template parameter (1, 2, 4, 8; the wrapper's M rounded up):
 //    the accumulators (M x 16 a thread) and the reduction storage are
 //    sized by it.
@@ -442,6 +506,29 @@ __device__ __forceinline__ void load16(const int8_t* row, bool ok, int n0,
   }
 }
 
+// M values of a bf16 x at one K row k, staged [k / 2][m] as pairs of
+// consecutive k: p points at the row's M pairs, `half` is k % 2.
+template <int M>
+__device__ __forceinline__ void load_xb(const uint32_t* p, int half,
+                                        float (&xv)[M]) {
+  uint32_t w[M];
+  if constexpr (M % 4 == 0) {
+#pragma unroll
+    for (int m = 0; m < M; m += 4) {
+      const uint4 t = *reinterpret_cast<const uint4*>(p + m);
+      w[m] = t.x; w[m + 1] = t.y; w[m + 2] = t.z; w[m + 3] = t.w;
+    }
+  } else if constexpr (M == 2) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    w[0] = t.x; w[1] = t.y;
+  } else {
+    w[0] = p[0];
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+    xv[m] = __uint_as_float(half ? (w[m] & 0xffff0000u) : (w[m] << 16));
+}
+
 // M values of x at one K row, staged [k][m]
 template <int M>
 __device__ __forceinline__ void load_x(const float* p, float (&xv)[M]) {
@@ -459,11 +546,21 @@ __device__ __forceinline__ void load_x(const float* p, float (&xv)[M]) {
   }
 }
 
-// Dynamic shared memory of gemm_stream: the x ring (2 x SXR F x M floats),
-// reused after the walk for the warps' sums (8 x M x SCOLS floats).
-template <int BITS, int M>
+// bf16 x pairs a ring slot holds for each row m: a chunk's SXR F values
+// and one more, for a chunk that starts at an odd k.
+template <int BITS>
+__host__ __device__ constexpr int x_pairs() {
+  return SXR * (8 / BITS) / 2 + 1;
+}
+
+// Dynamic shared memory of gemm_stream: the x ring (2 x SXR F x M floats,
+// or 2 x x_pairs x M pairs of bf16), reused after the walk for the warps'
+// sums (8 x M x SCOLS floats).
+template <int BITS, int M, class XT>
 constexpr size_t stream_smem_bytes() {
-  constexpr size_t ring = sizeof(float) * 2 * SXR * (8 / BITS) * M;
+  constexpr size_t ring = sizeof(XT) == 4
+                              ? sizeof(float) * 2 * SXR * (8 / BITS) * M
+                              : sizeof(uint32_t) * 2 * x_pairs<BITS>() * M;
   constexpr size_t red = sizeof(float) * (SNT / 32) * M * SCOLS;
   return ring > red ? ring : red;
 }
@@ -472,20 +569,24 @@ constexpr size_t stream_smem_bytes() {
 // of a column tile form one cluster, within one expert (blockIdx.z).  Two
 // blocks an SM (128 registers) except at M = 8 and for byte loads (VW =
 // 1), which would spill there.  Mr: x's real rows (<= M); per: packed rows
-// a split (the last split's run is cut at Kp).
-template <int BITS, int M, int VW>
+// a split (the last split's run is cut at Kp).  XT: x's and y's
+// element type.
+template <int BITS, int M, int VW, class XT>
 __global__ void __launch_bounds__(SNT, M <= 4 && VW > 1 ? 2 : 1)
-gemm_stream(const float* __restrict__ x, const int8_t* __restrict__ w,
-            const float* __restrict__ scale, float* __restrict__ y, int Mr,
+gemm_stream(const XT* __restrict__ x, const int8_t* __restrict__ w,
+            const float* __restrict__ scale, XT* __restrict__ y, int Mr,
             int K, int N, int per, Strides bs) {
   constexpr int F = 8 / BITS;
   constexpr int XK = SXR * F;               // K rows of x a chunk
+  constexpr bool XB = sizeof(XT) == 2;      // bf16 x
+  constexpr int XP = x_pairs<BITS>();
   x += blockIdx.z * bs.x;                   // this block's expert
   w += blockIdx.z * bs.w;
   scale += blockIdx.z * bs.s;
   y += blockIdx.z * bs.y;
   extern __shared__ float4 stream_smem[];
   float* xs = reinterpret_cast<float*>(stream_smem);   // [2][XK][M]
+  uint32_t* xw = reinterpret_cast<uint32_t*>(stream_smem);  // bf16 [2][XP][M]
   __shared__ float bsum[M * SCOLS];         // the block's sums, [m][col]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int cl = lane % SCL;                           // column lane
@@ -494,16 +595,29 @@ gemm_stream(const float* __restrict__ x, const int8_t* __restrict__ w,
   const int Kp = (K + F - 1) / F;
   const int rb = blockIdx.y * per, re = min(Kp, rb + per);
   const int nch = re > rb ? (re - rb + SXR - 1) / SXR : 0;
+  // bf16: a chunk's first k (rb + c SXR) F is odd when rb F is: its pairs
+  // then start one k lower
+  const int xoff = (rb * F) & 1;
 
   // x at K rows (rb + c SXR) F .. + XK into ring slot c % 2, zero past the
   // split's rows, past K and for rows m >= Mr
   auto stage_x = [&](int c) {
     const int k0 = (rb + c * SXR) * F, kend = min(K, re * F);
-    float* dst = xs + (c & 1) * XK * M;
-    for (int i = tid; i < XK * M; i += SNT) {
-      const int gk = k0 + i / M, m = i % M;
-      const bool ok = m < Mr && gk < kend;
-      rt::cp_async4(dst + i, ok ? x + (size_t)m * K + gk : x, ok);
+    if constexpr (XB) {
+      const int k0a = k0 - xoff;
+      uint32_t* dst = xw + (c & 1) * XP * M;
+      for (int i = tid; i < XP * M; i += SNT) {
+        const int gk = k0a + 2 * (i / M), m = i % M;
+        const int n = m < Mr && gk < kend ? (gk + 1 < kend ? 4 : 2) : 0;
+        rt::cp_async4n(dst + i, n ? x + (size_t)m * K + gk : x, n);
+      }
+    } else {
+      float* dst = xs + (c & 1) * XK * M;
+      for (int i = tid; i < XK * M; i += SNT) {
+        const int gk = k0 + i / M, m = i % M;
+        const bool ok = m < Mr && gk < kend;
+        rt::cp_async4(dst + i, ok ? x + (size_t)m * K + gk : x, ok);
+      }
     }
     rt::cp_async_commit();
   };
@@ -533,9 +647,11 @@ gemm_stream(const float* __restrict__ x, const int8_t* __restrict__ w,
       stage_x(c + 1);
     }
     const float* xb = xs + (c & 1) * XK * M;
+    const uint32_t* xbw = xw + (c & 1) * XP * M;
 #pragma unroll
     for (int u = 0; u < SU; ++u) {
       const float* xr = xb + (u * SRL + rl) * F * M;
+      const int kr = (u * SRL + rl) * F + xoff;   // bf16: the row's k - k0a
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         float v[F][4];
@@ -543,7 +659,10 @@ gemm_stream(const float* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
         for (int f = 0; f < F; ++f) {
           float xv[M];
-          load_x<M>(xr + f * M, xv);
+          if constexpr (XB)
+            load_xb<M>(xbw + ((kr + f) >> 1) * M, (kr + f) & 1, xv);
+          else
+            load_x<M>(xr + f * M, xv);
 #pragma unroll
           for (int m = 0; m < M; ++m)
 #pragma unroll
@@ -598,22 +717,22 @@ gemm_stream(const float* __restrict__ x, const int8_t* __restrict__ w,
       if (m >= Mr || n >= N) continue;
       float s = 0.f;
       for (int r = 0; r < S; ++r) s += cluster.map_shared_rank(bsum, r)[i];
-      y[(size_t)m * N + n] = s * scale[n];
+      put(y + (size_t)m * N + n, s * scale[n]);
     }
   }
   cluster.sync();                           // peers stay until rank 0 read
 }
 
-template <int BITS, int M, int VW>
-int launch_stream(const float* x, const int8_t* w, const float* scale,
-                  float* y, int E, int Mr, int K, int N, int splits,
+template <int BITS, int M, int VW, class XT>
+int launch_stream(const XT* x, const int8_t* w, const float* scale, XT* y,
+                  int E, int Mr, int K, int N, int splits,
                   const Strides& bs, cudaStream_t stream) {
   constexpr int F = 8 / BITS;
   const int Kp = (K + F - 1) / F;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + SCOLS - 1) / SCOLS, splits, E);
   cfg.blockDim = dim3(SNT, 1, 1);
-  cfg.dynamicSmemBytes = stream_smem_bytes<BITS, M>();
+  cfg.dynamicSmemBytes = stream_smem_bytes<BITS, M, XT>();
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -623,17 +742,17 @@ int launch_stream(const float* x, const int8_t* w, const float* scale,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, gemm_stream<BITS, M, VW>, x, w, scale, y, Mr,
-                         K, N, (Kp + splits - 1) / splits, bs);
+      cudaLaunchKernelEx(&cfg, gemm_stream<BITS, M, VW, XT>, x, w, scale,
+                         y, Mr, K, N, (Kp + splits - 1) / splits, bs);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // gemm_stream at M rounded up to 1, 2, 4 or 8, loads as wide as N and w's
 // alignment allow
-template <int BITS, int M>
-int launch_stream_m(const float* x, const int8_t* w, const float* scale,
-                    float* y, int E, int Mr, int K, int N, int splits,
+template <int BITS, int M, class XT>
+int launch_stream_m(const XT* x, const int8_t* w, const float* scale, XT* y,
+                    int E, int Mr, int K, int N, int splits,
                     const Strides& bs, cudaStream_t stream) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(w);
   if (N % 16 == 0 && a % 16 == 0)
@@ -650,12 +769,16 @@ int launch_stream_m(const float* x, const int8_t* w, const float* scale,
 // K) x, (E, ceil(K / F), N) w, (E, N) scales, (E, M, N) y; E = 1 for a
 // plain GEMM): gemm_tc for M > SKINNY_M, else gemm_stream with `splits` K
 // splits (1 .. SMAX_SPLIT); returns the first CUDA error of the setup or
-// the launch.
-template <int BITS>
-int launch_gemm(const float* x, const int8_t* w, const float* scale, float* y,
+// the launch.  XT: x's and y's element type; a bf16 x on
+// gemm_stream needs an even K and a 4-byte aligned x.
+template <int BITS, class XT>
+int launch_gemm(const XT* x, const int8_t* w, const float* scale, XT* y,
                 int E, int M, int K, int N, int splits,
                 cudaStream_t stream) {
   if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (sizeof(XT) == 2 && M <= SKINNY_M &&
+      (K % 2 != 0 || reinterpret_cast<uintptr_t>(x) % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   constexpr int F = 8 / BITS;
   const Strides bs{(size_t)M * K, (size_t)((K + F - 1) / F) * N, (size_t)N,
                    (size_t)M * N};

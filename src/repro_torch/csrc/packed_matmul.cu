@@ -1,5 +1,6 @@
 // K3: sub-byte packed weight GEMM, y = x @ (unpack(pw) * scale[None, :]),
-// int4 (2 values a byte) or int2 (4 values a byte) packed along K.
+// int4 (2 values a byte) or int2 (4 values a byte) packed along K; x fp32
+// or bf16.
 //
 // Replaces the TPU kernel
 // repro/kernels/packed_matmul.py::packed_matmul_pallas (_kernel at :50,
@@ -30,19 +31,34 @@
 
 // E experts of M rows each (E = 1: one GEMM): x (E, M, K), pw (E,
 // ceil(K / F), N), scale (E, N), y (E, M, N), all contiguous.  splits:
-// gemm_stream's K splits (M <= 8; ignored above).
-extern "C" int packed_matmul_f32(const void* x, const void* pw,
+// gemm_stream's K splits (M <= 8; ignored above).  x_type: 0 fp32, 1
+// bf16, x's and y's.
+template <int BITS>
+int packed_fwd(const void* x, const int8_t* w, const float* s, void* y,
+               int E, int M, int K, int N, int splits, int x_type,
+               cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  if (x_type == 0)
+    return rt::launch_gemm<BITS>(static_cast<const float*>(x), w, s,
+                                 static_cast<float*>(y), E, M, K, N, splits,
+                                 st);
+  if (x_type == 1)
+    return rt::launch_gemm<BITS>(static_cast<const bf16*>(x), w, s,
+                                 static_cast<bf16*>(y), E, M, K, N, splits,
+                                 st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int packed_matmul_fwd(const void* x, const void* pw,
                                  const void* scale, void* y, int E, int M,
                                  int K, int N, int splits, int store_bits,
-                                 void* stream) {
-  const float* xf = static_cast<const float*>(x);
+                                 int x_type, void* stream) {
   const int8_t* w = static_cast<const int8_t*>(pw);
   const float* s = static_cast<const float*>(scale);
-  float* yf = static_cast<float*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (store_bits == 4)
-    return rt::launch_gemm<4>(xf, w, s, yf, E, M, K, N, splits, st);
+    return packed_fwd<4>(x, w, s, y, E, M, K, N, splits, x_type, st);
   if (store_bits == 2)
-    return rt::launch_gemm<2>(xf, w, s, yf, E, M, K, N, splits, st);
+    return packed_fwd<2>(x, w, s, y, E, M, K, N, splits, x_type, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

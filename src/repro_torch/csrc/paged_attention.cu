@@ -6,12 +6,15 @@
 // Replaces the TPU kernel repro/kernels/attention.py::paged_prefill_attention
 // (_paged_kernel at :206, pallas_call at :347; paged_decode_attention at
 // :357 is its k = 1 wrapper).  Layouts are the reference's: q (B, k, Hq, D)
-// fp32; k / v pages (P, ps, Hkv, D) fp32, bf16 or int8 (KvType,
+// fp32 or bf16 (staged in fp32, upcast first and then scaled, as the
+// reference's kernel does; o is written once in q's dtype from the fp32
+// merge or accumulator); k / v pages (P, ps, Hkv, D) fp32, bf16 or int8 (KvType,
 // attn_tile.cuh; bf16 converted to fp32 exactly as it is staged, as the
 // reference upcasts in its kernel); pos pages (P, ps) int32;
 // block tables (B, nb) int32; q_pos (B, k) int32, real tokens in columns
 // 0..c-1 in ascending order and POS_SENTINEL after; int8 pools add
-// per-(slot, head) scale pages (P, ps, Hkv) fp32; o (B, k, Hq, D) fp32.
+// per-(slot, head) scale pages (P, ps, Hkv) fp32; o (B, k, Hq, D) of q's
+// type.
 //
 // Bound on an H100: a prompt chunk by its operations (4 D flops per
 // attended (query head, key) pair) at the TF32 tensor-core peak, as K1's
@@ -170,10 +173,10 @@ inline size_t split_smem_bytes(int R, int D, int kt) {
 
 // One block per (split s, kv head h, row b).  KT: the pages' KvType.  VEC:
 // bf16 / int8 rows in 16-byte copies (2 D or D a multiple of 16 and
-// 16-byte aligned pages), else 4-byte copies.
-template <int KT, bool VEC>
+// 16-byte aligned pages), else 4-byte copies.  QT: the query type.
+template <int KT, bool VEC, class QT>
 __global__ void __launch_bounds__(NT)
-paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
+paged_split(const QT* __restrict__ q, const void* __restrict__ kpages,
             const void* __restrict__ vpages, const int* __restrict__ pos,
             const int* __restrict__ bt, const int* __restrict__ qpos,
             const float* __restrict__ kscale,
@@ -200,7 +203,8 @@ paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   for (int i = tid; i < R * D; i += NT) {
     const int r = i / D, d = i - r * D;
-    Qs[i] = q[(((size_t)b * k + r / G) * Hq + h * G + r % G) * D + d] *
+    Qs[i] = to_f32(q[(((size_t)b * k + r / G) * Hq + h * G + r % G) * D +
+                     d]) *
             scale;
   }
   if (tid < R) {
@@ -377,22 +381,23 @@ paged_split(const float* __restrict__ q, const void* __restrict__ kpages,
   }
 }
 
-// One block per (column, q head, row), 4 output columns a thread.
+// One block per (column, q head, row), 4 output columns a thread; o of
+// the query type QT.
+template <class QT>
 __global__ void paged_combine(const float* __restrict__ pm,
                               const float* __restrict__ pl,
                               const float* __restrict__ pacc,
-                              float* __restrict__ o, int k, int Hq, int D,
+                              QT* __restrict__ o, int k, int Hq, int D,
                               int NS) {
   const int qi = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int d = threadIdx.x * 4;
   if (d >= D) return;
   const float4 val = combine_cols(
       pm, pl, pacc, partial_row(b, head, 0, qi, Hq, NS, k), k, NS, D, d);
-  *reinterpret_cast<float4*>(o + (((size_t)b * k + qi) * Hq + head) * D +
-                             d) = val;
+  store4(o + (((size_t)b * k + qi) * Hq + head) * D + d, val);
 }
 
-template <int KT, bool VEC>
+template <int KT, bool VEC, class QT>
 int launch_split(const void* q, const void* kp, const void* vp,
                  const void* pos, const void* bt, const void* qpos,
                  const void* ks, const void* vs, void* o, void* ml,
@@ -402,55 +407,32 @@ int launch_split(const void* q, const void* kp, const void* vp,
   const int G = Hq / Hkv;
   const size_t smem = split_smem_bytes(k * G, D, KT);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_split<KT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_split<KT, VEC, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* pm = static_cast<float*>(ml);
   float* pl = pm + (size_t)B * Hq * NS * k;
   float* pa = static_cast<float*>(pacc);
-  paged_split<KT, VEC><<<dim3(NS, Hkv, B), NT, smem, stream>>>(
-      static_cast<const float*>(q), kp, vp, static_cast<const int*>(pos),
+  paged_split<KT, VEC, QT><<<dim3(NS, Hkv, B), NT, smem, stream>>>(
+      static_cast<const QT*>(q), kp, vp, static_cast<const int*>(pos),
       static_cast<const int*>(bt), static_cast<const int*>(qpos),
       static_cast<const float*>(ks), static_cast<const float*>(vs), pm, pl,
       pa, k, P, ps, Hq, Hkv, D, nb, G, window, cap, scale, NS);
   int e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
-  paged_combine<<<dim3(k, Hq, B), (D + 3) / 4, 0, stream>>>(
-      pm, pl, pa, static_cast<float*>(o), k, Hq, D, NS);
+  paged_combine<QT><<<dim3(k, Hq, B), (D + 3) / 4, 0, stream>>>(
+      pm, pl, pa, static_cast<QT*>(o), k, Hq, D, NS);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// kv_type: the pages' KvType; KV_I8 pages come with scale pages k_scale /
-// v_scale (ignored for the others).  window <= 0: no window; cap <= 0: no
-// softcap.  tc == 0 runs the decode walk (paged_split + paged_combine,
-// also at n_splits = 1), which takes q tiles of k <= 32 / G columns only;
-// tc != 0 runs the tensor-core walk (attn_tc over PagedSlots) with
-// n_splits splits, merged by paged_combine when n_splits > 1.
-// kernels/attention.py::paged_walk picks both.  Where the call merges,
-// `ml` holds 2 x B Hq n_splits k floats (m, then l) and `pacc` B Hq
-// n_splits k D floats.  Returns cudaGetLastError() right after the
-// launches.
-extern "C" int paged_attention_f32(const void* q, const void* k_pages,
-                                   const void* v_pages, const void* pos_pages,
-                                   const void* block_tables,
-                                   const void* q_pos, const void* k_scale,
-                                   const void* v_scale, void* o, void* ml,
-                                   void* pacc, int B, int k, int P, int ps,
-                                   int Hq, int Hkv, int D, int nb,
-                                   int kv_type, int window, int tc,
-                                   int n_splits, float cap, float scale,
-                                   void* stream) {
-  const bool merged = !tc || n_splits > 1;
-  if (D % 8 != 0 || D > DMAX || Hq % Hkv != 0 || Hq / Hkv > ROWS ||
-      ps < 1 || nb < 1 || n_splits < 1 ||
-      (kv_type != KV_F32 && kv_type != KV_BF16 && kv_type != KV_I8) ||
-      (!tc && k * (Hq / Hkv) > ROWS) ||
-      (kv_type == KV_I8 && (k_scale == nullptr || v_scale == nullptr)) ||
-      (merged && (ml == nullptr || pacc == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// paged_attention_fwd with q and o of type QT; the arguments are checked.
+template <class QT>
+int paged_fwd(const void* q, const void* k_pages, const void* v_pages,
+              const void* pos_pages, const void* block_tables,
+              const void* q_pos, const void* k_scale, const void* v_scale,
+              void* o, void* ml, void* pacc, int B, int k, int P, int ps,
+              int Hq, int Hkv, int D, int nb, int kv_type, int window, int tc,
+              int n_splits, float cap, float scale, cudaStream_t st) {
   const int G = Hq / Hkv;
   // bf16 / int8 rows in 16-byte copies where a row is whole 16-byte
   // chunks and the pages are 16-byte aligned
@@ -458,9 +440,10 @@ extern "C" int paged_attention_f32(const void* q, const void* k_pages,
                    reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
 #define PAGED_SPLIT(KT, VEC)                                                \
-  launch_split<KT, VEC>(q, k_pages, v_pages, pos_pages, block_tables, q_pos, \
-                        k_scale, v_scale, o, ml, pacc, B, k, P, ps, Hq, Hkv,  \
-                        D, nb, window, n_splits, cap, scale, st)
+  launch_split<KT, VEC, QT>(q, k_pages, v_pages, pos_pages, block_tables,   \
+                            q_pos, k_scale, v_scale, o, ml, pacc, B, k, P,  \
+                            ps, Hq, Hkv, D, nb, window, n_splits, cap,      \
+                            scale, st)
   if (!tc) {
     if (kv_type == KV_F32) return PAGED_SPLIT(KV_F32, false);
     if (kv_type == KV_BF16)
@@ -471,18 +454,62 @@ extern "C" int paged_attention_f32(const void* q, const void* k_pages,
   float* pm = static_cast<float*>(ml);
   float* pl = pm ? pm + (size_t)B * Hq * n_splits * k : nullptr;
   float* pa = static_cast<float*>(pacc);
-  const TcArgs a{static_cast<const float*>(q), static_cast<const int*>(q_pos),
-                 k_pages, v_pages, static_cast<const float*>(k_scale),
-                 static_cast<const float*>(v_scale), static_cast<float*>(o),
-                 pm, pl, pa, B, k, Hq, Hkv, D, G, TROWS / G, n_splits,
-                 /*causal=*/1, window, vec ? 1 : 0, cap, scale};
+  const TcArgs a{q, static_cast<const int*>(q_pos), k_pages, v_pages,
+                 static_cast<const float*>(k_scale),
+                 static_cast<const float*>(v_scale), o, pm, pl, pa, B, k, Hq,
+                 Hkv, D, G, TROWS / G, n_splits, /*causal=*/1, window,
+                 vec ? 1 : 0, cap, scale};
   const PagedSlots src{static_cast<const int*>(pos_pages),
                        static_cast<const int*>(block_tables), P, ps, nb};
-  const int e = kv_type == KV_I8    ? launch_tc<PagedSlots, KV_I8>(a, src, st)
-                : kv_type == KV_BF16 ? launch_tc<PagedSlots, KV_BF16>(a, src, st)
-                                     : launch_tc<PagedSlots, KV_F32>(a, src, st);
+  const int e =
+      kv_type == KV_I8    ? launch_tc<PagedSlots, KV_I8, QT>(a, src, st)
+      : kv_type == KV_BF16 ? launch_tc<PagedSlots, KV_BF16, QT>(a, src, st)
+                           : launch_tc<PagedSlots, KV_F32, QT>(a, src, st);
   if (e != 0 || n_splits == 1) return e;
-  paged_combine<<<dim3(k, Hq, B), (D + 3) / 4, 0, st>>>(
-      pm, pl, pa, static_cast<float*>(o), k, Hq, D, n_splits);
+  paged_combine<QT><<<dim3(k, Hq, B), (D + 3) / 4, 0, st>>>(
+      pm, pl, pa, static_cast<QT*>(o), k, Hq, D, n_splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// kv_type: the pages' KvType; KV_I8 pages come with scale pages k_scale /
+// v_scale (ignored for the others).  q_type: Q_F32 or Q_BF16 (q and o of
+// that type).  window <= 0: no window; cap <= 0: no softcap.  tc == 0
+// runs the decode walk (paged_split + paged_combine, also at n_splits =
+// 1), which takes q tiles of k <= 32 / G columns only; tc != 0 runs the
+// tensor-core walk (attn_tc over PagedSlots) with n_splits splits, merged
+// by paged_combine when n_splits > 1.  kernels/attention.py::paged_walk
+// picks both.  Where the call merges, `ml` holds 2 x B Hq n_splits k
+// floats (m, then l) and `pacc` B Hq n_splits k D floats.  Returns
+// cudaGetLastError() right after the launches.
+extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
+                                   const void* v_pages, const void* pos_pages,
+                                   const void* block_tables,
+                                   const void* q_pos, const void* k_scale,
+                                   const void* v_scale, void* o, void* ml,
+                                   void* pacc, int B, int k, int P, int ps,
+                                   int Hq, int Hkv, int D, int nb,
+                                   int kv_type, int q_type, int window,
+                                   int tc, int n_splits, float cap,
+                                   float scale, void* stream) {
+  const bool merged = !tc || n_splits > 1;
+  if (D % 8 != 0 || D > DMAX || Hq % Hkv != 0 || Hq / Hkv > ROWS ||
+      ps < 1 || nb < 1 || n_splits < 1 ||
+      (kv_type != KV_F32 && kv_type != KV_BF16 && kv_type != KV_I8) ||
+      (q_type != Q_F32 && q_type != Q_BF16) ||
+      (!tc && k * (Hq / Hkv) > ROWS) ||
+      (kv_type == KV_I8 && (k_scale == nullptr || v_scale == nullptr)) ||
+      (merged && (ml == nullptr || pacc == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_type == Q_BF16)
+    return paged_fwd<__nv_bfloat16>(
+        q, k_pages, v_pages, pos_pages, block_tables, q_pos, k_scale,
+        v_scale, o, ml, pacc, B, k, P, ps, Hq, Hkv, D, nb, kv_type, window,
+        tc, n_splits, cap, scale, st);
+  return paged_fwd<float>(q, k_pages, v_pages, pos_pages, block_tables,
+                          q_pos, k_scale, v_scale, o, ml, pacc, B, k, P, ps,
+                          Hq, Hkv, D, nb, kv_type, window, tc, n_splits, cap,
+                          scale, st);
 }

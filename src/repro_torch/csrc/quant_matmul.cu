@@ -1,4 +1,4 @@
-// K2: int8 weight GEMM, y = x @ (qw * scale[None, :]).
+// K2: int8 weight GEMM, y = x @ (qw * scale[None, :]), x fp32 or bf16.
 //
 // Replaces the TPU kernel repro/kernels/quant_matmul.py::quant_matmul_pallas
 // (_kernel at :25, pallas_call at :53): the int8 bucket of the packed
@@ -24,12 +24,20 @@
 
 // E experts of M rows each (E = 1: one GEMM): x (E, M, K), qw (E, K, N),
 // scale (E, N), y (E, M, N), all contiguous.  splits: gemm_stream's K
-// splits (M <= 8; ignored above).
-extern "C" int quant_matmul_f32(const void* x, const void* qw,
+// splits (M <= 8; ignored above).  x_type: 0 fp32, 1 bf16, x's and y's.
+extern "C" int quant_matmul_fwd(const void* x, const void* qw,
                                 const void* scale, void* y, int E, int M,
-                                int K, int N, int splits, void* stream) {
-  return rt::launch_gemm<8>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(qw),
-      static_cast<const float*>(scale), static_cast<float*>(y), E, M, K, N,
-      splits, static_cast<cudaStream_t>(stream));
+                                int K, int N, int splits, int x_type,
+                                void* stream) {
+  using bf16 = __nv_bfloat16;
+  const int8_t* w = static_cast<const int8_t*>(qw);
+  const float* s = static_cast<const float*>(scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_type == 0)
+    return rt::launch_gemm<8>(static_cast<const float*>(x), w, s,
+                              static_cast<float*>(y), E, M, K, N, splits, st);
+  if (x_type == 1)
+    return rt::launch_gemm<8>(static_cast<const bf16*>(x), w, s,
+                              static_cast<bf16*>(y), E, M, K, N, splits, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,12 +34,18 @@ def launch_counts() -> dict:
     return {c.name: c.launches for c in COUNTS}
 
 
+def launch_routes() -> dict:
+    """Launches of each kernel by route since the last
+    :func:`reset_launch_counts` (K2 and K3; the others count none)."""
+    return {c.name: dict(c.routes) for c in COUNTS}
+
+
 def reset_launch_counts() -> None:
     for c in COUNTS:
-        c.launches = 0
+        c.reset()
 
 
 __all__ = ["flash_attention", "paged_prefill_attention",
            "paged_decode_attention", "packed_mixed_matmul", "PackedWeight",
-           "pack_sub8", "unpack_sub8", "launch_counts",
+           "pack_sub8", "unpack_sub8", "launch_counts", "launch_routes",
            "reset_launch_counts"]

@@ -2,11 +2,14 @@
 
 K1 -- :func:`flash_attention`, the flash-attention forward for prefill and
 dense-cache decode: port of ``repro/kernels/attention.py::flash_attention``
-as a CUDA C++ kernel (``csrc/flash_attention.cu``).  q (B, Sq, Hq, D) f32,
-k / v (B, Skv, Hkv, D) f32 or bf16 (a bf16 cache, converted to f32 as it
-is read), q_pos (B, Sq) and kv_pos (B, Skv) int32; causal and
-sliding-window validity come from comparing positions alone, so ring-buffer
-caches and sentinel tails (``POS_SENTINEL``) need no other argument.
+as a CUDA C++ kernel (``csrc/flash_attention.cu``).  q (B, Sq, Hq, D) f32
+or bf16 (upcast and scaled in fp32 as it is staged; the output is written
+once, in q's dtype, from the fp32 accumulator, as the reference's kernel
+writes ``q.dtype``), k / v (B, Skv, Hkv, D) f32 or bf16 (a bf16 cache,
+converted to f32 as it is read), q_pos (B, Sq) and kv_pos (B, Skv) int32;
+causal and sliding-window validity come from comparing positions alone,
+so ring-buffer caches and sentinel tails (``POS_SENTINEL``) need no other
+argument.
 Prefill runs a walk on TF32 tensor cores with both operands of both
 products split in three passes (fp32 accuracy;
 ``ref.attention_tf32x3_ref`` states its arithmetic).  Decode, where one
@@ -19,7 +22,8 @@ its k = 1 wrapper), causal attention for q tiles of k left-aligned tokens
 per sequence over the paged KV pool: port of the reference's function of
 the same name as ``csrc/paged_attention.cu``.  The kernel walks each
 sequence's block-table row itself; bf16 pools are converted and int8
-pools dequantized on load.
+pools dequantized on load.  q is f32 or bf16, as K1's, and the output
+takes its dtype.
 Chunk steps run K1's tensor-core walk over the pool's slots (three TF32
 passes; ``ref.paged_attention_split_ref(mm=ref.einsum_tf32x3)`` states
 it); decode tokens, whose q tile holds a few real rows, run a CUDA-core
@@ -48,6 +52,8 @@ PAGED_COUNT = build.LaunchCount("paged_attention")
 MAX_HEAD_DIM = 256      # csrc/flash_attention.cu: DMAX
 # K/V element types the kernels read (csrc/attn_tile.cuh: KvType)
 KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# query (and output) element types (csrc/attn_tile.cuh: QT)
+Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 32          # query heads per kv head that fit one block
 ROWS = BKV = 32         # csrc/attn_tile.cuh: query rows of a block, KV tile
 TC_ROWS = 128           # csrc/attn_tc.cuh: query rows of a tensor-core block
@@ -82,13 +88,19 @@ def split_tiles(Skv: int, n_splits: int):
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("flash_attention", "flash_attention_f32", 8, 10,
+    return build.bind("flash_attention", "flash_attention_fwd", 8, 11,
                       tail=(ctypes.c_float, ctypes.c_float))
+
+
+def _expect_q(q):
+    if q.dtype not in Q_TYPES:
+        raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    build.expect(q, "q", q.dtype, 4, q.device)
 
 
 def _check(q, k, v, q_pos, kv_pos):
     dev = q.device
-    build.expect(q, "q", torch.float32, 4, dev)
+    _expect_q(q)
     if k.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"k: expected float32 or bfloat16, got {k.dtype}")
     build.expect(k, "k", k.dtype, 4, dev)
@@ -110,8 +122,8 @@ def _check(q, k, v, q_pos, kv_pos):
 
 def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
                     attn_cap=None):
-    """Tiled flash-attention forward; k and v f32 or bf16 (one type).
-    Returns (B, Sq, Hq, D) f32."""
+    """Tiled flash-attention forward; q f32 or bf16, k and v f32 or bf16
+    (one type).  Returns (B, Sq, Hq, D) in q's dtype."""
     build.refuse_dtensor("flash_attention", q, k, v, q_pos, kv_pos)
     _check(q, k, v, q_pos, kv_pos)
     if window is not None and window <= 0:
@@ -138,7 +150,7 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
     err = build.launch(_fn(), q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        q_pos.data_ptr(), kv_pos.data_ptr(), o.data_ptr(), ml,
                        pacc, B, Sq, Skv, Hq, Hkv, D, KV_TYPES[k.dtype],
-                       int(bool(causal)),
+                       Q_TYPES[q.dtype], int(bool(causal)),
                        int(window or 0), ns, float(attn_cap or 0.0),
                        1.0 / math.sqrt(D))
     COUNT.launches += 1
@@ -229,14 +241,14 @@ def paged_walk(B: int, k: int, Hq: int, Hkv: int, n_slots: int,
 
 @functools.lru_cache(maxsize=None)
 def _paged_fn():
-    return build.bind("paged_attention", "paged_attention_f32", 11, 12,
+    return build.bind("paged_attention", "paged_attention_fwd", 11, 13,
                       tail=(ctypes.c_float, ctypes.c_float))
 
 
 def _check_paged(q, k_pages, v_pages, pos_pages, block_tables, q_pos,
                  k_scale_pages, v_scale_pages):
     dev = q.device
-    build.expect(q, "q", torch.float32, 4, dev)
+    _expect_q(q)
     kv_dt = k_pages.dtype          # one of KV_TYPES: the caller checked it
     build.expect(k_pages, "k_pages", kv_dt, 4, dev)
     build.expect(v_pages, "v_pages", kv_dt, 4, dev)
@@ -275,12 +287,12 @@ def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
                             k_scale_pages=None, v_scale_pages=None):
     """Causal attention over the paged KV pool for q tiles of k tokens.
 
-    q: (B, k, Hq, D) f32; ``*_pages``: (P, page_size, Hkv, D) f32, bf16
-    or int8, ``pos_pages`` (P, page_size) int32; block_tables: (B, nb) int32
-    physical page ids; q_pos: (B, k) int32, real tokens left-aligned in
+    q: (B, k, Hq, D) f32 or bf16; ``*_pages``: (P, page_size, Hkv, D)
+    f32, bf16 or int8, ``pos_pages`` (P, page_size) int32; block_tables:
+    (B, nb) int32 physical page ids; q_pos: (B, k) int32, real tokens left-aligned in
     ascending position order and padded columns ``POS_SENTINEL``.  int8
     pools pass ``k_scale_pages`` / ``v_scale_pages`` (P, page_size, Hkv)
-    f32, and only they do.  Returns (B, k, Hq, D) f32.
+    f32, and only they do.  Returns (B, k, Hq, D) in q's dtype.
 
     Padded (sentinel) query columns are garbage the scheduler never reads,
     and they differ between the two versions: the kernel returns exact
@@ -329,7 +341,7 @@ def paged_prefill_attention(q, k_pages, v_pages, pos_pages, block_tables, *,
         k_scale_pages.data_ptr() if quant else None,
         v_scale_pages.data_ptr() if quant else None, o.data_ptr(), ml, pacc,
         B, k, P, ps, Hq, Hkv, D, nb, KV_TYPES[k_pages.dtype],
-        int(window or 0),
+        Q_TYPES[q.dtype], int(window or 0),
         int(walk == "tc"), ns, float(attn_cap or 0.0), 1.0 / math.sqrt(D))
     PAGED_COUNT.launches += 1
     build.check(build.load(PAGED_COUNT.name), err, PAGED_COUNT.name)

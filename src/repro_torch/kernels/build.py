@@ -91,9 +91,22 @@ def load(name: str) -> ctypes.CDLL:
 @dataclasses.dataclass
 class LaunchCount:
     """Launches of one kernel: its wrapper adds one where it launches the
-    kernel and nowhere else (the plain CPU version does not count)."""
+    kernel and nowhere else (the plain CPU version does not count).  A
+    wrapper whose kernel takes several launch shapes also counts each
+    launch under its route in ``routes`` (K2 and K3: ``skinny`` or a
+    tensor-core route), so that a profiler trace can be read route by
+    route."""
     name: str
     launches: int = 0
+    routes: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def add(self, route: str) -> None:
+        self.launches += 1
+        self.routes[route] = self.routes.get(route, 0) + 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.routes = {}
 
 
 def bind(name: str, symbol: str, n_ptr: int, n_int: int,

@@ -2,10 +2,11 @@
 
 :func:`packed_mixed_matmul` is the serving contraction a searched
 mixed-QBN policy compiles to: one launch per non-empty bucket (K3 for
-int2 / int4, K2 for int8), a plain matmul for the bf16 ``full`` bucket,
-implicit zeros for pruned channels, and the per-bucket outputs scattered
-back into the policy's channel order; an MoE expert stack takes the same
-launches, each for all its experts at once.  The reference pads every operand
+int2 / int4, K2 for int8, each on x as it is, fp32 or bf16), a plain
+matmul for the bf16 ``full`` bucket, implicit zeros for pruned channels,
+and the per-bucket outputs scattered back into the policy's channel
+order; an MoE expert stack takes the same launches, each for all its
+experts at once.  The reference pads every operand
 to its block grid here; the CUDA kernels mask their ragged edges
 themselves, so nothing is padded: :func:`binary_matmul` (B6) and
 :func:`fake_quant_channels` (B5) are their kernels' wrappers as they are.
@@ -25,25 +26,38 @@ __all__ = ["quant_matmul", "packed_matmul", "packed_mixed_matmul",
 
 
 def packed_mixed_matmul(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
-    """y = x @ dequant(w) for a 2-d PackedWeight, x (M, K) f32; or for an
-    expert stack, x (E, C, K) and a PackedWeight with leading dim E, whose
-    experts share one bucket split of the columns (bits are per output
-    channel): one batched launch per bucket for all E experts, and one
-    ``index_copy_`` along the last axis."""
+    """y = x @ dequant(w) for a 2-d PackedWeight, x (M, K) f32 or bf16; or
+    for an expert stack, x (E, C, K) and a PackedWeight with leading dim
+    E, whose experts share one bucket split of the columns (bits are per
+    output channel): one batched launch per bucket for all E experts, and
+    one ``index_copy_`` along the last axis.
+
+    The result has the reference's dtype for ``x @ deq(w)``,
+    ``promote(x.dtype, w.out_dtype)``: bf16 for a bf16 x against a store
+    packed from bf16 weights.  On the card x is cast to that dtype (an
+    exact upcast where it differs), K2 and K3 write it, and the bf16
+    ``full`` bucket is a plain product in it.  The plain contraction of such a result (CPU tensors) is the
+    reference's: the weight dequantized to the store's ``out_dtype``
+    first (``PackedWeight.dequant``), then one product accumulated in fp32
+    and rounded once; an fp32 result takes the kernels' plain versions
+    bucket by bucket."""
     K = x.shape[-1]
     if K != w.k:
         raise ValueError(f"x has K={K}, weight has K={w.k}")
-    out = torch.zeros(x.shape[:-1] + (w.n,), dtype=torch.float32,
-                      device=x.device)
+    od = torch.promote_types(x.dtype, getattr(torch, w.out_dtype))
+    if od != torch.float32 and x.device.type == "cpu":
+        return (x.to(torch.float32) @ w.dequant().to(torch.float32)).to(od)
+    x = x.to(od)
+    out = torch.zeros(x.shape[:-1] + (w.n,), dtype=od, device=x.device)
     for (name, _), part in zip(w.buckets, w.parts):
         if name == "pruned":
             continue
         if name == "full":
-            y = x.to(torch.float32) @ part[0].to(torch.float32)
+            y = x @ part[0].to(od)
         elif name == "int8":
             y = quant_matmul(x, part[0], part[1])
         else:
             y = packed_matmul(x, part[0], part[1],
                               store_bits=STORE_BITS[name])
         out.index_copy_(x.ndim - 1, w.index(name), y)
-    return out.to(x.dtype)
+    return out

@@ -24,14 +24,14 @@ COUNT = build.LaunchCount("packed_matmul")
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("packed_matmul", "packed_matmul_f32", 4, 6)
+    return build.bind("packed_matmul", "packed_matmul_fwd", 4, 7)
 
 
 def packed_matmul(x: torch.Tensor, pw: torch.Tensor, scale: torch.Tensor, *,
                   store_bits: int) -> torch.Tensor:
-    """x (M, K) f32; pw (ceil(K/f), N) int8 with f = 8 / store_bits;
-    scale (N,) f32 -> (M, N) f32; or an expert stack, a leading E on all
-    three, in one launch."""
+    """x (M, K) f32 or bf16; pw (ceil(K/f), N) int8 with f = 8 /
+    store_bits; scale (N,) f32 -> (M, N) in x's dtype; or an expert
+    stack, a leading E on all three, in one launch."""
     build.refuse_dtensor("packed_matmul", x, pw, scale)
     if store_bits not in SUB8_FACTORS:
         raise ValueError(f"store_bits must be 2 or 4, got {store_bits}")

@@ -13,6 +13,10 @@ scale (E, N)) is one launch for all E experts, routed by the rows ``C``
 an expert holds.  The wrapper runs the plain version
 (``ref.quant_matmul_ref``) for CPU tensors and the kernel for CUDA
 tensors; there is no fallback between them.
+
+x is fp32 or bf16, as the reference kernel's, and the output is in x's
+dtype (:data:`X_TYPES`).  The kernels accumulate and scale in fp32
+either way and round a bf16 output once.
 """
 from __future__ import annotations
 
@@ -27,20 +31,25 @@ SKINNY_M = 8          # csrc/gemm_tiles.cuh: M at or below this streams W
 SKINNY_COLS = 128     # gemm_stream: columns a block
 SKINNY_CHUNK = 128    # gemm_stream: packed rows a block takes at a time
 MAX_SPLITS = 8        # gemm_stream: blocks of a cluster (portable limit)
+# element types of x (and y) the kernels take (csrc/quant_matmul.cu: x_type)
+X_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    return build.bind("quant_matmul", "quant_matmul_f32", 4, 5)
+    return build.bind("quant_matmul", "quant_matmul_fwd", 4, 6)
 
 
-def route(M: int, bits: int = 8) -> str:
+def route(M: int, bits: int = 8, x_dtype=torch.float32) -> str:
     """The launch shape that ``launch_gemm``'s kernel takes for M rows of a
     ``bits``-wide weight (8 for K2; 4 or 2 for K3, the same rule):
     ``skinny`` (weight streaming on CUDA cores) for M <= SKINNY_M, else
     ``tc_2xtf32`` (gemm_tc: TF32 tensor cores, x split into two passes;
-    int8, int4 and int2 weights are exact in TF32)."""
-    return "skinny" if M <= SKINNY_M else "tc_2xtf32"
+    int8, int4 and int2 weights are exact in TF32), or ``tc_1xtf32`` for
+    a bf16 x, which is exact in TF32 too (one pass)."""
+    if M <= SKINNY_M:
+        return "skinny"
+    return "tc_1xtf32" if x_dtype == torch.bfloat16 else "tc_2xtf32"
 
 
 def skinny_splits(rows: int, N: int, n_sm: int, batch: int = 1) -> int:
@@ -69,7 +78,7 @@ def skinny_cut(rows: int, splits: int):
             for s in range(splits)]
 
 
-def check_gemm(x, w, scale, rows: int):
+def check_gemm(x, w, scale, rows: int) -> None:
     """Validate a GEMM call, plain (x (M, K), w (rows, N), scale (N,)) or
     expert-batched (a leading E on all three); ``rows`` is the stored K
     extent of ``w``."""
@@ -77,7 +86,9 @@ def check_gemm(x, w, scale, rows: int):
     if nd not in (2, 3):
         raise ValueError(f"x: expected (M, K) or (E, M, K), got "
                          f"{tuple(x.shape)}")
-    build.expect(x, "x", torch.float32, nd, x.device)
+    if x.dtype not in X_TYPES:
+        raise ValueError(f"x: expected float32 or bfloat16, got {x.dtype}")
+    build.expect(x, "x", x.dtype, nd, x.device)
     build.expect(w, "weight", torch.int8, nd, x.device)
     build.expect(scale, "scale", torch.float32, nd - 1, x.device)
     if (w.shape[-2] != rows or scale.shape[-1] != w.shape[-1]
@@ -88,29 +99,34 @@ def check_gemm(x, w, scale, rows: int):
 
 
 def launch_gemm(fn, count, x, w, scale, rows, *extra):
-    """Allocate, launch ``fn`` on the current stream (one launch for all
-    experts of a batched call), count, check."""
+    """Allocate y in x's dtype, launch ``fn`` on the current stream
+    (one launch for all experts of a batched call), count, check."""
     M, K = x.shape[-2:]
     N = w.shape[-1]
     E = x.shape[0] if x.ndim == 3 else 1
-    y = torch.empty(x.shape[:-1] + (N,), dtype=torch.float32,
-                    device=x.device)
+    y = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    shape = route(M, x_dtype=x.dtype)
+    skinny = shape == "skinny"
+    if skinny and x.dtype == torch.bfloat16 and (K % 2 or x.data_ptr() % 4):
+        raise ValueError("bf16 x on the streaming route needs an even K "
+                         "and 4-byte aligned data (it is staged in pairs)")
     splits = skinny_splits(rows, N, build.sm_count(x.device), E) \
-        if route(M) == "skinny" else 1
+        if skinny else 1
     err = build.launch(fn, x, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                       y.data_ptr(), E, M, K, N, splits, *extra)
-    count.launches += 1
+                       y.data_ptr(), E, M, K, N, splits, *extra,
+                       X_TYPES[x.dtype])
+    count.add(shape)
     build.check(build.load(count.name), err, count.name)
     return y
 
 
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) f32; qw (K, N) int8; scale (N,) f32 -> (M, N) f32; or an
-    expert stack, x (E, C, K), qw (E, K, N), scale (E, N) -> (E, C, N),
-    in one launch."""
+    """x (M, K) f32 or bf16; qw (K, N) int8; scale (N,) f32 -> (M, N) in
+    x's dtype; or an expert stack, x (E, C, K), qw
+    (E, K, N), scale (E, N) -> (E, C, N), in one launch."""
     build.refuse_dtensor("quant_matmul", x, qw, scale)
     check_gemm(x, qw, scale, rows=x.shape[-1])
     if x.device.type == "cpu":

@@ -34,10 +34,14 @@ FULL_BITS = 24
 
 def quant_matmul_ref(x: torch.Tensor, qw: torch.Tensor,
                      scale: torch.Tensor) -> torch.Tensor:
-    """x: (M, K) f32; qw: (K, N) int8; scale: (N,) f32 per out channel.
-    An expert stack adds a leading dim E to all three (x (E, M, K), qw
-    (E, K, N), scale (E, N)): each expert's product, as the reference's
-    einsum ``"ecd,edf->ecf"`` on the dequantized stack."""
+    """x: (M, K) f32 or bf16; qw: (K, N) int8; scale: (N,) f32 per out
+    channel.  An expert stack adds a leading dim E to all three (x (E, M,
+    K), qw (E, K, N), scale (E, N)): each expert's product, as the
+    reference's einsum ``"ecd,edf->ecf"`` on the dequantized stack.
+
+    The result is in x's dtype: the reference kernel's numerics on a bf16
+    x, the fp32 weight against the upcast x, accumulated in fp32 and
+    rounded once."""
     w = qw.to(torch.float32) * scale[..., None, :].to(torch.float32)
     return (x.to(torch.float32) @ w).to(x.dtype)
 

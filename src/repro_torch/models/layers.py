@@ -49,7 +49,10 @@ def linear(x: torch.Tensor, w, role: Optional[str] = "w_col"
     """``x @ w`` over the last axis of x.  A PackedWeight goes to
     ``ops.packed_mixed_matmul`` (one K2/K3 launch per bucket on the card),
     an int8-store leaf to K2 with its per-channel scale (nothing
-    dequantizes the weight); a dense weight is a plain matmul.
+    dequantizes the weight); a dense weight is a plain matmul.  The
+    result has the reference's dtype for ``x @ deq(w)``: the promotion of
+    x's and the dequantized weight's (bf16 for bf16 x against a bf16 or
+    bf16-packed weight, fp32 against the int8 store's fp32 scales).
 
     ``role`` is the weight's sharding role at use, the reference's
     ``wcol`` / ``wrow``: ``"w_col"`` (column-parallel, the default),
@@ -67,7 +70,7 @@ def linear(x: torch.Tensor, w, role: Optional[str] = "w_col"
             return _sharded_quant_matmul(x, w, batched=False)
         from repro_torch.kernels.quant_matmul import quant_matmul
         q = w["q"]
-        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        x2 = _int8_x(x, w).reshape(-1, x.shape[-1]).contiguous()
         return quant_matmul(x2, q, w["s"].reshape(-1)).reshape(
             x.shape[:-1] + (q.shape[-1],))
     return x @ (w if role is None else ctx.constrain(w, role))
@@ -88,8 +91,17 @@ def expert_linear(x: torch.Tensor, w) -> torch.Tensor:
     if is_int8_leaf(w):
         from repro_torch.kernels.quant_matmul import quant_matmul
         q = w["q"]
-        return quant_matmul(x, q, w["s"].reshape(q.shape[0], q.shape[-1]))
+        return quant_matmul(_int8_x(x, w), q,
+                            w["s"].reshape(q.shape[0], q.shape[-1]))
     return torch.bmm(x, w)
+
+
+def _int8_x(x, w) -> torch.Tensor:
+    """``x`` in the result dtype against an int8-store leaf, which K2
+    writes in x's dtype: the reference dequantizes the leaf as ``q * s``
+    in the scales' dtype (fp32) and promotes (an exact upcast of a bf16
+    x)."""
+    return x.to(torch.promote_types(x.dtype, w["s"].dtype))
 
 
 def _sharded_quant_matmul(x, w, batched: bool):
@@ -127,6 +139,7 @@ def _sharded_quant_matmul(x, w, batched: bool):
     ql = q.redistribute(mesh, tq).to_local()
     sl = s.redistribute(mesh, ts).to_local()
     from repro_torch.kernels.quant_matmul import quant_matmul
+    xl = xl.to(torch.promote_types(xl.dtype, sl.dtype))
     if batched:
         yl = quant_matmul(xl.contiguous(), ql,
                           sl.reshape(ql.shape[0], ql.shape[-1]))

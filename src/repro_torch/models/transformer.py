@@ -184,15 +184,21 @@ class LM:
         self.cfg = cfg
 
     # ------------------------------------------------------------------ init
-    def init(self, generator=0, device: backend.DeviceLike = None):
+    def init(self, generator=0, device: backend.DeviceLike = None,
+             dtype: torch.dtype = torch.float32):
         """Random parameters from the reference's distributions
         (``normal / sqrt(fan_in)``, zero norms).  ``generator`` is a
         ``torch.Generator`` on ``device`` or an int seed.  The numbers
         differ from ``jax.random``'s; tests that compare the packages carry
         the reference's parameters across with ``interop.params_from_numpy``.
-        All fp32.  Runs on the card unless ``device`` says otherwise; on
-        the ``meta`` device it allocates nothing (shapes for the dry run,
+        Every leaf is drawn in fp32 and then cast to ``dtype`` (fp32 or
+        bf16), norms included, as the reference's ``init(rng, dtype)``.
+        Runs on the card unless ``device`` says otherwise; on the ``meta``
+        device it allocates nothing (shapes for the dry run,
         ``launch/specs.py``)."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"unsupported parameter dtype {dtype}: "
+                             "torch.float32 or torch.bfloat16")
         device = backend.resolve_device(device)
         cfg = self.cfg
         if device.type == "meta":
@@ -241,7 +247,16 @@ class LM:
                   "unembed": lin(d, d, cfg.vocab_padded)}
         if cfg.frontend != "audio_stub":
             params["embed"] = lin(d, cfg.vocab_padded, d)
-        return params
+        if dtype == torch.float32:
+            return params
+
+        def cast(node):
+            if isinstance(node, dict):
+                return {k: cast(v) for k, v in node.items()}
+            if isinstance(node, tuple):
+                return tuple(cast(v) for v in node)
+            return node.to(dtype)
+        return cast(params)
 
     # ---------------------------------------------------------------- blocks
     def _cross_block(self, bp, x, *, q_pos, mode, cache, img_embeds,
