@@ -63,7 +63,18 @@ run exits non-zero:
               9216 and expert-batched at 40 x 1024 x 1536 x 512
               (BF16_GEMM_TOL, bf16 output, route tc_1xtf32 at M > 8), the
               library call SDPA on bf16 q, k, v and torch.matmul / bmm on
-              the bf16 dequantized weight.
+              the bf16 dequantized weight.  Then B5 and B6 on a bf16 x (a
+              bf16 CNN's evaluators, a bf16 LM's QUANT evaluator): B5 at
+              CIF10's conv5 weight and gemma2-2b's stacked wg and unembed,
+              bit for bit; B6 at CIF10's conv0, conv1 and conv5 im2col
+              products and the fc (P 8) within one bf16 ulp
+              (BF16_GEMM_TOL); each row bf16 out, the same bits twice, one
+              wrapper launch a call and its device launches counted exactly
+              (1 for B5; 2 for B6, the fold and the product); B6's bound
+              counts P planes of 2 M K N operations at the bf16 tensor
+              peak (x and the planes are exact in bf16), its route bound
+              the folded 2 M K N at the fp32 peak; B6's library call
+              cuBLAS bf16 on the reconstructed weight, event and device.
 3. serve   -- ServeEngine.generate on gemma2-2b at full width, cut to
               GEMMA_LAYERS layers, with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
@@ -212,6 +223,36 @@ run exits non-zero:
               memory; for granite-moe first C2's probe, two gradients with
               the row gathers' plain CUDA backward, its differing leaves
               reported, not checked (train-lm).
+   bf16-train -- bf16 parameters through B5 and B6.  (a) The search
+              phase's CIF10 substrate rounded to bf16 (its fp32 twin the
+              same values upcast), bf16 validation images: the QUANT
+              evaluator on B5 against a plain evaluation for three seeded
+              policies (bf16 weights bit for bit, the same accuracy), the
+              BINARIZE evaluator on B6 against the dense fake-binarized
+              bf16 forward (logits within BF16_TWIN_FACTOR x the plain
+              forward's distance from its fp32 twin; accuracy the plane
+              form's, and the dense forward's but for samples whose top-2
+              gap is within twice that bound), 8 launches of the
+              mode's kernel an evaluation; run_search for 7 + 3 QUANT and
+              3 + 2 BINARIZE episodes, each twice, equal policies and
+              rewards (bf16-train-search); 10 QAT steps on B5 (8 launches a
+              step, latent weights bf16, one step's gradients bit for bit
+              the plain statement's); one make_lm_evaluator call on bf16
+              gemma2-2b against a plain evaluation (logits within the
+              twin rule).  (b) gemma2-2b at GEMMA_LAYERS from
+              LM.init(SEED + 1, dtype=bf16) trained by the Trainer at 1 x
+              512 (remat, 8-bit AdamW): 3 steps uninterrupted, then
+              preempted at step 2 and resumed from its checkpoint, every
+              leaf and every loss bit for bit (train_trainer, as the
+              CNN's); then the same steps as a plain loop: its losses and
+              parameters the Trainer's bit for bit, each AdamW step its
+              fp32 statement rounded once (state bit for bit) and moving
+              some parameter, each loss within BF16_TWIN_FACTOR x the
+              largest plain-forward distance from the fp32 forward on the
+              same parameters of the fp32 twin's; s a step, s a save,
+              checkpoint bytes, peak memory (bf16-train-lm).  (c) granite-moe-3b-a800m at
+              published width and depth at bf16: two LM.loss steps twice,
+              bit for bit (bf16-train-moe).  Prints its seconds.
 8. shard   -- A11 on the card: a one-rank NCCL group and the 1x1 host
               mesh.  (a) compressed_allreduce of gemma2-2b's LM.loss
               gradients (GEMMA_LAYERS, 1 x 512) equals the _q8-dequantized
@@ -228,11 +269,12 @@ run exits non-zero:
               (shard-prefill).
 
 The line before the last lists every kernel with its launches on its path
-(K1-K3: gemma2-2b's generate; K4: its run; B5: the QUANT search plus QAT;
-B6: the BINARIZE search), ``launches_by_path`` for the kernels that more
-than one path runs (K1-K4: the generate and run of each serving phase,
-granite-moe's, mamba2-780m's, jamba's, musicgen's and vision's
-included; B5: search, QAT) and
+(K1-K3: gemma2-2b's generate; K4: its run; B5: the QUANT searches, QAT
+and the bf16 LM evaluation; B6: the BINARIZE searches), ``launches_by_path``
+for the kernels that more than one path runs (K1-K4: the generate and run
+of each serving phase, granite-moe's, mamba2-780m's, jamba's, musicgen's
+and vision's included; B5: search, QAT, and their bf16 runs; B6: search
+and its bf16 run) and
 its times; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it prints no
@@ -1018,14 +1060,16 @@ def paged_rows(torch, timer, cap):
     return rows
 
 
-def _fq_inputs(torch, g, M, N):
-    """x (M, N) and per-column scale / levels / bits as the QUANT evaluator
-    makes them: bits from 0..8 with every 16th column at 32."""
-    x = torch.randn((M, N), generator=g, device="cuda")
+def _fq_inputs(torch, g, M, N, dtype=None):
+    """x (M, N) in ``dtype`` (fp32 when None) and per-column scale /
+    levels / bits as the QUANT evaluator makes them: bits from 0..8 with
+    every 16th column at 32, scales in fp32."""
+    x = torch.randn((M, N), generator=g, device="cuda").to(
+        dtype or torch.float32)
     bits = torch.randint(0, 9, (N,), generator=g, device="cuda").float()
     bits[::16] = 32.0
     lv = torch.clamp(torch.pow(2.0, bits - 1.0) - 1.0, min=1.0)
-    amax = x.abs().amax(dim=0)
+    amax = x.float().abs().amax(dim=0)
     sc = torch.where(amax > 0, amax / lv, torch.ones_like(amax))
     return x, sc, lv, bits
 
@@ -1093,6 +1137,7 @@ def search_kernel_rows(torch, timer):
             max_abs_err=err, max_rel_err=rel, tol=GEMM_TOL, ms=timer(kern),
             plain_ms=timer(plain),
             library_ms=timer(lambda: torch.matmul(x, w_hat)),
+            library_device_ms=timer.device(lambda: torch.matmul(x, w_hat)),
             device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
         emit({"phase": "kernel", **rows[-1]})
         del x, planes, got, w_hat
@@ -1183,7 +1228,7 @@ def phase_kernels(torch, timer):
     rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap) \
         + flash_rows(torch, timer) + gemm_rows(torch, timer, GEMM_SHAPES)
     return rows + expert_gemm_rows(torch, timer) + \
-        bf16_gemm_rows(torch, timer)
+        bf16_gemm_rows(torch, timer) + bf16_search_kernel_rows(torch, timer)
 
 
 # (label, M, K, N) of K2's and K3's rows in phase kernels
@@ -1360,6 +1405,120 @@ def bf16_gemm_rows(torch, timer):
     rows = [_gemm_row(torch, timer, g, n_sm, bits, *shape,
                       x_dtype=torch.bfloat16)
             for bits in (8, 4, 2) for shape in BF16_GEMM_SHAPES]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _twice_same(torch, kern, what):
+    """Two calls of ``kern`` on the same inputs: the same bits, one
+    wrapper launch each; returns the first output."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    got = kern()
+    again = kern()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two calls on the same inputs give "
+                             "different bits")
+    if sum(counts.values()) != 2:
+        raise AssertionError(f"{what}: wrapper launches {counts} for two "
+                             "calls")
+    return got
+
+
+def bf16_search_kernel_rows(torch, timer):
+    """B5 and B6 on a bf16 x, as a bf16 CNN's evaluators and a bf16 LM's
+    QUANT evaluator call them: B5 at CIF10's conv5 weight and gemma2-2b's
+    stacked wg and unembed, bit for bit its plain version; B6 at CIF10's
+    conv0, conv1 and conv5 im2col products and the fc (P 8), within one
+    bf16 ulp of its plain version (BF16_GEMM_TOL: the two sum the same
+    exact fp32 products in other orders and round once).  Each row: output
+    bf16, the same bits on a second call, one wrapper launch a call, and
+    the device launches of a call counted exactly (graph_launches): 1 for
+    B5; 2 for B6, its fold and its product.  Bounds count bf16 bytes for
+    x and y.  B5's operations are fp32 on CUDA cores.  B6's bound counts
+    2 P M K N operations at the bf16 tensor peak: x and the +-1 planes are
+    exact in bf16, so each plane's product could run on bf16 tensor cores
+    with fp32 sums, the reference's own arithmetic; its route_bound_ms is
+    the folded product's 2 M K N at the fp32 CUDA-core peak, the route
+    this kernel takes.  B6's library call is cuBLAS bf16 on the
+    reconstructed weight rounded to bf16."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import binary_matmul_ref, fake_quant_ref
+    cfg = ARCHS[ARCH].config
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    bf16 = torch.bfloat16
+    rows = []
+    for label, M, N in (("cif10_conv5_bf16", 9 * 128, 128),
+                        ("gemma2_wg_stack_bf16", cfg.n_repeat * cfg.d_model,
+                         cfg.d_ff),
+                        ("gemma2_unembed_bf16", cfg.d_model,
+                         cfg.vocab_padded)):
+        x, sc, lv, bits = _fq_inputs(torch, g, M, N, bf16)
+        kern = lambda: ops.fake_quant_channels(x, sc, lv, bits)
+        plain = lambda: fake_quant_ref(x, sc, lv, bits)
+        what = f"fake_quant/{label}"
+        got = _twice_same(torch, kern, what)
+        want = plain()
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != bf16 or not torch.equal(got, want):
+            raise AssertionError(f"{what}: {got.dtype} output differs from "
+                                 f"its plain version (max abs err {err})")
+        n_launch = graph_launches(torch, kern)
+        if n_launch != 1:
+            raise AssertionError(f"{what}: {n_launch} device launches a "
+                                 "call, want 1")
+        b_ms, b_by = bound_ms(2 * 2 * M * N + 4 * 3 * N, 5.0 * M * N)
+        rows.append(dict(
+            name="fake_quant", case=label, shape=[M, N], x_dtype="bfloat16",
+            route="cuda_rows", route_bound_ms=b_ms, max_abs_err=err,
+            max_rel_err=0.0, tol="bitwise", launches_per_call=1,
+            device_launches_per_call=n_launch, ms=timer(kern),
+            plain_ms=timer(plain), library_ms=None, library_note=FQ_NOTE,
+            device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", **rows[-1]})
+        del x, got, want
+    torch.cuda.empty_cache()
+    for label, M, K, N, P in (("cif10_conv0_im2col_bf16", 512 * 32 * 32,
+                               9 * 3, 32, 8),
+                              ("cif10_conv1_im2col_bf16", 512 * 32 * 32,
+                               9 * 32, 32, 8),
+                              ("cif10_conv5_im2col_bf16", 512 * 8 * 8,
+                               9 * 128, 128, 8),
+                              ("cif10_fc_bf16", 512, 128, 10, 8)):
+        x = torch.randn((M, K), generator=g, device="cuda").to(bf16)
+        planes = (torch.randint(0, 2, (P, K, N), generator=g, device="cuda")
+                  * 2 - 1).to(torch.int8)
+        alpha = torch.rand((P, N), generator=g, device="cuda") / math.sqrt(K)
+        kern = lambda: ops.binary_matmul(x, planes, alpha)
+        plain = lambda: binary_matmul_ref(x, planes, alpha)
+        what = f"binary_matmul/{label}"
+        got = _twice_same(torch, kern, what)
+        if got.dtype != bf16:
+            raise AssertionError(f"{what}: output {got.dtype}, x bf16")
+        err, rel = compare(torch, got, plain(), BF16_GEMM_TOL, what)
+        n_launch = graph_launches(torch, kern)
+        if n_launch != 2:
+            raise AssertionError(f"{what}: {n_launch} device launches a "
+                                 "call, want 2 (fold, product)")
+        w_hat = (alpha[:, None, :] * planes.float()).sum(0).to(bf16)
+        lib = lambda: torch.matmul(x, w_hat)
+        nbytes = 2 * (M * K + M * N) + 4 * P * N + P * K * N
+        b_ms, b_by = bound_ms(nbytes, 2.0 * P * M * K * N, BF16_FLOP_PER_S)
+        r_ms, _ = bound_ms(nbytes, 2.0 * M * K * N)
+        ms, lib_ms = timer.pair(kern, lib)
+        rows.append(dict(
+            name="binary_matmul", case=label, shape=[M, K, N, P],
+            x_dtype="bfloat16", route="cuda_fold_fp32", route_bound_ms=r_ms,
+            max_abs_err=err, max_rel_err=rel, tol=BF16_GEMM_TOL,
+            launches_per_call=1, device_launches_per_call=n_launch, ms=ms,
+            plain_ms=timer(plain), library_ms=lib_ms,
+            library_device_ms=timer.device(lib),
+            device_ms=timer.device(kern), bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", **rows[-1]})
+        del x, planes, got, w_hat
     torch.cuda.empty_cache()
     return rows
 
@@ -3703,14 +3862,15 @@ def run_cnn_search(torch, model, params, graph, val, mode_name, n_explore,
     return rec, res
 
 
-def check_lm_evaluator(torch, cfg, model, params, policy):
+def check_lm_evaluator(torch, cfg, model, params, policy, tol=ACT_LOGIT_ATOL,
+                       label="search-lm"):
     """One make_lm_evaluator call on the full-width params: B5 launches ==
     the graph's layer count; against a plain evaluation
     (apply_policy_to_params, then the forward with plain attention) the
-    weights bit for bit, the logits within ACT_LOGIT_ATOL (the policy
-    quantizes activations at QBN 8), and the accuracy by the gap rule: a
-    token may score differently only where the plain top-2 gap is below
-    that tolerance."""
+    weights bit for bit, the logits within ``tol`` (ACT_LOGIT_ATOL: the
+    policy quantizes activations at QBN 8), and the accuracy by the gap
+    rule: a token may score differently only where the plain top-2 gap is
+    below that tolerance."""
     from repro_torch import backend, kernels
     from repro_torch.core import evaluate, make_lm_evaluator
     from repro_torch.data import TokenStream
@@ -3745,7 +3905,7 @@ def check_lm_evaluator(torch, cfg, model, params, policy):
         flip_gap = float(gap[flips].max()) if n_flips else None
         rec_logits = dict(
             logit_max_abs_diff=float(d.max()),
-            logit_mean_abs_diff=float(d.mean()), tol=ACT_LOGIT_ATOL,
+            logit_mean_abs_diff=float(d.mean()), tol=tol,
             logits_bitwise=bool(torch.equal(got, want)),
             logit_max_abs=float(want.abs().max()),
             min_plain_top2_gap=float(gap.min()),
@@ -3754,10 +3914,10 @@ def check_lm_evaluator(torch, cfg, model, params, policy):
                 got.shape != (LM_EVAL_BATCH, LM_EVAL_LEN, cfg.vocab_padded):
             problems.append(f"LM evaluator logits {tuple(got.shape)} or "
                             f"not finite")
-        if rec_logits["logit_max_abs_diff"] > ACT_LOGIT_ATOL:
+        if rec_logits["logit_max_abs_diff"] > tol:
             problems.append(f"LM evaluator logits differ from the plain "
                             f"forward by {rec_logits['logit_max_abs_diff']}")
-        if n_flips and flip_gap >= ACT_LOGIT_ATOL:
+        if n_flips and flip_gap >= tol:
             problems.append(f"LM evaluator argmax differs where the plain "
                             f"top-2 gap is {flip_gap}")
         del got, want, d, top2, gap
@@ -3782,23 +3942,24 @@ def check_lm_evaluator(torch, cfg, model, params, policy):
                launches=launches,
                peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
                problems=problems)
-    emit({"phase": "search-lm", **rec})
+    emit({"phase": label, **rec})
     torch.cuda.empty_cache()
     return rec
 
 
 def short_search(torch, model, params, graph, val, reward=None,
-                 roofline=None, episodes=DETERMINISM_EPISODES):
-    """``episodes`` (explore, exploit) of a QUANT search (HierarchicalAgent
-    from SEED; the accuracy-guaranteed reward unless ``reward`` is given,
-    with ``roofline`` for kind "roofline"): each episode's policy, and
-    the SearchResult."""
+                 roofline=None, episodes=DETERMINISM_EPISODES, mode=None):
+    """``episodes`` (explore, exploit) of a search in ``mode`` (QUANT
+    unless given; HierarchicalAgent from SEED; the accuracy-guaranteed
+    reward unless ``reward`` is given, with ``roofline`` for kind
+    "roofline"): each episode's policy, and the SearchResult."""
     from repro_torch.core import (HierarchicalAgent, QuantEnv, RewardCfg,
                                   make_cnn_evaluator, run_search)
     from repro_torch.quant.policy import QuantMode
-    ev = make_cnn_evaluator(model, params, graph, val, mode=QuantMode.QUANT)
+    mode = mode or QuantMode.QUANT
+    ev = make_cnn_evaluator(model, params, graph, val, mode=mode)
     env = QuantEnv(graph, params, ev, reward or RewardCfg.accuracy_guaranteed(),
-                   mode=QuantMode.QUANT, roofline=roofline)
+                   mode=mode, roofline=roofline)
     agent = HierarchicalAgent(env, seed=SEED)
     policies, episode = [], agent.run_episode
 
@@ -3809,6 +3970,16 @@ def short_search(torch, model, params, graph, val, reward=None,
     agent.run_episode = recorded
     return policies, run_search(agent, n_explore=episodes[0],
                                 n_exploit=episodes[1])
+
+
+def _same_policies(pols, pols2) -> bool:
+    """Two searches' episode policies equal: every group's weight QBN and
+    every activation QBN."""
+    return len(pols) == len(pols2) and all(
+        a.weight_bits.keys() == b.weight_bits.keys()
+        and all(np.array_equal(a.weight_bits[n], b.weight_bits[n])
+                for n in a.weight_bits)
+        and a.act_bits == b.act_bits for a, b in zip(pols, pols2))
 
 
 def check_determinism(torch, model, data, graph, val):
@@ -3827,11 +3998,7 @@ def check_determinism(torch, model, data, graph, val):
     (pols, res), (pols2, res2) = searches
     rewards = [h.reward for h in res.history]
     rewards2 = [h.reward for h in res2.history]
-    same_policy = len(pols) == len(pols2) and all(
-        a.weight_bits.keys() == b.weight_bits.keys()
-        and all(np.array_equal(a.weight_bits[n], b.weight_bits[n])
-                for n in a.weight_bits)
-        and a.act_bits == b.act_bits for a, b in zip(pols, pols2))
+    same_policy = _same_policies(pols, pols2)
     rec = dict(leaves=len(leaves), leaves_differing=differ,
                episodes=len(rewards), policies_equal=same_policy,
                rewards_equal=rewards == rewards2, rewards=rewards,
@@ -3891,78 +4058,127 @@ def _dir_bytes(path) -> int:
                for f in os.listdir(path))
 
 
-def train_trainer(torch, model, data, tmp):
-    """The Trainer on CIF10-7CNN from a fresh init: an uninterrupted run,
-    then one preempted at TRAINER_PREEMPT and resumed from its newest
-    checkpoint; every parameter and optimizer leaf must be equal bit for
-    bit, and the loss (logged every step) must fall: the mean of the
-    last TRAINER_WINDOW steps under that of the first."""
+def train_trainer(torch, model, params, opt, data_fn, tmp, steps, ckpt_every,
+                  preempt_at, *, keep=3, loss_kwargs=None, skip_saves=False):
+    """The Trainer on ``model`` from ``params``: an uninterrupted run of
+    ``steps``, then one preempted at ``preempt_at`` and resumed from its
+    newest checkpoint.  Every parameter and optimizer leaf must be equal
+    bit for bit, every logged loss of the preempted and the resumed run
+    the uninterrupted run's, and every parameter keep its dtype.  With
+    ``skip_saves`` only the checkpoints that the resume reads are written
+    (the uninterrupted and the resumed run's saves are counted and
+    skipped).  Returns the record (not yet emitted) and the uninterrupted
+    run's output."""
+    import shutil
     from repro_torch.core.ddpg import tree_leaves
-    from repro_torch.optim import AdamW
     from repro_torch.train.loop import SimulatedPreemption, Trainer, TrainConfig
-    cfg = TrainConfig(total_steps=TRAINER_STEPS, ckpt_every=TRAINER_CKPT,
-                      lr=TRAINER_LR, keep=3, log_every=1)
+    cfg = TrainConfig(total_steps=steps, ckpt_every=ckpt_every,
+                      lr=opt.lr, keep=keep, log_every=1)
+    skipped, saves = [], {"full": [], "pre": []}
 
-    def make(sub, preempt_at=None):
-        return Trainer(model, model.init(SEED, "cuda"), AdamW(lr=TRAINER_LR),
-                       lambda s: data.batch(s, TRAIN_BATCH),
-                       os.path.join(tmp, sub), cfg, preempt_at=preempt_at,
-                       device="cuda")
+    def make(sub, preempt_at=None, skip=False):
+        tr = Trainer(model, params, opt, data_fn, os.path.join(tmp, sub), cfg,
+                     loss_kwargs=loss_kwargs, preempt_at=preempt_at,
+                     device="cuda")
+        save = tr.ckpt.save
 
-    full, saves = make("full"), []
-    save = full.ckpt.save
+        def timed_save(step, *a, **k):
+            if skip:
+                skipped.append(step)
+                return None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = save(step, *a, **k)
+            saves[sub].append(time.perf_counter() - t0)
+            return out
+        tr.ckpt.save = timed_save
+        return tr
 
-    def timed_save(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = save(*a, **k)
-        saves.append(time.perf_counter() - t0)
-        return out
-    full.ckpt.save = timed_save
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full = make("full", skip=skip_saves)
     t0 = time.perf_counter()
     ref = full.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_times, kept = list(full.step_times), full.ckpt.all_steps()
+    del full
     problems = []
+    pre = make("pre", preempt_at=preempt_at)
     try:
-        make("pre", preempt_at=TRAINER_PREEMPT).run()
+        pre.run()
         problems.append("the preempted run was not preempted")
     except SimulatedPreemption:
         pass
-    resumed = make("pre")
+    pre_losses = [h["loss"] for h in pre.history]
+    ckpt_bytes = _dir_bytes(pre.ckpt.dir / f"step_"
+                            f"{pre.ckpt.latest_step():010d}")
+    del pre
     t0 = time.perf_counter()
+    resumed = make("pre", skip=skip_saves)
+    t1 = time.perf_counter()
     out = resumed.run()
     torch.cuda.synchronize()
-    wall_resumed = time.perf_counter() - t0
+    t2 = time.perf_counter()
+    start = resumed.start_step
+    del resumed
+    shutil.rmtree(os.path.join(tmp, "pre"))
     leaves = list(zip(tree_leaves(ref["params"]) + tree_leaves(ref["opt"]),
                       tree_leaves(out["params"]) + tree_leaves(out["opt"])))
     differ = sum(not torch.equal(a, b) for a, b in leaves)
-    want_start = TRAINER_PREEMPT // TRAINER_CKPT * TRAINER_CKPT
     losses = [h["loss"] for h in ref["history"]]
-    if resumed.start_step != want_start:
-        problems.append(f"resumed at step {resumed.start_step}, want "
-                        f"{want_start}")
+    dtypes = {str(t.dtype) for t in tree_leaves(out["params"])}
+    want_dtypes = {str(t.dtype) for t in tree_leaves(params)}
+    want_start = preempt_at // ckpt_every * ckpt_every
+    if start != want_start:
+        problems.append(f"resumed at step {start}, want {want_start}")
     if differ:
         problems.append(f"resumed run differs from the uninterrupted one in "
                         f"{differ} of {len(leaves)} leaves")
+    if pre_losses != losses[:len(pre_losses)] or \
+            [h["loss"] for h in out["history"]] != losses[start:]:
+        problems.append(f"Trainer losses differ between runs: {losses}, "
+                        f"{pre_losses}, {out['history']}")
+    if dtypes != want_dtypes:
+        problems.append(f"Trainer parameters became {dtypes}, were "
+                        f"{want_dtypes}")
+    all_saves = saves["full"] + saves["pre"]
+    rec = dict(model=model.cfg.name, steps=steps, ckpt_every=ckpt_every,
+               preempt_at=preempt_at, start_step=start, lr=opt.lr,
+               leaves=len(leaves), leaves_differing=differ, losses=losses,
+               history=ref["history"], stragglers=ref["stragglers"],
+               s_per_step=(wall - sum(saves["full"])) / steps,
+               step_times_s=step_times, resume_s=t2 - t0,
+               resumed_s_per_step=(t2 - t1) / (steps - start),
+               ckpt_bytes=ckpt_bytes, saves=len(all_saves),
+               s_per_save=float(np.mean(all_saves)), saves_skipped=skipped,
+               kept=kept, resident_bytes_before=resident,
+               peak_mem_bytes=peak, problems=problems)
+    del out, leaves
+    return rec, ref
+
+
+def cnn_trainer(torch, model, data, tmp):
+    """train_trainer on CIF10-7CNN from a fresh init (TRAINER_STEPS, fp32
+    AdamW at TRAINER_LR); besides, the loss (logged every step) must
+    fall: the mean of the last TRAINER_WINDOW steps under that of the
+    first."""
+    from repro_torch.optim import AdamW
+    rec, _ = train_trainer(torch, model, model.init(SEED, "cuda"),
+                           AdamW(lr=TRAINER_LR),
+                           lambda s: data.batch(s, TRAIN_BATCH), tmp,
+                           TRAINER_STEPS, TRAINER_CKPT, TRAINER_PREEMPT)
+    losses = rec.pop("losses")
     first = float(np.mean(losses[:TRAINER_WINDOW]))
     last = float(np.mean(losses[-TRAINER_WINDOW:]))
     if not last < first:
-        problems.append(f"Trainer loss did not fall: {losses}")
-    newest = full.ckpt.dir / f"step_{full.ckpt.latest_step():010d}"
-    rec = dict(model=model.cfg.name, steps=TRAINER_STEPS,
-               batch=TRAIN_BATCH, ckpt_every=TRAINER_CKPT,
-               preempt_at=TRAINER_PREEMPT, start_step=resumed.start_step,
-               lr=TRAINER_LR, leaves=len(leaves), leaves_differing=differ,
-               loss_first_window=first, loss_last_window=last,
-               history=ref["history"], stragglers=ref["stragglers"],
-               s_per_step=(wall - sum(saves)) / TRAINER_STEPS,
-               resumed_s_per_step=wall_resumed / (TRAINER_STEPS -
-                                                  resumed.start_step),
-               ckpt_bytes=_dir_bytes(newest), saves=len(saves),
-               s_per_save=float(np.mean(saves)), kept=full.ckpt.all_steps(),
-               problems=problems)
+        rec["problems"].append(f"Trainer loss did not fall: {losses}")
+    rec.update(batch=TRAIN_BATCH, loss_first_window=first,
+               loss_last_window=last)
     emit({"phase": "train-trainer", **rec})
     return rec
 
@@ -4117,15 +4333,18 @@ def _unpinned_grads_equal(torch, model, batch):
     return differ
 
 
-def train_lm(torch, cfg, model, data_fn=None):
+def train_lm(torch, cfg, model, data_fn=None, dtype=None, probe=True,
+             label="train-lm"):
     """LM_TRAIN_STEPS training steps of ``model`` at full width (LM.loss
     at 1 x LM_TRAIN_LEN tokens with remat=True, backward, one 8-bit AdamW
     update), run twice from one seed: the losses, the last step's
     gradients and every parameter leaf equal bit for bit.  The
     remat=False loss of step 1 must equal the remat=True one.  Peak
     memory is this call's.  On an MoE model, C2's probe
-    (_unpinned_grads_equal) runs first.  The batches are TokenStream's,
-    or ``data_fn(step)``'s (the launcher's ``make_data_fn``)."""
+    (_unpinned_grads_equal) runs first unless ``probe`` is False.  The
+    batches are TokenStream's, or ``data_fn(step)``'s (the launcher's
+    ``make_data_fn``).  ``dtype`` (fp32 when None) is the parameters'
+    (``LM.init(dtype=)``)."""
     from repro_torch.core.ddpg import tree_leaves
     from repro_torch.data import TokenStream
     from repro_torch.optim import AdamW
@@ -4137,14 +4356,14 @@ def train_lm(torch, cfg, model, data_fn=None):
         data_fn = lambda i: stream.batch(i, 1, LM_TRAIN_LEN)  # noqa: E731
     batches = [data_fn(i) for i in range(LM_TRAIN_STEPS)]
     unpinned = None
-    if cfg.moe is not None:
+    if cfg.moe is not None and probe:
         unpinned = _unpinned_grads_equal(torch, model,
                                          upload_batch(batches[0], dev))
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
     def one_run(first):
-        params = model.init(SEED + 1, "cuda")
+        params = model.init(SEED + 1, "cuda", dtype=dtype or torch.float32)
         state = opt.init(params)
         steps = []
         for i, b in enumerate(batches):
@@ -4198,6 +4417,7 @@ def train_lm(torch, cfg, model, data_fn=None):
         return [dict(seconds=s["seconds"], loss=float(s["loss"]),
                      grad_norm=float(s["grad_norm"])) for s in st]
     rec = dict(arch=cfg.name, layers=cfg.n_layers, tokens=[1, LM_TRAIN_LEN],
+               dtype=str(dtype or torch.float32).replace("torch.", ""),
                remat=True, state_bits=8, steps=fl(steps),
                steps_repeat=fl(steps2), leaves=n_leaves,
                leaves_differing=differ, grad_leaves_differing=grads_differ,
@@ -4207,7 +4427,7 @@ def train_lm(torch, cfg, model, data_fn=None):
                resident_bytes_before=resident, peak_mem_bytes=peak,
                peak_mem_bytes_both=torch.cuda.max_memory_allocated(),
                problems=problems)
-    emit({"phase": "train-lm", **rec})
+    emit({"phase": label, **rec})
     return rec
 
 
@@ -4219,7 +4439,7 @@ def phase_train(torch, cfg, lm, card, sub):
     import tempfile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-        trainer = train_trainer(torch, sub["model"], sub["data"], tmp)
+        trainer = cnn_trainer(torch, sub["model"], sub["data"], tmp)
     roof = train_roofline(torch, sub["model"], sub["params"], sub["graph"],
                           sub["val"], _power_w(card))
     qat = train_qat(torch, sub["model"], sub["params"], sub["graph"],
@@ -4236,6 +4456,413 @@ def phase_train(torch, cfg, lm, card, sub):
     emit({"phase": "train", "seconds": recs["seconds"]})
     if problems:
         raise AssertionError("train checks failed: " + "; ".join(problems))
+    return recs
+
+
+# ------------------------------------------------------------ bf16-train
+# (a) the search phase's CIF10 substrate rounded to bf16: 7 + 3 QUANT and
+# 3 + 2 BINARIZE episodes (explore, exploit), each search run twice, and
+# QAT steps at batch QAT_BATCH; (b) gemma2-2b at GEMMA_LAYERS from
+# LM.init(dtype=bf16) trained by the Trainer at 1 x LM_TRAIN_LEN (8-bit
+# AdamW), checkpoints every BF16_TRAIN_CKPT steps, preempted at
+# BF16_TRAIN_PREEMPT; (c) granite-moe at published width and depth, two
+# bf16 LM.loss steps twice (train_lm)
+BF16_SEARCH_EPISODES = (("quant", (7, 3)), ("binarize", (3, 2)))
+BF16_QAT_STEPS = 10
+BF16_TRAIN_STEPS, BF16_TRAIN_CKPT, BF16_TRAIN_PREEMPT = 3, 2, 2
+BF16_TRAIN_LR = 1e-4
+
+
+def _bf16_images(torch, batch):
+    """An image batch with x rounded to bf16, as a CPU tensor: the
+    evaluators and upload_batch take it in that dtype."""
+    return {"x": torch.from_numpy(np.asarray(batch["x"])).to(torch.bfloat16),
+            "y": batch["y"]}
+
+
+def bf16_evaluators(torch, model, p16, twin, graph, val16):
+    """The bf16 CNN's evaluators: QUANT on B5 against a plain evaluation
+    (weights bit for bit in bf16, the same accuracy) for three seeded
+    policies; BINARIZE on B6 (plane form, activations at 32 bits) against
+    the dense fake-binarized bf16 forward, logits within BF16_TWIN_FACTOR
+    x the plain forward's distance from its fp32 twin, and its accuracy
+    the plane form's and the dense forward's but for near ties; each
+    evaluation exactly one launch of its mode's kernel per searched
+    layer."""
+    from repro_torch import backend, kernels
+    from repro_torch.core import evaluate, make_cnn_evaluator
+    from repro_torch.quant.apply import apply_policy_to_params, get_path
+    from repro_torch.quant.policy import QuantMode
+    dev = torch.device("cuda")
+    n_layers = len(graph.layers)
+    xb = {k: backend.upload(v, dev) for k, v in val16.items()}
+    problems, rec = [], {"quant": []}
+    for seed in range(3):
+        pol = _cnn_policy(graph, SEED + 10 + seed, QuantMode.QUANT)
+        wb, _ = evaluate.upload_bits(pol, graph, dev)
+        with torch.no_grad():
+            q = evaluate._quantize_params(p16, graph, wb, QuantMode.QUANT)
+            plain = apply_policy_to_params(p16, graph, pol)
+            same = all(get_path(q, l.param_path).dtype == torch.bfloat16 and
+                       torch.equal(get_path(q, l.param_path),
+                                   get_path(plain, l.param_path))
+                       for l in graph.layers)
+            acc_plain = float(model.accuracy(
+                plain, xb, act_bits=pol.act_bits)) * 100.0
+        ev = make_cnn_evaluator(model, p16, graph, val16,
+                                mode=QuantMode.QUANT)
+        kernels.reset_launch_counts()
+        acc = ev(pol)
+        n = kernels.launch_counts()
+        rec["quant"].append(dict(seed=seed, weights_bitwise=same, acc=acc,
+                                 acc_plain=acc_plain, launches=n))
+        if not same or acc != acc_plain or n["fake_quant"] != n_layers \
+                or n["binary_matmul"]:
+            problems.append(f"bf16 QUANT policy {seed}: weights bitwise "
+                            f"{same}, acc {acc} vs plain {acc_plain}, "
+                            f"launches {n}")
+    pol = _cnn_policy(graph, SEED + 20, QuantMode.BINARIZE, act=32.0)
+    wb, ab = evaluate.upload_bits(pol, graph, dev)
+    act = dict(zip((l.name for l in graph.layers), ab))
+    with torch.no_grad():
+        qp = evaluate._quantize_params(p16, graph, wb, QuantMode.BINARIZE,
+                                       planes=True)
+        got = model.apply(qp, xb["x"], act_bits=act)
+        want = model.apply(apply_policy_to_params(p16, graph, pol), xb["x"],
+                           act_bits=act)
+        want_twin = model.apply(apply_policy_to_params(twin, graph, pol),
+                                xb["x"].float(), act_bits=act)
+    diff = float((got.float() - want.float()).abs().max())
+    twin_d = float((want.float() - want_twin).abs().max())
+    top = float(want.float().abs().max())
+    limit = BF16_TWIN_FACTOR * twin_d
+    ev = make_cnn_evaluator(model, p16, graph, val16, mode=QuantMode.BINARIZE)
+    kernels.reset_launch_counts()
+    acc_b = ev(pol)
+    n = kernels.launch_counts()
+    # the evaluator's accuracy is the plane form's; against the dense
+    # forward's, only a sample whose top-2 gap there is within 2 x limit
+    # (each logit moved by at most limit) may flip
+    labels = xb["y"].long()
+    acc_got = float((got.argmax(-1) == labels).float().mean() * 100.0)
+    acc_want = float((want.argmax(-1) == labels).float().mean() * 100.0)
+    top2 = want.float().topk(2, dim=-1).values
+    near = int((top2[:, 0] - top2[:, 1] <= 2 * limit).sum())
+    allowance = 100.0 * near / len(labels)
+    rec["binarize"] = dict(logit_max_abs_diff=diff, twin_distance=twin_d,
+                           limit=limit, logits_dtype=str(got.dtype),
+                           acc=acc_b, acc_plane_form=acc_got,
+                           acc_dense=acc_want, near_ties=near,
+                           acc_allowance=allowance, launches=n,
+                           logit_max_abs=top)
+    if got.dtype != torch.bfloat16 or not bool(torch.isfinite(got).all()) \
+            or diff > limit:
+        problems.append(f"bf16 BINARIZE logits ({got.dtype}) differ from "
+                        f"the dense forward by {diff}, limit "
+                        f"{BF16_TWIN_FACTOR} x {twin_d}")
+    if acc_b != acc_got or abs(acc_b - acc_want) > allowance:
+        problems.append(f"bf16 BINARIZE accuracy {acc_b}: plane form "
+                        f"{acc_got}, dense {acc_want}, allowance {allowance}")
+    if n["binary_matmul"] != n_layers or n["fake_quant"]:
+        problems.append(f"bf16 BINARIZE evaluation launches {n}")
+    rec["problems"] = problems
+    emit({"phase": "bf16-train-check", **rec})
+    return rec
+
+
+def bf16_searches(torch, model, p16, graph, val16):
+    """A short search per mode (BF16_SEARCH_EPISODES) on the bf16 CNN, run
+    twice from SEED: equal policies and rewards, the mode's kernel
+    launched once per searched layer and evaluation, the other never."""
+    from repro_torch import kernels
+    from repro_torch.quant.policy import QuantMode
+    n_layers = len(graph.layers)
+    recs, best, problems = {}, None, []
+    for mode_name, eps in BF16_SEARCH_EPISODES:
+        mode = QuantMode.QUANT if mode_name == "quant" else \
+            QuantMode.BINARIZE
+        mine, other = ("fake_quant", "binary_matmul") if mode_name == \
+            "quant" else ("binary_matmul", "fake_quant")
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            pols, res = short_search(torch, model, p16, graph, val16,
+                                     episodes=eps, mode=mode)
+            runs.append((pols, res, kernels.launch_counts(),
+                         time.perf_counter() - t0))
+        (pols, res, n, sec), (pols2, res2, n2, sec2) = runs
+        rewards = [h.reward for h in res.history]
+        rewards2 = [h.reward for h in res2.history]
+        same = _same_policies(pols, pols2)
+        want = n_layers * sum(eps)
+        recs[mode_name] = dict(
+            episodes=len(rewards), policies_equal=same,
+            rewards_equal=rewards == rewards2, rewards=rewards,
+            best_acc=res.best_log.acc, best_avg_wbits=res.best_log.avg_wbits,
+            launches=n, launches_repeat=n2, seconds=sec, seconds_repeat=sec2,
+            s_per_episode=sec / max(len(rewards), 1))
+        if not same or rewards != rewards2:
+            problems.append(f"bf16 {mode_name} search: two runs differ")
+        if n[mine] != want or n[other] or n2 != n:
+            problems.append(f"bf16 {mode_name} search launches {n} / {n2}: "
+                            f"want {mine} {want}, {other} 0")
+        if not all(np.isfinite(rewards)):
+            problems.append(f"bf16 {mode_name} search: non-finite rewards")
+        if mode_name == "quant":
+            best = res.best_policy
+    recs["problems"] = problems
+    emit({"phase": "bf16-train-search", **recs})
+    return recs, best
+
+
+def bf16_qat(torch, model, p16, graph, data, best):
+    """qat_finetune of the bf16 search's best QUANT policy on the bf16 CNN
+    (BF16_QAT_STEPS steps of bf16 batches): B5 once per searched weight a
+    step, B6 never; every latent weight stays bf16 and finite; one step's
+    straight-through gradients bit for bit the plain statement's."""
+    from repro_torch import kernels
+    from repro_torch.core.ddpg import tree_leaves
+    from repro_torch.core.evaluate import upload_bits
+    from repro_torch.quant.apply import get_path, set_path
+    from repro_torch.quant.linear_quant import fake_quant_per_channel
+    from repro_torch.train.loop import upload_batch, value_and_grad
+    from repro_torch.train.qat import make_qat_loss, qat_finetune
+    dev = torch.device("cuda")
+
+    def data_fn(i):
+        return _bf16_images(torch, data.batch(QAT_DATA + i, QAT_BATCH))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tuned = qat_finetune(model, p16, graph, best, data_fn,
+                         steps=BF16_QAT_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    problems = []
+    want = len(graph.layers) * BF16_QAT_STEPS
+    if launches["fake_quant"] != want or launches["binary_matmul"]:
+        problems.append(f"bf16 QAT launches {launches}: want fake_quant "
+                        f"{want}, binary_matmul 0")
+    leaves = tree_leaves(tuned)
+    if not all(t.dtype == torch.bfloat16 and bool(torch.isfinite(t).all())
+               for t in leaves):
+        problems.append("bf16 QAT: a latent weight left bf16 or is not "
+                        "finite")
+    moved = sum(not torch.equal(a, b)
+                for a, b in zip(leaves, tree_leaves(p16)))
+    batch = upload_batch(data_fn(0), dev)
+    l_ste, g_ste = value_and_grad(make_qat_loss(model, graph, best,
+                                                device=dev), p16, batch)
+    wb, ab = upload_bits(best, graph, dev)
+    qp = p16
+    for layer, bits in zip(graph.layers, wb):
+        qp = set_path(qp, layer.param_path, fake_quant_per_channel(
+            get_path(p16, layer.param_path), bits, axis=layer.channel_axis))
+    act = dict(zip((l.name for l in graph.layers), ab))
+    l_plain, g_plain = value_and_grad(
+        lambda p: model.loss(p, batch, act_bits=act), qp)
+    pairs = list(zip(tree_leaves(g_ste), tree_leaves(g_plain)))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    if differ or not torch.equal(l_ste, l_plain):
+        problems.append(f"bf16 STE gradients differ from the plain "
+                        f"statement's in {differ} of {len(pairs)} leaves")
+    rec = dict(steps=BF16_QAT_STEPS, batch=QAT_BATCH,
+               s_per_step=seconds / BF16_QAT_STEPS, launches=launches,
+               leaves=len(leaves), leaves_moved=moved,
+               loss_dtype=str(l_ste.dtype), ste_leaves_differing=differ,
+               problems=problems)
+    emit({"phase": "bf16-train-qat", **rec})
+    return rec
+
+
+def bf16_lm_evaluator(torch, cfg, lm, policy):
+    """One make_lm_evaluator call on bf16 gemma2-2b weights
+    (LM.init(SEED, dtype=bf16), GEMMA_LAYERS) against a plain evaluation
+    (check_lm_evaluator), the logits held within BF16_TWIN_FACTOR x the
+    plain forward's distance from its fp32 twin."""
+    from repro_torch import backend
+    from repro_torch.core import evaluate
+    from repro_torch.data import TokenStream
+    from repro_torch.quant.apply import apply_policy_to_params
+    dev = torch.device("cuda")
+    p16 = lm.init(SEED, "cuda", dtype=torch.bfloat16)
+    graph = lm.graph(seq_len=LM_EVAL_LEN, batch=LM_EVAL_BATCH)
+    val = TokenStream(vocab=cfg.vocab).batch(0, LM_EVAL_BATCH, LM_EVAL_LEN)
+    vb = {k: backend.upload(np.asarray(v), dev) for k, v in val.items()}
+    with torch.no_grad():
+        want = evaluate.lm_logits(lm, apply_policy_to_params(
+            p16, graph, policy), graph, policy, vb, attn_impl="ref").float()
+        twin = _cast_tree(torch, p16, torch.float32)
+        want_twin = evaluate.lm_logits(lm, apply_policy_to_params(
+            twin, graph, policy), graph, policy, vb, attn_impl="ref")
+        twin_d = float((want - want_twin).abs().max())
+    del want, want_twin, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = check_lm_evaluator(torch, cfg, lm, p16, policy,
+                             tol=BF16_TWIN_FACTOR * twin_d,
+                             label="bf16-train-lm-eval")
+    rec["twin_distance"] = twin_d
+    del p16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tree_equal(torch, a, b) -> int:
+    """How many leaves of two parameter trees differ in their bits."""
+    from repro_torch.core.ddpg import tree_leaves
+    return sum(not torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def bf16_trainer(torch, cfg, lm, tmp):
+    """train_trainer on bf16 gemma2-2b (LM.init(SEED + 1, dtype=bf16),
+    GEMMA_LAYERS, 1 x LM_TRAIN_LEN tokens, remat, 8-bit AdamW), writing
+    only the checkpoint that the resume reads (a save of the ~8.5 GB tree
+    takes ~13 s on the H100 machine).  Then the same steps as a plain loop
+    of value_and_grad and AdamW.update, each step held to:
+      * the Trainer: its loss, and at the end every parameter, bit for
+        bit;
+      * AdamW's fp32 statement: the update of the parameters and
+        gradients upcast, from the same state, gives the same state bit
+        for bit and parameters that round once to the step's; and the
+        step moves some parameter (a bf16 update may not round away
+        everywhere);
+      * its fp32 twin (the starting parameters upcast, trained by the
+        same steps in fp32): its loss within BF16_TWIN_FACTOR x the
+        largest distance of a plain bf16 forward from the fp32 forward on
+        the same parameters upcast, over the run's steps (a yardstick
+        that the change of batch does not move)."""
+    from repro_torch.core.ddpg import tree_leaves
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import AdamW
+    from repro_torch.train.loop import upload_batch, value_and_grad
+    dev = torch.device("cuda")
+    stream = TokenStream(vocab=cfg.vocab)
+
+    def data_fn(i):
+        return stream.batch(i, 1, LM_TRAIN_LEN)
+    opt = AdamW(lr=BF16_TRAIN_LR, state_bits=8)
+    p0 = lm.init(SEED + 1, "cuda", dtype=torch.bfloat16)
+    rec, ref = train_trainer(torch, lm, p0, opt, data_fn, tmp,
+                             BF16_TRAIN_STEPS, BF16_TRAIN_CKPT,
+                             BF16_TRAIN_PREEMPT, keep=1,
+                             loss_kwargs={"remat": True}, skip_saves=True)
+    problems, losses = rec["problems"], rec["losses"]
+    trained = ref.pop("params")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the plain loop, each step beside AdamW's fp32 statement
+    p16, state = p0, opt.init(p0)
+    plain_losses, fwd_dists, moved, stmt_differ = [], [], [], 0
+    for i in range(BF16_TRAIN_STEPS):
+        b = upload_batch(data_fn(i), dev)
+        loss, g = value_and_grad(lambda p: lm.loss(p, b, remat=True), p16)
+        up = _cast_tree(torch, p16, torch.float32)
+        with torch.no_grad():
+            fwd32 = lm.loss(up, b)
+        plain_losses.append(float(loss))
+        fwd_dists.append(abs(float(loss) - float(fwd32)))
+        nxt, nstate, _ = opt.update(p16, g, state)
+        g32 = _cast_tree(torch, g, torch.float32)
+        del g
+        want, wstate, _ = opt.update(up, g32, state)
+        del up, g32
+        stmt_differ += _tree_equal(torch, nxt,
+                                   _cast_tree(torch, want, torch.bfloat16))
+        stmt_differ += _tree_equal(torch, nstate, wstate)
+        moved.append(sum(int((x != y).sum()) for x, y in
+                         zip(tree_leaves(nxt), tree_leaves(p16))))
+        del want, wstate
+        p16, state = nxt, nstate
+    trainer_differ = _tree_equal(torch, p16, trained)
+    n_elems = sum(t.numel() for t in tree_leaves(p0))
+    d16 = max(float((x.float() - y.float()).abs().max())
+              for x, y in zip(tree_leaves(p16), tree_leaves(p0)))
+    del p16, state, nxt, nstate, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the fp32 twin
+    twin = _cast_tree(torch, p0, torch.float32)
+    state = opt.init(twin)
+    twin_losses = []
+    for i in range(BF16_TRAIN_STEPS):
+        b = upload_batch(data_fn(i), dev)
+        loss, g = value_and_grad(lambda p: lm.loss(p, b, remat=True), twin)
+        twin, state, _ = opt.update(twin, g, state)
+        twin_losses.append(float(loss))
+        del g
+    d32 = max(float((x - y.float()).abs().max())
+              for x, y in zip(tree_leaves(twin), tree_leaves(p0)))
+    del twin, state, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    if plain_losses != losses or trainer_differ:
+        problems.append(f"bf16 plain loop differs from the Trainer: losses "
+                        f"{plain_losses} vs {losses}, {trainer_differ} "
+                        "parameter leaves")
+    if stmt_differ:
+        problems.append(f"bf16 AdamW differs from its fp32 statement rounded "
+                        f"once in {stmt_differ} leaves over the steps")
+    if not all(moved):
+        problems.append(f"a bf16 step moved no parameter: {moved} elements")
+    limit = BF16_TWIN_FACTOR * max(fwd_dists)
+    dists = [abs(a - b) for a, b in zip(losses, twin_losses)]
+    if not all(np.isfinite(losses)) or any(d > limit for d in dists):
+        problems.append(f"bf16 losses {losses} against the fp32 twin's "
+                        f"{twin_losses}: distances {dists}, limit {limit}")
+    rec.update(arch=cfg.name, layers=cfg.n_layers, tokens=[1, LM_TRAIN_LEN],
+               twin_losses=twin_losses, twin_distances=dists,
+               forward_twin_distances=fwd_dists, twin_limit=limit,
+               elements=n_elems, elements_moved=moved,
+               statement_leaves_differing=stmt_differ,
+               trainer_leaves_differing=trainer_differ,
+               max_abs_change=d16, twin_max_abs_change=d32)
+    emit({"phase": "bf16-train-lm", **rec})
+    return rec
+
+
+def phase_bf16_train(torch, cfg, lm, sub, policy):
+    """bf16 parameters through B5 and B6: (a) the search phase's CIF10
+    substrate rounded to bf16 (its fp32 twin the same values upcast):
+    the evaluators, two short searches per mode and QAT; one LM
+    evaluation on bf16 gemma2-2b; (b) the bf16 gemma2-2b Trainer; (c)
+    two bf16 granite-moe LM.loss steps twice, bit for bit."""
+    import tempfile
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    t0 = time.perf_counter()
+    model, graph = sub["model"], sub["graph"]
+    p16 = _cast_tree(torch, sub["params"], torch.bfloat16)
+    twin = _cast_tree(torch, p16, torch.float32)
+    val16 = _bf16_images(torch, sub["val"])
+    checks = bf16_evaluators(torch, model, p16, twin, graph, val16)
+    searches, best = bf16_searches(torch, model, p16, graph, val16)
+    qat = bf16_qat(torch, model, p16, graph, sub["data"], best)
+    lm_eval = bf16_lm_evaluator(torch, cfg, lm, policy)
+    t_a = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        trainer = bf16_trainer(torch, cfg, lm, tmp)
+    t_b = time.perf_counter() - t0 - t_a
+    moe_cfg = ARCHS[MOE_ARCH].config
+    moe = train_lm(torch, moe_cfg, LM(moe_cfg), dtype=torch.bfloat16,
+                   probe=False, label="bf16-train-moe")
+    recs = dict(checks=checks, searches=searches, qat=qat, lm_eval=lm_eval,
+                trainer=trainer, moe=moe, seconds=time.perf_counter() - t0,
+                seconds_a=t_a, seconds_b=t_b)
+    emit({"phase": "bf16-train", "seconds": recs["seconds"],
+          "seconds_a": t_a, "seconds_b": t_b,
+          "seconds_c": recs["seconds"] - t_a - t_b})
+    problems = [p for r in (checks, searches, qat, lm_eval, trainer, moe)
+                for p in r["problems"]]
+    if problems:
+        raise AssertionError("bf16-train checks failed: " +
+                             "; ".join(problems))
     return recs
 
 
@@ -4553,6 +5180,7 @@ def main(argv=None) -> int:
     ssm = phase_ssm(torch)
     frontends = phase_frontends(torch)
     train = phase_train(torch, cfg, model, card, substrate)
+    bf16_train = phase_bf16_train(torch, cfg, model, substrate, policy)
     shard = phase_shard(torch, cfg, model)
     launches = dict(rec_a["launches"])
     launches["paged_attention"] = \
@@ -4584,19 +5212,29 @@ def main(argv=None) -> int:
             "ssm_gate_run": ssm["gate_run"]["launches"],
             "hybrid_run": ssm["hybrid_run"]["launches"],
             "vision_paged_decode": frontends["vision"]["paged"]["launches"]}
-    by_path = {"fake_quant": {"search": launches["fake_quant"],
-                              "qat": train["qat"]["launches"]["fake_quant"]}}
+    bf16_s = bf16_train["searches"]
+    by_path = {"fake_quant": {
+        "search": launches["fake_quant"],
+        "qat": train["qat"]["launches"]["fake_quant"],
+        "search_bf16": bf16_s["quant"]["launches"]["fake_quant"],
+        "qat_bf16": bf16_train["qat"]["launches"]["fake_quant"],
+        "lm_eval_bf16": bf16_train["lm_eval"]["launches"]["fake_quant"]},
+        "binary_matmul": {
+            "search": launches["binary_matmul"],
+            "search_bf16": bf16_s["binarize"]["launches"]["binary_matmul"]}}
     for name in ("flash_attention", "quant_matmul", "packed_matmul",
                  "paged_attention"):
         by_path[name] = {p: c[name] for p, c in {**gen, **runs}.items()}
-    launches["fake_quant"] = sum(by_path["fake_quant"].values())
+    for name in ("fake_quant", "binary_matmul"):
+        launches[name] = sum(by_path[name].values())
     kernels = summarize(rows, launches, by_path)
     result = {"card": card, "kernel_rows": rows, "engine_a": rec_a,
               "engine_b": rec_b, "checks": checks, "run": run,
               "cache_and_store": store, "bf16": bf16, "moe": moe,
               "ssm": ssm,
               "frontends": frontends,
-              "search": search, "train": train, "shard": shard,
+              "search": search, "train": train, "bf16_train": bf16_train,
+              "shard": shard,
               "kernels": kernels,
               "seconds": time.perf_counter() - t0}
     if args.out:

@@ -70,11 +70,21 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def upload(a, device: torch.device) -> torch.Tensor:
-    """A host (numpy) array as a tensor of the same dtype on ``device``.
-    To the card it goes through pinned memory without blocking: a plain
-    host-to-device copy synchronises the stream, which would stall a
-    pipelined step loop behind the kernels already queued."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    """A host array (numpy, a bfloat16 one of ml_dtypes included, or a
+    tensor) as a tensor of the same dtype on ``device``.  To the card
+    it goes through pinned memory without blocking: a plain host-to-device
+    copy synchronises the stream, which would stall a pipelined step loop
+    behind the kernels already queued."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().contiguous()
+        if t.device.type != "cpu":
+            return t.to(device)
+    else:
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:      # a view of a JAX or ml_dtypes buffer
+            a = a.copy()
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            if a.dtype.name == "bfloat16" else torch.from_numpy(a)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.clone()

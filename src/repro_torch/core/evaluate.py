@@ -89,13 +89,24 @@ def upload_bits(policy: QuantPolicy, graph: QuantizableGraph,
     return list(torch.split(flat, [len(w) for w in wb])), ab
 
 
+def as_given(a):
+    """A batch array in the dtype it was given, as the reference's
+    ``jnp.asarray`` keeps it (float64 narrowed to float32, as JAX does
+    without x64): a bf16 CNN is evaluated on a bf16 batch, never
+    upcast."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype == np.float64 else a
+
+
 def make_cnn_evaluator(model, params, graph: QuantizableGraph, val_batch,
                        mode: QuantMode = QuantMode.QUANT
                        ) -> Callable[[QuantPolicy], float]:
     device = _device_of(params)
     names = [l.name for l in graph.layers]
-    xb = {"x": backend.upload(np.asarray(val_batch["x"], np.float32), device),
-          "y": backend.upload(np.asarray(val_batch["y"]), device)}
+    xb = {k: backend.upload(as_given(val_batch[k]), device)
+          for k in ("x", "y")}
 
     def evaluator(policy: QuantPolicy) -> float:
         wb, ab = upload_bits(policy, graph, device)
@@ -140,7 +151,7 @@ def make_lm_evaluator(model, params, graph: QuantizableGraph, val_batch,
     (:func:`lm_logits`, then :func:`token_accuracy`).  Attention runs on
     kernel K1 (its plain version on the CPU)."""
     device = _device_of(params)
-    vb = {k: backend.upload(np.asarray(v), device)
+    vb = {k: backend.upload(as_given(v), device)
           for k, v in val_batch.items()}
 
     def evaluator(policy: QuantPolicy) -> float:

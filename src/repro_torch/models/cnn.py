@@ -16,6 +16,9 @@ in :func:`conv_rows` order) computes its
 product through the bit-plane kernel B6 (``kernels.ops.binary_matmul``):
 a conv through an im2col (:func:`im2col`: zero padding, then one strided
 copy; rows ordered (cin, kh, kw), as ``F.unfold``'s), the fc directly.
+Parameters and activations are fp32 or bf16 (``init(dtype=)``): a bf16
+model takes a bf16 batch, and every conv, pool and product stays in bf16
+(B6 sums in fp32 and writes bf16), as the reference's bf16 CNN does.
 """
 from __future__ import annotations
 
@@ -99,12 +102,18 @@ class CNN:
     def __init__(self, cfg: CNNConfig):
         self.cfg = cfg
 
-    def init(self, generator=0, device: backend.DeviceLike = None):
-        """Random fp32 parameters from the reference's distributions (conv
+    def init(self, generator=0, device: backend.DeviceLike = None,
+             dtype: torch.dtype = torch.float32):
+        """Random parameters from the reference's distributions (conv
         ``normal * sqrt(2 / fan_in)``, fc ``normal * sqrt(1 / cin)``, zero
-        biases).  ``generator`` is a ``torch.Generator`` on ``device`` or
-        an int seed; the numbers differ from ``jax.random``'s.  Runs on
-        the card unless ``device`` says otherwise."""
+        biases), drawn and scaled in fp32 and then cast to ``dtype`` (fp32
+        or bf16), biases too, as the reference's ``init(rng, dtype)``.
+        ``generator`` is a ``torch.Generator`` on ``device`` or an int
+        seed; the numbers differ from ``jax.random``'s.  Runs on the card
+        unless ``device`` says otherwise."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"unsupported parameter dtype {dtype}: "
+                             "torch.float32 or torch.bfloat16")
         device = backend.resolve_device(device)
         cfg = self.cfg
         g = generator if isinstance(generator, torch.Generator) else \
@@ -119,12 +128,14 @@ class CNN:
         for i, cout in enumerate(cfg.channels):
             fan_in = cfg.kernel * cfg.kernel * cin
             params[f"conv{i}"] = {
-                "w": normal(cfg.kernel, cfg.kernel, cin, cout) *
-                math.sqrt(2.0 / fan_in),
-                "b": torch.zeros(cout, device=device)}
+                "w": (normal(cfg.kernel, cfg.kernel, cin, cout) *
+                      math.sqrt(2.0 / fan_in)).to(dtype),
+                "b": torch.zeros(cout, device=device, dtype=dtype)}
             cin = cout
-        params["fc"] = {"w": normal(cin, cfg.n_classes) * math.sqrt(1.0 / cin),
-                        "b": torch.zeros(cfg.n_classes, device=device)}
+        params["fc"] = {"w": (normal(cin, cfg.n_classes) *
+                              math.sqrt(1.0 / cin)).to(dtype),
+                        "b": torch.zeros(cfg.n_classes, device=device,
+                                         dtype=dtype)}
         return params
 
     def apply(self, params, x, act_bits=None):

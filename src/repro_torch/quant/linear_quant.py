@@ -71,13 +71,15 @@ def fake_quant_weight(w: torch.Tensor, bits: torch.Tensor,
                       axis: int = -1) -> torch.Tensor:
     """:func:`fake_quant_per_channel` with the elementwise pass on kernel
     B5 (``kernels.fake_quant.fake_quant_channels``): the channel-last 2-d
-    view, amax over its rows, then :func:`channel_scale`.  ``bits`` is
-    the (n_channels,) f32 tensor on ``w``'s device.  Bit for bit
-    :func:`fake_quant_per_channel`; CPU tensors take B5's plain version."""
+    view, amax over its rows, then :func:`channel_scale` in fp32 (for a
+    bf16 ``w`` too, as the reference's ``fake_quant``).  ``bits`` is the
+    (n_channels,) f32 tensor on ``w``'s device.  The result is in ``w``'s
+    dtype, bit for bit :func:`fake_quant_per_channel`; CPU tensors take
+    B5's plain version."""
     axis = axis % w.ndim
     wl = w if axis == w.ndim - 1 else torch.movedim(w, axis, -1)
     w2 = wl.reshape(-1, wl.shape[-1]).contiguous()
-    amax = w2.abs().amax(dim=0)
+    amax = w2.abs().amax(dim=0).to(torch.float32)
     scale, lv = channel_scale(amax, bits)
     out = fake_quant_channels(w2, scale, lv, bits).reshape(wl.shape)
     return out if axis == w.ndim - 1 else torch.movedim(out, -1, axis)
@@ -96,7 +98,8 @@ class _SteFakeQuant(torch.autograd.Function):
 def ste_fake_quant(x: torch.Tensor, bits: torch.Tensor, axis: int
                    ) -> torch.Tensor:
     """Fake quant with a straight-through gradient estimator (the QAT
-    forward): :func:`fake_quant_weight` forward, identity backward."""
+    forward): :func:`fake_quant_weight` forward, identity backward (the
+    gradient passes unchanged, in its own dtype)."""
     return _SteFakeQuant.apply(x, bits, axis)
 
 

@@ -57,7 +57,9 @@ def value_and_grad(loss_fn: Callable, params: Any, *args):
 
 
 def upload_batch(batch: Dict[str, Any], device: torch.device):
-    return {k: backend.upload(np.asarray(v), device) for k, v in batch.items()}
+    """Every array of ``batch`` on ``device`` in its own dtype (a bf16
+    batch for a bf16 model stays bf16, as ``jnp.asarray`` keeps it)."""
+    return {k: backend.upload(v, device) for k, v in batch.items()}
 
 
 class Trainer:

@@ -299,8 +299,10 @@ def test_fake_quant_channels_plain_bitwise_reference(M, N):
 def test_fake_quant_channels_validates():
     x = torch.zeros(4, 3)
     v = torch.ones(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B5"):
-        tops.fake_quant_channels(x.bfloat16(), v, v, v)
+    assert tops.fake_quant_channels(x.bfloat16(), v, v, v).dtype == \
+        torch.bfloat16
+    with pytest.raises(ValueError):
+        tops.fake_quant_channels(x.double(), v, v, v)
     with pytest.raises(ValueError):
         tops.fake_quant_channels(x, v[:2], v, v)
     with pytest.raises(ValueError):
@@ -333,8 +335,9 @@ def test_binary_matmul_validates():
     x = torch.zeros(4, 6)
     B = torch.ones(2, 6, 3, dtype=torch.int8)
     a = torch.ones(2, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B6"):
-        tops.binary_matmul(x.bfloat16(), B, a)
+    assert tops.binary_matmul(x.bfloat16(), B, a).dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        tops.binary_matmul(x.double(), B, a)
     with pytest.raises(ValueError):
         tops.binary_matmul(x[:, :5].contiguous(), B, a)
     with pytest.raises(ValueError):
