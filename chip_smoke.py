@@ -75,6 +75,11 @@ run exits non-zero:
               peak (x and the planes are exact in bf16), its route bound
               the folded 2 M K N at the fp32 peak; B6's library call
               cuBLAS bf16 on the reconstructed weight, event and device.
+              Last, the bf16 families' rows: K1 on bf16 q, K and V at
+              vision's cross prefill (2 x 2048 over 1600, non-causal) and
+              musicgen's prefill (D 64, G 1); K2 / K3 on a bf16 x at
+              mamba2's w_xz and w_out (4096 and 2 rows), jamba's w_xz
+              (1024 and 4) and vision's wg (4096 and 2).
 3. serve   -- ServeEngine.generate on gemma2-2b at full width, cut to
               GEMMA_LAYERS layers, with a seeded kernel-wise policy: engine A (packed store,
               CUDA kernels) against engine B (fake-quant store, plain
@@ -201,6 +206,24 @@ run exits non-zero:
               decode_step_paged steps (4 K4 and 1 K1 a step, streams
               against the dense run's by the gap rule); engine A over a
               bf16 cache, streams by the gap rule at BF16_GAP_TOL.
+   bf16-families -- the four families with bf16 parameters from
+              LM.init(SEED, dtype=bf16), fp32 twins (the same values
+              upcast, fp32 caches) beside them; A is the packed store on
+              the kernels, B the fake store on the plain versions, A / B
+              within BF16_TWIN_FACTOR x B's twin distance, which is
+              printed over the logits' standard deviation.  mamba2-780m
+              at published width and depth: generate 2 x 2048 + 16
+              (activation quantization off) over a bf16 and an fp32
+              cache; the same on its first SSM_GATE_LAYERS layers, where
+              the twin distance stays under the logits' spread, and run()
+              on those layers at QBN 8 over a bf16 pool against generate
+              (gap rule at BF16_GAP_TOL).  The jamba hybrid at HYBRID_CUT:
+              run() of its 4 requests over a bf16 pool the same way.
+              musicgen-large, published: prefill of 2 x 2048 bf16 frames
+              + 16 teacher-forced steps.  One llama-3.2-vision period: 16
+              greedy tokens over a dense bf16 cache (bf16 "memory"), then
+              the paged path over a bf16 pool.  Every bf16 path's K1 /
+              K4 / K2 / K3 launches equal its fp32 twin's.
 7. train   -- the paper's pipeline after the search, on its CIF10-7CNN
               substrate: the Trainer (AdamW, 40 steps, checkpoints every
               10) uninterrupted and preempted at step 25, resumed from
@@ -273,9 +296,8 @@ The line before the last lists every kernel with its launches on its path
 and the bf16 LM evaluation; B6: the BINARIZE searches), ``launches_by_path``
 for the kernels that more than one path runs (K1-K4: the generate and run
 of each serving phase, granite-moe's, mamba2-780m's, jamba's, musicgen's
-and vision's included; B5: search, QAT, and their bf16 runs; B6: search
-and its bf16 run) and
-its times; the last line is
+and vision's included, at fp32 and at bf16; B5: search, QAT, and their
+bf16 runs; B6: search and its bf16 run) and its times; the last line is
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, it prints no
 result and exits 2.  It imports neither JAX nor the reference package.
@@ -707,7 +729,8 @@ def _attn_cases(torch):
     memory and a decode query over it in fp32 and in a bf16 cache (64 q /
     8 kv heads of 128: G 8); then a bf16 model's (phase bf16): gemma2-2b's
     prefill with bf16 q, K and V and its last decode step's bf16 q over a
-    bf16 cache."""
+    bf16 cache; and the bf16 families' (phase bf16-families): vision's
+    cross prefill and musicgen's prefill on bf16 q, K and V."""
     cfg_h, cfg_kv, D, cap = 8, 4, 256, 50.0
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -830,6 +853,25 @@ def _attn_cases(torch):
     kp[:, :last + 1] = torch.arange(last + 1, dtype=torch.int32,
                                     device="cuda")
     yield "decode_global_bf16q", qd, kc, vc, qp, kp, None, MAX_LEN, cap, True
+    del qd, kc, vc
+    # the bf16 families (phase bf16-families): llama-3.2-vision's
+    # cross-attention prefill (2 x 2048 over the 1600-token memory, G 8,
+    # non-causal) and musicgen-large's prefill (2 x 2048 frames, D 64,
+    # G 1), bf16 q, K and V
+    Hq, Hkv, D = 64, 8, 128
+    ar = torch.arange(FE_PROMPT, dtype=torch.int32,
+                      device="cuda").repeat(B, 1)
+    zp = torch.zeros((B, VISION_IMG), dtype=torch.int32, device="cuda")
+    q = randn(B, FE_PROMPT, Hq, D).bfloat16()
+    k = randn(B, VISION_IMG, Hkv, D).bfloat16()
+    v = randn(B, VISION_IMG, Hkv, D).bfloat16()
+    yield "cross_prefill_bf16q", q, k, v, ar, zp, None, 1024, None, False
+    Hq = Hkv = AUDIO_HEADS
+    D = 64
+    q = randn(B, FE_PROMPT, Hq, D).bfloat16()
+    k = randn(B, FE_PROMPT, Hkv, D).bfloat16()
+    v = randn(B, FE_PROMPT, Hkv, D).bfloat16()
+    yield "audio_prefill_bf16q", q, k, v, ar, ar, None, 1024, None, True
 
 
 def _attn_library(torch, q, k, v, q_pos, kv_pos, window, causal=True):
@@ -1392,14 +1434,29 @@ def expert_gemm_rows(torch, timer):
 # experts or None, rows, K, N)
 BF16_GEMM_SHAPES = [("bf16_wg_decode", None, 2, 2304, 9216),
                     ("bf16_wg_prefill", None, 8320, 2304, 9216),
-                    ("bf16_moe_wg_c1024", MOE_E, 1024, 1536, MOE_FF)]
+                    ("bf16_moe_wg_c1024", MOE_E, 1024, 1536, MOE_FF),
+                    # the bf16 families (phase bf16-families): mamba2-780m
+                    # at its 2 x 2048 prefill and decode, the jamba
+                    # hybrid's w_xz at HYBRID_CUT at run()'s longest
+                    # prompt and 4-slot decode, vision's wg at its
+                    # 2 x 2048 prefill and decode
+                    ("bf16_mamba_wxz_prefill", None, 4096, 1536, 6144),
+                    ("bf16_mamba_wxz_decode", None, 2, 1536, 6144),
+                    ("bf16_mamba_wout_prefill", None, 4096, 3072, 1536),
+                    ("bf16_mamba_wout_decode", None, 2, 3072, 1536),
+                    ("bf16_hybrid_wxz_prefill", None, 1024, 2048, 8192),
+                    ("bf16_hybrid_wxz_decode", None, 4, 2048, 8192),
+                    ("bf16_vision_wg_prefill", None, 4096, 8192, 28672),
+                    ("bf16_vision_wg_decode", None, 2, 8192, 28672)]
 
 
 def bf16_gemm_rows(torch, timer):
     """K2 (int8) and K3 (int4, int2) on a bf16 x with a bf16 output, as a
     bf16 model's packed store calls them: gemma2-2b's wg at generate's
-    decode (2 rows) and prefill (8320), and granite-moe's expert-batched
-    wg (40 experts x 1024 rows x 1536 x 512, one launch) (_gemm_row)."""
+    decode (2 rows) and prefill (8320), granite-moe's expert-batched wg
+    (40 experts x 1024 rows x 1536 x 512, one launch), and the bf16
+    families' mamba w_xz / w_out, jamba w_xz and vision wg at prefill
+    (tensor cores) and decode (skinny) (_gemm_row)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = [_gemm_row(torch, timer, g, n_sm, bits, *shape,
@@ -2846,14 +2903,15 @@ def _audio_frontend(torch, problems):
     return rec
 
 
-def _vision_paged(torch, model, params, prompt, dense, tol, problems):
+def _vision_paged(torch, model, params, prompt, dense, tol, problems,
+                  dtype=None, label="vision-paged"):
     """Run 2: the dense run's prompts through the paged path, as
     ``run()``'s monolithic admission does it: a batch-1 prefill per
     sequence into a dense cache, ``paged_kv.write_prefill`` of its
-    ``"paged"`` and ``"memory"`` entries into lane b of a 2-slot fp32
-    pool (pages of PAGE), then N_NEW ``decode_step_paged`` steps on the
-    greedy tokens.  Streams against the dense run's by the gap rule at
-    ``tol``; exactly one K4 launch per self-attention layer and one K1
+    ``"paged"`` and ``"memory"`` entries into lane b of a 2-slot pool
+    (pages of PAGE; caches and pool in ``dtype``, fp32 by default), then
+    N_NEW ``decode_step_paged`` steps on the greedy tokens.  Streams
+    against the dense run's by the gap rule at ``tol``; exactly one K4 launch per self-attention layer and one K1
     per cross layer a step (the cross block reads its memory lane)."""
     from repro_torch import kernels
     from repro_torch.serve import paged_kv
@@ -2861,13 +2919,14 @@ def _vision_paged(torch, model, params, prompt, dense, tol, problems):
     kinds = cfg.cache_kinds()
     nb = -(-FE_MAX_LEN // PAGE)
     L = -(-FE_PROMPT // PAGE) * PAGE
-    pool = model.init_paged_cache(B, 1 + B * nb, PAGE, dtype=torch.float32,
+    dtype = dtype or torch.float32
+    pool = model.init_paged_cache(B, 1 + B * nb, PAGE, dtype=dtype,
                                   device="cuda")
     bt = np.arange(1, 1 + B * nb, dtype=np.int32).reshape(B, nb)
     first = []
     with torch.no_grad():
         for r in range(B):
-            c = model.init_cache(1, L, dtype=torch.float32, device="cuda")
+            c = model.init_cache(1, L, dtype=dtype, device="cuda")
             lg, c = model.prefill(params, {
                 "tokens": prompt["tokens"][r:r + 1],
                 "img_embeds": prompt["img_embeds"][r:r + 1]}, c,
@@ -2898,21 +2957,23 @@ def _vision_paged(torch, model, params, prompt, dense, tol, problems):
     n_self = cfg.n_repeat * len(cfg.pattern) - n_cross
     if launches["paged_attention"] != n_self * N_NEW or \
             launches["flash_attention"] != n_cross * N_NEW:
-        problems.append(f"vision paged: attention launches {launches}, want "
+        problems.append(f"{label}: attention launches {launches}, want "
                         f"{n_self} K4 and {n_cross} K1 a step")
     if prefill_diff > tol:
-        problems.append(f"vision paged: batch-1 prefill logits {prefill_diff}"
+        problems.append(f"{label}: batch-1 prefill logits {prefill_diff}"
                         f" from the dense run's")
     tokens = torch.stack(toks, 1).cpu().numpy()
     firsts = [f for r in range(B)
-              if (f := _check_streams(f"vision-paged/{r}", tokens[r],
+              if (f := _check_streams(f"{label}/{r}", tokens[r],
                                       dense["tokens"][r],
                                       dense["gaps"][:, r], tol, problems))]
-    rec = dict(page_size=PAGE, pages=1 + B * nb, launches=launches,
+    rec = dict(page_size=PAGE, pages=1 + B * nb,
+               pool_dtype=str(dtype).replace("torch.", ""),
+               launches=launches,
                prefill_logit_max_abs_diff=prefill_diff, decode_s=decode_s,
                decode_tok_per_s=B * N_NEW / decode_s,
                first_differences=firsts, tol=tol)
-    emit({"phase": "vision-paged", **rec})
+    emit({"phase": label, **rec})
     del pool
     return rec
 
@@ -3063,6 +3124,326 @@ def phase_frontends(torch):
           "peak_mem_bytes": out["peak_mem_bytes"], "problems": problems})
     if problems:
         raise AssertionError("frontends checks failed: " +
+                             "; ".join(problems))
+    return out
+
+
+# ------------------------------------------------------------- phase 6c
+def _bf16_run_twin(torch, label, model, params, twin, policy, reqs, graph,
+                   problems):
+    """run() of a bf16 model with recurrent state over a bf16 pool on the
+    packed store (_state_run: monolithic, refusals, exact launches,
+    streams against generate by the gap rule at BF16_GAP_TOL), then its
+    fp32 twin's run over an fp32 pool, whose launches it must equal."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine
+    kw = dict(max_len=SSM_MAX_LEN, weight_store="packed", attn_impl="cuda",
+              device="cuda")
+    eng = ServeEngine(model, params, policy=policy,
+                      cache_dtype=torch.bfloat16, **kw)
+    rec = _state_run(torch, label, eng, reqs, graph, policy, problems,
+                     tol=BF16_GAP_TOL)
+    del eng
+    teng = ServeEngine(model, twin, policy=policy, cache_dtype=torch.float32,
+                       **kw)
+    kernels.reset_launch_counts()
+    teng.run(reqs, page_size=PAGE, max_slots=RUN_SLOTS)
+    rec["twin_launches"] = kernels.launch_counts()
+    del teng
+    if rec["launches"] != rec["twin_launches"]:
+        problems.append(f"{label}: launches {rec['launches']}, its fp32 "
+                        f"twin's {rec['twin_launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _bf16_mamba(torch, problems):
+    """mamba2-780m at published width and depth from ``LM.init(SEED,
+    dtype=bf16)``: generate (B x SSM_PROMPT + N_NEW, activation
+    quantization off, as phase ssm's full-depth pair) of A / B over a bf16
+    cache and over an fp32 cache (ServeEngine's default, where a decode
+    window comes back fp32), against the fp32 twins (_twin_checks, no K1,
+    exact K2 / K3); the same on the first SSM_GATE_LAYERS layers, where
+    the twin distance stays below the logits' spread however deep the
+    full model parts; run() on those layers at activation QBN 8 over a
+    bf16 pool (_bf16_run_twin)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    cfg = ARCHS[SSM_ARCH].config
+    model = LM(cfg)
+    params = model.init(SEED, device="cuda", dtype=torch.bfloat16)
+    twin = _cast_tree(torch, params, torch.float32)
+    graph = model.graph(seq_len=1, batch=1)
+    policy = make_policy(graph)
+    rng = np.random.default_rng(SEED + 8)
+    tokens = rng.integers(0, cfg.vocab, size=(B, SSM_PROMPT))
+    out = dict(param_bytes=_param_bytes(params))
+
+    def pair(tag, m, p, tw, gr, pol, caches):
+        kw = dict(max_len=SSM_MAX_LEN, serve_act_bits=False)
+        t = run_engine(torch, f"bf16-{tag}-twin", m, tw, pol, tokens,
+                       store="packed", impl="cuda",
+                       cache_dtype=torch.float32, **kw)
+        bt = run_engine(torch, f"bf16-{tag}-B-twin", m, tw, pol, tokens,
+                        store="fake", impl="ref", cache_dtype=torch.float32,
+                        **kw)
+        recs = {}
+        for dt in caches:
+            name = f"{tag}-{str(dt).replace('torch.', '')}-cache"
+            a = run_engine(torch, f"bf16-{name}-A", m, p, pol, tokens,
+                           store="packed", impl="cuda", cache_dtype=dt,
+                           warm=dt == caches[0], **kw)
+            b = run_engine(torch, f"bf16-{name}-B", m, p, pol, tokens,
+                           store="fake", impl="ref", cache_dtype=dt, **kw)
+            rec = _twin_checks(torch, name, m.cfg.vocab, a, b, t, bt,
+                               problems, 0)
+            rec["gemm_want"] = _gemm_check(
+                problems, f"bf16 {name} generate", rec["launches"], gr, pol,
+                m.cfg.n_repeat, 1 + N_NEW)
+            rec.update(prefill_s=a["rec"]["prefill_s"],
+                       decode_tok_per_s=a["rec"]["decode_tok_per_s"],
+                       peak_mem_bytes=a["rec"]["peak_mem_bytes"],
+                       weight_hbm_bytes=a["rec"]["weight_hbm_bytes"],
+                       twin_prefill_s=t["rec"]["prefill_s"],
+                       twin_decode_tok_per_s=t["rec"]["decode_tok_per_s"])
+            emit({"phase": "bf16-families-generate", "model": name, **rec})
+            recs[name] = rec
+            del a, b
+        del t, bt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return recs
+
+    out["generate"] = pair("ssm", model, params, twin, graph, policy,
+                           (torch.bfloat16, torch.float32))
+    gcfg = dataclasses.replace(cfg, n_layers=SSM_GATE_LAYERS)
+    gmodel = LM(gcfg)
+    gparams = model.draft_prefix_params(params, SSM_GATE_LAYERS)
+    gtwin = model.draft_prefix_params(twin, SSM_GATE_LAYERS)
+    ggraph = gmodel.graph(seq_len=1, batch=1)
+    gpolicy = make_policy(ggraph)
+    out["gate"] = pair("ssm-gate", gmodel, gparams, gtwin, ggraph, gpolicy,
+                       (torch.bfloat16,))
+    reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), k)
+            for n, k in zip(MOE_RUN_PROMPTS, MOE_RUN_NEW)]
+    out["gate_run"] = _bf16_run_twin(torch, "bf16-ssm-gate-run", gmodel,
+                                     gparams, gtwin, gpolicy, reqs, ggraph,
+                                     problems)
+    del params, twin, gparams, gtwin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_hybrid(torch, problems):
+    """The jamba hybrid at HYBRID_CUT from ``LM.init(SEED, dtype=bf16)``:
+    run() of phase ssm's 4 hybrid requests on the packed store over a
+    bf16 pool, activation QBN 8 (_bf16_run_twin), with K1, K4 and the
+    expert-batched K2 / K3 launched."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    base = ARCHS[HYBRID_ARCH].config
+    cfg = dataclasses.replace(base, **HYBRID_CUT, moe=dataclasses.replace(
+        base.moe, d_ff=HYBRID_EXPERT_D_FF))
+    model = LM(cfg)
+    params = model.init(SEED, device="cuda", dtype=torch.bfloat16)
+    twin = _cast_tree(torch, params, torch.float32)
+    graph = model.graph(seq_len=1, batch=1)
+    policy = make_policy(graph)
+    rng = np.random.default_rng(SEED + 9)
+    reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), k)
+            for n, k in zip(HYBRID_RUN_PROMPTS, HYBRID_RUN_NEW)]
+    rec = _bf16_run_twin(torch, "bf16-hybrid-run", model, params, twin,
+                         policy, reqs, graph, problems)
+    if not all(rec["launches"][k] for k in ("flash_attention",
+                                            "paged_attention",
+                                            "quant_matmul",
+                                            "packed_matmul")):
+        problems.append(f"bf16 hybrid run: a kernel not launched "
+                        f"{rec['launches']}")
+    rec["param_bytes"] = _param_bytes(params)
+    del params, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _bf16_streams(torch, tag, model, params, graph, policy, prompt,
+                  twin_prompt, problems, feed=None, twin_feed=None,
+                  after_a=None):
+    """lm_stream of the bf16 ``params`` (A: the packed store on the
+    kernels, B: the fake store on the plain versions, bf16 caches) and of
+    their fp32 twin (fp32 caches, the prompt upcast), one store at a time,
+    the bf16 parameters freed before the twin is made (a whole vision
+    period's bf16 and fp32 trees and a store do not fit the card
+    together: the caller keeps no reference to ``params``); held by
+    _twin_checks over the step logits.  ``after_a(store, a, cache dtype)``
+    runs while A's store is alive."""
+    from repro_torch.quant.apply import (apply_policy_packed,
+                                         apply_policy_to_params)
+    cfg = model.cfg
+    held = [params]
+    del params
+    res = {}
+    for name, pr, fd, dt in (("", prompt, feed, torch.bfloat16),
+                             ("-twin", twin_prompt, twin_feed,
+                              torch.float32)):
+        p = held[0] if dt == torch.bfloat16 else \
+            _cast_tree(torch, held.pop(), torch.float32)
+        for side, store, impl in (("B", apply_policy_to_params, "ref"),
+                                  ("A", apply_policy_packed, "cuda")):
+            st = store(p, graph, policy)
+            r = lm_stream(torch, f"bf16-{tag}-{side}{name}", model, st, pr,
+                          N_NEW, impl=impl, cache_dtype=dt, feed=fd)
+            res[side + name] = r
+            if side == "A" and after_a is not None:
+                res["after" + name] = after_a(st, r, dt)
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec = _twin_checks(torch, tag, cfg.vocab, res["A"], res["B"],
+                       res["A-twin"], res["B-twin"], problems,
+                       cfg.n_layers * (1 + N_NEW))
+    rec.update(prefill_s=res["A"]["rec"]["prefill_s"],
+               decode_per_s=res["A"]["rec"]["decode_per_s"],
+               peak_mem_bytes=max(r["rec"]["peak_mem_bytes"]
+                                  for k, r in res.items()
+                                  if not k.startswith("after")),
+               weight_bytes=res["A"]["rec"]["weight_bytes"],
+               twin_prefill_s=res["A-twin"]["rec"]["prefill_s"],
+               twin_decode_per_s=res["A-twin"]["rec"]["decode_per_s"])
+    emit({"phase": "bf16-families-stream", "model": tag, **rec})
+    return rec, res
+
+
+def _bf16_audio(torch, problems):
+    """musicgen-large at published width and depth from ``LM.init(SEED,
+    dtype=bf16)``: LM.prefill of 2 x FE_PROMPT bf16 frames and N_NEW
+    teacher-forced decode steps, A / B by _bf16_streams (K1 once a layer
+    a call, exact K2 / K3)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    cfg = ARCHS[AUDIO_ARCH].config
+    model = LM(cfg)
+    graph = model.graph(seq_len=1, batch=1)
+    policy = make_policy(graph)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    frames = (FE_SCALE * torch.randn((B, FE_MAX_LEN, cfg.d_model),
+                                     generator=g, device="cuda")
+              ).to(torch.bfloat16)
+    f32 = frames.float()
+    rec, res = _bf16_streams(
+        torch, "audio", model,
+        model.init(SEED, device="cuda", dtype=torch.bfloat16), graph, policy,
+        {"embeds": frames[:, :FE_PROMPT]}, {"embeds": f32[:, :FE_PROMPT]},
+        problems,
+        feed=lambda i, cur: frames[:, FE_PROMPT + i:FE_PROMPT + i + 1],
+        twin_feed=lambda i, cur: f32[:, FE_PROMPT + i:FE_PROMPT + i + 1])
+    rec["gemm_want"] = _gemm_check(problems, "bf16 audio", rec["launches"],
+                                   graph, policy, cfg.n_repeat, 1 + N_NEW)
+    del frames, f32, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _bf16_vision(torch, problems):
+    """One llama-3.2-vision-90b period (VISION_LAYERS) at published width
+    from ``LM.init(SEED, dtype=bf16)``, 2 x FE_PROMPT tokens beside bf16
+    image embeddings: A / B over 16 greedy tokens on a dense bf16 cache
+    (bf16 "memory" entries) by _bf16_streams (K1 once a layer a call,
+    exact K2 / K3 with the cross block's wk / wv at prefill only), and A's
+    store through the paged path over a bf16 pool (_vision_paged: 4 K4
+    and 1 K1 a step, streams against A's dense run by the gap rule at
+    BF16_GAP_TOL), its launches equal to the fp32 twin's paged run."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+    base = ARCHS[VISION_ARCH].config
+    cfg = dataclasses.replace(base, n_layers=VISION_LAYERS)
+    model = LM(cfg)
+    graph = model.graph(seq_len=1, batch=1)
+    policy = make_policy(graph)
+    rng = np.random.default_rng(SEED + 11)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(B, FE_PROMPT)),
+                             device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    img = (FE_SCALE * torch.randn((B, cfg.n_img_tokens, cfg.d_model),
+                                  generator=g, device="cuda")
+           ).to(torch.bfloat16)
+    prompt = {"tokens": tokens, "img_embeds": img}
+    twin_prompt = {"tokens": tokens, "img_embeds": img.float()}
+
+    def paged(store, dense, dt):
+        bf16 = dt == torch.bfloat16
+        return _vision_paged(
+            torch, model, store, prompt if bf16 else twin_prompt, dense,
+            BF16_GAP_TOL, problems, dtype=dt,
+            label="bf16-vision-paged" + ("" if bf16 else "-twin"))
+
+    rec, res = _bf16_streams(
+        torch, "vision", model,
+        model.init(SEED, device="cuda", dtype=torch.bfloat16), graph, policy,
+        prompt, twin_prompt, problems, after_a=paged)
+    cross = {f"p{i}.{w}" for i, bd in enumerate(cfg.pattern)
+             if bd.kind == "cross_attn" for w in ("wk", "wv")}
+    w1, _ = _moe_gemm_launches(graph, policy, cfg.n_repeat, 1)
+    wd, _ = _moe_gemm_launches(graph, policy, cfg.n_repeat, N_NEW,
+                               skip=cross)
+    want = {k: w1[k] + wd[k] for k in w1}
+    if {k: rec["launches"][k] for k in want} != want:
+        problems.append(f"bf16 vision: GEMM launches {rec['launches']}, "
+                        f"want {want}")
+    rec["gemm_want"] = want
+    rec["paged"], pt = res["after"], res["after-twin"]
+    if rec["paged"]["launches"] != pt["launches"]:
+        problems.append(f"bf16 vision paged: launches "
+                        f"{rec['paged']['launches']}, its fp32 twin's "
+                        f"{pt['launches']}")
+    rec["paged"]["twin_launches"] = pt["launches"]
+    del res, prompt, twin_prompt, img
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_bf16_families(torch, card):
+    """A12 on the card: mamba2-780m, the jamba hybrid, musicgen-large and a
+    llama-3.2-vision period with bf16 parameters from ``LM.init(SEED,
+    dtype=bf16)`` beside their fp32 twins (_bf16_mamba, _bf16_hybrid,
+    _bf16_audio, _bf16_vision).  Every bf16 path's K1 / K4 / K2 / K3
+    launches equal its fp32 twin's.  The card's name and power limit
+    stand beside the numbers."""
+    t_phase = time.perf_counter()
+    problems = []
+    out = {"card": card}
+    for name, fn in (("ssm", _bf16_mamba), ("hybrid", _bf16_hybrid),
+                     ("audio", _bf16_audio), ("vision", _bf16_vision)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, problems)
+        out[name]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["problems"] = problems
+    gen = out["ssm"]["generate"]
+    emit({"phase": "bf16-families", "card": card, "seconds": out["seconds"],
+          "seconds_by_model": {k: out[k]["seconds"]
+                               for k in ("ssm", "hybrid", "audio",
+                                         "vision")},
+          "twin_distance_over_std": {
+              **{k: r["twin_distance_over_std"] for k, r in gen.items()},
+              **{k: r["twin_distance_over_std"]
+                 for k, r in out["ssm"]["gate"].items()},
+              "audio": out["audio"]["twin_distance_over_std"],
+              "vision": out["vision"]["twin_distance_over_std"]},
+          "problems": problems})
+    if problems:
+        raise AssertionError("bf16-families checks failed: " +
                              "; ".join(problems))
     return out
 
@@ -3223,41 +3604,42 @@ def _cast_tree(torch, tree, dtype):
     return tree.to(dtype)
 
 
-def _bf16_pair(torch, tag, model, params, twin, policy, tokens, problems):
-    """generate on one store of the bf16 model: engine A (the kernels)
-    against engine B (the plain versions), both bf16 with a bf16 cache,
-    and the fp32 twins of both (the same parameters upcast, an fp32
-    cache), A and its twin timed on their second generate.  A / B:
-    prefill logits within BF16_TWIN_FACTOR x B's distance from its twin
-    (plain versions only, so a fault in a bf16 kernel moves A / B and not
-    the limit), streams by the gap rule at BF16_GAP_TOL; A launches each
-    kernel exactly as often as its twin, B and B's twin none."""
-    cfg = model.cfg
-    store = "packed" if policy is not None else "fake"
-    a = run_engine(torch, f"bf16-{tag}-A", model, params, policy, tokens,
-                   store=store, impl="cuda", cache_dtype=torch.bfloat16,
-                   warm=True)
-    b = run_engine(torch, f"bf16-{tag}-B", model, params, policy, tokens,
-                   store="fake", impl="ref", cache_dtype=torch.bfloat16)
-    t = run_engine(torch, f"bf16-{tag}-twin", model, twin, policy, tokens,
-                   store=store, impl="cuda", cache_dtype=torch.float32,
-                   warm=True)
-    bt = run_engine(torch, f"bf16-{tag}-B-twin", model, twin, policy,
-                    tokens, store="fake", impl="ref",
-                    cache_dtype=torch.float32)
+def _logits_apart(x, y, vocab):
+    """Max |x - y| of two results over the real vocabulary (a padded
+    column is -1e30 in both, which bf16 and fp32 round apart): over the
+    step logits two streams share (_steps_apart) where both carry them,
+    else over the prefill logits."""
+    if "steps" in x and "steps" in y:
+        return _steps_apart(x, y)
+    return float((x["logits"][..., :vocab] - y["logits"][..., :vocab]
+                  ).abs().max())
+
+
+def _twin_checks(torch, tag, vocab, a, b, t, bt, problems, want_k1):
+    """Engine / stream A (the kernels) against B (the plain versions) of a
+    bf16 model, beside their fp32 twins t and bt (the same parameters
+    upcast, fp32 caches): finite logits, tokens in range; A / B within
+    BF16_TWIN_FACTOR x B's distance from its twin (plain versions only,
+    so a fault in a bf16 kernel moves A / B and not the limit; over the
+    step logits of streams that carry them, _logits_apart); B's twin
+    distance beside the logits' standard deviation (a distance above it
+    would make the rule hold nothing); streams by the gap rule at
+    BF16_GAP_TOL; A launches each kernel exactly as often as its twin, K1
+    ``want_k1`` times; B and B's twin launch none.  Returns the record
+    (``logits_over`` says which logits the ``*_logit_max_abs_diff``
+    distances cover)."""
     for r in (a, b, t, bt):
         if not bool(torch.isfinite(r["logits"]).all()):
             problems.append(f"bf16 {r['rec']['engine']}: non-finite logits")
-        if r["tokens"].min() < 0 or r["tokens"].max() >= cfg.vocab:
+        if r["tokens"].min() < 0 or r["tokens"].max() >= vocab:
             problems.append(f"bf16 {r['rec']['engine']}: tokens out of "
                             "range")
-    d_ab = float((a["logits"] - b["logits"]).abs().max())
-    d_twin = float((a["logits"] - t["logits"]).abs().max())
-    d_plain = float((b["logits"] - bt["logits"]).abs().max())
+    d_ab, d_twin, d_plain = (_logits_apart(x, y, vocab)
+                             for x, y in ((a, b), (a, t), (b, bt)))
+    std = float(bt["logits"][..., :vocab].std())
     if d_ab > BF16_TWIN_FACTOR * d_plain:
-        problems.append(f"bf16 {tag}: A / B prefill logits {d_ab} apart, "
-                        f"over {BF16_TWIN_FACTOR} x B's twin distance "
-                        f"{d_plain}")
+        problems.append(f"bf16 {tag}: A / B logits {d_ab} apart, over "
+                        f"{BF16_TWIN_FACTOR} x B's twin distance {d_plain}")
     first = None
     bad = np.argwhere(a["tokens"] != b["tokens"])
     if bad.size:
@@ -3274,26 +3656,53 @@ def _bf16_pair(torch, tag, model, params, twin, policy, tokens, problems):
     if any(lb.values()) or any(lbt.values()):
         problems.append(f"bf16 {tag}: engine B or its twin launched "
                         f"kernels: {lb}, {lbt}")
-    want_k1 = cfg.n_layers * (1 + N_NEW)
     if la["flash_attention"] != want_k1:
         problems.append(f"bf16 {tag}: K1 launched {la['flash_attention']} "
                         f"times, want {want_k1}")
+    return dict(logits_over="steps" if "steps" in a else "prefill",
+                prefill_logit_max_abs_diff=d_ab,
+                twin_prefill_logit_max_abs_diff=d_twin,
+                b_twin_prefill_logit_max_abs_diff=d_plain,
+                b_twin_logit_std=std,
+                twin_distance_over_std=d_plain / max(std, 1e-30),
+                twin_factor=BF16_TWIN_FACTOR, gap_tol=BF16_GAP_TOL,
+                streams_equal=first is None, first_difference=first,
+                min_b_top2_gap=float(b["gaps"].min()),
+                launches=la, twin_launches=lt)
+
+
+def _bf16_pair(torch, tag, model, params, twin, policy, tokens, problems):
+    """generate on one store of the bf16 model: engine A (the kernels)
+    against engine B (the plain versions), both bf16 with a bf16 cache,
+    and the fp32 twins of both (the same parameters upcast, an fp32
+    cache), A and its twin timed on their second generate, held by
+    _twin_checks (K1 once a layer a call); K2 / K3 launched only on the
+    packed store."""
+    cfg = model.cfg
+    store = "packed" if policy is not None else "fake"
+    a = run_engine(torch, f"bf16-{tag}-A", model, params, policy, tokens,
+                   store=store, impl="cuda", cache_dtype=torch.bfloat16,
+                   warm=True)
+    b = run_engine(torch, f"bf16-{tag}-B", model, params, policy, tokens,
+                   store="fake", impl="ref", cache_dtype=torch.bfloat16)
+    t = run_engine(torch, f"bf16-{tag}-twin", model, twin, policy, tokens,
+                   store=store, impl="cuda", cache_dtype=torch.float32,
+                   warm=True)
+    bt = run_engine(torch, f"bf16-{tag}-B-twin", model, twin, policy,
+                    tokens, store="fake", impl="ref",
+                    cache_dtype=torch.float32)
+    rec = _twin_checks(torch, tag, cfg.vocab, a, b, t, bt, problems,
+                       cfg.n_layers * (1 + N_NEW))
+    la = rec["launches"]
     gemm = la["quant_matmul"] + la["packed_matmul"]
     if (policy is None) != (gemm == 0):
         problems.append(f"bf16 {tag}: GEMM launches {la}")
     ra = a["rec"]
-    rec = dict(store=tag, prefill_logit_max_abs_diff=d_ab,
-               twin_prefill_logit_max_abs_diff=d_twin,
-               b_twin_prefill_logit_max_abs_diff=d_plain,
-               twin_factor=BF16_TWIN_FACTOR, gap_tol=BF16_GAP_TOL,
-               streams_equal=first is None, first_difference=first,
-               min_b_top2_gap=float(b["gaps"].min()),
-               prefill_s=ra["prefill_s"],
+    rec.update(store=tag, prefill_s=ra["prefill_s"],
                decode_tok_per_s=ra["decode_tok_per_s"],
                peak_mem_bytes=ra["peak_mem_bytes"],
                weight_hbm_bytes=ra["weight_hbm_bytes"],
                twin_weight_hbm_bytes=t["rec"]["weight_hbm_bytes"],
-               launches=la, twin_launches=lt,
                b_prefill_s=b["rec"]["prefill_s"],
                twin_prefill_s=t["rec"]["prefill_s"],
                twin_decode_tok_per_s=t["rec"]["decode_tok_per_s"])
@@ -5179,6 +5588,7 @@ def main(argv=None) -> int:
     moe = phase_moe(torch)
     ssm = phase_ssm(torch)
     frontends = phase_frontends(torch)
+    families = phase_bf16_families(torch, card)
     train = phase_train(torch, cfg, model, card, substrate)
     bf16_train = phase_bf16_train(torch, cfg, model, substrate, policy)
     shard = phase_shard(torch, cfg, model)
@@ -5201,7 +5611,12 @@ def main(argv=None) -> int:
            "audio_gate": frontends["audio"]["gate"]["launches_a"],
            "vision_prefill_decode":
                frontends["vision"]["check"]["launches_a"],
-           "vision_bf16": frontends["vision"]["bf16"]["launches"]}
+           "vision_bf16": frontends["vision"]["bf16"]["launches"],
+           **{f"bf16_{k.replace('-', '_')}_generate": r["launches"]
+              for k, r in {**families["ssm"]["generate"],
+                           **families["ssm"]["gate"]}.items()},
+           "bf16_audio_prefill_decode": families["audio"]["launches"],
+           "bf16_vision_prefill_decode": families["vision"]["launches"]}
     runs = {"run": run["runs"]["overlap"]["launches"],
             "run_bf16": store["bf16"]["launches"],
             "run_int8_store": store["int8"]["launches"],
@@ -5211,7 +5626,11 @@ def main(argv=None) -> int:
             "ssm_run": ssm["run"]["launches"],
             "ssm_gate_run": ssm["gate_run"]["launches"],
             "hybrid_run": ssm["hybrid_run"]["launches"],
-            "vision_paged_decode": frontends["vision"]["paged"]["launches"]}
+            "vision_paged_decode": frontends["vision"]["paged"]["launches"],
+            "bf16_ssm_gate_run": families["ssm"]["gate_run"]["launches"],
+            "bf16_hybrid_run": families["hybrid"]["launches"],
+            "bf16_vision_paged_decode":
+                families["vision"]["paged"]["launches"]}
     bf16_s = bf16_train["searches"]
     by_path = {"fake_quant": {
         "search": launches["fake_quant"],
@@ -5232,7 +5651,7 @@ def main(argv=None) -> int:
               "engine_b": rec_b, "checks": checks, "run": run,
               "cache_and_store": store, "bf16": bf16, "moe": moe,
               "ssm": ssm,
-              "frontends": frontends,
+              "frontends": frontends, "bf16_families": families,
               "search": search, "train": train, "bf16_train": bf16_train,
               "shard": shard,
               "kernels": kernels,

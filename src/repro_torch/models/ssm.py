@@ -222,15 +222,18 @@ def init_mamba_cache(batch: int, d_model: int, cfg: SSMCfg,
 def mamba_decode_step(params, x: torch.Tensor, cache, cfg: SSMCfg,
                       d_model: int):
     """Single-token decode.  x: (B, 1, d).  Returns (y (B, 1, d), the new
-    {"state", "conv"}); the window is promoted to fp32 with the new token,
-    as in the reference, so the new ``conv`` is fp32."""
+    {"state", "conv"}).  The window joins the cached one and the new token
+    in the type the two promote to, as the reference's ``jnp.concatenate``
+    does, and comes back in it: fp32 for an fp32 model or an fp32 cache,
+    bf16 for a bf16 model on a bf16 cache."""
     Bb = x.shape[0]
     di = cfg.d_inner(d_model)
     H, P = cfg.n_heads(d_model), cfg.head_dim
 
     xz = linear(x, params["w_xz"])
     xi, z = xz[..., :di], xz[..., di:]                       # (B, 1, di)
-    win = torch.cat([cache["conv"].to(xi.dtype), xi], dim=1)  # (B, K, di)
+    wdt = torch.promote_types(cache["conv"].dtype, xi.dtype)
+    win = torch.cat([cache["conv"].to(wdt), xi.to(wdt)], dim=1)  # (B, K, di)
     conv = (win * params["conv_w"][None]).sum(dim=1, keepdim=True) + \
         params["conv_b"]
     xi = F.silu(conv)

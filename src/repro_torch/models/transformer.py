@@ -369,15 +369,19 @@ class LM:
             return x + out, m.n_experts * torch.sum(frac * frac)
         return x + swiglu(h, bp, act_bits=act_bits), None
 
-    def _mamba_block(self, bp, x, *, mode, cache, act_bits=None):
+    def _mamba_block(self, bp, x, *, mode, cache, act_bits=None,
+                     widen_conv=None):
         """Mamba2 block + residual: the full forward (``cache`` None), a
         prefill that fills ``cache``, or one decode step (``mode``
         "decode") over it.  The cache's planes are written in place: the
         prefill's state and its conv window cast to the planes' dtypes,
-        as the reference casts them; decode's fp32 window into a conv
-        plane :meth:`_stack` has promoted to fp32, as the reference's
-        decode returns it.  Paged decode runs every lane of the batch;
-        idle lanes update state that nothing reads."""
+        as the reference casts them; decode's window in the type it comes
+        back in (``ssm.mamba_decode_step``), as the reference's decode
+        returns it: where that is wider than the conv plane (a bf16 plane
+        under fp32 activations), ``widen_conv(dtype)`` widens the stacked
+        plane first and gives this repeat's view of it.  Paged decode runs
+        every lane of the batch; idle lanes update state that nothing
+        reads."""
         cfg = self.cfg
         h = maybe_quant_act(rmsnorm(x, bp["norm"], cfg.norm_eps), act_bits)
         if mode == "decode":
@@ -387,19 +391,21 @@ class LM:
             out, new = ssm_mod.mamba_forward(bp["mamba"], h, cfg.ssm,
                                              cfg.d_model)
         if cache is not None:
+            if mode == "decode" and new["conv"].dtype != cache["conv"].dtype:
+                cache = widen_conv(new["conv"].dtype)
             cache["state"].copy_(new["state"])
             cache["conv"].copy_(new["conv"])
         return x + out
 
     def _apply_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                      write_pos=None, act_bits=None, attn_impl=None,
-                     block_tables=None, img_embeds=None):
+                     block_tables=None, img_embeds=None, widen_conv=None):
         """One block; returns (x, aux) (aux None without an MoE FFN).  A
         cross block reads its dense per-slot ``"memory"`` entry even under
         block tables, as the reference's."""
         if bdef.kind == "mamba":
             x = self._mamba_block(bp, x, mode=mode, cache=cache,
-                                  act_bits=act_bits)
+                                  act_bits=act_bits, widen_conv=widen_conv)
         elif bdef.kind == "cross_attn":
             x = self._cross_block(bp, x, q_pos=q_pos, mode=mode, cache=cache,
                                   img_embeds=img_embeds, act_bits=act_bits,
@@ -421,24 +427,28 @@ class LM:
         it, ``"dots"`` saves its matmul outputs.  Returns (x, aux): the
         sum of the MoE blocks' load-balance terms, 0.0 without any.
 
-        A decode step first promotes a mamba entry's conv plane to fp32
-        (once: the reference's decode returns the window in fp32 whatever
-        the cache dtype, so a bf16 plane holds only the prefill's rounded
-        window and every later entry stays fp32)."""
+        A decode step widens a mamba entry's conv plane where the window
+        comes back wider than it (once, in place of the entry's plane: the
+        reference's decode returns the window in the type the cached one
+        and the new token promote to, fp32 on an fp32 model or cache, so a
+        bf16 plane there holds only the prefill's rounded window and every
+        later entry stays fp32; a bf16 model's bf16 plane stays bf16)."""
         cfg = self.cfg
-        if cache is not None and kw.get("mode") == "decode":
-            for entry in cache:
-                if "conv" in entry and entry["conv"].dtype != torch.float32:
-                    entry["conv"] = entry["conv"].to(torch.float32)
+
+        def widen(entry, r, dtype):
+            entry["conv"] = entry["conv"].to(dtype)
+            return _repeat(entry, r)
 
         def one_repeat(x, r):
             aux = []
             for p_idx, bdef in enumerate(cfg.pattern):
                 ab = None if act_bits is None else float(act_bits[r][p_idx])
+                entry = None if cache is None else cache[p_idx]
                 x, a = self._apply_block(
                     _repeat(params["blocks"][p_idx], r), bdef, x,
-                    cache=None if cache is None else _repeat(cache[p_idx], r),
-                    act_bits=ab, **kw)
+                    cache=None if entry is None else _repeat(entry, r),
+                    act_bits=ab, widen_conv=functools.partial(widen, entry, r),
+                    **kw)
                 x = constrain(x, "hidden")
                 if a is not None:
                     aux.append(a)

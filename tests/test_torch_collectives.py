@@ -9,7 +9,8 @@ reference, on the CPU, across processes.
   config equals the composition of the reference's pieces at
   ``GRAD_TOL``: per-rank ``jax.value_and_grad(LM.loss)`` on its half
   batch, ``compressed_allreduce`` under ``shard_map`` on 2 host devices,
-  then ``AdamW.update``.  The reference's own ``shard_map`` train step is
+  then ``AdamW.update``; each piece is held where it is well conditioned
+  (the test's docstring).  The reference's own ``shard_map`` train step is
   not used: on jax 0.9 its 8-device launch path fails to compile
   (``tests/test_dryrun_path.py``).
 * The grouped ``moe_ffn(local_dispatch=True)`` at G = 2 (a (2, 1)
@@ -173,7 +174,11 @@ new_p, new_s, om = opt.update(params, g, state)
 np.savez(os.path.join(root, "jax_step.npz"), loss=np.asarray(loss),
          grad_norm=np.asarray(om["grad_norm"]),
          **{f"p{i}": np.asarray(x) for i, x in
-            enumerate(jax.tree.leaves(new_p))})
+            enumerate(jax.tree.leaves(new_p))},
+         **{f"g{i}": np.asarray(x) for i, x in
+            enumerate(jax.tree.leaves(g))},
+         **{f"r{r}_{i}": np.asarray(x) for r in range(2) for i, x in
+            enumerate(jax.tree.leaves(grads[r]))})
 np.savez(os.path.join(root, "params0.npz"),
          **{f"p{i}": np.asarray(x) for i, x in
             enumerate(jax.tree.leaves(params))})
@@ -205,7 +210,9 @@ def worker(rank, root):
     from repro_torch.launch.steps import make_train_step, moe_local_rules
     from repro_torch.models import LM, layers
     from repro_torch.optim import AdamW
+    from repro_torch.sharding.collectives import compressed_allreduce
     from repro_torch.sharding.ctx import sharding_rules
+    from repro_torch.train.loop import value_and_grad
     dist.init_process_group("gloo", store=dist.FileStore(
         os.path.join(root, "store2"), 2), rank=rank, world_size=2)
     model = LM(CFG)
@@ -218,6 +225,22 @@ def worker(rank, root):
     batch = {"tokens": torch.from_numpy(TOKENS[2 * rank:2 * rank + 2]),
              "labels": torch.from_numpy(LABELS[2 * rank:2 * rank + 2])}
     new_p, _, m = step(params, opt.init(params), batch)
+    # the step's pieces: this rank's gradient and the exchanged mean;
+    # the exchange of the reference's per-rank gradients; AdamW on the
+    # reference's exchanged gradient
+    _, grads = value_and_grad(lambda p: model.loss(p, batch, remat=True),
+                              params)
+    g = compressed_allreduce({"g": grads})["g"]
+    js = np.load(os.path.join(root, "jax_step.npz"))
+    n = len(p0.files)
+    np.savez(os.path.join(root, f"torch_grads{rank}.npz"),
+             **{f"g{i}": t.detach().numpy()
+                for i, t in enumerate(tree_leaves(grads))})
+    xg = compressed_allreduce({"g": tree_unflatten(like, [
+        torch.from_numpy(js[f"r{rank}_{i}"]) for i in range(n)])})["g"]
+    jg = tree_unflatten(like, [torch.from_numpy(js[f"g{i}"])
+                               for i in range(n)])
+    b_p, _, _ = opt.update(params, jg, opt.init(params), lr=1e-3)
 
     # grouped MoE on a (2, 1) mesh: x sharded over data
     jm = np.load(os.path.join(root, "jax_moe.npz"))
@@ -233,7 +256,13 @@ def worker(rank, root):
         np.savez(os.path.join(root, "torch_step.npz"), loss=m["loss"].numpy(),
                  grad_norm=m["grad_norm"].numpy(),
                  **{f"p{i}": t.detach().numpy()
-                    for i, t in enumerate(tree_leaves(new_p))})
+                    for i, t in enumerate(tree_leaves(new_p))},
+                 **{f"g{i}": t.detach().numpy()
+                    for i, t in enumerate(tree_leaves(g))},
+                 **{f"b{i}": t.detach().numpy()
+                    for i, t in enumerate(tree_leaves(b_p))},
+                 **{f"x{i}": t.detach().numpy()
+                    for i, t in enumerate(tree_leaves(xg))})
         np.savez(os.path.join(root, "torch_moe.npz"), out=out.numpy(),
                  probs=probs.numpy())
     dist.barrier()
@@ -254,14 +283,100 @@ def pair(tmp_path_factory):
     return root
 
 
+def _codes(x):
+    """The exchange's int8 codes of one rank's leaf (``_q8``), and x / scale
+    before rounding."""
+    x = x.astype(np.float32)
+    amax = np.abs(x).max(-1, keepdims=True)
+    u = x / np.where(amax > 0, amax / np.float32(127), np.float32(1))
+    return np.clip(np.round(u), -127, 127), u
+
+
 def test_compressed_train_step_2_ranks_matches_reference(pair):
+    """The step is a composition of maps, two of them ill-conditioned at
+    isolated elements, so each piece is held where it is well conditioned:
+
+    (a) The exchanged mean gradient.  Each rank's local gradient and the
+        port's exchange of the reference's per-rank gradients match at
+        ``GRAD_TOL`` everywhere.  The port's own exchanged gradient matches
+        at ``GRAD_TOL`` wherever every rank's int8 code equals the
+        reference's.  A code can differ only at a rounding tie: ``round``
+        jumps by one code (amax / 127, halved by the mean of 2 ranks) when
+        fp32 noise moves x / scale across k + 0.5 (e.g. 0.49999958 in the
+        reference and 0.50000167 in the port).  Each such element must lie
+        within 1e-3 codes of a tie on both sides, differ by exactly one
+        code, and differ in the mean by at most that code step; there are
+        fewer than 0.1 % of each leaf.
+    (b) ``AdamW.update`` on the reference's exchanged gradient matches the
+        reference's new parameters at ``GRAD_TOL`` everywhere.
+    (c) The end-to-end new parameters match at ``GRAD_TOL`` wherever the
+        gradient difference that (a) measured, carried through the first
+        AdamW step's derivative ``lr c eps / (c |g| + eps)^2`` (c the clip
+        factor), stays within ``GRAD_TOL``'s allowance on the parameter.
+        Where the exchanged gradient is near ``eps`` that derivative is
+        ~1e4: in one run leaf ``p11`` (``blocks[1].wd``) ``[0, 125, 19]``
+        had g ~ 7e-9, so a gradient difference of ~8e-10 (fp32 noise, far
+        inside GRAD_TOL) moved the parameter by 2.74e-5, against an
+        allowance of ~1.6e-5, on one machine and not on another.  The
+        elements left out are counted and must be under 0.1 % of each
+        leaf.  GRAD_TOL's own allowance on g (atol 1e-5) carried through
+        the same derivative would leave out most of the tied embedding,
+        whose gradients are ~1e-6: it is far above the gradient's fp32
+        noise, so the carried allowance is the difference (a) measured.
+    """
     j, t = np.load(pair / "jax_step.npz"), np.load(pair / "torch_step.npz")
+    ranks = [np.load(pair / f"torch_grads{r}.npz") for r in range(2)]
     np.testing.assert_allclose(t["loss"], j["loss"], **GRAD_TOL)
     np.testing.assert_allclose(t["grad_norm"], j["grad_norm"], **GRAD_TOL)
-    leaves = [k for k in j.files if k.startswith("p")]
-    assert len(leaves) == len([k for k in t.files if k.startswith("p")])
-    for k in leaves:
-        np.testing.assert_allclose(t[k], j[k], err_msg=k, **GRAD_TOL)
+    n = len([k for k in j.files if k.startswith("p")])
+    assert n == len([k for k in t.files if k.startswith("p")])
+    lr, eps = 1e-3, 1e-8
+    rtol, atol = GRAD_TOL["rtol"], GRAD_TOL["atol"]
+    clip = min(1.0, 1.0 / (float(j["grad_norm"]) + 1e-9))
+    ties, left_out = {}, {}
+    for i in range(n):
+        gj, pj = j[f"g{i}"], j[f"p{i}"]
+        gt = t[f"g{i}"]
+        # (a)
+        for r in range(2):
+            np.testing.assert_allclose(ranks[r][f"g{i}"], j[f"r{r}_{i}"],
+                                       err_msg=f"rank {r} g{i}", **GRAD_TOL)
+        np.testing.assert_allclose(t[f"x{i}"], gj, err_msg=f"x{i}",
+                                   **GRAD_TOL)
+        if gj.ndim == 0 or gj.size < 256:        # exchanged uncompressed
+            tied = np.zeros(gj.shape, bool)
+        else:
+            tied, step = np.zeros(gj.shape, bool), np.zeros(gj.shape)
+            for r in range(2):
+                qj, uj = _codes(j[f"r{r}_{i}"])
+                qt, ut = _codes(ranks[r][f"g{i}"])
+                f = qj != qt
+                assert np.all(np.abs(qj - qt)[f] == 1), f"g{i} rank {r}"
+                for u in (uj, ut):
+                    assert np.all(np.abs(u - np.floor(u) - 0.5)[f] < 1e-3), \
+                        f"g{i} rank {r}: a code differs away from a tie"
+                amax = np.abs(j[f"r{r}_{i}"]).max(-1, keepdims=True)
+                step = step + np.where(f, amax / 127 / 2, 0.0)
+                tied |= f
+            assert tied.sum() < 1e-3 * gj.size, f"g{i}: {tied.sum()} ties"
+            assert np.all(np.abs(gt - gj)[tied] <= (
+                atol + rtol * np.abs(gj) + 1.001 * step)[tied]), f"g{i}"
+        ties[f"g{i}"] = int(tied.sum())
+        np.testing.assert_allclose(gt[~tied], gj[~tied], err_msg=f"g{i}",
+                                   **GRAD_TOL)
+        # (b)
+        np.testing.assert_allclose(t[f"b{i}"], pj, err_msg=f"b{i}",
+                                   **GRAD_TOL)
+        # (c)
+        dg = np.abs(gt.astype(np.float64) - gj)
+        gain = lr * clip * eps / (clip * np.abs(gj).astype(np.float64)
+                                  + eps) ** 2
+        held = dg * gain <= atol + rtol * np.abs(pj)
+        left_out[f"p{i}"] = int((~held).sum())
+        assert left_out[f"p{i}"] < 1e-3 * pj.size, (f"p{i}", left_out)
+        np.testing.assert_allclose(t[f"p{i}"][held], pj[held],
+                                   err_msg=f"p{i}", **GRAD_TOL)
+    print("int8 ties", ties, "ill-conditioned parameters left out", left_out)
 
 
 def test_grouped_moe_local_dispatch_matches_reference(pair):
