@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.kernels.pack import PackedWeight
 from repro_torch.quant.linear_quant import FULL_BITS, fake_quant_per_token
 from repro_torch.sharding import ctx
@@ -476,8 +477,9 @@ def swiglu(x, p, act_bits=None):
 
 
 # ----------------------------------------------------------------------- MoE
-# profiler ranges of the MoE dispatch and gather (plain PyTorch kernels)
-MOE_DISPATCH, MOE_GATHER = "moe_dispatch", "moe_gather"
+# spans (``repro_torch.spans``) of the MoE FFN, and of its dispatch and
+# gather (plain PyTorch kernels) inside it
+MOE, MOE_DISPATCH, MOE_GATHER = "moe", "moe_dispatch", "moe_gather"
 
 
 def _n_phys(w) -> int:
@@ -578,9 +580,14 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits,
     indices are gathered to every rank (``full_tensor``: DTensor has no
     strategy for the sort-based positions) and the index math runs
     replicated.
-    The dispatch (router softmax to the filled buffer) and the gather run
-    inside the profiler ranges ``MOE_DISPATCH`` and ``MOE_GATHER``, which
-    a profile reads to split their device time from the rest."""
+    Spans (``repro_torch.spans``, recorded while a profiler runs): ``moe``
+    from the router to the end of the gather, with the counts ``pairs``
+    (T x K, the routed pairs) and ``rows`` (E_phys x groups x C, the
+    dispatch buffer's rows that the expert GEMMs compute), which opens no
+    ``record_function`` (no reader uses its range); inside it
+    ``moe_dispatch`` (router softmax to the filled buffer) and
+    ``moe_gather``, which a profile reads to split their device time from
+    the rest."""
     orig_shape = x.shape
     d = x.shape[-1]
     xt = x.reshape(-1, d)
@@ -590,48 +597,53 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits,
     C = moe_capacity(T // groups, E, K, capacity_factor)
     dev = x.device
 
-    logits = at_least_f32(linear(xt, p["router"], role=None))
-    with torch.profiler.record_function(MOE_DISPATCH):
-        probs = torch.softmax(logits, dim=-1)                  # (T, E)
-        gate_v, gate_i = moe_route(probs, K)                   # (T, K)
+    with spans.span(MOE, annotate=False, pairs=T * K,
+                    rows=E_phys * groups * C):
+        logits = at_least_f32(linear(xt, p["router"], role=None))
+        with spans.span(MOE_DISPATCH):
+            probs = torch.softmax(logits, dim=-1)              # (T, E)
+            gate_v, gate_i = moe_route(probs, K)               # (T, K)
 
-        eidx = gate_i.reshape(-1)                              # (T*K,)
-        if ctx.is_dtensor(eidx):
-            eidx = eidx.full_tensor()
-        if groups > 1:                        # (group, expert) of each pair
-            eidx = eidx + torch.arange(T * K, device=dev) // (
-                T // groups * K) * E_phys
-        pos = _position_in_expert(eidx, groups * E_phys)
-        keep = pos < C
-        trash = groups * E_phys * C             # the zero row / dropped cell
-        cell = torch.where(keep, eidx * C + pos, torch.full_like(pos, trash))
+            eidx = gate_i.reshape(-1)                          # (T*K,)
+            if ctx.is_dtensor(eidx):
+                eidx = eidx.full_tensor()
+            if groups > 1:                    # (group, expert) of each pair
+                eidx = eidx + torch.arange(T * K, device=dev) // (
+                    T // groups * K) * E_phys
+            pos = _position_in_expert(eidx, groups * E_phys)
+            keep = pos < C
+            trash = groups * E_phys * C         # the zero row / dropped cell
+            cell = torch.where(keep, eidx * C + pos,
+                               torch.full_like(pos, trash))
 
-        xq = maybe_quant_act(xt, act_bits)
-        xpad = torch.cat([xq, xq.new_zeros((1, d))])           # row T: zeros
-        src = torch.full((trash + 1,), T, dtype=torch.int64, device=dev)
-        tok = torch.arange(T * K, device=dev) // K             # pair -> token
-        src.index_copy_(0, cell, tok)    # kept cells are written once each
-        buf = gather_rows(xpad, src[:trash])
-        if groups > 1:
-            buf = buf.reshape(groups, E_phys, C, d).transpose(0, 1)
-        # the buffer's gradient comes back sharded over (expert, row)
-        # from the expert GEMMs; gathered on both dims it flattens back
-        # on every torch release (some refuse a sharded dim 1)
-        buf = ctx.unshard(buf.reshape(E_phys, groups * C, d), [0, 1],
-                          force=True)
+            xq = maybe_quant_act(xt, act_bits)
+            xpad = torch.cat([xq, xq.new_zeros((1, d))])       # row T: zeros
+            src = torch.full((trash + 1,), T, dtype=torch.int64, device=dev)
+            tok = torch.arange(T * K, device=dev) // K         # pair -> token
+            src.index_copy_(0, cell, tok)  # kept cells are written once each
+            buf = gather_rows(xpad, src[:trash])
+            if groups > 1:
+                buf = buf.reshape(groups, E_phys, C, d).transpose(0, 1)
+            # the buffer's gradient comes back sharded over (expert, row)
+            # from the expert GEMMs; gathered on both dims it flattens back
+            # on every torch release (some refuse a sharded dim 1)
+            buf = ctx.unshard(buf.reshape(E_phys, groups * C, d), [0, 1],
+                              force=True)
 
-    h = F.silu(expert_linear(buf, p["wg"])) * expert_linear(buf, p["wu"])
-    out_buf = expert_linear(h, p["wd"])                  # (E_phys, G * C, d)
+        h = F.silu(expert_linear(buf, p["wg"])) * expert_linear(buf, p["wu"])
+        out_buf = expert_linear(h, p["wd"])              # (E_phys, G * C, d)
 
-    with torch.profiler.record_function(MOE_GATHER):
-        if groups > 1:
-            out_buf = out_buf.reshape(E_phys, groups, C, d).transpose(0, 1)
-        out_buf = ctx.unshard_uneven(out_buf)     # E_phys % shards, say
-        opad = torch.cat([out_buf.reshape(trash, d),
-                          out_buf.new_zeros((1, d))])
-        gathered = gather_rows(opad, cell)                     # (T*K, d)
-        weighted = gathered * gate_v.reshape(-1)[:, None].to(gathered.dtype)
-        out = weighted.reshape(T, K, d).sum(dim=1)
+        with spans.span(MOE_GATHER):
+            if groups > 1:
+                out_buf = out_buf.reshape(E_phys, groups, C,
+                                          d).transpose(0, 1)
+            out_buf = ctx.unshard_uneven(out_buf)     # E_phys % shards, say
+            opad = torch.cat([out_buf.reshape(trash, d),
+                              out_buf.new_zeros((1, d))])
+            gathered = gather_rows(opad, cell)                 # (T*K, d)
+            weighted = gathered * gate_v.reshape(-1)[:, None].to(
+                gathered.dtype)
+            out = weighted.reshape(T, K, d).sum(dim=1)
     return out.reshape(orig_shape), probs
 
 

@@ -10,9 +10,9 @@ B/C group, conv on x only, as in the reference.
 The projections go through :func:`layers.linear`: a PackedWeight reaches
 K2 / K3 and an int8-store leaf K2, a dense weight is a plain matmul.
 The reference runs no Pallas kernel here, and the port none of its own:
-the chunk scan runs in plain PyTorch inside the profiler range
-``SSD_SCAN``, which a profile reads to split its device time from the
-rest.
+the chunk scan runs in plain PyTorch inside the span ``SSD_SCAN``
+(``repro_torch.spans``, recorded while a profiler runs), which a profile
+reads to split its device time from the rest.
 
 Shapes: B batch, S seq, H heads, P head_dim, N d_state, Q chunk.
 """
@@ -24,12 +24,13 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models.api import SSMCfg
 from repro_torch.models.layers import (_contiguous_stride, at_least_f32,
                                        linear, rmsnorm, split_heads)
 from repro_torch.sharding import ctx
 
-# profiler range of the SSD chunk scan (plain PyTorch kernels)
+# span of the SSD chunk scan (plain PyTorch kernels)
 SSD_SCAN = "ssd_chunk_scan"
 
 
@@ -195,7 +196,7 @@ def mamba_forward(params, x: torch.Tensor, cfg: SSMCfg, d_model: int):
     A = -torch.exp(at_least_f32(params["A_log"]))
 
     xh = split_heads(at_least_f32(xi), H, P)
-    with torch.profiler.record_function(SSD_SCAN):
+    with spans.span(SSD_SCAN):
         y, state = _ssd_scan(xh, Bm, Cm, dt, A, cfg.chunk)
     y = y + at_least_f32(params["D"])[:, None] * xh
     y = y.reshape(Bb, S, di).to(x.dtype)

@@ -36,6 +36,20 @@ step reads its (R, k + 1) candidate tokens back at once.  A step with a
 chunk or a speculating lane runs at width ``max(chunk, k + 1)``, a pure
 decode step at width 1: still two ``model_step`` shapes.  A verify step
 makes two host syncs: the draft's proposal stack and the verify tokens.
+
+Spans (``repro_torch.spans``, recorded while a profiler runs): each step
+is a ``step`` span with the counts ``rows`` (R x w, the rows the model
+call computes) and ``real_rows`` (the plan's prompt-chunk tokens, decode
+lanes and speculative verify columns).  Its children: ``step.plan`` (admission, ``plan_step``, the page scrub),
+``step.upload``, ``step.launch`` (the ``_model_step`` call: the host's
+enqueue of the model's kernels), ``step.sample`` (sampling and the
+bookkeeping of ``_finish_plain`` / ``_finish_spec``), ``step.wait`` (the
+wait for a step's token vector) and ``step.emit`` (the stream callbacks).
+A speculative step's ``step.wait`` and ``step.emit`` sit inside its
+``step.sample``; a retirement outside any step (idle, loop exit) records
+``step.wait`` and ``step.emit`` with no parent.  ``step`` and
+``step.launch`` enclose a model call, so they open no ``record_function``
+(``spans``' docstring says why).
 """
 from __future__ import annotations
 
@@ -44,7 +58,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import backend
+from repro_torch import backend, spans
 from repro_torch.serve import paged_kv
 from repro_torch.serve.frontend import FrontEnd
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -119,45 +133,57 @@ class StepLoop:
             self._retire()
 
     def step(self, now: float) -> None:
-        """One engine step: admit, plan, dispatch, sample, account."""
+        """One engine step: admit, plan, dispatch, sample, account, inside
+        the span ``step`` and its children (module docstring)."""
+        with spans.span("step", annotate=False) as counts:
+            self._step(now, counts)
+
+    def _step(self, now: float, counts) -> None:
         eng, sched, stats, spec = self.eng, self.sched, self.stats, self.spec
         k = spec["k"] if spec else 0
         W = max(self.chunk, k + 1) if spec else self.chunk
-        if self.reclaim is not None:
-            stats.reclaimed_pages += len(
-                sched.reclaim_out_of_window(self.reclaim))
-        # ---- admission: a request joins when its first chunk fits
-        fresh = []
-        while (adm := sched.try_admit_chunked(self.chunk)) is not None:
-            req, slot, pages = adm
-            fresh += pages
-            self._admit(req, slot, now)
-        if not sched.running_slots():
-            raise paged_kv.PagesExhausted(
-                "queued request cannot ever be admitted: pool of "
-                f"{self.num_pages} pages (page_size={self.page_size}) is "
-                "too small for its first chunk + decode headroom")
-        t0 = self.fe.now()
-        plan = sched.plan_step(self.chunk, self.budget, draft_k=k)
-        stats.requeues += len(plan["requeued"])
-        # a request admitted above may have been preempted inside this very
-        # plan_step: its admission pages are back on the free list, so drop
-        # the stale aliases from the scrub set
-        drop = set(plan["freed"])
-        fresh = [p for p in fresh if p not in drop]
-        # scrub unconditionally: admission pages must be sentinel-clean
-        # before any later step writes chunks into them.  The draft cache
-        # shares the block tables, so it scrubs the same pages.
-        paged_kv.scrub_pages(self.cache, self.kinds, fresh + plan["fresh"])
-        if spec:
-            paged_kv.scrub_pages(spec["cache"], self.kinds,
+        with spans.span("step.plan"):
+            if self.reclaim is not None:
+                stats.reclaimed_pages += len(
+                    sched.reclaim_out_of_window(self.reclaim))
+            # ---- admission: a request joins when its first chunk fits
+            fresh = []
+            while (adm := sched.try_admit_chunked(self.chunk)) is not None:
+                req, slot, pages = adm
+                fresh += pages
+                self._admit(req, slot, now)
+            if not sched.running_slots():
+                raise paged_kv.PagesExhausted(
+                    "queued request cannot ever be admitted: pool of "
+                    f"{self.num_pages} pages (page_size={self.page_size}) "
+                    "is too small for its first chunk + decode headroom")
+            t0 = self.fe.now()
+            plan = sched.plan_step(self.chunk, self.budget, draft_k=k)
+            stats.requeues += len(plan["requeued"])
+            # a request admitted above may have been preempted inside this
+            # very plan_step: its admission pages are back on the free
+            # list, so drop the stale aliases from the scrub set
+            drop = set(plan["freed"])
+            fresh = [p for p in fresh if p not in drop]
+            # scrub unconditionally: admission pages must be sentinel-clean
+            # before any later step writes chunks into them.  The draft
+            # cache shares the block tables, so it scrubs the same pages.
+            paged_kv.scrub_pages(self.cache, self.kinds,
                                  fresh + plan["fresh"])
+            if spec:
+                paged_kv.scrub_pages(spec["cache"], self.kinds,
+                                     fresh + plan["fresh"])
         if not plan["sample"] and not plan["chunked"]:
             return                  # every planned slot was preempted
         # pure-decode steps run the (R, 1) column slice: two shapes per run
         spec_lanes = {i: c for i, c in plan["spec"].items() if c > 1}
         w = W if (plan["chunked"] or spec_lanes) else 1
         tokens = plan["tokens"]
+        if counts is not None:
+            counts.update(
+                rows=tokens.shape[0] * w,
+                real_rows=sum(plan["chunked"].values()) + sum(
+                    plan["spec"].get(i, 1) for i in plan["decode"]))
         if spec and (plan["chunked"] or plan["spec"]):
             # the draft pass fills each speculating lane's verify columns
             drafts = eng._draft_propose(spec, plan, sched, spec_lanes,
@@ -165,31 +191,38 @@ class StepLoop:
             for i, cols in spec_lanes.items():
                 tokens[i, 1:cols] = drafts[i][:cols - 1]
         dev = self.device
-        tok_in = backend.upload(tokens[:, :w].astype(np.int64), dev)
-        if spec is None and plan["decode"]:
-            # decode feedback stays exact: the host holds PENDING, the
-            # device value is authoritative (spec mode records values)
-            rows_d = backend.upload(np.asarray(plan["decode"], np.int64),
-                                    dev)
-            tok_in[rows_d, 0] = self._last_tok[rows_d]
-        logits, self.cache = eng._model_step(
-            eng.params, tok_in, backend.upload(plan["positions"][:, :w], dev),
-            backend.upload(plan["slot_map"], dev), self.cache,
-            backend.upload(sched.tables.as_array(), dev),
-            backend.upload(plan["logit_cols"], dev), eng.act_bits,
-            attn_impl=eng.attn_impl)
+        with spans.span("step.upload"):
+            tok_in = backend.upload(tokens[:, :w].astype(np.int64), dev)
+            if spec is None and plan["decode"]:
+                # decode feedback stays exact: the host holds PENDING, the
+                # device value is authoritative (spec mode records values)
+                rows_d = backend.upload(np.asarray(plan["decode"], np.int64),
+                                        dev)
+                tok_in[rows_d, 0] = self._last_tok[rows_d]
+            pos = backend.upload(plan["positions"][:, :w], dev)
+            slot_map = backend.upload(plan["slot_map"], dev)
+            tables = backend.upload(sched.tables.as_array(), dev)
+            logit_cols = backend.upload(plan["logit_cols"], dev)
+        with spans.span("step.launch", annotate=False):
+            logits, self.cache = eng._model_step(
+                eng.params, tok_in, pos, slot_map, self.cache, tables,
+                logit_cols, eng.act_bits, attn_impl=eng.attn_impl)
         stats.chunk_prefill_tokens += sum(plan["chunked"].values())
-        # a sampled lane draws its verify columns (decode lanes) or its one
-        # token (a chunk that ends its prompt)
-        toks, states = eng._sample_span(
-            logits, {i: (self._gens[i], float(self._temps[i]),
-                         plan["spec"].get(i, 1))
-                     for i in plan["sample"] if self._temps[i] > 0})
-        if spec:
-            emitted_step = self._finish_spec(plan, spec_lanes, tokens, toks,
-                                             states)
-        else:
-            emitted_step = self._finish_plain(plan, toks[:, 0])
+        retire = None
+        with spans.span("step.sample"):
+            # a sampled lane draws its verify columns (decode lanes) or its
+            # one token (a chunk that ends its prompt)
+            toks, states = eng._sample_span(
+                logits, {i: (self._gens[i], float(self._temps[i]),
+                             plan["spec"].get(i, 1))
+                         for i in plan["sample"] if self._temps[i] > 0})
+            if spec:
+                emitted_step = self._finish_spec(plan, spec_lanes, tokens,
+                                                 toks, states)
+            else:
+                emitted_step, retire = self._finish_plain(plan, toks[:, 0])
+        if retire is not None:
+            self._retire_record(retire)
         dt = self.fe.now() - t0
         # chunk-carrying steps are prefill-side: their time and their
         # sampled tokens leave the decode rate
@@ -215,10 +248,11 @@ class StepLoop:
         if req.temperature > 0:
             self._gens[slot] = backend.make_generator(req.seed, self.device)
 
-    def _finish_plain(self, plan, toks) -> int:
-        """Value-free advance: record PENDING placeholders, start the token
-        vector's copy to the host, retire the previous step's (pipelined)
-        or this one's (synchronous)."""
+    def _finish_plain(self, plan, toks):
+        """Value-free advance: record PENDING placeholders and start the
+        token vector's copy to the host.  Returns (tokens emitted, the
+        record to retire now): the previous step's (pipelined, None on the
+        first step) or this one's (synchronous)."""
         sched, stats = self.sched, self.stats
         rows = []
         for i in plan["sample"]:
@@ -238,12 +272,8 @@ class StepLoop:
         self._last_tok = toks
         pending = (self._to_host(toks), rows)
         if self.overlap:
-            prev, self._inflight = self._inflight, pending
-            if prev is not None:
-                self._retire_record(prev)
-        else:
-            self._retire_record(pending)
-        return len(rows)
+            pending, self._inflight = self._inflight, pending
+        return len(rows), pending
 
     def _finish_spec(self, plan, spec_lanes, tokens, toks, states) -> int:
         """Synchronous accept / rollback of a speculative step: walk each
@@ -251,10 +281,14 @@ class StepLoop:
         agreement prefix plus the corrected token.  Every emitted token
         comes from the logits row and the generator state plain decode
         would use (a sampled lane rewinds to its emitted count), so
-        acceptance changes speed, never output."""
+        acceptance changes speed, never output.  The read of the tokens is
+        the span ``step.wait``, and the stream callbacks, fired in token
+        order once every lane is walked, ``step.emit``."""
         sched, stats, spec = self.sched, self.stats, self.spec
-        vals = toks.cpu().numpy()             # (R, C): one transfer
+        with spans.span("step.wait"):
+            vals = toks.cpu().numpy()         # (R, C): one transfer
         now = self.fe.now()
+        emits = []                            # (rid, idx, tok, first, done)
         emitted_step = 0
         for i in plan["sample"]:
             s = sched.slot(i)
@@ -267,7 +301,7 @@ class StepLoop:
                 emitted_step += 1
                 stats.ttft_steps[rid] = stats.steps + 1
                 done = sched.record_first(i, tok)
-                self._emit(rid, len(out) - 1, tok, now, True, done)
+                emits.append((rid, len(out) - 1, tok, True, done))
                 continue
             cols = plan["spec"].get(i, 1)
             emitted = []
@@ -285,7 +319,7 @@ class StepLoop:
                 out.append(tok)
                 stats.tokens_out += 1
                 done = sched.record(i, tok)
-                self._emit(rid, len(out) - 1, tok, now, False, done)
+                emits.append((rid, len(out) - 1, tok, False, done))
             emitted_step += len(emitted)
             if done:
                 spec["frontier"].pop(i, None)  # slot may be re-admitted
@@ -298,6 +332,9 @@ class StepLoop:
                 f[i] = min(f.get(i, s.pos), s.pos)
         if spec_lanes:
             stats.spec_steps += 1
+        with spans.span("step.emit"):
+            for rid, idx, tok, first, done in emits:
+                self._emit(rid, idx, tok, now, first, done)
         return emitted_step
 
     def _to_host(self, toks: torch.Tensor):
@@ -324,14 +361,16 @@ class StepLoop:
         step -- and make its tokens host-visible: backfill PENDING output
         slots, fire stream callbacks, stamp latency."""
         (host, done), rows = pending
-        if done is not None:
-            done.synchronize()
+        with spans.span("step.wait"):
+            if done is not None:
+                done.synchronize()
         vals = host.numpy()
         now = self.fe.now()
-        for slot, rid, idx, first, fin in rows:
-            tok = int(vals[slot])
-            self.outputs[rid][idx] = tok
-            self._emit(rid, idx, tok, now, first, fin)
+        with spans.span("step.emit"):
+            for slot, rid, idx, first, fin in rows:
+                tok = int(vals[slot])
+                self.outputs[rid][idx] = tok
+                self._emit(rid, idx, tok, now, first, fin)
 
     def _emit(self, rid: int, idx: int, tok: int, now: float, first: bool,
               done: bool) -> None:
