@@ -48,7 +48,10 @@ run exits non-zero:
               decode and K4 chunk and decode at D 64, G 3; the
               expert-batched K2 / K3 (granite's wg and wd over 40 experts
               at C = 1024, 2 and 4 rows, one launch for all experts, the
-              library call torch.bmm on the dequantized stack) and K2 on
+              library call torch.bmm on the dequantized stack), the
+              grouped K2 / K3 over the routed pairs (the same sites at
+              P = 32768 pairs, uniform and skewed, fp32 and bf16 x, bit
+              for bit against the capacity launch, timed beside it) and K2 on
               the uniform int8 store's gemma2-2b wq; musicgen-large's K1
               prefill and decode at D 64, G 1, and llama-3.2-vision's
               cross-attention K1 rows, non-causal over the 1600-token
@@ -151,7 +154,10 @@ run exits non-zero:
               launch per bucket of each site (exact counts), and the pair
               again with activation quantization off at a tight limit;
               run() on 8 requests at capacity factor 1.25 (0 host syncs)
-              and at 0 (each stream against its generate, gap rule); one
+              and at 0 (each stream against its generate, gap rule); at
+              both, generate through the grouped and the capacity expert
+              dispatch, bit for bit, and one grouped MoE call under the
+              sync debug mode "error"; one
               profiled generate (device ms by kernel group, busy share)
               and one with the host traced too (device ms inside the MoE
               dispatch and gather profiler ranges); the peak memory.
@@ -1270,7 +1276,8 @@ def phase_kernels(torch, timer):
     rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap) \
         + flash_rows(torch, timer) + gemm_rows(torch, timer, GEMM_SHAPES)
     return rows + expert_gemm_rows(torch, timer) + \
-        bf16_gemm_rows(torch, timer) + bf16_search_kernel_rows(torch, timer)
+        grouped_gemm_rows(torch, timer) + bf16_gemm_rows(torch, timer) + \
+        bf16_search_kernel_rows(torch, timer)
 
 
 # (label, M, K, N) of K2's and K3's rows in phase kernels
@@ -1426,6 +1433,121 @@ def expert_gemm_rows(torch, timer):
     cases += [(8, "int8_store_wq_prefill", None, B * PROMPT, 2304, 2048),
               (8, "int8_store_wq_decode", None, B, 2304, 2048)]
     rows = [_gemm_row(torch, timer, g, n_sm, *c) for c in cases]
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the grouped K2 / K3 rows: granite-moe's dropless MoE at one 4096-token
+# serve step, T x K = 4096 x 8 routed pairs over 40 experts (at most T an
+# expert)
+GROUPED_T, GROUPED_P = 4096, 4096 * 8
+
+
+def grouped_counts(skewed: bool):
+    """Rows of each of the 40 experts, summing to GROUPED_P: uniform (819
+    or 820), or skewed: expert 0 all GROUPED_T tokens, expert 1 none, the
+    other 38 a ramp from 100 up (ragged, every count at most GROUPED_T)."""
+    if not skewed:
+        return [GROUPED_P // MOE_E + (e < GROUPED_P % MOE_E)
+                for e in range(MOE_E)]
+    ramp = [int(v) for v in np.rint(np.linspace(100, 1409, MOE_E - 2))]
+    ramp[-1] += GROUPED_P - GROUPED_T - sum(ramp)
+    return [GROUPED_T, 0] + ramp
+
+
+def grouped_gemm_rows(torch, timer):
+    """K2 and K3 grouped over the routed pairs (quant_matmul_grouped,
+    packed_matmul_grouped): granite-moe's wg (1536 x 512) and wd (512 x
+    1536) over 40 experts at P = 32768 pairs, uniform and skewed counts
+    (grouped_counts), fp32 and bf16 x, int8, int4 and int2.  Each row: the
+    grouped launch's output on every group's rows equal bit for bit to the
+    capacity launch's (the same pairs in an (E, 4096, K) buffer, C = T as
+    dropless routing gives, one launch for all experts), within the plain
+    version's tolerance, the same bits twice, one device launch a call;
+    timed beside the capacity launch (its ms and device ms as
+    ``capacity_*``).  The bound counts the pairs' 2 P K N operations
+    (TF32 peak; bf16's for a bf16 x), x and y once and the stored weight
+    once."""
+    from repro_torch.kernels import ops, pack
+    from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows = []
+    for skewed in (False, True):
+        counts = grouped_counts(skewed)
+        off = np.concatenate([[0], np.cumsum(counts)])
+        offsets = torch.tensor(off, dtype=torch.int32, device="cuda")
+        pair = torch.cat([e * GROUPED_T + torch.arange(n, device="cuda")
+                          for e, n in enumerate(counts)])
+        for x_dtype in (torch.float32, torch.bfloat16):
+            for bits in (8, 4, 2):
+                for site, K, N in (("wg", 1536, MOE_FF), ("wd", MOE_FF,
+                                                          1536)):
+                    lv = 2 ** (bits - 1) - 1
+                    x = torch.randn(GROUPED_P, K, generator=g,
+                                    device="cuda").to(x_dtype)
+                    qv = torch.randint(-lv, lv + 1, (MOE_E, K, N),
+                                       generator=g, device="cuda",
+                                       dtype=torch.int8)
+                    s = (torch.rand(MOE_E, N, generator=g, device="cuda") +
+                         0.5) / (lv * math.sqrt(K))
+                    xc = x.new_zeros((MOE_E * GROUPED_T, K))
+                    xc[pair] = x
+                    xc = xc.reshape(MOE_E, GROUPED_T, K)
+                    if bits == 8:
+                        w = qv
+                        kern = lambda: ops.quant_matmul_grouped(
+                            x, w, s, offsets, GROUPED_T)
+                        cap = lambda: ops.quant_matmul(xc, w, s)
+                        plain = lambda: quant_matmul_ref(xc, w, s)
+                    else:
+                        w = pack.pack_sub8(qv, bits, axis=-2)
+                        kern = lambda: ops.packed_matmul_grouped(
+                            x, w, s, offsets, GROUPED_T, store_bits=bits)
+                        cap = lambda: ops.packed_matmul(xc, w, s,
+                                                        store_bits=bits)
+                        plain = lambda: packed_matmul_ref(xc, w, s, bits)
+                    name = "quant_matmul" if bits == 8 else "packed_matmul"
+                    dt = str(x_dtype).replace("torch.", "")
+                    case = (f"int{bits}_grouped_moe_{site}_"
+                            f"{'skewed' if skewed else 'uniform'}_{dt}")
+                    what = f"{name}/{case}"
+                    got, again = kern(), kern()
+                    want = cap().reshape(MOE_E * GROUPED_T, N)[pair]
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{what}: two calls give "
+                                             "different bits")
+                    if not torch.equal(got, want):
+                        bad = int((got != want).any(-1).sum())
+                        raise AssertionError(f"{what}: {bad} rows differ "
+                                             "from the capacity launch's")
+                    bf16 = x_dtype == torch.bfloat16
+                    err, rel = compare(
+                        torch, got, plain().reshape(-1, N)[pair],
+                        BF16_GEMM_TOL if bf16 else GEMM_TOL, what)
+                    n_launch = graph_launches(torch, kern)
+                    if n_launch != 1:
+                        raise AssertionError(f"{what}: {n_launch} device "
+                                             "launches a call, want 1")
+                    nbytes = x.element_size() * GROUPED_P * (K + N) + \
+                        w.numel() + 4 * MOE_E * N
+                    b_ms, b_by = bound_ms(
+                        nbytes, 2.0 * GROUPED_P * K * N,
+                        BF16_FLOP_PER_S if bf16 else TF32_FLOP_PER_S)
+                    ms, cap_ms = timer.pair(kern, cap)
+                    row = dict(
+                        name=name, case=case,
+                        shape=[MOE_E, GROUPED_P, K, N], x_dtype=dt,
+                        counts="skewed" if skewed else "uniform",
+                        max_rows=max(counts), empty_groups=counts.count(0),
+                        bits_equal_capacity=True, max_abs_err=err,
+                        max_rel_err=rel, launches_per_call=n_launch, ms=ms,
+                        device_ms=timer.device(kern), capacity_ms=cap_ms,
+                        capacity_device_ms=timer.device(cap),
+                        bound_ms=b_ms, bound_by=b_by)
+                    emit({"phase": "kernel", **row})
+                    rows.append(row)
+                    del x, xc, got, again, want
     torch.cuda.empty_cache()
     return rows
 
@@ -2065,6 +2187,76 @@ def _moe_gemm_launches(graph, policy, n_repeat, calls, skip=()):
     return dict(quant_matmul=k2 * calls, packed_matmul=k3 * calls), sites
 
 
+def _dispatch_bits(torch, eng, tokens, label):
+    """``eng.generate(tokens, 2)`` with the experts in the layout
+    ``layers._grouped_applies`` picks (grouped, at a 2 x 2048 prefill on
+    the packed store), then with that choice patched to the capacity
+    layout: the prefill logits and the tokens must be the same bits, the
+    first call must have taken the grouped launches and the second none.
+    Returns the record and its problems."""
+    from repro_torch import kernels
+    from repro_torch.models import layers
+
+    def generate():
+        kernels.reset_launch_counts()
+        out = eng.generate(tokens, 2)
+        routes = kernels.launch_routes()
+        return out, sum(n for name in ("quant_matmul", "packed_matmul")
+                        for r, n in routes[name].items()
+                        if r.startswith("grouped_"))
+
+    grouped, n_grouped = generate()
+    applies = layers._grouped_applies
+    layers._grouped_applies = lambda *a: False
+    try:
+        capacity, n_capacity = generate()
+    finally:
+        layers._grouped_applies = applies
+    same = bool(torch.equal(grouped["prefill_logits"],
+                            capacity["prefill_logits"])) and \
+        np.array_equal(grouped["tokens"], capacity["tokens"])
+    rec = dict(phase="moe-dispatch-bits", engine=label,
+               grouped_launches=n_grouped, capacity_run_grouped_launches=
+               n_capacity, logits_and_tokens_equal=same)
+    emit(rec)
+    problems = []
+    if not same:
+        problems.append(f"{label}: grouped and capacity dispatch differ")
+    if not n_grouped or n_capacity:
+        problems.append(f"{label}: grouped launches {n_grouped} / "
+                        f"{n_capacity}")
+    return rec, problems
+
+
+def _grouped_sync_check(torch, cfg, eng):
+    """One grouped ``_moe_ffn_impl`` call on the first layer of ``eng``'s
+    packed store at a 4096-token step under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync raises."""
+    from repro_torch.kernels.pack import PackedWeight
+    from repro_torch.models import layers
+    blk = eng.params["blocks"][0]
+    p = {k: blk[k].take(0) if isinstance(blk[k], PackedWeight) else blk[k][0]
+         for k in ("router", "wg", "wu", "wd")}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    x = torch.randn(GROUPED_T, cfg.d_model, generator=g, device="cuda")
+    kw = dict(n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+              capacity_factor=cfg.moe.capacity_factor, act_bits=None)
+    C = layers.moe_capacity(GROUPED_T, cfg.moe.n_experts, cfg.moe.top_k,
+                            cfg.moe.capacity_factor)
+    if not layers._grouped_applies(x, p, C, 1):
+        raise AssertionError("moe sync check: the call is not grouped")
+    layers._moe_ffn_impl(x, p, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        layers._moe_ffn_impl(x, p, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit({"phase": "moe-grouped-syncs", "host_syncs": 0,
+          "capacity_factor": cfg.moe.capacity_factor})
+
+
 def phase_moe(torch):
     """granite-moe-3b-a800m at published width and depth with random fp32
     weights from SEED (~13.5 GB) and the seeded kernel-wise policy.
@@ -2076,10 +2268,14 @@ def phase_moe(torch):
       each site (launches equal _moe_gemm_launches exactly); then the
       same pair with activation quantization off at MOE_ACT_OFF_ATOL.
     * run (8 requests, 4 slots, chunk 512) at capacity factor 1.25:
-      prefill s, decode tok/s, TTFT, host syncs (none allowed), launches.
+      prefill s, decode tok/s, TTFT, host syncs (none allowed), launches;
+      then generate through the grouped and the capacity dispatch, the
+      same bits (_dispatch_bits), and a grouped MoE call without a host
+      sync (_grouped_sync_check).
     * the same run at capacity factor 0 (no token dropped, the reference's
       smoke setting): each stream against its own generate by the gap
-      rule, as the dense run phase holds them.  At 1.25 a token's drop
+      rule, as the dense run phase holds them, and the two dispatches
+      dropless (_dispatch_bits).  At 1.25 a token's drop
       depends on the batch it rides in, so run and generate may rightly
       differ there and are not compared.
     * one profiled generate on engine A: device ms by kernel group and
@@ -2177,6 +2373,9 @@ def phase_moe(torch):
         problems.append(f"moe run: launches {lr} over {st.steps} steps")
     if st.tokens_out != sum(MOE_RUN_NEW):
         problems.append(f"moe run: tokens_out {st.tokens_out}")
+    bits, bits_problems = _dispatch_bits(torch, eng, tokens, "moe-cf1.25")
+    problems += bits_problems
+    _grouped_sync_check(torch, cfg, eng)
     # one profiled generate: device time by kernel group and busy share
     prof, gemm_problems = traced_gemm_launches(
         lambda: profile_call(torch, lambda: eng.generate(tokens, N_NEW)),
@@ -2213,13 +2412,16 @@ def phase_moe(torch):
     peaks.append(run0["peak_mem_bytes"])
     emit({"phase": "moe-run-cf0", "first_differences":
           run0["first_differences"], "generate_launches": gl0})
+    bits0, bits_problems = _dispatch_bits(torch, eng, tokens, "moe-cf0")
+    problems += bits_problems
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
     out = dict(init=init, engine_a=a_rec, engine_b=b_rec,
                check=check, check_act_off=check0,
                gemm_launches=dict(got=got, want=want),
-               run=run, run_cf0=run0, profile=prof,
+               run=run, run_cf0=run0, dispatch_bits=[bits, bits0],
+               profile=prof,
                peak_mem_bytes=max(peaks),
                seconds=time.perf_counter() - t_phase, problems=problems)
     emit({"phase": "moe", "seconds": out["seconds"],

@@ -43,7 +43,11 @@
 // per-expert strides (Strides) for x, the stored weight, the scales and y;
 // a plain GEMM is the batch of one.  The route is chosen by the per-expert
 // row count M, and gemm_stream's cluster stays within one expert (cluster
-// dims 1 x S x 1).
+// dims 1 x S x 1).  Grouped (gemm_tc_grouped): a dropless MoE's (E, C, K)
+// buffer is mostly rows that no pair was routed to, so the dispatch can
+// instead hand over only the routed pairs, sorted by expert, as one (P,
+// K) x with each expert's first row (offsets); each block finds its
+// expert and row tile from them, and computes it as gemm_tc does.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -215,12 +219,23 @@ struct PackedStage {
   __device__ float col_scale(int n) const { return scale[n]; }
 };
 
-// VA: x rows in 16-byte copies (K a multiple of 16 bytes of XT, x 16-byte
-// aligned).  XT: x's and y's element type (float or __nv_bfloat16).
+// Dynamic shared memory of gemm_tc's ring: CST stages of x rows and weight
+// bytes.
+template <class W, class XT>
+__host__ __device__ constexpr size_t tc_ring_bytes() {
+  return CST * (sizeof(XT) * CBM * x_cap<XT>() + W::BYTES);
+}
+
+// One CBM x CBN tile of gemm_tc, rows m0.. and columns n0.., of an operand
+// of M rows: x (M, K), y (M, N) and the weight source already point at the
+// tile's expert.  The caller's whole block calls it, with the ring as its
+// dynamic shared memory.  VA: x rows in 16-byte copies (K a multiple of 16
+// bytes of XT, x 16-byte aligned).  XT: x's and y's element type (float or
+// __nv_bfloat16).
 template <class W, bool VA, class XT>
-__global__ void __launch_bounds__(CNT, 1)
-gemm_tc(const XT* __restrict__ x, W wsrc, XT* __restrict__ y, int M,
-        int K, int N, Strides bs) {
+__device__ __forceinline__ void gemm_tc_tile(const XT* __restrict__ x, W w,
+                                             XT* __restrict__ y, int M,
+                                             int K, int N, int m0, int n0) {
   constexpr bool XB = sizeof(XT) == 2;     // bf16 x
   constexpr int XC = x_cap<XT>();
   extern __shared__ float4 tc_smem[];
@@ -229,13 +244,7 @@ gemm_tc(const XT* __restrict__ x, W wsrc, XT* __restrict__ y, int M,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t4 = lane % 4;
   const int wm = (warp % 4) * 32, wn = (warp / 4) * 64;
-  const int m0 = blockIdx.y * CBM, n0 = blockIdx.x * CBN;
   const int nk = (K + CBK - 1) / CBK;
-  W w = wsrc;                              // this block's expert
-  x += blockIdx.z * bs.x;
-  y += blockIdx.z * bs.y;
-  w.w += blockIdx.z * bs.w;
-  w.scale += blockIdx.z * bs.s;
 
   auto stage = [&](int slot, int kt) {
     const int k0 = kt * CBK;
@@ -386,21 +395,115 @@ gemm_tc(const XT* __restrict__ x, W wsrc, XT* __restrict__ y, int M,
   }
 }
 
+// gemm_tc over E experts of M rows each: the expert is blockIdx.z.
+template <class W, bool VA, class XT>
+__global__ void __launch_bounds__(CNT, 1)
+gemm_tc(const XT* __restrict__ x, W wsrc, XT* __restrict__ y, int M,
+        int K, int N, Strides bs) {
+  W w = wsrc;                              // this block's expert
+  w.w += blockIdx.z * bs.w;
+  w.scale += blockIdx.z * bs.s;
+  gemm_tc_tile<W, VA, XT>(x + blockIdx.z * bs.x, w, y + blockIdx.z * bs.y,
+                          M, K, N, blockIdx.y * CBM, blockIdx.x * CBN);
+}
+
+// gemm_tc over G groups of rows of one (P, K) x, back to back: group e is
+// rows [off[e], off[e + 1]) of x and of y (P, N), against expert e's
+// weight (strides bs.w, bs.s).  blockIdx.y counts the groups' row tiles in
+// group order, ceil(rows / CBM) a group, each tile starting at its group's
+// first row, so a row sits in its tile where the (E, M, K) layout of
+// gemm_tc puts it and gets the same bits.  The block copies the offsets
+// into shared memory past the ring and every thread walks them to its
+// tile; a block past the last tile exits.  Offsets are clamped to [0, P]
+// and each group's end to its start, so no offsets make a block touch a
+// row outside x or y; rows outside every group are not written.
+template <class W, bool VA, class XT>
+__global__ void __launch_bounds__(CNT, 1)
+gemm_tc_grouped(const XT* __restrict__ x, W wsrc, XT* __restrict__ y,
+                const int* __restrict__ off, int G, int P, int K, int N,
+                Strides bs) {
+  extern __shared__ float4 tc_smem[];
+  int* so = reinterpret_cast<int*>(reinterpret_cast<char*>(tc_smem) +
+                                   tc_ring_bytes<W, XT>());
+  for (int i = threadIdx.x; i <= G; i += CNT) so[i] = off[i];
+  __syncthreads();
+  int t = blockIdx.y, e = 0, a = 0, b = 0;
+  for (; e < G; ++e) {
+    a = min(max(so[e], 0), P);
+    b = min(max(so[e + 1], a), P);
+    const int tiles = (b - a + CBM - 1) / CBM;
+    if (t < tiles) break;
+    t -= tiles;
+  }
+  if (e == G) return;                      // the same for the whole block
+  W w = wsrc;
+  w.w += e * bs.w;
+  w.scale += e * bs.s;
+  gemm_tc_tile<W, VA, XT>(x + (size_t)a * K, w, y + (size_t)a * N, b - a, K,
+                          N, t * CBM, blockIdx.x * CBN);
+}
+
+// The kernel `kern` with `smem` bytes of dynamic shared memory on a grid
+// on `stream`; returns the first CUDA error of the setup or the launch.
+template <class Kern, class... Args>
+int launch_with_smem(Kern kern, size_t smem, dim3 grid, cudaStream_t stream,
+                     Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, CNT, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x rows in 16-byte copies: K a multiple of 16 bytes of XT, x 16-byte
+// aligned (gemm_tc's VA)
+template <class XT>
+bool x_vec(const XT* x, int K) {
+  return (K * sizeof(XT)) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
 // Launch gemm_tc over weight source `w` for E experts on `stream`;
 // returns the first CUDA error of the setup or the launch.
 template <class W, class XT>
 int launch_tc(const XT* x, const W& w, XT* y, int E, int M, int K, int N,
               const Strides& bs, cudaStream_t stream) {
-  const size_t smem = CST * (sizeof(XT) * CBM * x_cap<XT>() + W::BYTES);
-  const bool va = (K * sizeof(XT)) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  auto kern = va ? gemm_tc<W, true, XT> : gemm_tc<W, false, XT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kern = x_vec(x, K) ? gemm_tc<W, true, XT> : gemm_tc<W, false, XT>;
   dim3 grid((N + CBN - 1) / CBN, (M + CBM - 1) / CBM, E);
-  kern<<<grid, CNT, smem, stream>>>(x, w, y, M, K, N, bs);
-  return static_cast<int>(cudaGetLastError());
+  return launch_with_smem(kern, tc_ring_bytes<W, XT>(), grid, stream, x, w,
+                          y, M, K, N, bs);
+}
+
+// Launch gemm_tc_grouped over weight source `w` for G groups of the P rows
+// of x on `stream`: ceil(P / CBM) + G row tiles bound the groups' tiles
+// (each group wastes less than one).  Returns the first CUDA error of the
+// setup or the launch.
+template <class W, class XT>
+int launch_tc_grouped(const XT* x, const W& w, XT* y, const int* off, int G,
+                      int P, int K, int N, const Strides& bs,
+                      cudaStream_t stream) {
+  const long tiles = (P + CBM - 1) / CBM + (long)G;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = x_vec(x, K) ? gemm_tc_grouped<W, true, XT>
+                          : gemm_tc_grouped<W, false, XT>;
+  dim3 grid((N + CBN - 1) / CBN, (unsigned)tiles, 1);
+  return launch_with_smem(kern, tc_ring_bytes<W, XT>() + sizeof(int) * (G + 1),
+                          grid, stream, x, w, y, off, G, P, K, N, bs);
+}
+
+// Calls f(source) with gemm_tc's weight source of BITS-wide values (K2's
+// Int8Stage, K3's PackedStage), 16-byte copies where N and w's alignment
+// allow them; returns what f returns.
+template <int BITS, class F>
+int with_stage(const int8_t* w, const float* scale, int N, F&& f) {
+  const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if constexpr (BITS == 8) {
+    if (vec) return f(Int8Stage<true>{w, scale});
+    return f(Int8Stage<false>{w, scale});
+  } else {
+    if (vec) return f(PackedStage<BITS, true>{w, scale});
+    return f(PackedStage<BITS, false>{w, scale});
+  }
 }
 
 // --------------------------------------------------------------- skinny
@@ -782,22 +885,10 @@ int launch_gemm(const XT* x, const int8_t* w, const float* scale, XT* y,
   constexpr int F = 8 / BITS;
   const Strides bs{(size_t)M * K, (size_t)((K + F - 1) / F) * N, (size_t)N,
                    (size_t)M * N};
-  if (M > SKINNY_M) {
-    const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    if constexpr (BITS == 8) {
-      if (vec)
-        return launch_tc(x, Int8Stage<true>{w, scale}, y, E, M, K, N, bs,
-                         stream);
-      return launch_tc(x, Int8Stage<false>{w, scale}, y, E, M, K, N, bs,
-                       stream);
-    } else {
-      if (vec)
-        return launch_tc(x, PackedStage<BITS, true>{w, scale}, y, E, M, K,
-                         N, bs, stream);
-      return launch_tc(x, PackedStage<BITS, false>{w, scale}, y, E, M, K,
-                       N, bs, stream);
-    }
-  }
+  if (M > SKINNY_M)
+    return with_stage<BITS>(w, scale, N, [&](const auto& ws) {
+      return launch_tc(x, ws, y, E, M, K, N, bs, stream);
+    });
   if (splits < 1 || splits > SMAX_SPLIT)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 1)
@@ -811,6 +902,24 @@ int launch_gemm(const XT* x, const int8_t* w, const float* scale, XT* y,
                                     stream);
   return launch_stream_m<BITS, 8>(x, w, scale, y, E, M, K, N, splits, bs,
                                   stream);
+}
+
+// One gemm_tc_grouped launch on `stream` for G groups of the P rows of x
+// (P, K), group e being rows [off[e], off[e + 1]) against expert e of the
+// (G, ceil(K / F), N) w and (G, N) scales, into y (P, N); `off` is G + 1
+// int32 on the card.  The tensor-core route whatever a group's rows: the
+// caller groups rows where the (E, M, K) layout's M is above SKINNY_M.
+// Returns the first CUDA error of the setup or the launch.
+template <int BITS, class XT>
+int launch_gemm_grouped(const XT* x, const int8_t* w, const float* scale,
+                        XT* y, const int* off, int G, int P, int K, int N,
+                        cudaStream_t stream) {
+  if (G < 1 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int F = 8 / BITS;
+  const Strides bs{0, (size_t)((K + F - 1) / F) * N, (size_t)N, 0};
+  return with_stage<BITS>(w, scale, N, [&](const auto& ws) {
+    return launch_tc_grouped(x, ws, y, off, G, P, K, N, bs, stream);
+  });
 }
 
 }  // namespace rt

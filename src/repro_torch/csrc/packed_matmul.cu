@@ -26,7 +26,9 @@
 // (int4 and int2 are exact in TF32, so two passes give fp32 accuracy);
 // the scale multiplies the finished accumulator once, where the Pallas
 // kernel applies it.  An MoE expert stack's int4 and int2 buckets run as
-// one launch each for all the experts (the expert is blockIdx.z).
+// one launch each for all the experts (the expert is blockIdx.z), or, in
+// the grouped form (packed_matmul_grouped_fwd), over only the rows routed
+// to each expert, back to back.
 #include "gemm_tiles.cuh"
 
 // E experts of M rows each (E = 1: one GEMM): x (E, M, K), pw (E,
@@ -60,5 +62,41 @@ extern "C" int packed_matmul_fwd(const void* x, const void* pw,
     return packed_fwd<4>(x, w, s, y, E, M, K, N, splits, x_type, st);
   if (store_bits == 2)
     return packed_fwd<2>(x, w, s, y, E, M, K, N, splits, x_type, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// G groups of rows back to back: x (P, K), group e in rows [offsets[e],
+// offsets[e + 1]) against expert e of pw (G, ceil(K / F), N) and scale (G,
+// N), into y (P, N); offsets int32 (G + 1), on the card.  Rows outside
+// every group are not written.  x_type as above.
+template <int BITS>
+int packed_grouped(const void* x, const int8_t* w, const float* s, void* y,
+                   const int* off, int G, int P, int K, int N, int x_type,
+                   cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  if (x_type == 0)
+    return rt::launch_gemm_grouped<BITS>(static_cast<const float*>(x), w, s,
+                                         static_cast<float*>(y), off, G, P,
+                                         K, N, st);
+  if (x_type == 1)
+    return rt::launch_gemm_grouped<BITS>(static_cast<const bf16*>(x), w, s,
+                                         static_cast<bf16*>(y), off, G, P,
+                                         K, N, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int packed_matmul_grouped_fwd(const void* x, const void* pw,
+                                         const void* scale, void* y,
+                                         const void* offsets, int G, int P,
+                                         int K, int N, int store_bits,
+                                         int x_type, void* stream) {
+  const int8_t* w = static_cast<const int8_t*>(pw);
+  const float* s = static_cast<const float*>(scale);
+  const int* off = static_cast<const int*>(offsets);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (store_bits == 4)
+    return packed_grouped<4>(x, w, s, y, off, G, P, K, N, x_type, st);
+  if (store_bits == 2)
+    return packed_grouped<2>(x, w, s, y, off, G, P, K, N, x_type, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

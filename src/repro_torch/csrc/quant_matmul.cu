@@ -19,7 +19,9 @@
 // scale multiplies the finished accumulator once, where the Pallas kernel
 // applies it.  An MoE expert stack runs as one launch for all its experts
 // (the expert is blockIdx.z), in place of the reference's einsum over the
-// dequantized stack; the route is chosen by the rows an expert holds.
+// dequantized stack; the route is chosen by the rows an expert holds.  Its
+// grouped form (quant_matmul_grouped_fwd) takes only the rows routed to
+// each expert, back to back, with their offsets, on the tensor cores.
 #include "gemm_tiles.cuh"
 
 // E experts of M rows each (E = 1: one GEMM): x (E, M, K), qw (E, K, N),
@@ -39,5 +41,30 @@ extern "C" int quant_matmul_fwd(const void* x, const void* qw,
   if (x_type == 1)
     return rt::launch_gemm<8>(static_cast<const bf16*>(x), w, s,
                               static_cast<bf16*>(y), E, M, K, N, splits, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// G groups of rows back to back: x (P, K), group e in rows [offsets[e],
+// offsets[e + 1]) against expert e of qw (G, K, N) and scale (G, N), into
+// y (P, N); offsets int32 (G + 1), on the card.  Rows outside every group
+// are not written.  x_type as above.
+extern "C" int quant_matmul_grouped_fwd(const void* x, const void* qw,
+                                        const void* scale, void* y,
+                                        const void* offsets, int G, int P,
+                                        int K, int N, int x_type,
+                                        void* stream) {
+  using bf16 = __nv_bfloat16;
+  const int8_t* w = static_cast<const int8_t*>(qw);
+  const float* s = static_cast<const float*>(scale);
+  const int* off = static_cast<const int*>(offsets);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_type == 0)
+    return rt::launch_gemm_grouped<8>(static_cast<const float*>(x), w, s,
+                                      static_cast<float*>(y), off, G, P, K,
+                                      N, st);
+  if (x_type == 1)
+    return rt::launch_gemm_grouped<8>(static_cast<const bf16*>(x), w, s,
+                                      static_cast<bf16*>(y), off, G, P, K,
+                                      N, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,8 +2,10 @@
 
 flash_attention  (K1, csrc/flash_attention.cu) -- flash forward for
                  prefill and dense-cache decode
-quant_matmul     (K2, csrc/quant_matmul.cu) -- int8 weight GEMM
+quant_matmul     (K2, csrc/quant_matmul.cu) -- int8 weight GEMM (and
+                 quant_matmul_grouped: an expert stack over row groups)
 packed_matmul    (K3, csrc/packed_matmul.cu) -- int4 / int2 packed GEMM
+                 (and packed_matmul_grouped)
 paged_prefill_attention (K4, csrc/paged_attention.cu) -- causal attention
                  over the paged KV pool (chunks and decode tokens)
 packed_mixed_matmul -- one K2/K3 launch per bucket of a PackedWeight

@@ -6,31 +6,44 @@ int2 / int4, K2 for int8, each on x as it is, fp32 or bf16), a plain
 matmul for the bf16 ``full`` bucket, implicit zeros for pruned channels,
 and the per-bucket outputs scattered back into the policy's channel
 order; an MoE expert stack takes the same launches, each for all its
-experts at once.  The reference pads every operand
+experts at once, over a capacity buffer or, grouped, over the rows
+routed to each expert alone.  The reference pads every operand
 to its block grid here; the CUDA kernels mask their ragged edges
 themselves, so nothing is padded: :func:`binary_matmul` (B6) and
 :func:`fake_quant_channels` (B5) are their kernels' wrappers as they are.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.binary_matmul import binary_matmul
 from repro_torch.kernels.fake_quant import fake_quant_channels
 from repro_torch.kernels.pack import STORE_BITS, PackedWeight
-from repro_torch.kernels.packed_matmul import packed_matmul
-from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.packed_matmul import (packed_matmul,
+                                               packed_matmul_grouped)
+from repro_torch.kernels.quant_matmul import (grouped_ref, quant_matmul,
+                                              quant_matmul_grouped)
 
-__all__ = ["quant_matmul", "packed_matmul", "packed_mixed_matmul",
-           "binary_matmul", "fake_quant_channels"]
+__all__ = ["quant_matmul", "packed_matmul", "quant_matmul_grouped",
+           "packed_matmul_grouped", "packed_mixed_matmul", "binary_matmul",
+           "fake_quant_channels"]
 
 
-def packed_mixed_matmul(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+def packed_mixed_matmul(x: torch.Tensor, w: PackedWeight,
+                        offsets: Optional[torch.Tensor] = None,
+                        cap: Optional[int] = None) -> torch.Tensor:
     """y = x @ dequant(w) for a 2-d PackedWeight, x (M, K) f32 or bf16; or
     for an expert stack, x (E, C, K) and a PackedWeight with leading dim
     E, whose experts share one bucket split of the columns (bits are per
     output channel): one batched launch per bucket for all E experts, and
-    one ``index_copy_`` along the last axis.
+    one ``index_copy_`` along the last axis.  With ``offsets`` (E + 1,
+    int32, on x's device) the stack's call is grouped: x (P, K) holds each
+    expert's rows back to back, expert e in rows ``offsets[e]:offsets[e +
+    1]``, at most ``cap`` of them, and each bucket takes one grouped launch
+    (``quant_matmul_grouped``, ``packed_matmul_grouped``); a store with a
+    bf16 ``full`` bucket has no grouped launch and is refused.
 
     The result has the reference's dtype for ``x @ deq(w)``,
     ``promote(x.dtype, w.out_dtype)``: bf16 for a bf16 x against a store
@@ -44,9 +57,16 @@ def packed_mixed_matmul(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     K = x.shape[-1]
     if K != w.k:
         raise ValueError(f"x has K={K}, weight has K={w.k}")
+    grouped = offsets is not None
+    if grouped and any(name == "full" for name, _ in w.buckets):
+        raise ValueError("a grouped call takes int8 / int4 / int2 buckets "
+                         "only: this store has a bf16 full bucket")
     od = torch.promote_types(x.dtype, getattr(torch, w.out_dtype))
     if od != torch.float32 and x.device.type == "cpu":
-        return (x.to(torch.float32) @ w.dequant().to(torch.float32)).to(od)
+        def plain(xb):
+            return (xb.to(torch.float32) @
+                    w.dequant().to(torch.float32)).to(od)
+        return grouped_ref(plain, x, offsets, cap) if grouped else plain(x)
     x = x.to(od)
     out = torch.zeros(x.shape[:-1] + (w.n,), dtype=od, device=x.device)
     for (name, _), part in zip(w.buckets, w.parts):
@@ -55,7 +75,11 @@ def packed_mixed_matmul(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
         if name == "full":
             y = x @ part[0].to(od)
         elif name == "int8":
-            y = quant_matmul(x, part[0], part[1])
+            y = quant_matmul_grouped(x, part[0], part[1], offsets, cap) \
+                if grouped else quant_matmul(x, part[0], part[1])
+        elif grouped:
+            y = packed_matmul_grouped(x, part[0], part[1], offsets, cap,
+                                      store_bits=STORE_BITS[name])
         else:
             y = packed_matmul(x, part[0], part[1],
                               store_bits=STORE_BITS[name])

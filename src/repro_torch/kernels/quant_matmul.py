@@ -10,7 +10,10 @@ the launch (:func:`skinny_splits`; :func:`skinny_cut` states the cut).
 K3 (``packed_matmul.py``) shares the rule, the launch shapes and
 :func:`launch_gemm`.  An MoE expert stack (x (E, C, K), weight (E, K, N),
 scale (E, N)) is one launch for all E experts, routed by the rows ``C``
-an expert holds.  The wrapper runs the plain version
+an expert holds.  :func:`quant_matmul_grouped` takes the rows of each
+expert back to back with their offsets instead, on the tensor cores (a
+dropless MoE routes each expert a fraction of the C rows its capacity
+buffer holds).  The wrappers run the plain version
 (``ref.quant_matmul_ref``) for CPU tensors and the kernel for CUDA
 tensors; there is no fallback between them.
 
@@ -38,6 +41,11 @@ X_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.lru_cache(maxsize=None)
 def _fn():
     return build.bind("quant_matmul", "quant_matmul_fwd", 4, 6)
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_fn():
+    return build.bind("quant_matmul", "quant_matmul_grouped_fwd", 5, 5)
 
 
 def route(M: int, bits: int = 8, x_dtype=torch.float32) -> str:
@@ -134,3 +142,90 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul: no kernel for {x.device}")
     return launch_gemm(_fn(), COUNT, x, qw, scale, x.shape[-1])
+
+
+def check_grouped(x, w, scale, offsets, rows: int, cap: int) -> None:
+    """Validate a grouped GEMM call: x (P, K), w (G, rows, N), scale (G,
+    N), offsets int32 (G + 1,) on x's device.  For CPU tensors the offsets'
+    values too: non-decreasing from at least 0, the last at most P, no
+    group over ``cap`` rows.  On the card they are not read (that would
+    wait for the device); the kernel clamps them into x's rows."""
+    if x.ndim != 2:
+        raise ValueError(f"x: expected (P, K), got {tuple(x.shape)}")
+    if x.dtype not in X_TYPES:
+        raise ValueError(f"x: expected float32 or bfloat16, got {x.dtype}")
+    build.expect(x, "x", x.dtype, 2, x.device)
+    build.expect(w, "weight", torch.int8, 3, x.device)
+    build.expect(scale, "scale", torch.float32, 2, x.device)
+    build.expect(offsets, "offsets", torch.int32, 1, x.device)
+    G, N = w.shape[0], w.shape[-1]
+    if w.shape[1] != rows or tuple(scale.shape) != (G, N):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, weight "
+                         f"{tuple(w.shape)}, scale {tuple(scale.shape)}")
+    if offsets.shape[0] != G + 1:
+        raise ValueError(f"offsets: expected {G + 1} (groups + 1), got "
+                         f"{offsets.shape[0]}")
+    if x.device.type == "cpu":
+        off = offsets.tolist()
+        sizes = [b - a for a, b in zip(off, off[1:])]
+        if off[0] < 0 or min(sizes) < 0 or off[-1] > x.shape[0]:
+            raise ValueError(f"offsets: must rise from >= 0 to <= "
+                             f"{x.shape[0]} rows, got {off}")
+        if max(sizes) > cap:
+            raise ValueError(f"offsets: a group of {max(sizes)} rows, over "
+                             f"cap {cap}")
+
+
+def grouped_ref(plain, x, offsets, cap: int, *weights) -> torch.Tensor:
+    """The plain version of a grouped GEMM: each group's rows laid out as
+    the expert-batched plain version's batch (G, cap, K), in order from
+    the group's first row, zeros below them; ``plain(batch, *weights)``
+    called once; each group's rows read back.  The batch is the (E, C, K)
+    capacity layout's, so every row gets that call's bits (a CPU matmul's
+    bits depend on its shape).  Rows outside every group are zeros."""
+    off = offsets.tolist()
+    batch = x.new_zeros((len(off) - 1, cap, x.shape[1]))
+    for e, (a, b) in enumerate(zip(off, off[1:])):
+        batch[e, :b - a] = x[a:b]
+    yb = plain(batch, *weights)
+    y = yb.new_zeros((x.shape[0], yb.shape[-1]))
+    for e, (a, b) in enumerate(zip(off, off[1:])):
+        y[a:b] = yb[e, :b - a]
+    return y
+
+
+def launch_grouped(fn, count, x, w, scale, offsets, *extra):
+    """Allocate y (P, N) in x's dtype, launch ``fn`` for every group on
+    the current stream (one launch), count it under the tensor-core route
+    a bf16 or fp32 x takes, check."""
+    P, K = x.shape
+    G, N = w.shape[0], w.shape[-1]
+    y = torch.empty((P, N), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    err = build.launch(fn, x, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                       y.data_ptr(), offsets.data_ptr(), G, P, K, N, *extra,
+                       X_TYPES[x.dtype])
+    count.add("grouped_" + route(SKINNY_M + 1, x_dtype=x.dtype))
+    build.check(build.load(count.name), err, count.name)
+    return y
+
+
+def quant_matmul_grouped(x: torch.Tensor, qw: torch.Tensor,
+                         scale: torch.Tensor, offsets: torch.Tensor,
+                         cap: int) -> torch.Tensor:
+    """G groups of rows back to back, each against its own expert: x (P,
+    K) f32 or bf16, group e in rows ``offsets[e]:offsets[e + 1]``; qw (G,
+    K, N) int8; scale (G, N) f32; offsets (G + 1,) int32 on x's device;
+    ``cap`` the most rows a group holds (the capacity layout's C) -> (P,
+    N) in x's dtype, in one tensor-core launch.  Each row gets the bits
+    that :func:`quant_matmul` gives it in an (E, C, K) stack with C over
+    ``SKINNY_M``; rows outside every group are left as they are on the
+    card (uninitialised) and zero on the CPU."""
+    build.refuse_dtensor("quant_matmul", x, qw, scale, offsets)
+    check_grouped(x, qw, scale, offsets, rows=x.shape[-1], cap=cap)
+    if x.device.type == "cpu":
+        return grouped_ref(ref.quant_matmul_ref, x, offsets, cap, qw, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul: no kernel for {x.device}")
+    return launch_grouped(_grouped_fn(), COUNT, x, qw, scale, offsets)

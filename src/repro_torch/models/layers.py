@@ -97,6 +97,27 @@ def expert_linear(x: torch.Tensor, w) -> torch.Tensor:
     return torch.bmm(x, w)
 
 
+def grouped_expert_linear(x: torch.Tensor, w, offsets: torch.Tensor,
+                          cap: int) -> torch.Tensor:
+    """:func:`expert_linear` over the rows routed to each expert alone:
+    x (P, K) holds expert e's rows in ``offsets[e]:offsets[e + 1]``
+    (``offsets`` (E + 1,) int32 on x's device), at most ``cap`` of them,
+    against an (E, K, N) stack that K2 / K3 contract as it is (a
+    PackedWeight without a bf16 ``full`` bucket, or an int8-store leaf)
+    -> (P, N), one grouped launch per bucket.  Each row gets the bits it
+    gets in :func:`expert_linear`'s (E, cap, K) layout; rows outside every
+    group are unspecified."""
+    x = x.contiguous()
+    if isinstance(w, PackedWeight):
+        from repro_torch.kernels.ops import packed_mixed_matmul
+        return packed_mixed_matmul(x, w, offsets, cap)
+    from repro_torch.kernels.quant_matmul import quant_matmul_grouped
+    q = w["q"]
+    return quant_matmul_grouped(_int8_x(x, w), q,
+                                w["s"].reshape(q.shape[0], q.shape[-1]),
+                                offsets, cap)
+
+
 def _int8_x(x, w) -> torch.Tensor:
     """``x`` in the result dtype against an int8-store leaf, which K2
     writes in x's dtype: the reference dequantizes the leaf as ``q * s``
@@ -511,6 +532,20 @@ def moe_route(probs: torch.Tensor, top_k: int):
         gate_i
 
 
+def _expert_sort(eidx: torch.Tensor, n_phys: int):
+    """The stable sort of the (token, slot) pairs by expert: ``order``
+    (the pairs in expert order), ``first`` (n_phys + 1: each expert's
+    first index in it, then the pair count) and ``rank`` (each pair's
+    index in it)."""
+    n = eidx.shape[0]
+    sorted_e, order = torch.sort(eidx, stable=True)
+    first = torch.searchsorted(sorted_e, torch.arange(
+        n_phys + 1, device=eidx.device, dtype=sorted_e.dtype))
+    rank = torch.empty_like(order).index_copy_(
+        0, order, torch.arange(n, device=eidx.device))
+    return order, first, rank
+
+
 def _position_in_expert(eidx: torch.Tensor, n_phys: int) -> torch.Tensor:
     """Each (token, slot) pair's position among the pairs routed to its
     expert, in token-major order: the reference's ``cumsum(one_hot) - 1``
@@ -518,12 +553,7 @@ def _position_in_expert(eidx: torch.Tensor, n_phys: int) -> torch.Tensor:
     sort by expert less the rank of its expert's first pair (a cumsum
     down the (T*K, E) one-hot runs its columns one after another on the
     card: ~5 ms a layer at a 2 x 2048 prefill)."""
-    n = eidx.shape[0]
-    sorted_e, order = torch.sort(eidx, stable=True)
-    first = torch.searchsorted(sorted_e, torch.arange(
-        n_phys, device=eidx.device, dtype=sorted_e.dtype))
-    rank = torch.empty_like(order).index_copy_(
-        0, order, torch.arange(n, device=eidx.device))
+    _, first, rank = _expert_sort(eidx, n_phys)
     return rank - first[eidx]
 
 
@@ -557,6 +587,30 @@ def moe_ffn(x, p, *, n_experts, top_k, capacity_factor=1.25, act_bits=None,
                          capacity_factor=capacity_factor, act_bits=act_bits)
 
 
+def _leaf_tensors(w):
+    """The tensors of one weight in any store."""
+    if isinstance(w, PackedWeight):
+        return [t for part in w.parts for t in part]
+    return list(w.values()) if is_int8_leaf(w) else [w]
+
+
+def _grouped_applies(xt, p, C: int, groups: int) -> bool:
+    """Whether the experts run grouped (:func:`_moe_grouped`), from what
+    the call can observe: one group; the capacity layout's rows an expert
+    C above ``SKINNY_M``, where its expert GEMMs take the tensor cores (at
+    or below it they stream the weights once, whatever the rows); every
+    expert stack one that K2 / K3 contract as it is (an int8-store leaf,
+    or a PackedWeight without a bf16 ``full`` bucket); and no DTensor.
+    Otherwise the capacity layout (:func:`_moe_capacity`)."""
+    from repro_torch.kernels.quant_matmul import SKINNY_M
+    stacks = [p[k] for k in ("wg", "wu", "wd")]
+    return groups == 1 and C > SKINNY_M and all(
+        is_int8_leaf(w) or (isinstance(w, PackedWeight) and all(
+            name != "full" for name, _ in w.buckets)) for w in stacks) \
+        and not any(ctx.is_dtensor(t) for t in
+                    [xt] + [t for w in stacks for t in _leaf_tensors(w)])
+
+
 def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits,
                   groups: int = 1):
     """The reference's ``_moe_ffn_impl`` step for step: router logits in the
@@ -564,27 +618,20 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits,
     stable descending sort, as ``lax.top_k``); gates renormalized by
     ``max(sum, 1e-9)``; position in expert as the reference's cumsum over
     the (token, slot) pairs in token-major order gives it
-    (:func:`_position_in_expert`); pairs at or past capacity dropped.
-    The dispatch buffer (E_phys, C, d) is a gather of the activation-
-    quantized tokens: each kept pair writes its token id once into its
-    (expert, position) cell (an index copy, no atomics: the card stays
-    deterministic), empty cells read a zero row.  SwiGLU runs per expert
-    through :func:`expert_linear`, and each pair gathers its expert's
-    output row back, weighted by its gate, summed over the K slots.  Both
-    row gathers go through :func:`gather_rows`, whose backward sums
-    repeated rows deterministically.
+    (:func:`_position_in_expert`); pairs at or past capacity dropped;
+    SwiGLU per expert, and each kept pair's expert output weighted by its
+    gate and summed over the K slots.  The experts run in one of two
+    layouts, chosen by :func:`_grouped_applies` from the call alone:
+    :func:`_moe_capacity`, the reference's (E_phys, C, d) buffer, or
+    :func:`_moe_grouped`, the kept pairs alone sorted by expert; a kept
+    pair gets the same bits from both.
     ``groups`` > 1 (``moe_ffn``'s local dispatch): x is (G, T / G, d), and
-    each group has its own capacity and its own cells, (group, expert)
-    taking the place of the expert in the sort; the experts run every
-    group's rows in one call, (E_phys, G * C, d).  On DTensors the routing
-    indices are gathered to every rank (``full_tensor``: DTensor has no
-    strategy for the sort-based positions) and the index math runs
-    replicated.
+    each group has its own capacity (:func:`_moe_capacity`).
     Spans (``repro_torch.spans``, recorded while a profiler runs): ``moe``
     from the router to the end of the gather, with the counts ``pairs``
-    (T x K, the routed pairs) and ``rows`` (E_phys x groups x C, the
-    dispatch buffer's rows that the expert GEMMs compute), which opens no
-    ``record_function`` (no reader uses its range); inside it
+    (T x K, the routed pairs) and ``rows``, the rows that the expert GEMMs
+    compute: T x K grouped, E_phys x groups x C in the capacity layout.
+    It opens no ``record_function`` (no reader uses its range); inside it
     ``moe_dispatch`` (router softmax to the filled buffer) and
     ``moe_gather``, which a profile reads to split their device time from
     the rest."""
@@ -592,59 +639,147 @@ def _moe_ffn_impl(x, p, *, n_experts, top_k, capacity_factor, act_bits,
     d = x.shape[-1]
     xt = x.reshape(-1, d)
     T = xt.shape[0]
-    E, K = n_experts, top_k
+    K = top_k
     E_phys = _n_phys(p["wg"])          # >= E when experts are padded (EP)
-    C = moe_capacity(T // groups, E, K, capacity_factor)
-    dev = x.device
+    C = moe_capacity(T // groups, n_experts, K, capacity_factor)
+    grouped = _grouped_applies(xt, p, C, groups)
 
     with spans.span(MOE, annotate=False, pairs=T * K,
-                    rows=E_phys * groups * C):
+                    rows=T * K if grouped else E_phys * groups * C):
         logits = at_least_f32(linear(xt, p["router"], role=None))
-        with spans.span(MOE_DISPATCH):
-            probs = torch.softmax(logits, dim=-1)              # (T, E)
-            gate_v, gate_i = moe_route(probs, K)               # (T, K)
-
-            eidx = gate_i.reshape(-1)                          # (T*K,)
-            if ctx.is_dtensor(eidx):
-                eidx = eidx.full_tensor()
-            if groups > 1:                    # (group, expert) of each pair
-                eidx = eidx + torch.arange(T * K, device=dev) // (
-                    T // groups * K) * E_phys
-            pos = _position_in_expert(eidx, groups * E_phys)
-            keep = pos < C
-            trash = groups * E_phys * C         # the zero row / dropped cell
-            cell = torch.where(keep, eidx * C + pos,
-                               torch.full_like(pos, trash))
-
-            xq = maybe_quant_act(xt, act_bits)
-            xpad = torch.cat([xq, xq.new_zeros((1, d))])       # row T: zeros
-            src = torch.full((trash + 1,), T, dtype=torch.int64, device=dev)
-            tok = torch.arange(T * K, device=dev) // K         # pair -> token
-            src.index_copy_(0, cell, tok)  # kept cells are written once each
-            buf = gather_rows(xpad, src[:trash])
-            if groups > 1:
-                buf = buf.reshape(groups, E_phys, C, d).transpose(0, 1)
-            # the buffer's gradient comes back sharded over (expert, row)
-            # from the expert GEMMs; gathered on both dims it flattens back
-            # on every torch release (some refuse a sharded dim 1)
-            buf = ctx.unshard(buf.reshape(E_phys, groups * C, d), [0, 1],
-                              force=True)
-
-        h = F.silu(expert_linear(buf, p["wg"])) * expert_linear(buf, p["wu"])
-        out_buf = expert_linear(h, p["wd"])              # (E_phys, G * C, d)
-
-        with spans.span(MOE_GATHER):
-            if groups > 1:
-                out_buf = out_buf.reshape(E_phys, groups, C,
-                                          d).transpose(0, 1)
-            out_buf = ctx.unshard_uneven(out_buf)     # E_phys % shards, say
-            opad = torch.cat([out_buf.reshape(trash, d),
-                              out_buf.new_zeros((1, d))])
-            gathered = gather_rows(opad, cell)                 # (T*K, d)
-            weighted = gathered * gate_v.reshape(-1)[:, None].to(
-                gathered.dtype)
-            out = weighted.reshape(T, K, d).sum(dim=1)
+        if grouped:
+            out, probs = _moe_grouped(xt, logits, p, top_k=K, capacity=C,
+                                      act_bits=act_bits)
+        else:
+            out, probs = _moe_capacity(xt, logits, p, top_k=K, capacity=C,
+                                       act_bits=act_bits, groups=groups)
     return out.reshape(orig_shape), probs
+
+
+def _route_pairs(logits, top_k: int):
+    """Router probs (T, E) in f32, and each (token, slot) pair's gate and
+    expert in token-major order, (T*K,) each (on DTensors the experts are
+    gathered to every rank: DTensor has no strategy for the sort-based
+    positions, and the index math runs replicated)."""
+    probs = torch.softmax(logits, dim=-1)
+    gate_v, gate_i = moe_route(probs, top_k)
+    eidx = gate_i.reshape(-1)
+    if ctx.is_dtensor(eidx):
+        eidx = eidx.full_tensor()
+    return probs, gate_v.reshape(-1), eidx
+
+
+def _combine(gathered, gate_v, T: int, K: int, d: int):
+    """Each pair's expert output row (T*K, d) weighted by its gate, summed
+    over the K slots -> (T, d)."""
+    weighted = gathered * gate_v[:, None].to(gathered.dtype)
+    return weighted.reshape(T, K, d).sum(dim=1)
+
+
+def _moe_capacity(xt, logits, p, *, top_k, capacity, act_bits, groups=1):
+    """The experts in the reference's capacity layout: the dispatch buffer
+    (E_phys, C, d) is a gather of the activation-quantized tokens, each
+    kept pair writing its token id once into its (expert, position) cell
+    (an index copy, no atomics: the card stays deterministic), empty cells
+    reading a zero row; SwiGLU per expert through :func:`expert_linear`;
+    each pair gathers its expert's output row back (dropped pairs a zero
+    row).  Both row gathers go through :func:`gather_rows`, whose backward
+    sums repeated rows deterministically.  ``groups`` > 1: x holds G
+    groups of T / G tokens, each with its own capacity and its own cells,
+    (group, expert) taking the place of the expert in the sort; the
+    experts run every group's rows in one call, (E_phys, G * C, d).
+    Returns (out (T, d), probs)."""
+    T, d = xt.shape
+    K, C = top_k, capacity
+    E_phys = _n_phys(p["wg"])
+    dev = xt.device
+    with spans.span(MOE_DISPATCH):
+        probs, gate_v, eidx = _route_pairs(logits, K)
+        if groups > 1:                        # (group, expert) of each pair
+            eidx = eidx + torch.arange(T * K, device=dev) // (
+                T // groups * K) * E_phys
+        pos = _position_in_expert(eidx, groups * E_phys)
+        keep = pos < C
+        trash = groups * E_phys * C             # the zero row / dropped cell
+        cell = torch.where(keep, eidx * C + pos,
+                           torch.full_like(pos, trash))
+
+        xq = maybe_quant_act(xt, act_bits)
+        xpad = torch.cat([xq, xq.new_zeros((1, d))])           # row T: zeros
+        src = torch.full((trash + 1,), T, dtype=torch.int64, device=dev)
+        tok = torch.arange(T * K, device=dev) // K             # pair -> token
+        src.index_copy_(0, cell, tok)      # kept cells are written once each
+        buf = gather_rows(xpad, src[:trash])
+        if groups > 1:
+            buf = buf.reshape(groups, E_phys, C, d).transpose(0, 1)
+        # the buffer's gradient comes back sharded over (expert, row)
+        # from the expert GEMMs; gathered on both dims it flattens back
+        # on every torch release (some refuse a sharded dim 1)
+        buf = ctx.unshard(buf.reshape(E_phys, groups * C, d), [0, 1],
+                          force=True)
+
+    h = F.silu(expert_linear(buf, p["wg"])) * expert_linear(buf, p["wu"])
+    out_buf = expert_linear(h, p["wd"])                  # (E_phys, G * C, d)
+
+    with spans.span(MOE_GATHER):
+        if groups > 1:
+            out_buf = out_buf.reshape(E_phys, groups, C, d).transpose(0, 1)
+        out_buf = ctx.unshard_uneven(out_buf)         # E_phys % shards, say
+        opad = torch.cat([out_buf.reshape(trash, d),
+                          out_buf.new_zeros((1, d))])
+        return _combine(gather_rows(opad, cell), gate_v, T, K, d), probs
+
+
+def _moe_grouped(xt, logits, p, *, top_k, capacity, act_bits):
+    """The experts over the kept pairs alone (one group, K2 / K3 stacks,
+    no DTensor: :func:`_grouped_applies`): the pairs' tokens gathered in
+    the stable sort by expert (:func:`_expert_sort`) into a (T*K, d)
+    buffer, expert e's kept pairs in rows ``offsets[e]:offsets[e + 1]`` in
+    the order of their positions, so a pair's row in its group is its
+    capacity cell's row in its expert; SwiGLU on the grouped launches
+    (:func:`grouped_expert_linear`); each pair gathers its row back.
+    Dropless (C >= T: no expert can be routed more than T pairs), a pair's
+    row is its rank in the sort.  Otherwise the pairs at or past an
+    expert's capacity are left out of its rows, the rows past the last
+    offset read a zero token and are never contracted, and a dropped pair
+    reads zero in place of its expert's output.  Returns (out (T, d),
+    probs)."""
+    T, d = xt.shape
+    K, C = top_k, capacity
+    P = T * K
+    E_phys = _n_phys(p["wg"])
+    dev = xt.device
+    with spans.span(MOE_DISPATCH):
+        probs, gate_v, eidx = _route_pairs(logits, K)
+        order, first, rank = _expert_sort(eidx, E_phys)
+        xq = maybe_quant_act(xt, act_bits)
+        if C >= T:
+            offsets, row = first, rank
+            buf = gather_rows(xq, order // K)
+        else:
+            kept = torch.clamp(first[1:] - first[:-1], max=C)
+            offsets = F.pad(torch.cumsum(kept, 0), (1, 0))
+            pos = rank - first[eidx]
+            keep = pos < C
+            row = torch.where(keep, offsets[eidx] + pos,
+                              torch.full_like(pos, P))
+            src = torch.full((P + 1,), T, dtype=torch.int64, device=dev)
+            src.index_copy_(0, row, torch.arange(P, device=dev) // K)
+            buf = gather_rows(torch.cat([xq, xq.new_zeros((1, d))]),
+                              src[:P])
+        offsets = offsets.to(torch.int32)
+
+    h = F.silu(grouped_expert_linear(buf, p["wg"], offsets, C)) * \
+        grouped_expert_linear(buf, p["wu"], offsets, C)
+    y = grouped_expert_linear(h, p["wd"], offsets, C)             # (P, d)
+
+    with spans.span(MOE_GATHER):
+        if C >= T:
+            gathered = gather_rows(y, row)
+        else:
+            gathered = torch.where(keep[:, None], gather_rows(
+                y, torch.clamp(row, max=P - 1)), 0)
+        return _combine(gathered, gate_v, T, K, d), probs
 
 
 def moe_aux_loss(probs, gate_i, n_experts):

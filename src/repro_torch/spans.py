@@ -38,9 +38,10 @@ The spans (the metric that reads each: ``bench/metrics/``):
   (not annotated), ``step.sample``, ``step.wait`` (``idle_host_share``
   leaves it out) and ``step.emit``;
 * ``moe`` (``models/layers.py::_moe_ffn_impl``, not annotated), counts
-  ``pairs`` (T x K) and ``rows`` (the dispatch buffer's rows, E_phys x
-  groups x C): ``expert_pair_share``; its children ``moe_dispatch`` and
-  ``moe_gather``: ``moe_ms_per_step``;
+  ``pairs`` (T x K) and ``rows`` (the rows the expert GEMMs compute: T x K
+  when they run grouped over the routed pairs, E_phys x groups x C in the
+  capacity layout): ``expert_pair_share``; its children ``moe_dispatch``
+  and ``moe_gather``: ``moe_ms_per_step``;
 * ``ssd_chunk_scan`` (``models/ssm.py``): ``ssd_scan_share``.
 """
 from __future__ import annotations

@@ -13,9 +13,12 @@ whose adjacent top-(k+1) probabilities lie within ``TIE`` of each other
 is left out of both comparisons (the gap rule, applied to routing);
 these seeds give none.  The port's expert GEMMs on the packed store run
 the plain versions of the expert-batched K2 / K3 launches on CPU
-tensors: one call per bucket and expert site, never one per expert.
+tensors: one call per bucket and expert site, never one per expert.  The
+grouped dispatch (the routed pairs alone, sorted by expert) must give the
+capacity dispatch's bits.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -33,10 +36,15 @@ from repro.quant.policy import QuantMode as JMode  # noqa: E402
 from repro.quant.policy import QuantPolicy as JPolicy  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch import spans  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import packed_matmul as kpm  # noqa: E402
+from repro_torch.kernels import quant_matmul as kqm  # noqa: E402
+from repro_torch.kernels.pack import pack_sub8  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.quant.apply import apply_policy_packed  # noqa: E402
+from repro_torch.quant.linear_quant import quant_pack_sub8  # noqa: E402
 from repro_torch.quant.policy import QuantMode, QuantPolicy  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
@@ -308,7 +316,150 @@ def test_packed_expert_store_matches_reference(monkeypatch):
     want = sum(sum(name in ("int2", "int4", "int8")
                    for name, _ in tpacked["blocks"][0][s].buckets)
                for s in ("wg", "wu", "wd")) * jm.cfg.n_repeat
+    # QBN 16 gives the stacks a bf16 full bucket, which has no grouped
+    # launch: the experts keep the capacity layout's batched calls
+    assert any(name == "full" for s in ("wg", "wu", "wd")
+               for name, _ in tpacked["blocks"][0][s].buckets)
     assert calls.count(3) == want
+
+
+# ------------------------------------------------- the grouped dispatch
+GROUPED_E, GROUPED_K, GROUPED_D, GROUPED_FF = 8, 2, 24, 16
+
+
+def _k23_stacks(store, rng):
+    """wg, wu, wd of GROUPED_E experts as stacks that K2 / K3 contract as
+    they are: the packed store (pruned, int2, int4 and int8 buckets) or
+    the uniform int8 store."""
+    E, d, ff = GROUPED_E, GROUPED_D, GROUPED_FF
+
+    def one(shape):
+        w = torch.from_numpy(rng.normal(size=shape).astype(np.float32) /
+                             math.sqrt(shape[-2]))
+        if store == "int8":
+            s = w.abs().amax(dim=-2, keepdim=True) / 127.0
+            return {"q": torch.round(w / s).to(torch.int8), "s": s}
+        bits = np.resize(np.float32([0, 2, 3, 4, 8]), shape[-1])
+        return quant_pack_sub8(w, rng.permutation(bits))
+
+    return {"wg": one((E, d, ff)), "wu": one((E, d, ff)),
+            "wd": one((E, ff, d))}
+
+
+@pytest.mark.parametrize("store", ["packed", "int8"])
+@pytest.mark.parametrize("T,cf", [(8, 0.0), (9, 0.0), (192, 0.0),
+                                  (192, 1.25)])
+def test_grouped_dispatch_equals_capacity_dispatch(T, cf, store,
+                                                   monkeypatch):
+    """The two layouts of the experts on the same logits give the same
+    bits, out and probs: routing skewed so that expert 0 is in every
+    token's top 2 (at T 192 its 192 pairs fill two 128-row tiles) and
+    expert 7 in none; capacity factor 1.25 drops pairs.  moe_ffn takes
+    the grouped layout exactly where the capacity layout's C is over
+    SKINNY_M (T 8: C 8, capacity; T 9: grouped), its ``moe`` span counts
+    T x K rows grouped and E x C otherwise, and each grouped stack takes
+    one grouped call per K2 / K3 bucket."""
+    rng = np.random.default_rng(20 + T)
+    E, K, d = GROUPED_E, GROUPED_K, GROUPED_D
+    router = rng.normal(size=(d, E)).astype(np.float32) / math.sqrt(d)
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32) + 0.5)
+    router[:, 0] += 4.0 * np.sign(x.numpy().sum(0))
+    router[:, 7] -= 4.0 * np.sign(x.numpy().sum(0))
+    p = {"router": torch.from_numpy(router), **_k23_stacks(store, rng)}
+    C = tlayers.moe_capacity(T, E, K, cf)
+    logits = tlayers.linear(x, p["router"], role=None)
+    load = torch.bincount(tlayers.moe_route(torch.softmax(logits, -1),
+                                            K)[1].reshape(-1), minlength=E)
+    assert load[0] == T and load[7] == 0
+    assert (load.max() > C) == (cf > 0)
+    kw = dict(top_k=K, capacity=C, act_bits=8.0)
+    a, pa = tlayers._moe_capacity(x, logits, p, **kw)
+    b, pb = tlayers._moe_grouped(x, logits, p, **kw)
+    assert torch.equal(a, b) and torch.equal(pa, pb)
+
+    calls = []
+    for mod, name in ((kops, "quant_matmul_grouped"),
+                      (kops, "packed_matmul_grouped"),
+                      (kqm, "quant_matmul_grouped"),
+                      (kpm, "packed_matmul_grouped")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, **k:
+                            calls.append(1) or _f(*a, **k))
+    grouped = C > kqm.SKINNY_M
+    spans.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out, _ = tlayers.moe_ffn(x, p, n_experts=E, top_k=K,
+                                 capacity_factor=cf, act_bits=8.0)
+    (moe,) = [r for r in spans.records() if r[0] == tlayers.MOE]
+    spans.clear()
+    assert torch.equal(out, a)
+    assert moe[4] == {"pairs": T * K, "rows": T * K if grouped else E * C}
+    want = sum(1 if store == "int8" else
+               sum(name != "pruned" for name, _ in p[k].buckets)
+               for k in ("wg", "wu", "wd"))
+    assert len(calls) == want * grouped
+
+
+def _grouped_gemm(bits, x, w, s, offsets, cap):
+    if bits == 8:
+        return kqm.quant_matmul_grouped(x, w, s, offsets, cap)
+    return kpm.packed_matmul_grouped(x, w, s, offsets, cap,
+                                     store_bits=bits)
+
+
+def _grouped_operands(bits, rng, E=4, P=40, K=24, N=16):
+    lv = 2 ** (bits - 1) - 1
+    q = torch.from_numpy(rng.integers(-lv, lv + 1, size=(E, K, N))
+                         ).to(torch.int8)
+    w = q if bits == 8 else pack_sub8(q, bits, axis=-2)
+    s = torch.from_numpy(rng.uniform(0.5, 1.5, size=(E, N)).astype(
+        np.float32)) / (lv * math.sqrt(K))
+    x = torch.from_numpy(rng.normal(size=(P, K)).astype(np.float32))
+    return x, q, w, s
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_grouped_gemm_plain_equals_per_expert_calls(bits):
+    """The grouped K2 / K3 wrappers' plain version: groups of 7, 0, 12 and
+    9 rows (rows 1-2 and 30-39 in none), cap 12.  Each group's rows are
+    the expert-batched plain call's rows on the (E, cap, K) layout, bit for
+    bit, and that expert's own plain call's to f32 rounding; rows outside
+    every group are zero."""
+    from repro_torch.kernels.ref import packed_matmul_ref, quant_matmul_ref
+    x, q, w, s = _grouped_operands(bits, np.random.default_rng(30 + bits))
+    off = [0, 7, 7, 19, 28]
+    offsets = torch.tensor(off, dtype=torch.int32)
+    y = _grouped_gemm(bits, x, w, s, offsets, 12)
+    plain = (lambda xb, e=slice(None): quant_matmul_ref(xb, w[e], s[e])) \
+        if bits == 8 else \
+        (lambda xb, e=slice(None): packed_matmul_ref(xb, w[e], s[e], bits))
+    batch = x.new_zeros((4, 12, x.shape[1]))
+    for e, (a, b) in enumerate(zip(off, off[1:])):
+        batch[e, :b - a] = x[a:b]
+    yb = plain(batch)
+    for e, (a, b) in enumerate(zip(off, off[1:])):
+        assert torch.equal(y[a:b], yb[e, :b - a])
+        torch.testing.assert_close(y[a:b], plain(x[a:b], e), rtol=1e-6,
+                                   atol=1e-6)
+    assert not y[off[-1]:].any()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bad", ["dtype", "length", "not_monotone",
+                                 "past_end", "over_cap"])
+def test_grouped_gemm_refuses_bad_offsets(bits, bad):
+    x, _, w, s = _grouped_operands(bits, np.random.default_rng(40))
+    off = {"dtype": torch.tensor([0, 5, 9, 9, 20]),
+           "length": torch.tensor([0, 5, 9, 20], dtype=torch.int32),
+           "not_monotone": torch.tensor([0, 9, 5, 9, 20], dtype=torch.int32),
+           "past_end": torch.tensor([0, 5, 9, 9, 41], dtype=torch.int32),
+           "over_cap": torch.tensor([0, 5, 9, 9, 40], dtype=torch.int32),
+           }[bad]
+    with pytest.raises(ValueError, match="offsets"):
+        _grouped_gemm(bits, x, w, s, off, 16)
+    _grouped_gemm(bits, x, w, s, torch.tensor([0, 5, 9, 9, 20],
+                                              dtype=torch.int32), 16)
 
 
 @pytest.mark.parametrize("store", ["dense", "packed"])

@@ -271,7 +271,10 @@ def test_one_moe_span_a_layer_a_model_call(served):
         for j in moe:
             c = recs[j][4]
             T = c["pairs"] // K
-            assert c == {"pairs": T * K, "rows": E * T}    # dropless: C = T
+            # the fake store's dense stacks keep the capacity layout (the
+            # grouped one, T x K rows, takes K2 / K3 stacks alone), and
+            # dropless C = T
+            assert c == {"pairs": T * K, "rows": E * T}
             kids = [recs[x][0] for x in _children(recs, j)]
             assert kids == ["moe_dispatch", "moe_gather"]
 
