@@ -178,9 +178,9 @@ run exits non-zero:
               the host traced (device ms inside the SSD chunk scan's
               profiler ranges, every K2 / K3 launch in the trace) and a
               profiled generate (device ms by kernel group, busy share,
-              launches per decode token); run() on 8 requests with
-              prefill left to the engine (monolithic; chunked,
-              speculative and serve() refused before any model call;
+              launches per decode token); run(prefill="monolithic")
+              on 8 requests (speculative run and serve refused before
+              any model call;
               streams against generate by the gap rule at the act-off
               tolerance; exact launch counts); then the jamba hybrid at
               HYBRID_CUT's reduced width (one 8-layer period, d_model
@@ -2501,10 +2501,11 @@ def _fp64_floor(torch, model, params, graph, policy, tokens, batch=None,
 
 def _state_run(torch, label, eng, reqs, graph, policy, problems,
                tol=ACT_LOGIT_ATOL):
-    """``eng.run(reqs)`` with ``prefill`` left to the engine on a pattern
-    with recurrent state: chunked and speculative runs and open-loop
-    serving refused before any model call; the run monolithic, each
-    stream held to its own ``generate`` by the gap rule; K1 once per
+    """``eng.run(reqs, prefill="monolithic")`` on a pattern with recurrent
+    state: speculative runs and speculative open-loop serving refused
+    before any model call; each stream of the monolithic run held to its
+    own ``generate`` by the gap rule (the chunked path, ``run()``'s
+    default, is the benchmark's ``granite-h-chat``); K1 once per
     attention layer and admission (generate: and model call), K4 once
     per attention layer and decode step, K2 / K3 exactly one launch per
     bucket of each site and model call, in the run and in the
@@ -2514,26 +2515,26 @@ def _state_run(torch, label, eng, reqs, graph, policy, problems,
     cfg = eng.model.cfg
     na = _attn_layers(cfg)
     kw = dict(page_size=PAGE, max_slots=RUN_SLOTS)
-    for bad in (dict(prefill="chunked"), dict(speculative=True), None):
+    for bad in ("run", "serve"):
         kernels.reset_launch_counts()
         calls = dict(eng.call_counts)
         try:
-            if bad is None:
-                eng.serve(FrontEnd(), **kw)
+            if bad == "serve":
+                eng.serve(FrontEnd(), **kw, speculative=True)
             else:
-                eng.run(reqs, **kw, **bad)
-            problems.append(f"{label}: {bad or 'serve()'} did not raise")
+                eng.run(reqs, **kw, speculative=True)
+            problems.append(f"{label}: speculative {bad} did not raise")
         except ValueError:
             pass
         if dict(eng.call_counts) != calls or \
                 any(kernels.launch_counts().values()):
-            problems.append(f"{label}: {bad or 'serve()'} called the "
+            problems.append(f"{label}: speculative {bad} called the "
                             "model before raising")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = eng.run(reqs, **kw)
+    res = eng.run(reqs, **kw, prefill="monolithic")
     torch.cuda.synchronize()
     rec = _run_record(torch, label, res, time.perf_counter() - t0,
                       kernels.launch_counts())
@@ -3349,7 +3350,7 @@ def _bf16_run_twin(torch, label, model, params, twin, policy, reqs, graph,
     teng = ServeEngine(model, twin, policy=policy, cache_dtype=torch.float32,
                        **kw)
     kernels.reset_launch_counts()
-    teng.run(reqs, page_size=PAGE, max_slots=RUN_SLOTS)
+    teng.run(reqs, page_size=PAGE, max_slots=RUN_SLOTS, prefill="monolithic")
     rec["twin_launches"] = kernels.launch_counts()
     del teng
     if rec["launches"] != rec["twin_launches"]:

@@ -1,4 +1,5 @@
-# Copied from src/repro/models/api.py unchanged.
+# Copied from src/repro/models/api.py; the port-only subclasses at the end
+# (SharedMoECfg, Mamba2Cfg, HybridLMConfig) are not in the reference.
 """Model configuration dataclasses and the public LM protocol.
 
 An :class:`LMConfig` fully describes a decoder LM as a *periodic pattern* of
@@ -131,6 +132,42 @@ class LMConfig:
         in every block (SSM / hybrid / local+global alternation)."""
         full_attn = sum(b.kind in ("attn", "cross_attn") for b in self.pattern)
         return full_attn < len(self.pattern)
+
+
+# ------------------------------------------------------ port-only presets
+# Fields that only the port's granitemoehybrid preset sets live in
+# subclasses, so that every other preset's config, and its repr, stays the
+# reference's.  The model reads them through ``getattr`` with the values
+# below as defaults (``transformer.LM``, ``ssm.conv_dim``).
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedMoECfg(MoECfg):
+    """An MoE FFN with one shared SwiGLU expert of width ``shared_d_ff``
+    beside the routed ones, every token through it."""
+    shared_d_ff: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Cfg(SSMCfg):
+    """Mamba-2 as published: the depthwise causal conv and its SiLU run
+    over x, B and C together (``conv_dim`` = d_inner + 2 d_state), where
+    the reference's block convolves x alone."""
+    conv_bc: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridLMConfig(LMConfig):
+    """The muP scalars of granitemoehybrid: embeddings times
+    ``embedding_multiplier``, each residual branch times
+    ``residual_multiplier``, attention scores times
+    ``attention_multiplier`` (in place of 1 / sqrt(head_dim)), logits
+    divided by ``logits_scaling``.  ``rope_theta=None`` is attention
+    without positional encoding (NoPE)."""
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    logits_scaling: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)

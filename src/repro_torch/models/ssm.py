@@ -5,16 +5,25 @@ length Q the recurrence is evaluated as attention-like matmuls, and across
 chunks a Python loop (the reference's ``lax.scan``) carries the
 (B, H, P, N) fp32 state; the loop's count comes from shapes, so it never
 reads the device.  Decode is the O(1) single-step state update.  Single
-B/C group, conv on x only, as in the reference.
+B/C group.  The depthwise causal conv runs on x alone, as in the
+reference, or, where the config says so (``api.Mamba2Cfg.conv_bc``, as
+Mamba-2 publishes it), on x, B and C together, SiLU after it on all three.
+
+:func:`mamba_step` is the serving engine's token-budget step: each row
+carries its own recurrent state and conv window in and out (a prompt
+chunk, one decode token or nothing), and the scan advances over the row's
+real columns alone.
 
 The projections go through :func:`layers.linear`: a PackedWeight reaches
 K2 / K3 and an int8-store leaf K2, a dense weight is a plain matmul.
 The reference runs no Pallas kernel here, and the port none of its own:
 the chunk scan runs in plain PyTorch inside the span ``SSD_SCAN``
 (``repro_torch.spans``, recorded while a profiler runs), which a profile
-reads to split its device time from the rest.
+reads to split its device time from the rest; the caller's span ``MAMBA``
+(``transformer.LM._mamba_block``) encloses each block.
 
-Shapes: B batch, S seq, H heads, P head_dim, N d_state, Q chunk.
+Shapes: B batch, S seq, H heads, P head_dim, N d_state, Q chunk, C the
+conv's channels (:func:`conv_dim`).
 """
 from __future__ import annotations
 
@@ -26,12 +35,21 @@ import torch.nn.functional as F
 
 from repro_torch import spans
 from repro_torch.models.api import SSMCfg
-from repro_torch.models.layers import (_contiguous_stride, at_least_f32,
-                                       linear, rmsnorm, split_heads)
+from repro_torch.models.layers import (POS_SENTINEL, _contiguous_stride,
+                                       at_least_f32, linear, rmsnorm,
+                                       split_heads)
 from repro_torch.sharding import ctx
 
-# span of the SSD chunk scan (plain PyTorch kernels)
-SSD_SCAN = "ssd_chunk_scan"
+# spans: the SSD chunk scan (plain PyTorch kernels), and the whole block
+# around it (opened by the model)
+SSD_SCAN, MAMBA = "ssd_chunk_scan", "mamba"
+
+
+def conv_dim(cfg: SSMCfg, d_model: int) -> int:
+    """Channels of the depthwise conv: d_inner, plus B's and C's 2 d_state
+    where the conv takes them too (``Mamba2Cfg.conv_bc``)."""
+    extra = 2 * cfg.d_state if getattr(cfg, "conv_bc", False) else 0
+    return cfg.d_inner(d_model) + extra
 
 
 def init_mamba_params(lin, zeros, d_model: int, cfg: SSMCfg):
@@ -48,8 +66,8 @@ def init_mamba_params(lin, zeros, d_model: int, cfg: SSMCfg):
         "dt_bias": zeros(H),
         "A_log": zeros(H),
         "D": zeros(H) + 1.0,
-        "conv_w": lin(cfg.d_conv, cfg.d_conv, di),
-        "conv_b": zeros(di),
+        "conv_w": lin(cfg.d_conv, cfg.d_conv, conv_dim(cfg, d_model)),
+        "conv_b": zeros(conv_dim(cfg, d_model)),
         "norm_w": zeros(di),
         "w_out": lin(di, di, d_model),
     }
@@ -57,7 +75,7 @@ def init_mamba_params(lin, zeros, d_model: int, cfg: SSMCfg):
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv.  x: (B, S, di); w: (K, di)."""
+    """Depthwise causal conv.  x: (B, S, C); w: (K, C)."""
     K, S = w.shape[0], x.shape[1]
     # the zero rows by concatenation, not F.pad: DTensor's pad strategy
     # fails to redistribute on some torch releases (2.11)
@@ -66,15 +84,31 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
-def _ssd_chunk_scan(xh, Bm, Cm, dt, A, chunk: int
+def _conv_in(xi: torch.Tensor, bc: torch.Tensor, cfg: SSMCfg):
+    """The conv's input: x, or x, B and C side by side (``conv_bc``)."""
+    return torch.cat([xi, bc], dim=-1) if getattr(cfg, "conv_bc", False) \
+        else xi
+
+
+def _conv_out(conv: torch.Tensor, bc: torch.Tensor, di: int, cfg: SSMCfg):
+    """SiLU over the conv's output; returns (x, B and C)."""
+    act = F.silu(conv)
+    if getattr(cfg, "conv_bc", False):
+        return act[..., :di], act[..., di:]
+    return act, bc
+
+
+def _ssd_chunk_scan(xh, Bm, Cm, dt, A, chunk: int, state=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.
 
     xh: (B, S, H, P); Bm, Cm: (B, S, N); dt: (B, S, H); A: (H,) negative;
-    all fp32.  Returns (y (B, S, H, P), final_state (B, H, P, N)).  A tail
-    that is not a whole chunk is padded with dt = 0 steps (decay 1, no
-    state update), so the final state is the state at the last real
-    position."""
+    all fp32; ``state`` (B, H, P, N) the state before position 0 (zeros
+    when None).  Returns (y (B, S, H, P), final_state (B, H, P, N)).  A
+    tail that is not a whole chunk is padded with dt = 0 steps (decay 1,
+    no state update), so the final state is the state at the last real
+    position; a step given dt = 0 leaves the state alone in the same
+    way."""
     Bb, S, H, P = xh.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -99,7 +133,8 @@ def _ssd_chunk_scan(xh, Bm, Cm, dt, A, chunk: int
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=xh.device))[None, :, :, None]
 
-    state = torch.zeros((Bb, H, P, N), dtype=xh.dtype, device=xh.device)
+    if state is None:
+        state = torch.zeros((Bb, H, P, N), dtype=xh.dtype, device=xh.device)
     ys = []
     for c in range(nc):
         xq, bq, cq = xc[:, c], Bc[:, c], Cc[:, c]
@@ -169,14 +204,13 @@ def _ssd_scan(xh, Bm, Cm, dt, A, chunk: int):
                                stride=_contiguous_stride(st_shape)))
 
 
-def _last_conv_window(xz: torch.Tensor, cfg: SSMCfg) -> torch.Tensor:
-    """The (d_conv - 1) trailing pre-conv activations, for decode to
-    continue from; a prompt shorter than that is padded on the left."""
-    xi = xz[..., : xz.shape[-1] // 2]
-    K, S = cfg.d_conv, xz.shape[1]
+def _last_conv_window(xin: torch.Tensor, cfg: SSMCfg) -> torch.Tensor:
+    """The (d_conv - 1) trailing conv inputs, for decode to continue from;
+    a prompt shorter than that is padded on the left."""
+    K, S = cfg.d_conv, xin.shape[1]
     if S >= K - 1:
-        return xi[:, S - (K - 1):, :]
-    return F.pad(xi, (0, 0, K - 1 - S, 0))
+        return xin[:, S - (K - 1):, :]
+    return F.pad(xin, (0, 0, K - 1 - S, 0))
 
 
 def mamba_forward(params, x: torch.Tensor, cfg: SSMCfg, d_model: int):
@@ -188,9 +222,11 @@ def mamba_forward(params, x: torch.Tensor, cfg: SSMCfg, d_model: int):
 
     xz = linear(x, params["w_xz"])
     xi, z = xz[..., :di], xz[..., di:]
-    xi = F.silu(_causal_conv(xi, params["conv_w"], params["conv_b"]))
-    bc = at_least_f32(linear(x, params["w_bc"]))
-    Bm, Cm = bc.chunk(2, dim=-1)
+    bc = linear(x, params["w_bc"])
+    xin = _conv_in(xi, bc, cfg)
+    xi, bc = _conv_out(_causal_conv(xin, params["conv_w"], params["conv_b"]),
+                       bc, di, cfg)
+    Bm, Cm = at_least_f32(bc).chunk(2, dim=-1)
     dt = F.softplus(at_least_f32(linear(x, params["w_dt"])) +
                     at_least_f32(params["dt_bias"]))
     A = -torch.exp(at_least_f32(params["A_log"]))
@@ -202,20 +238,20 @@ def mamba_forward(params, x: torch.Tensor, cfg: SSMCfg, d_model: int):
     y = y.reshape(Bb, S, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_w"])
     out = linear(y, params["w_out"], role="w_row")
-    return out, {"state": state, "conv": _last_conv_window(xz, cfg)}
+    return out, {"state": state, "conv": _last_conv_window(xin, cfg)}
 
 
 def init_mamba_cache(batch: int, d_model: int, cfg: SSMCfg,
                      dtype: torch.dtype, lead: Tuple[int, ...] = (),
                      device=None):
     """Decode state of one block: ``state`` (lead..., batch, H, P, N) in
-    fp32 and ``conv`` (lead..., batch, d_conv - 1, di) in ``dtype``."""
+    fp32 and ``conv`` (lead..., batch, d_conv - 1, C) in ``dtype``."""
     H, P, N = cfg.n_heads(d_model), cfg.head_dim, cfg.d_state
-    di = cfg.d_inner(d_model)
+    C = conv_dim(cfg, d_model)
     return {
         "state": torch.zeros(lead + (batch, H, P, N), dtype=torch.float32,
                              device=device),
-        "conv": torch.zeros(lead + (batch, cfg.d_conv - 1, di), dtype=dtype,
+        "conv": torch.zeros(lead + (batch, cfg.d_conv - 1, C), dtype=dtype,
                             device=device),
     }
 
@@ -233,14 +269,15 @@ def mamba_decode_step(params, x: torch.Tensor, cache, cfg: SSMCfg,
 
     xz = linear(x, params["w_xz"])
     xi, z = xz[..., :di], xz[..., di:]                       # (B, 1, di)
-    wdt = torch.promote_types(cache["conv"].dtype, xi.dtype)
-    win = torch.cat([cache["conv"].to(wdt), xi.to(wdt)], dim=1)  # (B, K, di)
+    bc = linear(x, params["w_bc"])
+    xin = _conv_in(xi, bc, cfg)                              # (B, 1, C)
+    wdt = torch.promote_types(cache["conv"].dtype, xin.dtype)
+    win = torch.cat([cache["conv"].to(wdt), xin.to(wdt)], dim=1)  # (B, K, C)
     conv = (win * params["conv_w"][None]).sum(dim=1, keepdim=True) + \
         params["conv_b"]
-    xi = F.silu(conv)
+    xi, bc = _conv_out(conv, bc, di, cfg)
 
-    bc = at_least_f32(linear(x, params["w_bc"]))
-    Bm, Cm = bc[:, 0].chunk(2, dim=-1)                       # (B, N)
+    Bm, Cm = at_least_f32(bc)[:, 0].chunk(2, dim=-1)         # (B, N)
     dt = F.softplus(at_least_f32(linear(x, params["w_dt"]))[:, 0] +
                     at_least_f32(params["dt_bias"]))         # (B, H)
     A = -torch.exp(at_least_f32(params["A_log"]))
@@ -255,3 +292,54 @@ def mamba_decode_step(params, x: torch.Tensor, cache, cfg: SSMCfg,
     y = rmsnorm(y * F.silu(z), params["norm_w"])
     out = linear(y, params["w_out"], role="w_row")
     return out, {"state": state, "conv": win[:, 1:, :]}
+
+
+def mamba_step(params, x: torch.Tensor, cache, q_pos: torch.Tensor,
+               cfg: SSMCfg, d_model: int):
+    """One token-budget step over carried state.  x: (R, w, d), row r's
+    real columns left-aligned in position order and its padded columns at
+    ``POS_SENTINEL`` in ``q_pos`` (R, w); ``cache``: the rows' own
+    {"state" (R, H, P, N) fp32, "conv" (R, d_conv - 1, C)}.
+
+    A row whose first column sits at position 0 starts a prompt: its state
+    and window start from zeros, decided on the device.  The scan advances
+    each row over its real columns alone (dt = 0 on a padded column: no
+    decay, no update), so a decode token (one real column), a prompt
+    chunk and an empty row take the same path.  The conv reads [window,
+    the row's inputs]; the new window is the last d_conv - 1 real inputs
+    of that.  Returns (y (R, w, d), the new {"state", "conv"}), the window
+    in the type the cached one and the inputs promote to, as
+    :func:`mamba_decode_step`'s.  Reads nothing back to the host."""
+    R, w, _ = x.shape
+    di = cfg.d_inner(d_model)
+    H, P, K = cfg.n_heads(d_model), cfg.head_dim, cfg.d_conv
+    real = q_pos != POS_SENTINEL                             # (R, w)
+    fresh = q_pos[:, 0] == 0                                 # (R,)
+
+    xz = linear(x, params["w_xz"])
+    xi, z = xz[..., :di], xz[..., di:]
+    bc = linear(x, params["w_bc"])
+    xin = _conv_in(xi, bc, cfg)                              # (R, w, C)
+    wdt = torch.promote_types(cache["conv"].dtype, xin.dtype)
+    win = cache["conv"].masked_fill(fresh[:, None, None], 0).to(wdt)
+    full = torch.cat([win, xin.to(wdt)], dim=1)              # (R, K-1+w, C)
+    conv = sum(full[:, i:i + w, :] * params["conv_w"][i] for i in range(K))
+    xi, bc = _conv_out(conv + params["conv_b"], bc, di, cfg)
+    last = real.sum(dim=1)[:, None] + torch.arange(K - 1, device=x.device)
+    new_win = torch.gather(full, 1,
+                           last[..., None].expand(-1, -1, full.shape[-1]))
+
+    Bm, Cm = at_least_f32(bc).chunk(2, dim=-1)
+    dt = F.softplus(at_least_f32(linear(x, params["w_dt"])) +
+                    at_least_f32(params["dt_bias"]))
+    dt = dt.masked_fill(~real[..., None], 0.0)               # (R, w, H)
+    A = -torch.exp(at_least_f32(params["A_log"]))
+    xh = split_heads(at_least_f32(xi), H, P)
+    state = cache["state"].masked_fill(fresh[:, None, None, None], 0.0)
+    with spans.span(SSD_SCAN):
+        y, state = _ssd_chunk_scan(xh, Bm, Cm, dt, A, cfg.chunk, state)
+    y = y + at_least_f32(params["D"])[:, None] * xh
+    y = y.reshape(R, w, di).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), params["norm_w"])
+    out = linear(y, params["w_out"], role="w_row")
+    return out, {"state": state, "conv": new_win}

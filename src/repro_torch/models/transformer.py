@@ -1,18 +1,23 @@
 """Config-driven decoder LM: self- and cross-attention and Mamba2 (SSD)
 blocks with dense or MoE FFNs (port of ``repro/models/transformer.py``).
 
-Covers GQA attention with RoPE, the sliding window and the softcaps,
+Covers GQA attention with RoPE (or none: ``rope_theta=None``), the
+sliding window and the softcaps,
 cross-attention over image embeddings (``cross_attn`` blocks: no RoPE,
 every query attends every image token), Mamba2 blocks (``models/ssm.py``),
-dense SwiGLU and capacity-based top-k MoE FFNs, the audio front end
+dense SwiGLU and capacity-based top-k MoE FFNs (with a shared SwiGLU
+expert beside the routed ones where ``moe.shared_d_ff`` is set), the
+muP scalars of ``api.HybridLMConfig`` (granitemoehybrid), the audio front end
 (``frontend="audio_stub"``: frame embeddings ``batch["embeds"]`` in place
 of tokens, no embedding table), ``prefill`` and ``decode_step`` over the
 dense cache (K/V in bf16 by default, fp32, or int8 with per-(position,
 head) scales; a mamba block's recurrent ``"state"``; a cross block's
 ``"memory"``, the image K/V written whole at prefill), and
 ``decode_step_paged`` and ``model_step`` over the paged pool
-(``init_paged_cache``; ``model_step`` takes all-paged patterns only, as
-the reference's), and the training loss (``loss``, with per-repeat
+(``init_paged_cache``; ``model_step`` takes attention's pages and mamba's
+per-slot recurrent state side by side, where the reference's takes
+all-paged patterns only; cross-attention's memory it refuses), and the
+training loss (``loss``, with per-repeat
 rematerialisation and the MoE load-balance term).
 Weights may arrive in the uniform int8 store
 (:meth:`LM.quantize_params_int8`: ``{"q", "s"}`` leaves) or the packed
@@ -45,7 +50,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import backend
+from repro_torch import backend, spans
 from repro_torch.kernels.pack import PackedWeight
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.api import BlockDef, LMConfig
@@ -182,6 +187,15 @@ class LM:
 
     def __init__(self, cfg: LMConfig):
         self.cfg = cfg
+        # the port-only fields of api.HybridLMConfig / SharedMoECfg, at
+        # their neutral values for every other preset
+        self._emb_mult = getattr(cfg, "embedding_multiplier", 1.0)
+        self._res_mult = getattr(cfg, "residual_multiplier", 1.0)
+        am = getattr(cfg, "attention_multiplier", None)
+        # K1 / K4 scale scores by 1 / sqrt(hd): q pre-scaled by am sqrt(hd)
+        self._q_scale = None if am is None else am * math.sqrt(cfg.hdim)
+        self._logit_div = getattr(cfg, "logits_scaling", 1.0)
+        self._shared_ff = getattr(cfg.moe, "shared_d_ff", 0)
 
     # ------------------------------------------------------------------ init
     def init(self, generator=0, device: backend.DeviceLike = None,
@@ -238,6 +252,11 @@ class LM:
                          wg=lin(d, R, ep, d, m.d_ff),
                          wu=lin(d, R, ep, d, m.d_ff),
                          wd=lin(m.d_ff, R, ep, m.d_ff, d))
+                if self._shared_ff:
+                    sf = self._shared_ff
+                    p["shared"] = {"wg": lin(d, R, d, sf),
+                                   "wu": lin(d, R, d, sf),
+                                   "wd": lin(sf, R, sf, d)}
             elif bdef.has_ffn:
                 p.update(ffn_norm=zeros(R, d), wg=lin(d, R, d, cfg.d_ff),
                          wu=lin(d, R, d, cfg.d_ff),
@@ -286,7 +305,12 @@ class LM:
         out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=False,
                         attn_cap=cfg.attn_softcap, chunk=chunk,
                         impl=attn_impl)
-        return x + linear(merge_heads(out), bp["wo"], role="w_row")
+        return x + self._branch(linear(merge_heads(out), bp["wo"],
+                                       role="w_row"))
+
+    def _branch(self, out):
+        """A residual branch's output, times ``residual_multiplier``."""
+        return out if self._res_mult == 1.0 else out * self._res_mult
 
     def _attn_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                     write_pos=None, act_bits=None, attn_impl=None,
@@ -301,10 +325,15 @@ class LM:
         h = rmsnorm(x, bp["norm"], cfg.norm_eps)
         h = maybe_quant_act(h, act_bits)
         window = cfg.window if bdef.kind == "local_attn" else None
-        q = rope(split_heads(linear(h, bp["wq"]), Hq, hd), q_pos,
-                 cfg.rope_theta)
-        k = rope(split_heads(linear(h, bp["wk"]), Hkv, hd), q_pos,
-                 cfg.rope_theta)
+        q = split_heads(linear(h, bp["wq"]), Hq, hd)
+        k = split_heads(linear(h, bp["wk"]), Hkv, hd)
+        if cfg.rope_theta is None:                       # NoPE
+            q, k = q.contiguous(), k.contiguous()
+        else:
+            q, k = rope(q, q_pos, cfg.rope_theta), rope(k, q_pos,
+                                                        cfg.rope_theta)
+        if self._q_scale is not None:
+            q = q * self._q_scale
         v = split_heads(linear(h, bp["wv"]), Hkv, hd).contiguous()
         kv_pos = q_pos
         if block_tables is not None:
@@ -315,7 +344,8 @@ class LM:
                 q_pos=q_pos, window=window,
                 attn_cap=cfg.attn_softcap, k_scale_pages=cache.get("k_s"),
                 v_scale_pages=cache.get("v_s"), impl=attn_impl)
-            return x + linear(merge_heads(out), bp["wo"], role="w_row")
+            return x + self._branch(linear(merge_heads(out), bp["wo"],
+                                           role="w_row"))
         if cache is not None:
             W = cache["k"].shape[1]
             if mode == "decode":
@@ -351,12 +381,14 @@ class LM:
         out = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
                         window=window, attn_cap=cfg.attn_softcap, chunk=chunk,
                         impl=attn_impl)
-        return x + linear(merge_heads(out), bp["wo"], role="w_row")
+        return x + self._branch(linear(merge_heads(out), bp["wo"],
+                                       role="w_row"))
 
     def _ffn(self, bp, bdef: BlockDef, x, act_bits=None):
         """FFN + residual.  Returns (x, aux): the MoE load-balance term
         ``E * sum(mean(probs)^2)`` of the reference's ``_ffn``, or None for
-        a dense FFN."""
+        a dense FFN.  A shared expert's SwiGLU adds to the routed
+        experts' output."""
         cfg = self.cfg
         h = rmsnorm(x, bp["ffn_norm"], cfg.norm_eps)
         if bdef.use_moe:
@@ -365,47 +397,85 @@ class LM:
                                  capacity_factor=m.capacity_factor,
                                  act_bits=act_bits,
                                  local_dispatch=m.local_dispatch)
+            if self._shared_ff:
+                out = out + swiglu(h, bp["shared"], act_bits=act_bits)
             frac = probs.mean(dim=0)
-            return x + out, m.n_experts * torch.sum(frac * frac)
-        return x + swiglu(h, bp, act_bits=act_bits), None
+            return x + self._branch(out), m.n_experts * torch.sum(frac * frac)
+        return x + self._branch(swiglu(h, bp, act_bits=act_bits)), None
 
     def _mamba_block(self, bp, x, *, mode, cache, act_bits=None,
-                     widen_conv=None):
+                     widen_conv=None, q_pos=None, slot_map=None,
+                     paged=False, real_tokens=None):
         """Mamba2 block + residual: the full forward (``cache`` None), a
-        prefill that fills ``cache``, or one decode step (``mode``
-        "decode") over it.  The cache's planes are written in place: the
-        prefill's state and its conv window cast to the planes' dtypes,
-        as the reference casts them; decode's window in the type it comes
-        back in (``ssm.mamba_decode_step``), as the reference's decode
-        returns it: where that is wider than the conv plane (a bf16 plane
-        under fp32 activations), ``widen_conv(dtype)`` widens the stacked
-        plane first and gives this repeat's view of it.  Paged decode runs
+        prefill that fills ``cache``, one decode step (``mode`` "decode")
+        over it, or, given ``slot_map`` (R,), a token-budget step
+        (``ssm.mamba_step``): row r reads slot ``slot_map[r]``'s state and
+        window and writes them back there.  The cache's planes are written
+        in place: the prefill's state and its conv window cast to the
+        planes' dtypes, as the reference casts them; a decode or
+        token-budget step's window in the type it comes back in
+        (``ssm.mamba_decode_step``), as the reference's decode returns it:
+        where that is wider than the conv plane (a bf16 plane under fp32
+        activations), ``widen_conv(dtype)`` widens the stacked plane first
+        and gives this repeat's view of it.  Paged decode (``paged``) runs
         every lane of the batch; idle lanes update state that nothing
-        reads."""
+        reads.
+
+        The span ``mamba`` (not annotated) encloses the block, with the
+        counts ``rows`` (the rows x columns the scan computes) and
+        ``tokens`` (the real tokens among them whose state it advances:
+        every row outside the paged paths, ``real_tokens`` in a
+        token-budget step where the caller gives it; paged decode's idle
+        lanes only the device knows, so it gives none)."""
         cfg = self.cfg
-        h = maybe_quant_act(rmsnorm(x, bp["norm"], cfg.norm_eps), act_bits)
-        if mode == "decode":
-            out, new = ssm_mod.mamba_decode_step(bp["mamba"], h, cache,
-                                                 cfg.ssm, cfg.d_model)
-        else:
-            out, new = ssm_mod.mamba_forward(bp["mamba"], h, cfg.ssm,
-                                             cfg.d_model)
-        if cache is not None:
-            if mode == "decode" and new["conv"].dtype != cache["conv"].dtype:
-                cache = widen_conv(new["conv"].dtype)
-            cache["state"].copy_(new["state"])
-            cache["conv"].copy_(new["conv"])
-        return x + out
+        B, S = x.shape[:2]
+        tokens = real_tokens if slot_map is not None else (
+            None if paged else B * S)
+        counts = {"rows": B * S}
+        if tokens is not None:
+            counts["tokens"] = int(tokens)
+        with spans.span(ssm_mod.MAMBA, annotate=False, **counts):
+            h = maybe_quant_act(rmsnorm(x, bp["norm"], cfg.norm_eps),
+                                act_bits)
+            if slot_map is not None:
+                rows = slot_map.long()
+                own = {key: cache[key].index_select(0, rows)
+                       for key in ("state", "conv")}
+                out, new = ssm_mod.mamba_step(bp["mamba"], h, own, q_pos,
+                                              cfg.ssm, cfg.d_model)
+            elif mode == "decode":
+                out, new = ssm_mod.mamba_decode_step(bp["mamba"], h, cache,
+                                                     cfg.ssm, cfg.d_model)
+            else:
+                out, new = ssm_mod.mamba_forward(bp["mamba"], h, cfg.ssm,
+                                                 cfg.d_model)
+            if cache is not None:
+                if mode == "decode" and \
+                        new["conv"].dtype != cache["conv"].dtype:
+                    cache = widen_conv(new["conv"].dtype)
+                for key in ("state", "conv"):
+                    if slot_map is None:
+                        cache[key].copy_(new[key])
+                    else:
+                        cache[key].index_copy_(0, rows,
+                                               new[key].to(cache[key].dtype))
+        return x + self._branch(out)
 
     def _apply_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                      write_pos=None, act_bits=None, attn_impl=None,
-                     block_tables=None, img_embeds=None, widen_conv=None):
+                     block_tables=None, img_embeds=None, widen_conv=None,
+                     slot_map=None, real_tokens=None):
         """One block; returns (x, aux) (aux None without an MoE FFN).  A
         cross block reads its dense per-slot ``"memory"`` entry even under
-        block tables, as the reference's."""
+        block tables, as the reference's.  ``slot_map`` and
+        ``real_tokens`` (the token-budget step's) reach mamba blocks
+        only."""
         if bdef.kind == "mamba":
             x = self._mamba_block(bp, x, mode=mode, cache=cache,
-                                  act_bits=act_bits, widen_conv=widen_conv)
+                                  act_bits=act_bits, widen_conv=widen_conv,
+                                  q_pos=q_pos, slot_map=slot_map,
+                                  paged=block_tables is not None,
+                                  real_tokens=real_tokens)
         elif bdef.kind == "cross_attn":
             x = self._cross_block(bp, x, q_pos=q_pos, mode=mode, cache=cache,
                                   img_embeds=img_embeds, act_bits=act_bits,
@@ -482,13 +552,17 @@ class LM:
         :func:`layers.gather_rows` (deterministic backward)."""
         emb = params["embed"]
         if is_int8_leaf(emb):
-            return emb["q"][tokens].to(emb["s"].dtype) * emb["s"][tokens]
-        return gather_rows(emb, tokens)
+            x = emb["q"][tokens].to(emb["s"].dtype) * emb["s"][tokens]
+        else:
+            x = gather_rows(emb, tokens)
+        return x if self._emb_mult == 1.0 else x * self._emb_mult
 
     def logits_of(self, params, x):
         cfg = self.cfg
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         lg = constrain(linear(x, params["unembed"]), "logits")
+        if self._logit_div != 1.0:
+            lg = lg / self._logit_div
         lg = softcap(lg, cfg.logit_softcap)
         if cfg.vocab_padded != cfg.vocab:   # mask padded vocab entries
             valid = torch.arange(cfg.vocab_padded, device=lg.device) < cfg.vocab
@@ -740,32 +814,39 @@ class LM:
 
     # ------------------------------------------- unified token-budget step
     def model_step(self, params, tokens, positions, slot_map, cache,
-                   block_tables, logit_cols, act_bits=None, attn_impl=None):
+                   block_tables, logit_cols, act_bits=None, attn_impl=None,
+                   real_tokens=None):
         """One token-budget step: prompt chunks and decode tokens together.
 
         Row r of the (R, k) batch carries slot ``slot_map[r]``'s tokens
         this step: a prompt chunk of up to k tokens, one decode token, or
         nothing; real tokens are left-aligned in ascending position order
         and padded columns carry ``POS_SENTINEL``.  K/V go straight into
-        block-table pages (in place).  tokens / positions: (R, k) int;
-        slot_map: (R,) int; block_tables: (n_slots, nb) int32;
-        logit_cols: (R,) -- each row's last real column, returns
-        (R, 1, V) -- or (R, C), one logits row per listed column, returns
-        (R, C, V).  Returns (logits, cache).  The pattern's cache kinds
-        must all be ``"paged"``: recurrent state cannot take a chunk, and
-        such patterns serve through the monolithic path, as in the
-        reference."""
+        block-table pages (in place); a mamba block's ``"state"`` entry
+        is read and written back at slot ``slot_map[r]`` (in place), its
+        scan advancing over the row's real tokens alone, from zeros where
+        the row's first column is position 0 (``ssm.mamba_step``).
+        tokens / positions: (R, k) int; slot_map: (R,) int; block_tables:
+        (n_slots, nb) int32; logit_cols: (R,) -- each row's last real
+        column, returns (R, 1, V) -- or (R, C), one logits row per listed
+        column, returns (R, C, V); ``real_tokens``: the batch's real
+        tokens, a host count for the ``mamba`` span (None: not counted).
+        Returns (logits, cache).  The pattern's cache kinds must be
+        ``"paged"`` or ``"state"``: a cross-attention ``"memory"`` entry,
+        which the reference's all-paged step refuses too, raises."""
         kinds = self.cfg.cache_kinds()
-        if any(kd != "paged" for kd in kinds):
+        if any(kd not in ("paged", "state") for kd in kinds):
             raise ValueError(
-                "model_step requires a pure paged-cache pattern (attn / "
-                f"local_attn only); got cache kinds {kinds} -- serve hybrid "
-                "architectures through the monolithic prefill path")
+                "model_step takes all-paged patterns and recurrent state "
+                f"beside them; got cache kinds {kinds} -- a cross-attention "
+                "memory is written at prefill: drive LM.prefill / "
+                "decode_step_paged")
         x = constrain(self._embed_tokens(params, tokens.long()), "hidden")
         q_pos = positions.to(torch.int32)
         bt_rows = block_tables.index_select(0, slot_map.long())
         x, _ = self._stack(params, x, cache, act_bits, q_pos=q_pos,
                            mode="decode", write_pos=q_pos, block_tables=bt_rows,
+                           slot_map=slot_map, real_tokens=real_tokens,
                            attn_impl=attn_impl)
         cols = logit_cols.long()
         if cols.ndim == 1:
@@ -843,6 +924,11 @@ class LM:
                     add(f"{nm}.{site}", pre + (site,), cin, cout,
                         R * m.n_experts * eff_toks * cin * cout,
                         R * m.n_experts * cin * cout, -1, kind="expert")
+                sf = self._shared_ff
+                for site, cin, cout in (("wg", d, sf), ("wu", d, sf),
+                                        ("wd", sf, d)) if sf else ():
+                    add(f"{nm}.shared.{site}", pre + ("shared", site), cin,
+                        cout, R * toks * cin * cout, R * cin * cout, -1)
             elif bdef.has_ffn:
                 add(f"{nm}.wg", pre + ("wg",), d, cfg.d_ff,
                     R * toks * d * cfg.d_ff, R * d * cfg.d_ff, -1)

@@ -27,7 +27,10 @@ to a :class:`FrontEnd` at once and drains it through the overlapped
 token-budget :class:`StepLoop` (``prefill="chunked"``), or runs the
 monolithic prefill-then-decode state machine (``prefill="monolithic"``:
 one batch-1 ``prefill`` per admitted request scattered into the pool, then
-``decode_step_paged``).  ``run(speculative=True)`` adds multi-token
+``decode_step_paged``).  The chunked loop serves attention's paged K/V
+and mamba's per-slot recurrent state side by side (``LM.model_step``);
+cross-attention's memory serves neither way (no token prompt).
+``run(speculative=True)`` adds multi-token
 decode on top of the chunked loop, as the reference's does: a draft pass
 proposes ``draft_k`` tokens per decoding lane, one verify ``model_step``
 scores each lane's whole span past its current position, and
@@ -318,21 +321,21 @@ class ServeEngine:
 
         requests: each a :class:`Request`, a ``{"tokens", "n_new",
         "temperature"?, "seed"?}`` dict, or a ``(tokens, n_new)`` tuple
-        with a 1-D prompt.  ``prefill="chunked"`` (the default when every
-        cache kind is ``"paged"``) submits them all to a
-        :class:`FrontEnd` and drains :meth:`serve`: one
+        with a 1-D prompt.  ``prefill="chunked"`` (the default) submits
+        them all to a :class:`FrontEnd` and drains :meth:`serve`: one
         ``model_step`` per step, every in-flight sequence contributing up
         to ``chunk_tokens`` (default ``page_size``) prompt tokens or one
         decode token under ``token_budget`` real tokens (default
         ``max_slots + chunk_tokens - 1``, at least ``max_slots``).
         ``overlap`` selects the pipelined step loop; both settings give the
-        same streams.  ``prefill="monolithic"`` prefills each admitted
-        request alone (K1), scatters it into the pool and decodes the
-        batch through ``decode_step_paged``; it is the default, and the
-        only mode, for patterns with recurrent (mamba) ``"state"``
-        entries, which cannot take a chunk: forcing ``"chunked"`` or
-        ``speculative=True`` on them raises before any model call, as in
-        the reference.  ``num_pages`` defaults to ``max_slots``
+        same streams.  Recurrent (mamba) ``"state"`` entries ride the
+        chunked step, each slot's state carried from chunk to chunk and
+        zeroed where a prompt starts (``LM.model_step``).
+        ``prefill="monolithic"`` prefills each admitted request alone
+        (K1), scatters it into the pool and decodes the batch through
+        ``decode_step_paged``.  ``speculative=True`` on ``"state"``
+        patterns raises before any model call: a rejected draft cannot
+        roll recurrent state back.  ``num_pages`` defaults to ``max_slots``
         sequences at ``max_len`` plus the trash page; a
         smaller pool throttles admission and requeues prefills that cannot
         grow.
@@ -353,24 +356,13 @@ class ServeEngine:
         self._refuse_frontend("run")
         reqs = [as_request(i, r) for i, r in enumerate(requests)]
         kinds = self.model.cfg.cache_kinds()
-        chunkable = all(kd == "paged" for kd in kinds)
         if prefill is None:
-            prefill = "chunked" if chunkable else "monolithic"
+            prefill = "chunked"
         if prefill not in ("chunked", "monolithic"):
             raise ValueError(f"unknown prefill mode {prefill!r}")
-        if prefill == "chunked" and not chunkable:
-            raise ValueError(
-                f"prefill='chunked' needs all-paged cache kinds, got "
-                f"{kinds}: recurrent/memory blocks cannot chunk -- use "
-                "prefill='monolithic'")
         if speculative:
             # fail fast, before any model call
-            if not chunkable:
-                raise ValueError(
-                    f"speculative=True needs all-paged cache kinds, got "
-                    f"{kinds}: recurrent/memory blocks cannot run the "
-                    "multi-token verify chunk -- serve hybrid patterns "
-                    "non-speculatively through prefill='monolithic'")
+            self._refuse_speculation(kinds)
             if prefill == "monolithic":
                 raise ValueError(
                     "speculative=True runs through the chunked model_step "
@@ -422,17 +414,13 @@ class ServeEngine:
         synchronously (acceptance needs token values).  The knobs are
         :meth:`run`'s.  Returns ``{"outputs": {rid: np.ndarray}, "stats":
         ServeStats, "shed": [rid, ...]}``; shed requests have empty
-        streams.  Chunked only: a pattern whose cache kinds are not all
-        ``"paged"`` raises, as in the reference (it serves through
-        ``run(prefill="monolithic")``)."""
+        streams.  Chunked: ``"paged"`` and ``"state"`` entries side by
+        side, where the reference's takes all-paged patterns only;
+        ``speculative=True`` on ``"state"`` raises, as in :meth:`run`."""
         self._refuse_frontend("serve")
         kinds = self.model.cfg.cache_kinds()
-        if not all(kd == "paged" for kd in kinds):
-            raise ValueError(
-                f"open-loop serving needs all-paged cache kinds, got "
-                f"{kinds}: recurrent/memory blocks cannot chunk -- serve "
-                "hybrid patterns through run(prefill='monolithic')")
         if speculative:
+            self._refuse_speculation(kinds)
             self._validate_draft_args(draft_k, draft_policy, draft_layers,
                                       draft_act_bits)
         chunk = chunk_tokens if chunk_tokens is not None else page_size
@@ -504,6 +492,17 @@ class ServeEngine:
                               cfg.window is not None and
                               all(b.kind == "local_attn"
                                   for b in cfg.pattern)) else None
+
+    @staticmethod
+    def _refuse_speculation(kinds) -> None:
+        """Speculation needs every cache kind ``"paged"``: a rejected
+        draft rolls pages back, but recurrent state it cannot."""
+        if any(kd != "paged" for kd in kinds):
+            raise ValueError(
+                f"speculative=True needs all-paged cache kinds, got "
+                f"{kinds}: recurrent state cannot be rolled back past a "
+                "rejected draft -- serve this pattern with "
+                "speculative=False")
 
     @staticmethod
     def _validate_draft_args(draft_k, draft_policy, draft_layers,

@@ -1,5 +1,5 @@
-# Copied from src/repro/serve/scheduler.py; only the import of paged_kv
-# names the port's module.
+# Copied from src/repro/serve/scheduler.py; the import of paged_kv names
+# the port's module, and the docstring says which patterns chunk here.
 """Continuous-batching request scheduler for the paged serving engine.
 
 Iteration-level (Orca-style) scheduling: the batch is a fixed array of
@@ -19,8 +19,10 @@ to drain.  Two admission styles share the slot table:
   preempted and *requeued* (it has emitted nothing, so a restart replays
   the identical stream).
 * **monolithic** (:meth:`try_admit` + :meth:`batch`): the legacy path --
-  the whole prompt's pages up front, one batch-1 prefill per request
-  (hybrid mamba/cross-attn patterns only chunk this way).
+  the whole prompt's pages up front, one batch-1 prefill per request.
+  In the port, attention and mamba patterns chunk either way (a mamba
+  slot's recurrent state rides ``model_step``); the reference's engine
+  serves mamba patterns monolithically only.
 
 State machine per request::
 

@@ -2,8 +2,11 @@
 ``repro/serve/step_loop.py``, speculative branch included).
 
 Each step plans a fixed-shape batch (``Scheduler.plan_step``), runs one
-``LM.model_step`` over it and samples every lane on the device.  Host and
-device overlap as in the reference:
+``LM.model_step`` over it and samples every lane on the device.  The
+cache holds attention's pages beside mamba's per-slot recurrent state;
+the model zeroes a slot's state itself where a prompt starts there (at
+admission or after a requeue), in stream order, so the loop treats both
+kinds alike.  Host and device overlap as in the reference:
 
 * **sample on the device** -- greedy lanes take the first maximum, a
   sampled lane draws from its own ``torch.Generator`` (seeded with the
@@ -179,11 +182,10 @@ class StepLoop:
         spec_lanes = {i: c for i, c in plan["spec"].items() if c > 1}
         w = W if (plan["chunked"] or spec_lanes) else 1
         tokens = plan["tokens"]
+        real = sum(plan["chunked"].values()) + sum(
+            plan["spec"].get(i, 1) for i in plan["decode"])
         if counts is not None:
-            counts.update(
-                rows=tokens.shape[0] * w,
-                real_rows=sum(plan["chunked"].values()) + sum(
-                    plan["spec"].get(i, 1) for i in plan["decode"]))
+            counts.update(rows=tokens.shape[0] * w, real_rows=real)
         if spec and (plan["chunked"] or plan["spec"]):
             # the draft pass fills each speculating lane's verify columns
             drafts = eng._draft_propose(spec, plan, sched, spec_lanes,
@@ -206,7 +208,8 @@ class StepLoop:
         with spans.span("step.launch", annotate=False):
             logits, self.cache = eng._model_step(
                 eng.params, tok_in, pos, slot_map, self.cache, tables,
-                logit_cols, eng.act_bits, attn_impl=eng.attn_impl)
+                logit_cols, eng.act_bits, attn_impl=eng.attn_impl,
+                real_tokens=real)
         stats.chunk_prefill_tokens += sum(plan["chunked"].values())
         retire = None
         with spans.span("step.sample"):

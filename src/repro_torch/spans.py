@@ -42,7 +42,11 @@ The spans (the metric that reads each: ``bench/metrics/``):
   when they run grouped over the routed pairs, E_phys x groups x C in the
   capacity layout): ``expert_pair_share``; its children ``moe_dispatch``
   and ``moe_gather``: ``moe_ms_per_step``;
-* ``ssd_chunk_scan`` (``models/ssm.py``): ``ssd_scan_share``.
+* ``mamba`` (``models/transformer.py::LM._mamba_block``, not annotated),
+  counts ``rows`` (the rows x columns the block's scan computes) and
+  ``tokens`` (the real tokens whose state it advances, where the host
+  knows them): ``ssd_row_share``; its child ``ssd_chunk_scan``
+  (``models/ssm.py``): ``ssd_scan_share``, ``ssd_roofline``.
 """
 from __future__ import annotations
 

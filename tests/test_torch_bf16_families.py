@@ -32,9 +32,9 @@ embeddings x 0.3, as tests/test_models.py:18, rounded to bf16 for both).
   under ``jax.disable_jit()``), every part bit for bit; their forwards by
   the twin rule, the twin the reference's store of the upcast parameters.
   The uniform int8 store: ``q`` bit for bit, ``s`` to fp32 rounding.
-* Inside the port, bitwise: ``run()`` == ``generate()``, overlap on ==
-  off, and ``run()`` stays monolithic (chunked and speculative runs on
-  recurrent state still raise).
+* Inside the port, bitwise: monolithic ``run()`` == ``generate()``,
+  chunked ``run()`` overlap on == off (its streams against generate's by
+  the gap rule), and speculative runs on recurrent state still raise.
 """
 import functools
 
@@ -392,12 +392,17 @@ def _port_step(tm, params, B, cache_dtype):
 @pytest.mark.parametrize("arch", [MAMBA, JAMBA])
 def test_engine_on_recurrent_state(arch, cache):
     """ServeEngine on the bf16 model over a cache and pool of ``cache``
-    type: run() monolithic (write_prefill copying state and window into
-    each slot), every stream equal to generate()'s bit for bit, overlap on
-    == off; chunked and speculative runs still refused.  generate of two
-    prompts against the reference's engine: the step logits teacher-forced
-    along the reference's stream by the twin rule over the stream, the
-    streams by the gap rule at that bound."""
+    type: run(prefill="monolithic") (write_prefill copying state and
+    window into each slot), every stream equal to generate()'s bit for
+    bit; run() chunked (the default: each slot's state carried through
+    ``model_step``), overlap on == off bit for bit, and every stream equal
+    to generate()'s or first different where generate's own top-2 gap is
+    below the twin bound (the chunk's scan and conv sum in another order
+    than prefill and decode, and bf16 rounds the difference);
+    speculative runs still refused.  generate of two prompts against the
+    reference's engine: the step logits teacher-forced along the
+    reference's stream by the twin rule over the stream, the streams by
+    the gap rule at that bound."""
     jm, jp, jp32, tm, tp = _pair(arch)
     cfg = jm.cfg
     dt = getattr(torch, cache)
@@ -406,15 +411,13 @@ def test_engine_on_recurrent_state(arch, cache):
     rng = np.random.default_rng(41)
     reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), k)
             for n, k in [(3, 5), (7, 4), (5, 6), (9, 3)]]
-    gens = [eng.generate(t[None], n)["tokens"][0] for t, n in reqs]
-    for kw in (dict(), dict(overlap=False)):
-        res = eng.run(reqs, page_size=4, max_slots=2, **kw)
-        assert res["stats"].mode == "monolithic"
-        for i, (out, want) in enumerate(zip(res["outputs"], gens)):
-            np.testing.assert_array_equal(out, want, err_msg=f"{kw} {i}")
-    for bad in (dict(prefill="chunked"), dict(speculative=True)):
-        with pytest.raises(ValueError):
-            eng.run(reqs, page_size=4, max_slots=2, **bad)
+    gens = [eng.generate(t[None], n) for t, n in reqs]
+    res = eng.run(reqs, page_size=4, max_slots=2, prefill="monolithic")
+    assert res["stats"].mode == "monolithic"
+    for i, (out, want) in enumerate(zip(res["outputs"], gens)):
+        np.testing.assert_array_equal(out, want["tokens"][0], err_msg=str(i))
+    with pytest.raises(ValueError):
+        eng.run(reqs, page_size=4, max_slots=2, speculative=True)
     n = 6
     toks = rng.integers(0, cfg.vocab, size=(2, 8)).astype(np.int32)
     want = JEngine(jm, jp, max_len=32, attn_impl="ref",
@@ -432,6 +435,15 @@ def test_engine_on_recurrent_state(arch, cache):
         for b in np.unique(diff[diff[:, 1] == t][:, 0]):
             top = np.sort(ref[b, t])
             assert top[-1] - top[-2] < bound, (b, t, top[-2:])
+    chunked = [eng.run(reqs, page_size=4, max_slots=2, **kw)
+               for kw in (dict(), dict(overlap=False))]
+    assert chunked[0]["stats"].mode == "chunked"
+    for i, (a, b, g) in enumerate(zip(chunked[0]["outputs"],
+                                      chunked[1]["outputs"], gens)):
+        np.testing.assert_array_equal(a, b, err_msg=f"overlap {i}")
+        bad = np.flatnonzero(a != g["tokens"][0])
+        if bad.size:
+            assert g["top2_gap"][bad[0], 0] < bound, (i, int(bad[0]))
 
 
 # ------------------------------------------------------------ the stores

@@ -4,13 +4,16 @@ mamba2-smoke (all ``"state"``) and jamba-smoke (``"state"`` beside
 and :426, tests/test_speculative.py:223 and the reference's
 ``init_paged_cache`` / ``write_prefill`` for the ``"state"`` kind.
 
-Inside the port ``run()`` takes the monolithic path for such patterns and
-its streams equal ``generate()``'s bit for bit; forcing the chunked path,
-speculation or open-loop ``serve()`` raises before any model call.
-Against the reference: logits at rtol = atol = 1e-4 (f32 on both sides,
-summation order only), pools plane for plane, and ``run()`` streams equal
-or first different where the port's top-2 logit gap is below that
-tolerance.
+Inside the port ``run(prefill="monolithic")`` streams equal
+``generate()``'s bit for bit; the chunked path (``run()``'s default),
+open-loop ``serve()`` and ``model_step`` take such patterns, each slot's
+state carried through the token-budget step (tests/test_torch_granite_
+hybrid.py holds them to the full forward pass), and speculation raises
+before any model call.  Against the reference: logits at rtol = atol =
+1e-4 (f32 on both sides, summation order only), pools plane for plane,
+and the port's chunked ``run()`` streams against the reference's
+monolithic ones: equal or first different where the port's top-2 logit
+gap is below that tolerance.
 """
 import numpy as np
 import pytest
@@ -68,11 +71,11 @@ def _engine(arch, **kw):
     (MAMBA, "fake", "bfloat16"), (JAMBA, "fake", "float32"),
     (JAMBA, "packed", "float32")])
 def test_run_is_monolithic_and_matches_generate(arch, store, cache_dtype):
-    """Mirrors tests/test_paged_kv.py:239: run() picks "monolithic" for
-    recurrent state, and each stream equals the request's generate(),
-    with more requests than slots (a slot's state is overwritten by the
-    next admission), under a packed policy with activation QBN 8 and over
-    a bf16 cache and pool."""
+    """Mirrors tests/test_paged_kv.py:239: run(prefill="monolithic") on
+    recurrent state, each stream equal to the request's generate(), with
+    more requests than slots (a slot's state is overwritten by the next
+    admission), under a packed policy with activation QBN 8 and over a
+    bf16 cache and pool."""
     m = LM(ARCHS[arch].smoke)
     params = m.init(0, device="cpu")
     policy = _policy(m) if store == "packed" else None
@@ -81,7 +84,7 @@ def test_run_is_monolithic_and_matches_generate(arch, store, cache_dtype):
                       cache_dtype=getattr(torch, cache_dtype))
     reqs = _requests(m.cfg.vocab, [(4, 4), (6, 3), (3, 5), (9, 4), (1, 3)],
                      seed=7)
-    res = eng.run(reqs, page_size=4, max_slots=2)
+    res = eng.run(reqs, page_size=4, max_slots=2, prefill="monolithic")
     assert res["stats"].mode == "monolithic"
     assert eng.call_counts["model_step"] == 0
     for i, ((toks, n), out) in enumerate(zip(reqs, res["outputs"])):
@@ -91,24 +94,36 @@ def test_run_is_monolithic_and_matches_generate(arch, store, cache_dtype):
 
 @pytest.mark.parametrize("arch", [MAMBA, JAMBA])
 def test_chunked_speculative_and_serve_reject_recurrent_state(arch):
-    """Mirrors tests/test_paged_kv.py:426 and tests/test_speculative.py:223:
-    the chunked path, speculation and open-loop serving raise
-    ValueErrors naming the way out, before any model call; model_step
-    raises as the reference's does."""
+    """Mirrors tests/test_speculative.py:223: speculation on recurrent
+    state raises a ValueError naming the way out, before any model call,
+    through run() and serve() alike (a rejected draft cannot roll the
+    state back).  The chunked path, open-loop serving and model_step take
+    the pattern: run(prefill="chunked") and serve() stream what
+    generate() does, and model_step writes the row's state into its
+    slot."""
     cfg, eng = _engine(arch)
     reqs = _requests(cfg.vocab, [(3, 2)], seed=1)
-    with pytest.raises(ValueError, match="chunk"):
-        eng.run(reqs, page_size=4, max_slots=1, prefill="chunked")
-    with pytest.raises(ValueError, match="monolithic"):
-        eng.run(reqs, page_size=4, max_slots=1, speculative=True)
-    with pytest.raises(ValueError, match="monolithic"):
-        eng.serve(FrontEnd(), page_size=4, max_slots=1)
+    for call in (lambda: eng.run(reqs, page_size=4, max_slots=1,
+                                 speculative=True),
+                 lambda: eng.serve(FrontEnd(), page_size=4, max_slots=1,
+                                   speculative=True)):
+        with pytest.raises(ValueError, match="speculative=False"):
+            call()
     assert not any(eng.call_counts.values())
+    want = eng.generate(reqs[0][0][None], 2)["tokens"][0]
+    res = eng.run(reqs, page_size=4, max_slots=1, prefill="chunked")
+    assert res["stats"].mode == "chunked"
+    np.testing.assert_array_equal(res["outputs"][0], want)
+    fe = FrontEnd()
+    rid = fe.submit(reqs[0]).rid
+    np.testing.assert_array_equal(
+        eng.serve(fe, page_size=4, max_slots=1)["outputs"][rid], want)
     pool = eng.model.init_paged_cache(1, 3, 4, device="cpu")
     z = torch.zeros((1, 2), dtype=torch.int64)
-    with pytest.raises(ValueError, match="monolithic"):
-        eng.model.model_step(eng.params, z, z.int(), z[:, 0].int(), pool,
-                             z.int(), z[:, 0].int())
+    eng.model.model_step(eng.params, z, z.int(), z[:, 0].int(), pool,
+                         z.int(), z[:, 1].int())
+    state = pool[cfg.cache_kinds().index("state")]["state"]
+    assert bool(state.abs().sum() > 0)
 
 
 @pytest.mark.parametrize("arch", [MAMBA, JAMBA])
@@ -214,9 +229,10 @@ def test_decode_step_paged_matches_reference():
 
 
 def test_run_streams_match_reference_run():
-    """mamba2-smoke: the port's run() against the reference's on the same
-    parameters (both monolithic): equal, or first different where the
-    port's top-2 logit gap is below the logits tolerance."""
+    """mamba2-smoke: the port's run() (chunked, the state carried through
+    model_step) against the reference's (monolithic, its only path for
+    recurrent state) on the same parameters: equal, or first different
+    where the port's top-2 logit gap is below the logits tolerance."""
     jm = JLM(JARCHS[MAMBA].smoke)
     jp = jm.init(jax.random.PRNGKey(0))
     jeng = JEngine(jm, jp, max_len=32, attn_impl="ref")
@@ -227,7 +243,8 @@ def test_run_streams_match_reference_run():
     kw = dict(page_size=4, max_slots=2)
     want = jeng.run(reqs, **kw)
     got = eng.run(reqs, **kw)
-    assert want["stats"].mode == got["stats"].mode == "monolithic"
+    assert want["stats"].mode == "monolithic"
+    assert got["stats"].mode == "chunked"
     for i, ((toks, n_new), g, w) in enumerate(zip(reqs, got["outputs"],
                                                   want["outputs"])):
         bad = np.flatnonzero(g != w)

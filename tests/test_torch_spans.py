@@ -324,3 +324,44 @@ def test_speculative_step_spans_and_streams():
         if r[0] in ("step.wait", "step.emit") and r[3] >= 0:
             assert recs[r[3]][0] == "step.sample"
             assert recs[recs[r[3]][3]][0] == "step"
+
+
+def test_mamba_span_counts_a_known_chunked_step():
+    """One token-budget step of granite-h-smoke over three slots: a prompt
+    chunk of 5 at position 0, a decode token at position 7 and an empty
+    row, at width 8.  Each of the nine mamba blocks records a ``mamba``
+    span (no range) with ``rows`` 3 x 8 and ``tokens`` 6, the model call's
+    real tokens; the ``ssd_chunk_scan`` range is its child.  The one
+    attention block records none."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import ssm
+    m = LM(get("granite-4.0-h-small").smoke)
+    params = m.init(0, device="cpu")
+    pool = m.init_paged_cache(3, 8, 4, dtype=torch.float32, device="cpu")
+    R, w = 3, 8
+    sent = 2 ** 31 - 1
+    pos = torch.full((R, w), sent, dtype=torch.int32)
+    pos[0, :5] = torch.arange(5)
+    pos[1, 0] = 7
+    tables = torch.zeros((R, 4), dtype=torch.int32)
+    tables[0, :2] = torch.tensor([1, 2])
+    tables[1, :2] = torch.tensor([3, 4])
+    toks = torch.randint(0, m.cfg.vocab, (R, w))
+    spans.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        m.model_step(params, toks, pos, torch.arange(R), pool, tables,
+                     torch.tensor([4, 0, 0]), real_tokens=6)
+    recs = spans.records()
+    spans.clear()
+    mamba = [i for i, r in enumerate(recs) if r[0] == ssm.MAMBA]
+    assert len(mamba) == sum(b.kind == "mamba" for b in m.cfg.pattern)
+    for i in mamba:
+        assert recs[i][4] == {"rows": R * w, "tokens": 6}
+        kids = [recs[j][0] for j in _children(recs, i)]
+        assert kids.count(ssm.SSD_SCAN) == 1
+    scans = [r for r in recs if r[0] == ssm.SSD_SCAN]
+    assert len(scans) == len(mamba) and all(r[3] in mamba for r in scans)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.is_user_annotation()]
+    assert ssm.MAMBA not in names and ssm.SSD_SCAN in names

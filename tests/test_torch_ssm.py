@@ -126,7 +126,9 @@ def test_ssd_chunk_scan_gradients_are_finite():
 @pytest.mark.parametrize("S", [1, 2, 3, 10])
 def test_causal_conv_and_last_conv_window_match_reference(S):
     """Down to prompts shorter than d_conv - 1 = 3, which the window pads
-    on the left."""
+    on the left.  The port's window takes the conv's input (here x, the
+    first half of xz, as the reference's block convolves), the
+    reference's xz."""
     rng = np.random.default_rng(S)
     x = rng.normal(size=(2, S, 12)).astype(np.float32)
     w = rng.normal(size=(4, 12)).astype(np.float32)
@@ -138,7 +140,7 @@ def test_causal_conv_and_last_conv_window_match_reference(S):
     xz = rng.normal(size=(2, S, 24)).astype(np.float32)
     want = np.asarray(jssm._last_conv_window(jnp.asarray(xz),
                                              JSSMCfg(**CFG)))
-    got = tssm._last_conv_window(_t(xz), SSMCfg(**CFG)).numpy()
+    got = tssm._last_conv_window(_t(xz[..., :12]), SSMCfg(**CFG)).numpy()
     assert got.shape == (2, 3, 12)
     np.testing.assert_array_equal(got, want)
 
