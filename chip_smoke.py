@@ -99,7 +99,12 @@ run exits non-zero:
               (device time by kernel group: K4's chunk and decode
               launches, K2's and K3's GEMMs; by route, no more device
               launches in the trace than GEMM calls, and the records the
-              trace lost reported, as in generate's on engine A).
+              trace lost reported, as in generate's on engine A); at most
+              one model_step shape a width and rung of the compacted
+              step's ladder (step_shapes); and compact_step_gate: the
+              serving benchmark's 16 x 256 step padded against compacted
+              (the real cells' rows alone), logits and pool within
+              COMPACT_TOL, bit-equality printed.
    cache-store -- gemma2-2b over a bf16 cache and pool (engine A's store
               with cache_dtype=torch.bfloat16): run() against each
               request's generate() by the gap rule, both against the fp32
@@ -153,8 +158,9 @@ run exits non-zero:
               check_serve's rules, the expert GEMMs on one batched K2 / K3
               launch per bucket of each site (exact counts), and the pair
               again with activation quantization off at a tight limit;
-              run() on 8 requests at capacity factor 1.25 (0 host syncs)
-              and at 0 (each stream against its generate, gap rule); at
+              run() on 8 requests at capacity factor 1.25 (0 host syncs,
+              never compacted) and at 0 (each stream against its
+              generate, gap rule; compact_step_gate); at
               both, generate through the grouped and the capacity expert
               dispatch, bit for bit, and one grouped MoE call under the
               sync debug mode "error"; one
@@ -173,8 +179,9 @@ run exits non-zero:
               unembedding a model call), and A against B with activation
               quantization off, held at LOGIT_ATOL plus twice the plain
               path's fp64 distance; QBN 8 held on the first
-              SSM_GATE_LAYERS layers (A / B at ACT_LOGIT_ATOL, and run()
-              on 8 requests against generate); a profiled prefill with
+              SSM_GATE_LAYERS layers (A / B at ACT_LOGIT_ATOL, run() on
+              8 requests against generate, compact_step_gate); a
+              profiled prefill with
               the host traced (device ms inside the SSD chunk scan's
               profiler ranges, every K2 / K3 launch in the trace) and a
               profiled generate (device ms by kernel group, busy share,
@@ -511,6 +518,13 @@ SPEC_K = 4                          # draft tokens a lane, run()'s default
 SPEC_STARTS = (4175, 4170, 4160, 4100)
 STEP_REPS = 3
 SENT = 2**31 - 1
+# compact_step_gate: the serving benchmark's 16 x 256 token-budget step
+# over pools of 128 pages a row.  K2 / K3 give each row the same bits at
+# any M > 8; cuBLAS's dense fp32 products (the MoE router, mamba's w_dt)
+# round otherwise at another row count (an H100 run of granite's 16 x 256
+# step: logits <= 3.4e-5 apart, a mamba state <= 2.8e-4)
+COMPACT_R, COMPACT_W, COMPACT_NB = 16, 256, 128
+COMPACT_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 def emit(obj) -> None:
@@ -2075,6 +2089,104 @@ def _check_streams(name, got, want, gaps, tol, problems):
     return first
 
 
+def _compact_inputs(torch, model, n_chunk):
+    """(tokens, positions, tables, logit_cols, pool, real counts per row)
+    of compact_step_gate's step: row 0 a prompt chunk of COMPACT_W that
+    continues at position 768, row 1 a fresh chunk of ``n_chunk``, the
+    others decode lanes at 1000, 1064, ...; the pool holds each row's
+    earlier positions in its own pages (random K/V) and random mamba
+    state and windows."""
+    R, W, NB = COMPACT_R, COMPACT_W, COMPACT_NB
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    starts = [768, 0] + [1000 + 64 * i for i in range(R - 2)]
+    lens = [W, n_chunk] + [1] * (R - 2)
+    pos = torch.full((R, W), SENT, dtype=torch.int32)
+    for r, (s0, c) in enumerate(zip(starts, lens)):
+        pos[r, :c] = torch.arange(s0, s0 + c)
+    tables = (1 + torch.arange(R)[:, None] * NB +
+              torch.arange(NB)[None]).to(torch.int32)
+    pool = model.init_paged_cache(R, 1 + R * NB, PAGE, dtype=torch.float32,
+                                  device="cuda")
+    logical = torch.arange(NB * PAGE, dtype=torch.int32)
+    for entry in pool:
+        for key, t in entry.items():
+            if key != "pos":
+                t.normal_(generator=g)
+        if "pos" in entry:
+            for r, s0 in enumerate(starts):
+                p = logical[:s0]
+                entry["pos"][:, tables[r, p // PAGE].long().cuda(),
+                             (p % PAGE).long().cuda()] = p.cuda()
+    toks = torch.randint(0, model.cfg.vocab, (R, W), generator=g,
+                         device="cuda")
+    cols = torch.tensor([c - 1 for c in lens], dtype=torch.int32)
+    return toks, pos, tables.cuda(), cols.cuda(), pool, lens
+
+
+def compact_step_gate(torch, label, eng, n_chunk=80):
+    """One token-budget step at the serving benchmark's 16 x 256 shape
+    through ``LM.model_step``, padded and compacted (``cells`` from
+    ``LM.step_cells``: the real cells on a rung of the ladder), on two
+    copies of one pool, activations unquantized as the benchmark serves
+    them.  Every real row's logits and every pool plane (the trash page
+    aside: sentinel cells write there) within COMPACT_TOL; prints whether
+    each is bit-equal and its largest difference.  Returns (record,
+    problems)."""
+    model, params = eng.model, eng.params
+    toks, pos, tables, cols, pool, lens = _compact_inputs(torch, model,
+                                                          n_chunk)
+    cells = model.step_cells(pos.numpy())
+    problems = []
+    if cells is None:
+        return {}, [f"{label} compact step: {sum(lens)} real cells of "
+                    f"{pos.numel()} did not compact"]
+    slot_map = torch.arange(COMPACT_R, device="cuda")
+    pool_c = tuple({k: t.clone() for k, t in e.items()} for e in pool)
+    with torch.no_grad():
+        want, pool = model.model_step(
+            params, toks, pos.cuda(), slot_map, pool, tables, cols, None,
+            attn_impl=eng.attn_impl, real_tokens=sum(lens))
+        got, pool_c = model.model_step(
+            params, toks, pos.cuda(), slot_map, pool_c, tables, cols, None,
+            attn_impl=eng.attn_impl, real_tokens=sum(lens),
+            cells=torch.from_numpy(cells).cuda())
+    torch.cuda.synchronize()
+    pairs = {"logits": (got, want)}
+    for i, (a, b) in enumerate(zip(pool, pool_c)):
+        for key in a:
+            pairs[f"pool{i}.{key}"] = (b[key], a[key]) if key in (
+                "state", "conv") else (b[key][:, 1:], a[key][:, 1:])
+    diffs = {}
+    for name, (x, y) in pairs.items():
+        d = (x.double() - y.double()).abs()
+        diffs[name] = dict(equal=bool(torch.equal(x, y)),
+                           max_abs=float(d.max()))
+        if not torch.allclose(x.double(), y.double(), **COMPACT_TOL):
+            problems.append(f"{label} compact step: {name} {diffs[name]}")
+    rec = dict(real=sum(lens), grid=pos.numel(), rows=len(cells),
+               tol=COMPACT_TOL, all_equal=all(
+                   v["equal"] for v in diffs.values()),
+               logits=diffs["logits"],
+               worst_pool=max((v["max_abs"], k) for k, v in diffs.items()
+                              if k != "logits"),
+               unequal=sorted(k for k, v in diffs.items()
+                              if not v["equal"]))
+    emit({"phase": f"{label}-compact-step", **rec, "problems": problems})
+    del pool, pool_c
+    torch.cuda.empty_cache()
+    return rec, problems
+
+
+def step_shapes(n_slots: int, width: int) -> int:
+    """The most ``model_step`` shapes (``trace_counts``) a chunked run at
+    ``n_slots`` x ``width`` makes: one at width 1, and at the wide width
+    one a rung of the compacted step's ladder below the grid plus the
+    grid itself."""
+    from repro_torch.models.transformer import compact_rows
+    wide = n_slots * width
+    return 1 + len({min(compact_rows(n), wide) for n in range(1, wide + 1)})
+
+
 def phase_run(torch, cfg, model, params, policy):
     """Continuous batching on engine A: 8 requests over 4 slots."""
     from repro_torch import kernels
@@ -2119,8 +2231,10 @@ def phase_run(torch, cfg, model, params, policy):
     bitwise = all(np.array_equal(a, b) for a, b in zip(on, off))
     if not bitwise:
         problems.append("run: overlap on and off give different streams")
-    if eng.trace_counts["model_step"] > 2:
+    if eng.trace_counts["model_step"] > step_shapes(RUN_SLOTS, CHUNK):
         problems.append(f"run: model_step saw {eng.trace_counts} shapes")
+    compact, compact_problems = compact_step_gate(torch, "run", eng)
+    problems += compact_problems
     firsts, gens = [], []
     for i, (toks, n_new) in enumerate(reqs):
         gen = eng.generate(toks[None], n_new)
@@ -2136,7 +2250,8 @@ def phase_run(torch, cfg, model, params, policy):
                 if f:
                     firsts.append(f)
     check = dict(overlap_bitwise=bitwise, first_differences=firsts,
-                 trace_counts=dict(eng.trace_counts), problems=problems)
+                 trace_counts=dict(eng.trace_counts), compact_step=compact,
+                 problems=problems)
     emit({"phase": "run-check", **check})
     traced = []
 
@@ -2271,11 +2386,13 @@ def phase_moe(torch):
       prefill s, decode tok/s, TTFT, host syncs (none allowed), launches;
       then generate through the grouped and the capacity dispatch, the
       same bits (_dispatch_bits), and a grouped MoE call without a host
-      sync (_grouped_sync_check).
+      sync (_grouped_sync_check).  A capacity-limited MoE never compacts
+      a step: one model_step shape a width.
     * the same run at capacity factor 0 (no token dropped, the reference's
       smoke setting): each stream against its own generate by the gap
-      rule, as the dense run phase holds them, and the two dispatches
-      dropless (_dispatch_bits).  At 1.25 a token's drop
+      rule, as the dense run phase holds them, the two dispatches
+      dropless (_dispatch_bits), and the compacted 16 x 256 step against
+      the padded one (compact_step_gate).  At 1.25 a token's drop
       depends on the batch it rides in, so run and generate may rightly
       differ there and are not compared.
     * one profiled generate on engine A: device ms by kernel group and
@@ -2373,6 +2490,9 @@ def phase_moe(torch):
         problems.append(f"moe run: launches {lr} over {st.steps} steps")
     if st.tokens_out != sum(MOE_RUN_NEW):
         problems.append(f"moe run: tokens_out {st.tokens_out}")
+    if eng.trace_counts["model_step"] > 2:      # capacity-limited: padded
+        problems.append(f"moe run: a compacted step at capacity factor "
+                        f"1.25 ({eng.trace_counts})")
     bits, bits_problems = _dispatch_bits(torch, eng, tokens, "moe-cf1.25")
     problems += bits_problems
     _grouped_sync_check(torch, cfg, eng)
@@ -2414,6 +2534,8 @@ def phase_moe(torch):
           run0["first_differences"], "generate_launches": gl0})
     bits0, bits_problems = _dispatch_bits(torch, eng, tokens, "moe-cf0")
     problems += bits_problems
+    compact, compact_problems = compact_step_gate(torch, "moe-cf0", eng)
+    problems += compact_problems
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2421,6 +2543,7 @@ def phase_moe(torch):
                check=check, check_act_off=check0,
                gemm_launches=dict(got=got, want=want),
                run=run, run_cf0=run0, dispatch_bits=[bits, bits0],
+               compact_step=compact,
                profile=prof,
                peak_mem_bytes=max(peaks),
                seconds=time.perf_counter() - t_phase, problems=problems)
@@ -2634,8 +2757,9 @@ def phase_ssm(torch):
       fp32 evaluations each that close to F).
     * activation QBN 8 held on the first SSM_GATE_LAYERS layers (the same
       weights, a policy of their own): the A / B pair by check_serve's
-      rules at ACT_LOGIT_ATOL, and run() on 8 requests (prompts 2048 ...
-      17) against generate by _state_run's rules.
+      rules at ACT_LOGIT_ATOL, run() on 8 requests (prompts 2048 ...
+      17) against generate by _state_run's rules, and the compacted 16 x
+      256 step against the padded one (compact_step_gate).
     * where the time goes: a profiled prefill with the host traced (device
       ms inside the SSD_SCAN ranges, one a layer; its trace taken until it
       holds every K2 / K3 launch, traced_gemm_launches) and a profiled
@@ -2744,6 +2868,9 @@ def phase_ssm(torch):
                        device="cuda")
     gate_run = _state_run(torch, "ssm-gate-run", geng, reqs, ggraph,
                           gpolicy, problems)
+    gate_run["compact_step"], compact_problems = compact_step_gate(
+        torch, "ssm-gate", geng)
+    problems += compact_problems
     del geng, gparams
     gc.collect()
     # where the time goes
@@ -4202,8 +4329,8 @@ def phase_spec(torch, cfg, eng, reqs, gens, plain):
             "first_differences": firsts})
     # the speculative session's own shapes (plain runs pass 1-D logit_cols)
     added = {n: c - shapes0.get(n, 0) for n, c in eng.trace_counts.items()}
-    for name, most in (("model_step", 2), ("draft_step", 2),
-                       ("draft_tail", 1)):
+    for name, most in (("model_step", step_shapes(RUN_SLOTS, CHUNK)),
+                       ("draft_step", 2), ("draft_tail", 1)):
         if added.get(name, 0) > most:
             problems.append(f"spec: {name} saw {added[name]} shapes")
     seconds["runs"] = time.perf_counter() - t_phase

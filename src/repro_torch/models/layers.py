@@ -1,8 +1,9 @@
 """Core LM layers (port of ``repro/models/layers.py``, the attention and
 FFN parts): RMSNorm, RoPE, softcap, per-token activation fake-quant,
 GQA attention over a dense KV or the paged pool, SwiGLU, the
-capacity-based top-k MoE FFN, and the ``linear`` / ``expert_linear``
-that route a weight to its store's contraction.
+capacity-based top-k MoE FFN, the ``linear`` / ``expert_linear``
+that route a weight to its store's contraction, and the
+:class:`CellGrid` between a compacted serving step's rows and its grid.
 
 Attention dispatches on ``impl``: ``"ref"`` is the chunked running-softmax
 scan (:func:`attention_ref`, the oracle; :func:`paged_attention_ref`
@@ -24,7 +25,7 @@ unsharded one.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -199,6 +200,32 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
     split it into heads."""
     out = t.reshape(t.shape[:-2] + (t.shape[-2] * t.shape[-1],))
     return ctx.pin_unsharded(out, -1, t.shape[-2])
+
+
+class CellGrid(NamedTuple):
+    """The (R, k) grid of a compacted token-budget step
+    (``LM.model_step`` given ``cells``).  The residual stream holds the
+    grid's cells ``cells`` ((B,) int64 flat indices, ascending) as (B, 1,
+    ·) rows; the operations that need the grid (K4, mamba's conv and
+    scan) take it at positions ``pos`` (R, k) int32, through the rows'
+    block tables ``tables`` (R, nb)."""
+    cells: torch.Tensor
+    pos: torch.Tensor
+    tables: torch.Tensor
+
+    def scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """Compact rows (B, 1, ...) -> the (R, k, ...) grid, zeros in the
+        cells left out."""
+        R, k = self.pos.shape
+        tail = t.shape[2:]
+        g = t.new_zeros((R * k,) + tail)
+        g.index_copy_(0, self.cells, t.reshape((-1,) + tail))
+        return g.reshape((R, k) + tail)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The (R, k, ...) grid -> its compact rows (B, 1, ...)."""
+        return t.reshape((-1,) + t.shape[2:]).index_select(
+            0, self.cells)[:, None]
 
 
 def _select_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

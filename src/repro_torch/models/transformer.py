@@ -54,11 +54,11 @@ from repro_torch import backend, spans
 from repro_torch.kernels.pack import PackedWeight
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.api import BlockDef, LMConfig
-from repro_torch.models.layers import (POS_SENTINEL, at_least_f32, attention,
-                                       gather_rows, is_int8_leaf, linear,
-                                       maybe_quant_act, merge_heads, moe_ffn,
-                                       paged_attention, rmsnorm, rope,
-                                       softcap, split_heads, swiglu)
+from repro_torch.models.layers import (POS_SENTINEL, CellGrid, at_least_f32,
+                                       attention, gather_rows, is_int8_leaf,
+                                       linear, maybe_quant_act, merge_heads,
+                                       moe_ffn, paged_attention, rmsnorm,
+                                       rope, softcap, split_heads, swiglu)
 from repro_torch.quant.linear_quant import FULL_BITS
 from repro_torch.quant.policy import LayerInfo, QuantizableGraph
 from repro_torch.sharding.ctx import constrain, settle
@@ -74,6 +74,16 @@ MATMUL_LEAVES = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd",
 # (serve/paged_kv.py owns the lifecycle; defined here because the paged
 # write below routes sentinel lanes to it)
 TRASH_PAGE = 0
+
+
+def compact_rows(n_real: int) -> int:
+    """The rung of the compacted token-budget step's ladder that holds
+    ``n_real`` real cells: the least multiple of K2 / K3's 128-row tile
+    (``csrc/gemm_tiles.cuh`` ``CBM``) up to 1024, then of 512 (14 shapes
+    at 16 x 256).  Every rung is over ``SKINNY_M``, so a compacted product
+    takes the tensor-core route that the padded step's takes."""
+    n = max(int(n_real), 1)
+    return -(-n // 128) * 128 if n <= 1024 else -(-n // 512) * 512
 
 
 # ----------------------------------------------------- quantized KV caching
@@ -314,11 +324,14 @@ class LM:
 
     def _attn_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                     write_pos=None, act_bits=None, attn_impl=None,
-                    block_tables=None):
+                    block_tables=None, grid=None):
         """Self-attention + residual over the dense cache, or, given
         ``block_tables`` (B, nb), over the paged pool: each row's S tokens
         (a decode token or a prompt chunk) are written through its table,
-        then attended with causal masking by each token's own position."""
+        then attended with causal masking by each token's own position.
+        Given ``grid`` (a compacted step's :class:`layers.CellGrid`), x
+        holds its compact rows (B, 1, d), written through their own tables,
+        and the queries go to K4 on the grid and come back."""
         cfg = self.cfg
         B, S, _ = x.shape
         Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
@@ -339,11 +352,16 @@ class LM:
         if block_tables is not None:
             wp = write_pos if write_pos.ndim == 2 else write_pos[:, None]
             _kv_write_paged(cache, k, v, wp, block_tables)
+            if grid is not None:
+                q, block_tables, q_pos = (grid.scatter(q), grid.tables,
+                                          grid.pos)
             out = paged_attention(
                 q, cache["k"], cache["v"], cache["pos"], block_tables,
                 q_pos=q_pos, window=window,
                 attn_cap=cfg.attn_softcap, k_scale_pages=cache.get("k_s"),
                 v_scale_pages=cache.get("v_s"), impl=attn_impl)
+            if grid is not None:
+                out = grid.gather(out)
             return x + self._branch(linear(merge_heads(out), bp["wo"],
                                            role="w_row"))
         if cache is not None:
@@ -405,12 +423,14 @@ class LM:
 
     def _mamba_block(self, bp, x, *, mode, cache, act_bits=None,
                      widen_conv=None, q_pos=None, slot_map=None,
-                     paged=False, real_tokens=None):
+                     paged=False, real_tokens=None, grid=None):
         """Mamba2 block + residual: the full forward (``cache`` None), a
         prefill that fills ``cache``, one decode step (``mode`` "decode")
         over it, or, given ``slot_map`` (R,), a token-budget step
         (``ssm.mamba_step``): row r reads slot ``slot_map[r]``'s state and
-        window and writes them back there.  The cache's planes are written
+        window and writes them back there; given ``grid``, x holds that
+        step's compact rows (B, 1, d), and the conv and scan run on the
+        grid.  The cache's planes are written
         in place: the prefill's state and its conv window cast to the
         planes' dtypes, as the reference casts them; a decode or
         token-budget step's window in the type it comes back in
@@ -422,7 +442,8 @@ class LM:
         reads.
 
         The span ``mamba`` (not annotated) encloses the block, with the
-        counts ``rows`` (the rows x columns the scan computes) and
+        counts ``rows`` (the rows x columns the scan computes: the grid's
+        R x w in a compacted step) and
         ``tokens`` (the real tokens among them whose state it advances:
         every row outside the paged paths, ``real_tokens`` in a
         token-budget step where the caller gives it; paged decode's idle
@@ -431,7 +452,7 @@ class LM:
         B, S = x.shape[:2]
         tokens = real_tokens if slot_map is not None else (
             None if paged else B * S)
-        counts = {"rows": B * S}
+        counts = {"rows": B * S if grid is None else grid.pos.numel()}
         if tokens is not None:
             counts["tokens"] = int(tokens)
         with spans.span(ssm_mod.MAMBA, annotate=False, **counts):
@@ -441,8 +462,9 @@ class LM:
                 rows = slot_map.long()
                 own = {key: cache[key].index_select(0, rows)
                        for key in ("state", "conv")}
-                out, new = ssm_mod.mamba_step(bp["mamba"], h, own, q_pos,
-                                              cfg.ssm, cfg.d_model)
+                out, new = ssm_mod.mamba_step(
+                    bp["mamba"], h, own, q_pos if grid is None else grid.pos,
+                    cfg.ssm, cfg.d_model, grid=grid)
             elif mode == "decode":
                 out, new = ssm_mod.mamba_decode_step(bp["mamba"], h, cache,
                                                      cfg.ssm, cfg.d_model)
@@ -464,18 +486,18 @@ class LM:
     def _apply_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                      write_pos=None, act_bits=None, attn_impl=None,
                      block_tables=None, img_embeds=None, widen_conv=None,
-                     slot_map=None, real_tokens=None):
+                     slot_map=None, real_tokens=None, grid=None):
         """One block; returns (x, aux) (aux None without an MoE FFN).  A
         cross block reads its dense per-slot ``"memory"`` entry even under
         block tables, as the reference's.  ``slot_map`` and
         ``real_tokens`` (the token-budget step's) reach mamba blocks
-        only."""
+        only, ``grid`` (a compacted step's) mamba and attention blocks."""
         if bdef.kind == "mamba":
             x = self._mamba_block(bp, x, mode=mode, cache=cache,
                                   act_bits=act_bits, widen_conv=widen_conv,
                                   q_pos=q_pos, slot_map=slot_map,
                                   paged=block_tables is not None,
-                                  real_tokens=real_tokens)
+                                  real_tokens=real_tokens, grid=grid)
         elif bdef.kind == "cross_attn":
             x = self._cross_block(bp, x, q_pos=q_pos, mode=mode, cache=cache,
                                   img_embeds=img_embeds, act_bits=act_bits,
@@ -484,7 +506,7 @@ class LM:
             x = self._attn_block(bp, bdef, x, q_pos=q_pos, mode=mode,
                                  cache=cache, write_pos=write_pos,
                                  act_bits=act_bits, attn_impl=attn_impl,
-                                 block_tables=block_tables)
+                                 block_tables=block_tables, grid=grid)
         if bdef.has_ffn:
             return self._ffn(bp, bdef, x, act_bits=act_bits)
         return x, None
@@ -813,9 +835,30 @@ class LM:
         return self.logits_of(params, x), cache
 
     # ------------------------------------------- unified token-budget step
+    def step_cells(self, positions: np.ndarray) -> Optional[np.ndarray]:
+        """The cells of an (R, k) token-budget step (``positions``, host
+        int32, ``POS_SENTINEL`` on padded cells) that its row-wise layers
+        compute, for :meth:`model_step`'s ``cells``: every real cell, then
+        the first sentinel cells up to the rung of :func:`compact_rows`
+        that holds them, as ascending flat int64 indices.  None (the padded
+        step) where that rung is not below R x k, and for a pattern with a
+        capacity-limited MoE: the reference's padded tokens count toward
+        its capacity."""
+        m = self.cfg.moe
+        if m is not None and m.capacity_factor > 0 and any(
+                b.has_ffn and b.use_moe for b in self.cfg.pattern):
+            return None
+        keep = np.asarray(positions).reshape(-1) != POS_SENTINEL
+        n = int(keep.sum())
+        rows = compact_rows(n)
+        if rows >= keep.size:
+            return None
+        keep[np.flatnonzero(~keep)[:rows - n]] = True
+        return np.flatnonzero(keep).astype(np.int64)
+
     def model_step(self, params, tokens, positions, slot_map, cache,
                    block_tables, logit_cols, act_bits=None, attn_impl=None,
-                   real_tokens=None):
+                   real_tokens=None, cells=None):
         """One token-budget step: prompt chunks and decode tokens together.
 
         Row r of the (R, k) batch carries slot ``slot_map[r]``'s tokens
@@ -831,6 +874,21 @@ class LM:
         column, returns (R, 1, V) -- or (R, C), one logits row per listed
         column, returns (R, C, V); ``real_tokens``: the batch's real
         tokens, a host count for the ``mamba`` span (None: not counted).
+
+        ``cells`` (B,) int64 on the device (:meth:`step_cells`: every
+        real cell, padded with sentinel cells to a rung B, ascending flat
+        indices into R x k) compacts the step: the
+        residual stream holds those B rows alone, and every row-wise
+        operation (the embedding, the norms, the projections, RoPE,
+        mamba's gate, the router, the experts, the residual adds) runs on
+        them; K4 and mamba's conv and scan take the grid
+        (:class:`layers.CellGrid`), and the logits are read from the
+        compact rows.  On the CPU each real cell gets the bits it gets
+        without ``cells`` (the same products, each row on its own); on the
+        card K2 / K3 do too, while cuBLAS's dense products (the router,
+        mamba's ``w_dt``) round otherwise at another row count.  Without
+        ``cells`` the whole grid is computed.
+
         Returns (logits, cache).  The pattern's cache kinds must be
         ``"paged"`` or ``"state"``: a cross-attention ``"memory"`` entry,
         which the reference's all-paged step refuses too, raises."""
@@ -841,18 +899,38 @@ class LM:
                 f"beside them; got cache kinds {kinds} -- a cross-attention "
                 "memory is written at prefill: drive LM.prefill / "
                 "decode_step_paged")
-        x = constrain(self._embed_tokens(params, tokens.long()), "hidden")
+        R, k = tokens.shape
         q_pos = positions.to(torch.int32)
         bt_rows = block_tables.index_select(0, slot_map.long())
-        x, _ = self._stack(params, x, cache, act_bits, q_pos=q_pos,
-                           mode="decode", write_pos=q_pos, block_tables=bt_rows,
-                           slot_map=slot_map, real_tokens=real_tokens,
-                           attn_impl=attn_impl)
+        kw = dict(mode="decode", slot_map=slot_map, real_tokens=real_tokens,
+                  attn_impl=attn_impl)
+        if cells is None:
+            x = self._embed_tokens(params, tokens.long())
+            x, _ = self._stack(params, constrain(x, "hidden"), cache,
+                               act_bits, q_pos=q_pos, write_pos=q_pos,
+                               block_tables=bt_rows, **kw)
+        else:
+            cells = cells.long()
+            grid = CellGrid(cells, q_pos, bt_rows)
+            c_pos = q_pos.reshape(-1).index_select(0, cells)[:, None]
+            x = self._embed_tokens(
+                params, tokens.reshape(-1).index_select(0, cells)[:, None]
+                .long())
+            x, _ = self._stack(params, constrain(x, "hidden"), cache,
+                               act_bits, q_pos=c_pos, write_pos=c_pos,
+                               block_tables=bt_rows.index_select(
+                                   0, cells // k), grid=grid, **kw)
         cols = logit_cols.long()
         if cols.ndim == 1:
             cols = cols[:, None]
-        idx = cols[:, :, None].expand(-1, -1, x.shape[-1])
-        return self.logits_of(params, torch.gather(x, 1, idx)), cache
+        if cells is None:
+            idx = cols[:, :, None].expand(-1, -1, x.shape[-1])
+            return self.logits_of(params, torch.gather(x, 1, idx)), cache
+        # a listed cell's compact row (a row with no real cell reads a
+        # neighbour: nothing samples it)
+        flat = cols + torch.arange(R, device=cols.device)[:, None] * k
+        rows = torch.searchsorted(cells, flat).clamp_(max=cells.shape[0] - 1)
+        return self.logits_of(params, x[:, 0][rows]), cache
 
     # -------------------------------------------------- activation QBNs
     def block_act_bits(self, graph: QuantizableGraph, values,

@@ -151,7 +151,9 @@ class ServeEngine:
                     leaf.index(name)
         # distinct input shapes seen per entry point: the port's analogue
         # of the reference's jit-variant counter.  The chunked loop keeps
-        # trace_counts["model_step"] at <= 2 whatever the prompt lengths.
+        # trace_counts["model_step"] at two widths whatever the prompt
+        # lengths, and at the wide one a shape per rung of the compacted
+        # step's ladder (LM.step_cells) below R x w.
         self.trace_counts: Dict[str, int] = collections.Counter()
         self.call_counts: Dict[str, int] = collections.Counter()
         self._shapes: Dict[str, set] = collections.defaultdict(set)
@@ -184,13 +186,16 @@ class ServeEngine:
 
     def _counted(self, name, fn):
         """``fn`` counting its calls (``call_counts``) and its distinct
-        input shapes (``trace_counts``)."""
+        input shapes (``trace_counts``: its tensors', positional and
+        keyword, and a batch's tokens')."""
         @functools.wraps(fn)
         def wrapped(*a, **kw):
             key = tuple(tuple(x.shape) for x in a
                         if isinstance(x, torch.Tensor))
             key += tuple(tuple(x["tokens"].shape) for x in a
                          if isinstance(x, dict) and "tokens" in x)
+            key += tuple((k, tuple(x.shape)) for k, x in sorted(kw.items())
+                         if isinstance(x, torch.Tensor))
             if key not in self._shapes[name]:
                 self._shapes[name].add(key)
                 self.trace_counts[name] += 1

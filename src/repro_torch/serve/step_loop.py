@@ -37,14 +37,22 @@ Speculative decode rides the same class but steps synchronously
 (``overlap`` is ignored): acceptance needs token *values*, so each verify
 step reads its (R, k + 1) candidate tokens back at once.  A step with a
 chunk or a speculating lane runs at width ``max(chunk, k + 1)``, a pure
-decode step at width 1: still two ``model_step`` shapes.  A verify step
+decode step at width 1: still two ``model_step`` widths.  A verify step
 makes two host syncs: the draft's proposal stack and the verify tokens.
 
+A step whose real cells fit a rung of the model's ladder below R x w
+hands the model their flat index (``LM.step_cells``, built from the
+plan's positions on the host and uploaded with the step's other arrays):
+the model's row-wise layers then compute those rows alone.  Each rung is
+one more ``model_step`` shape (``trace_counts``) at the wide width.
+
 Spans (``repro_torch.spans``, recorded while a profiler runs): each step
-is a ``step`` span with the counts ``rows`` (R x w, the rows the model
-call computes) and ``real_rows`` (the plan's prompt-chunk tokens, decode
-lanes and speculative verify columns).  Its children: ``step.plan`` (admission, ``plan_step``, the page scrub),
-``step.upload``, ``step.launch`` (the ``_model_step`` call: the host's
+is a ``step`` span with the counts ``rows`` (the rows the model call's
+row-wise layers compute: the rung on a compacted step, else R x w),
+``grid_rows`` (R x w, the cells that K4 and mamba's scan walk) and
+``real_rows`` (the plan's prompt-chunk tokens, decode lanes and
+speculative verify columns).  Its children: ``step.plan`` (admission,
+``plan_step``, the page scrub), ``step.upload``, ``step.launch`` (the ``_model_step`` call: the host's
 enqueue of the model's kernels), ``step.sample`` (sampling and the
 bookkeeping of ``_finish_plain`` / ``_finish_spec``), ``step.wait`` (the
 wait for a step's token vector) and ``step.emit`` (the stream callbacks).
@@ -178,14 +186,19 @@ class StepLoop:
                                      fresh + plan["fresh"])
         if not plan["sample"] and not plan["chunked"]:
             return                  # every planned slot was preempted
-        # pure-decode steps run the (R, 1) column slice: two shapes per run
+        # pure-decode steps run the (R, 1) column slice: two widths per run
         spec_lanes = {i: c for i, c in plan["spec"].items() if c > 1}
         w = W if (plan["chunked"] or spec_lanes) else 1
         tokens = plan["tokens"]
         real = sum(plan["chunked"].values()) + sum(
             plan["spec"].get(i, 1) for i in plan["decode"])
+        # the row-wise layers take the real cells alone where a rung of
+        # the ladder holding them is below R x w
+        cells = eng.model.step_cells(plan["positions"][:, :w])
+        grid = tokens.shape[0] * w
         if counts is not None:
-            counts.update(rows=tokens.shape[0] * w, real_rows=real)
+            counts.update(rows=grid if cells is None else len(cells),
+                          grid_rows=grid, real_rows=real)
         if spec and (plan["chunked"] or plan["spec"]):
             # the draft pass fills each speculating lane's verify columns
             drafts = eng._draft_propose(spec, plan, sched, spec_lanes,
@@ -205,11 +218,13 @@ class StepLoop:
             slot_map = backend.upload(plan["slot_map"], dev)
             tables = backend.upload(sched.tables.as_array(), dev)
             logit_cols = backend.upload(plan["logit_cols"], dev)
+            if cells is not None:
+                cells = backend.upload(cells, dev)
         with spans.span("step.launch", annotate=False):
             logits, self.cache = eng._model_step(
                 eng.params, tok_in, pos, slot_map, self.cache, tables,
                 logit_cols, eng.act_bits, attn_impl=eng.attn_impl,
-                real_tokens=real)
+                real_tokens=real, cells=cells)
         stats.chunk_prefill_tokens += sum(plan["chunked"].values())
         retire = None
         with spans.span("step.sample"):

@@ -236,9 +236,9 @@ def test_zeroed_state_control_fails(monkeypatch):
     comparison sees the state that chunks hand on."""
     step = ssm_mod.mamba_step
 
-    def forgetful(params, x, cache, q_pos, cfg, d_model):
+    def forgetful(params, x, cache, q_pos, cfg, d_model, **kw):
         cache = {k: torch.zeros_like(v) for k, v in cache.items()}
-        return step(params, x, cache, q_pos, cfg, d_model)
+        return step(params, x, cache, q_pos, cfg, d_model, **kw)
     monkeypatch.setattr(ssm_mod, "mamba_step", forgetful)
     eng = ServeEngine(MODEL, _weights(), max_len=32, device="cpu")
     reqs = _requests()

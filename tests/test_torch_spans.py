@@ -365,3 +365,63 @@ def test_mamba_span_counts_a_known_chunked_step():
     names = [e.name() for e in prof.profiler.kineto_results.events()
              if e.is_user_annotation()]
     assert ssm.MAMBA not in names and ssm.SSD_SCAN in names
+
+
+# ------------------------------------------- a step wide enough to compact
+WIDE_SHAPES = [(90, 3), (40, 4), (130, 2), (70, 3), (20, 5)]
+WIDE_SLOTS, WIDE_CHUNK = 4, 64
+
+
+@pytest.fixture(scope="module")
+def served_wide():
+    """granite-h-smoke served at 4 slots x 64 columns under a budget of
+    the whole grid, profiled: chunk steps of 256 cells that compact to a
+    rung of 128 and steps whose rung reaches 256 (padded); returns the
+    model and the records."""
+    from repro_torch.configs.registry import get
+    m = LM(get("granite-4.0-h-small").smoke)
+    eng = ServeEngine(m, m.init(0, device="cpu"), device="cpu", max_len=256)
+    fe = FrontEnd()
+    rng = np.random.default_rng(3)
+    for s, n in WIDE_SHAPES:
+        fe.submit((rng.integers(0, m.cfg.vocab, size=s).astype(np.int32), n))
+    spans.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        eng.serve(fe, page_size=PAGE, max_slots=WIDE_SLOTS,
+                  chunk_tokens=WIDE_CHUNK,
+                  token_budget=WIDE_SLOTS * WIDE_CHUNK)
+    recs = spans.records()
+    spans.clear()
+    return m, recs
+
+
+def test_compacted_step_counts_its_rung(served_wide):
+    """``step``'s ``rows`` is the rows the row-wise layers computed: the
+    rung that holds ``real_rows`` where it is below R x w, else R x w,
+    which ``grid_rows`` keeps;
+    each ``moe`` span inside routes that many rows, K pairs each; each
+    ``mamba`` span still counts the R x w cells its scan computes."""
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import compact_rows
+    m, recs = served_wide
+    K = m.cfg.moe.top_k
+    grids = {WIDE_SLOTS * WIDE_CHUNK, WIDE_SLOTS}
+    steps = [i for i, r in enumerate(recs) if r[0] == "step"]
+    compacted = 0
+    for i in steps:
+        c = recs[i][4]
+        real, rows, grid = c["real_rows"], c["rows"], c["grid_rows"]
+        assert grid in grids                  # R x w, w in {chunk, 1}
+        assert real <= rows <= grid
+        assert rows == min(compact_rows(real), grid)
+        compacted += rows < grid
+        (launch,) = [j for j in _children(recs, i)
+                     if recs[j][0] == "step.launch"]
+        inner = _children(recs, launch)
+        moe = [recs[j][4] for j in inner if recs[j][0] == "moe"]
+        mamba = [recs[j][4] for j in inner if recs[j][0] == ssm.MAMBA]
+        assert moe and {c["pairs"] for c in moe} == {rows * K}
+        assert mamba and {c["rows"] for c in mamba} == {grid}
+        assert {c["tokens"] for c in mamba} == {real}
+    assert compacted and compacted < len(steps)
