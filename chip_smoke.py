@@ -102,9 +102,9 @@ run exits non-zero:
               trace lost reported, as in generate's on engine A); at most
               one model_step shape a width and rung of the compacted
               step's ladder (step_shapes); and compact_step_gate: the
-              serving benchmark's 16 x 256 step padded against compacted
-              (the real cells' rows alone), logits and pool within
-              COMPACT_TOL, bit-equality printed.
+              serving benchmark's 16 x 256 step over its whole grid
+              (padded) against compacted (the real cells' rows alone),
+              logits and pool within COMPACT_TOL, bit-equality printed.
    cache-store -- gemma2-2b over a bf16 cache and pool (engine A's store
               with cache_dtype=torch.bfloat16): run() against each
               request's generate() by the gap rule, both against the fp32
@@ -331,10 +331,6 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet: HBM3 bandwidth
-FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet: fp32, non-tensor
-TF32_FLOP_PER_S = 495e12      # H100 SXM data sheet: TF32 tensor, dense
-BF16_FLOP_PER_S = 989e12      # H100 SXM data sheet: bf16 tensor, dense
 # device-time groups of the profiled runs: kernel-name fragments
 # (attn_tc's K/V source and gemm_tc's weight source name their launches;
 # paged_combine merges the splits of both K4 walks)
@@ -531,8 +527,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float, flop_per_s=FP32_FLOP_PER_S):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
+def peak(kind: str) -> float:
+    """The H100 data sheet's rate ``kind`` ("fp32", "tf32", "bf16" FLOP/s
+    or "hbm" B/s), as ``repro_torch.core.roofline`` states it."""
+    from repro_torch.core import roofline
+    return {"fp32": roofline.H100_FP32, "tf32": roofline.H100_TF32,
+            "bf16": roofline.H100_BF16, "hbm": roofline.H100_HBM_BW}[kind]
+
+
+def bound_ms(nbytes: float, flops: float, rate: str = "fp32"):
+    t_b, t_f = nbytes / peak("hbm"), flops / peak(rate)
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -541,7 +545,7 @@ def _attn_tf32_equiv(torch, flops, q, k):
     and bf16 K/V the scores' half (q k) could run at the bf16 peak, while
     P V keeps P in fp32, as the reference's kernel does."""
     if q.dtype == k.dtype == torch.bfloat16:
-        return flops / 2 * TF32_FLOP_PER_S / BF16_FLOP_PER_S + flops / 2
+        return flops / 2 * peak("tf32") / peak("bf16") + flops / 2
     return flops
 
 
@@ -1095,9 +1099,9 @@ def paged_rows(torch, timer, cap):
         # or fp32 FMAs on CUDA cores (the decode walk)
         b_ms, b_by = bound_ms(
             nbytes, _attn_tf32_equiv(torch, 4 * D * pairs, q, kp),
-            TF32_FLOP_PER_S)
+            "tf32")
         r_ms = bound_ms(nbytes, 4 * D * pairs)[0] if route == "fp32_split" \
-            else bound_ms(nbytes, 3 * 4 * D * pairs, TF32_FLOP_PER_S)[0]
+            else bound_ms(nbytes, 3 * 4 * D * pairs, "tf32")[0]
         kg, vg = paged_gather(kp, bt), paged_gather(vp, bt)
         if ks is not None:
             kg = kg.float() * paged_gather(ks, bt)[..., None]
@@ -1265,8 +1269,8 @@ def flash_rows(torch, timer):
         # beside it: 3 TF32 passes (flash_tc), or fp32 FMAs on CUDA cores
         flops = 4 * q.shape[3] * pairs
         b_ms, b_by = bound_ms(nbytes, _attn_tf32_equiv(torch, flops, q, k),
-                              TF32_FLOP_PER_S)
-        r_ms = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)[0] \
+                              "tf32")
+        r_ms = bound_ms(nbytes, 3 * flops, "tf32")[0] \
             if route == "tc_3xtf32" else bound_ms(nbytes, flops)[0]
         lib = _attn_library(torch, q, k, v, qp, kp, window, causal)
         ms, lib_ms = timer.pair(kern, lib)
@@ -1387,9 +1391,9 @@ def _gemm_row(torch, timer, g, n_sm, bits, label, E, M, K, N,
     nbytes = n_e * (x.element_size() * (M * K + M * N) + 4 * N) + w.numel()
     flops = 2.0 * n_e * M * K * N
     b_ms, b_by = bound_ms(nbytes, flops,
-                          BF16_FLOP_PER_S if bf16 else TF32_FLOP_PER_S)
+                          "bf16" if bf16 else "tf32")
     passes = {"tc_2xtf32": 2, "tc_1xtf32": 1}.get(route)
-    r_ms = bound_ms(nbytes, passes * flops, TF32_FLOP_PER_S)[0] if passes \
+    r_ms = bound_ms(nbytes, passes * flops, "tf32")[0] if passes \
         else bound_ms(nbytes, flops)[0]
     lib = (lambda: torch.bmm(x, wdeq)) if E else \
         (lambda: torch.matmul(x, wdeq))
@@ -1547,7 +1551,7 @@ def grouped_gemm_rows(torch, timer):
                         w.numel() + 4 * MOE_E * N
                     b_ms, b_by = bound_ms(
                         nbytes, 2.0 * GROUPED_P * K * N,
-                        BF16_FLOP_PER_S if bf16 else TF32_FLOP_PER_S)
+                        "bf16" if bf16 else "tf32")
                     ms, cap_ms = timer.pair(kern, cap)
                     row = dict(
                         name=name, case=case,
@@ -1699,7 +1703,7 @@ def bf16_search_kernel_rows(torch, timer):
         w_hat = (alpha[:, None, :] * planes.float()).sum(0).to(bf16)
         lib = lambda: torch.matmul(x, w_hat)
         nbytes = 2 * (M * K + M * N) + 4 * P * N + P * K * N
-        b_ms, b_by = bound_ms(nbytes, 2.0 * P * M * K * N, BF16_FLOP_PER_S)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * P * M * K * N, "bf16")
         r_ms, _ = bound_ms(nbytes, 2.0 * M * K * N)
         ms, lib_ms = timer.pair(kern, lib)
         rows.append(dict(
@@ -1982,6 +1986,7 @@ def phase_paged_model(torch, cfg, model, eng):
     into a fresh pool with shuffled pages, against LM.prefill on the same
     packed store: last-token logits within LOGIT_ATOL with activation
     quantization off and ACT_LOGIT_ATOL with the policy's QBN 8."""
+    from repro_torch.models.layers import StepLayout
     from repro_torch.serve.paged_kv import pages_needed
     rng = np.random.default_rng(SEED + 3)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, PROMPT)),
@@ -2007,10 +2012,10 @@ def phase_paged_model(torch, cfg, model, eng):
             p[0, :c] = torch.arange(c0, c0 + c, dtype=torch.int32,
                                     device="cuda")
             got, pool = model.model_step(
-                eng.params, t, p, torch.zeros(1, dtype=torch.int32,
-                                              device="cuda"),
-                pool, bt, torch.full((1,), c - 1, dtype=torch.int32,
-                                     device="cuda"), ab, attn_impl="cuda")
+                eng.params, t, StepLayout.of(p, bt, torch.zeros(
+                    1, dtype=torch.int32, device="cuda")),
+                pool, torch.full((1,), c - 1, dtype=torch.int32,
+                                 device="cuda"), ab, attn_impl="cuda")
         del pool
         if not bool(torch.isfinite(got).all()):
             raise AssertionError("paged-model: non-finite logits")
@@ -2125,31 +2130,31 @@ def _compact_inputs(torch, model, n_chunk):
 
 def compact_step_gate(torch, label, eng, n_chunk=80):
     """One token-budget step at the serving benchmark's 16 x 256 shape
-    through ``LM.model_step``, padded and compacted (``cells`` from
-    ``LM.step_cells``: the real cells on a rung of the ladder), on two
-    copies of one pool, activations unquantized as the benchmark serves
-    them.  Every real row's logits and every pool plane (the trash page
-    aside: sentinel cells write there) within COMPACT_TOL; prints whether
-    each is bit-equal and its largest difference.  Returns (record,
-    problems)."""
+    through ``LM.model_step``, over the whole grid (padded) and compacted
+    (the layout of ``LM.step_layout``: the real cells on a rung of the
+    ladder), on two copies of one pool, activations unquantized as the
+    benchmark serves them.  Every real row's logits and every pool plane
+    (the trash page aside: sentinel cells write there) within
+    COMPACT_TOL; prints whether each is bit-equal and its largest
+    difference.  Returns (record, problems)."""
     model, params = eng.model, eng.params
     toks, pos, tables, cols, pool, lens = _compact_inputs(torch, model,
                                                           n_chunk)
-    cells = model.step_cells(pos.numpy())
+    layout = model.step_layout(pos.numpy(), np.arange(COMPACT_R),
+                               tables.cpu().numpy())
+    cells = layout.cells
     problems = []
     if cells is None:
         return {}, [f"{label} compact step: {sum(lens)} real cells of "
                     f"{pos.numel()} did not compact"]
-    slot_map = torch.arange(COMPACT_R, device="cuda")
     pool_c = tuple({k: t.clone() for k, t in e.items()} for e in pool)
     with torch.no_grad():
         want, pool = model.model_step(
-            params, toks, pos.cuda(), slot_map, pool, tables, cols, None,
-            attn_impl=eng.attn_impl, real_tokens=sum(lens))
+            params, toks, layout._replace(cells=None).upload("cuda"), pool,
+            cols, None, attn_impl=eng.attn_impl)
         got, pool_c = model.model_step(
-            params, toks, pos.cuda(), slot_map, pool_c, tables, cols, None,
-            attn_impl=eng.attn_impl, real_tokens=sum(lens),
-            cells=torch.from_numpy(cells).cuda())
+            params, toks, layout.upload("cuda"), pool_c, cols, None,
+            attn_impl=eng.attn_impl)
     torch.cuda.synchronize()
     pairs = {"logits": (got, want)}
     for i, (a, b) in enumerate(zip(pool, pool_c)):
@@ -2392,7 +2397,7 @@ def phase_moe(torch):
       smoke setting): each stream against its own generate by the gap
       rule, as the dense run phase holds them, the two dispatches
       dropless (_dispatch_bits), and the compacted 16 x 256 step against
-      the padded one (compact_step_gate).  At 1.25 a token's drop
+      the whole grid's (compact_step_gate).  At 1.25 a token's drop
       depends on the batch it rides in, so run and generate may rightly
       differ there and are not compared.
     * one profiled generate on engine A: device ms by kernel group and
@@ -2490,7 +2495,7 @@ def phase_moe(torch):
         problems.append(f"moe run: launches {lr} over {st.steps} steps")
     if st.tokens_out != sum(MOE_RUN_NEW):
         problems.append(f"moe run: tokens_out {st.tokens_out}")
-    if eng.trace_counts["model_step"] > 2:      # capacity-limited: padded
+    if eng.trace_counts["model_step"] > 2:   # capacity-limited: whole grid
         problems.append(f"moe run: a compacted step at capacity factor "
                         f"1.25 ({eng.trace_counts})")
     bits, bits_problems = _dispatch_bits(torch, eng, tokens, "moe-cf1.25")
@@ -2759,7 +2764,7 @@ def phase_ssm(torch):
       weights, a policy of their own): the A / B pair by check_serve's
       rules at ACT_LOGIT_ATOL, run() on 8 requests (prompts 2048 ...
       17) against generate by _state_run's rules, and the compacted 16 x
-      256 step against the padded one (compact_step_gate).
+      256 step against the whole grid's (compact_step_gate).
     * where the time goes: a profiled prefill with the host traced (device
       ms inside the SSD_SCAN ranges, one a layer; its trace taken until it
       holds every K2 / K3 launch, traced_gemm_launches) and a profiled
@@ -4213,6 +4218,7 @@ def step_costs(torch, timer, cfg, eng, k):
     of every verify column) against one plain decode step (4 lanes x 1
     column), through LM.model_step on engine A's packed store, over a
     pool whose 4 sequences hold ~4175 positions each."""
+    from repro_torch.models.layers import StepLayout
     from repro_torch.serve.paged_kv import pages_needed
     dev = eng.device
     starts = SPEC_STARTS
@@ -4232,8 +4238,9 @@ def step_costs(torch, timer, cfg, eng, k):
             ("verify", CHUNK, [(c0, k + 1) for c0 in starts], k),
             ("decode", 1, [(c0, 1) for c0 in starts], 0)):
         toks, pos, cols = _step_inputs(torch, cfg, rows, w, kk, dev)
-        fn = lambda: eng.model.model_step(eng.params, toks, pos, slot_map,
-                                          pool, bt, cols, eng.act_bits,
+        layout = StepLayout.of(pos, bt, slot_map)
+        fn = lambda: eng.model.model_step(eng.params, toks, layout, pool,
+                                          cols, eng.act_bits,
                                           attn_impl="cuda")
         ms = timer(fn)
         prof = profile_call(torch, lambda: [fn() for _ in range(STEP_REPS)])

@@ -105,10 +105,12 @@ class TPURoofline:
 
 
 # ------------------------------------------------------------------- H100
-# NVIDIA H100 SXM data sheet (dense rates, 700 W)
+# NVIDIA H100 SXM data sheet (dense rates, 700 W): the port's one
+# statement of them (launch/roofline.py and chip_smoke.py read these)
 H100_HBM_BW = 3.35e12       # B/s, HBM3
 H100_FP32 = 67e12           # FLOP/s, CUDA cores
 H100_TF32 = 495e12          # FLOP/s, tensor cores
+H100_BF16 = 989e12          # FLOP/s, tensor cores
 # passes of gemm_tc, the port's tensor-core GEMM route (x split hi / lo)
 H100_TC_PASSES = 2
 # bytes per weight element of each packed-store bucket (kernels/pack.py

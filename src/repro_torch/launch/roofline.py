@@ -13,14 +13,15 @@ plus MODEL_FLOPS = 6 * N_active * D (train) / 2 * N_active * D (prefill,
 decode) and the usefulness ratio MODEL_FLOPS / flops_global.
 
 Constants, NVIDIA H100 SXM5 data sheet (dense rates, no sparsity, at the
-card's 700 W limit): 989 TFLOP/s bf16 tensor core, 495 TFLOP/s TF32
-tensor core, 67 TFLOP/s fp32 (no tensor core), 3.35 TB/s HBM3; NVLink 4
-900 GB/s per GPU in both directions together, 450 GB/s per direction; a
-400 Gb/s NIC (ConnectX-7, one per GPU in a DGX H100) 50 GB/s.  The
-compute peak follows the step's dtype (bf16; fp32 with TF32 matmuls on or
-off).  A mesh axis whose group fits in one 8-GPU node (its size times the
-sizes of the axes inside it at most 8) takes the NVLink figure; a wider
-one the NIC's.  Each cell's record says which each axis takes.
+card's 700 W limit): the compute peaks and the HBM3 bandwidth that
+``core/roofline.py`` states (``H100_BF16``, ``H100_TF32``, ``H100_FP32``,
+``H100_HBM_BW``); NVLink 4 900 GB/s per GPU in both directions together,
+450 GB/s per direction; a 400 Gb/s NIC (ConnectX-7, one per GPU in a DGX
+H100) 50 GB/s.  The compute peak follows the step's dtype (bf16; fp32
+with TF32 matmuls on or off).  A mesh axis whose group fits in one 8-GPU
+node (its size times the sizes of the axes inside it at most 8) takes
+the NVLink figure; a wider one the NIC's.  Each cell's record says which
+each axis takes.
 
 Usage: python -m repro_torch.launch.roofline [--dir build/dryrun]
        [--mesh single] [--out build/roofline.json]
@@ -34,8 +35,9 @@ import math
 import pathlib
 from typing import Dict
 
-PEAK = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
-HBM_BW = 3.35e12
+from repro_torch.core.roofline import (H100_BF16, H100_FP32, H100_HBM_BW,
+                                       H100_TF32)
+
 NVLINK_BW = 450e9          # per direction per GPU
 NIC_BW = 50e9              # 400 Gb/s per GPU
 NODE_GPUS = 8
@@ -96,8 +98,8 @@ def model_flops(cfg, shape, n_params: Dict[str, float]) -> float:
 
 def compute_peak(dtype: str, tf32: bool = False) -> float:
     if dtype == "bfloat16":
-        return PEAK["bfloat16"]
-    return PEAK["tf32"] if tf32 else PEAK["float32"]
+        return H100_BF16
+    return H100_TF32 if tf32 else H100_FP32
 
 
 def axis_links(mesh_axes: Dict[str, int]) -> Dict[str, str]:
@@ -123,7 +125,7 @@ def analyze_cell(r: dict, cfg, shape) -> dict:
         t_coll += b / (NVLINK_BW if links.get(ax) == "nvlink" else NIC_BW)
     peak = compute_peak(r.get("dtype", "bfloat16"), r.get("tf32", False))
     t_compute = flops_dev / peak
-    t_memory = traffic_dev / HBM_BW
+    t_memory = traffic_dev / H100_HBM_BW
     terms = {"compute": t_compute, "memory": t_memory, "collective": t_coll}
     dom = max(terms, key=terms.get)
     npar = count_params(cfg)

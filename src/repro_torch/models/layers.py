@@ -3,7 +3,8 @@ FFN parts): RMSNorm, RoPE, softcap, per-token activation fake-quant,
 GQA attention over a dense KV or the paged pool, SwiGLU, the
 capacity-based top-k MoE FFN, the ``linear`` / ``expert_linear``
 that route a weight to its store's contraction, and the
-:class:`CellGrid` between a compacted serving step's rows and its grid.
+:class:`StepLayout` of a paged serving step: its grid, its tables and
+slots, and the rows its row-wise layers compute.
 
 Attention dispatches on ``impl``: ``"ref"`` is the chunked running-softmax
 scan (:func:`attention_ref`, the oracle; :func:`paged_attention_ref`
@@ -25,12 +26,12 @@ unsharded one.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import spans
+from repro_torch import backend, spans
 from repro_torch.kernels.pack import PackedWeight
 from repro_torch.quant.linear_quant import FULL_BITS, fake_quant_per_token
 from repro_torch.sharding import ctx
@@ -202,30 +203,75 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
     return ctx.pin_unsharded(out, -1, t.shape[-2])
 
 
-class CellGrid(NamedTuple):
-    """The (R, k) grid of a compacted token-budget step
-    (``LM.model_step`` given ``cells``).  The residual stream holds the
-    grid's cells ``cells`` ((B,) int64 flat indices, ascending) as (B, 1,
-    ·) rows; the operations that need the grid (K4, mamba's conv and
-    scan) take it at positions ``pos`` (R, k) int32, through the rows'
-    block tables ``tables`` (R, nb)."""
-    cells: torch.Tensor
-    pos: torch.Tensor
-    tables: torch.Tensor
+class StepLayout(NamedTuple):
+    """One paged step over the pool (``LM.model_step``,
+    ``LM.decode_step_paged``): an (R, w) grid, row r at positions
+    ``pos[r]`` (int32, ``POS_SENTINEL`` on padded cells) through block
+    table ``tables[r]``, its recurrent state at slot ``slot_map[r]`` (None
+    in paged decode).  The row-wise layers compute ``cells`` ((B,) int64
+    flat grid indices, ascending) as (B, 1, ·) rows, each through its
+    table ``row_tables``; K4 and mamba's conv and scan take the grid.
+    ``cells`` None computes the whole grid as it is: scatter and gather
+    give their input back and a listed column's logits row is itself.
+    ``real``: the grid's real cells, a host count for the spans (None:
+    not counted).  Host arrays from :meth:`LM.step_layout`, tensors after
+    :meth:`upload`; :meth:`of` builds one from tensors."""
+    pos: Any
+    tables: Any = None
+    slot_map: Any = None
+    cells: Any = None
+    real: Optional[int] = None
+    row_tables: Any = None
 
-    def scatter(self, t: torch.Tensor) -> torch.Tensor:
-        """Compact rows (B, 1, ...) -> the (R, k, ...) grid, zeros in the
-        cells left out."""
-        R, k = self.pos.shape
-        tail = t.shape[2:]
-        g = t.new_zeros((R * k,) + tail)
-        g.index_copy_(0, self.cells, t.reshape((-1,) + tail))
-        return g.reshape((R, k) + tail)
+    @classmethod
+    def of(cls, pos, tables=None, slot_map=None, cells=None, real=None):
+        row_tables = tables
+        if cells is not None:
+            cells = cells.long()
+            if tables is not None:
+                row_tables = tables.index_select(0, cells // pos.shape[1])
+        return cls(pos.to(torch.int32), tables, None if slot_map is None
+                   else slot_map.long(), cells, real, row_tables)
+
+    def upload(self, device) -> "StepLayout":
+        device = torch.device(device)
+        return StepLayout.of(*(None if a is None else backend.upload(
+            a, device) for a in self[:4]), real=self.real)
+
+    @property
+    def n_rows(self) -> int:
+        R, w = self.pos.shape
+        return R * w if self.cells is None else int(self.cells.shape[0])
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The (R, k, ...) grid -> its compact rows (B, 1, ...)."""
+        """The (R, w, ...) grid -> the computed rows."""
+        if self.cells is None:
+            return t
         return t.reshape((-1,) + t.shape[2:]).index_select(
             0, self.cells)[:, None]
+
+    def scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """The computed rows -> the (R, w, ...) grid, zeros elsewhere."""
+        if self.cells is None:
+            return t
+        tail = t.shape[2:]
+        g = t.new_zeros((self.pos.numel(),) + tail)
+        g.index_copy_(0, self.cells, t.reshape((-1,) + tail))
+        return g.reshape(self.pos.shape + tail)
+
+    def logit_rows(self, x: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+        """The rows ``x`` at each grid row's listed columns ``cols`` ((R,)
+        or (R, C)) -> (R, C, d); a row with no real cell reads a
+        neighbour: nothing samples it."""
+        cols = cols.long().reshape(cols.shape[0], -1)
+        if self.cells is None:
+            return torch.gather(x, 1, cols[..., None].expand(
+                -1, -1, x.shape[-1]))
+        flat = cols + torch.arange(cols.shape[0], device=cols.device)[
+            :, None] * self.pos.shape[1]
+        rows = torch.searchsorted(self.cells, flat).clamp_(
+            max=self.cells.shape[0] - 1)
+        return x[:, 0][rows]
 
 
 def _select_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

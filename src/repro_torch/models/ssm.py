@@ -12,8 +12,9 @@ Mamba-2 publishes it), on x, B and C together, SiLU after it on all three.
 :func:`mamba_step` is the serving engine's token-budget step: each row
 carries its own recurrent state and conv window in and out (a prompt
 chunk, one decode token or nothing), and the scan advances over the row's
-real columns alone.  In a compacted step its projections and gate take
-the step's real rows alone, and the conv and scan the (R, w) grid.
+real columns alone.  Its projections and gate take the rows of the
+step's layout (``layers.StepLayout``), and the conv and scan its (R, w)
+grid.
 
 The projections go through :func:`layers.linear`: a PackedWeight reaches
 K2 / K3 and an int8-store leaf K2, a dense weight is a plain matmul.
@@ -295,16 +296,16 @@ def mamba_decode_step(params, x: torch.Tensor, cache, cfg: SSMCfg,
     return out, {"state": state, "conv": win[:, 1:, :]}
 
 
-def mamba_step(params, x: torch.Tensor, cache, q_pos: torch.Tensor,
-               cfg: SSMCfg, d_model: int, grid=None):
-    """One token-budget step over carried state.  x: (R, w, d), row r's
-    real columns left-aligned in position order and its padded columns at
-    ``POS_SENTINEL`` in ``q_pos`` (R, w); ``cache``: the rows' own
-    {"state" (R, H, P, N) fp32, "conv" (R, d_conv - 1, C)}.  Given
-    ``grid`` (``layers.CellGrid``, a compacted step), x holds the grid's
-    compact rows (B, 1, d) instead: the projections, the gate and
-    ``w_out`` run on those rows, and the conv and the scan on the (R, w)
-    grid that ``grid`` scatters them into (``q_pos`` the grid's).
+def mamba_step(params, x: torch.Tensor, cache, layout, cfg: SSMCfg,
+               d_model: int):
+    """One token-budget step over carried state.  ``layout``
+    (``layers.StepLayout``): the step's (R, w) grid, row r's real columns
+    left-aligned in position order and its padded columns at
+    ``POS_SENTINEL`` in ``layout.pos``; x: the layout's rows (the grid
+    (R, w, d), or its computed cells (B, 1, d)); ``cache``: the grid rows'
+    own {"state" (R, H, P, N) fp32, "conv" (R, d_conv - 1, C)}.  The
+    projections, the gate and ``w_out`` run on x's rows, and the conv and
+    the scan on the grid that the layout scatters them into.
 
     A row whose first column sits at position 0 starts a prompt: its state
     and window start from zeros, decided on the device.  The scan advances
@@ -315,6 +316,7 @@ def mamba_step(params, x: torch.Tensor, cache, q_pos: torch.Tensor,
     of that.  Returns (y like x, the new {"state", "conv"}), the window
     in the type the cached one and the inputs promote to, as
     :func:`mamba_decode_step`'s.  Reads nothing back to the host."""
+    q_pos = layout.pos
     R, w = q_pos.shape
     di = cfg.d_inner(d_model)
     H, P, K = cfg.n_heads(d_model), cfg.head_dim, cfg.d_conv
@@ -326,8 +328,7 @@ def mamba_step(params, x: torch.Tensor, cache, q_pos: torch.Tensor,
     bc = linear(x, params["w_bc"])
     dt = F.softplus(at_least_f32(linear(x, params["w_dt"])) +
                     at_least_f32(params["dt_bias"]))
-    if grid is not None:
-        xi, bc, dt = (grid.scatter(t) for t in (xi, bc, dt))
+    xi, bc, dt = (layout.scatter(t) for t in (xi, bc, dt))
     xin = _conv_in(xi, bc, cfg)                              # (R, w, C)
     wdt = torch.promote_types(cache["conv"].dtype, xin.dtype)
     win = cache["conv"].masked_fill(fresh[:, None, None], 0).to(wdt)
@@ -345,9 +346,8 @@ def mamba_step(params, x: torch.Tensor, cache, q_pos: torch.Tensor,
     state = cache["state"].masked_fill(fresh[:, None, None, None], 0.0)
     with spans.span(SSD_SCAN):
         y, state = _ssd_chunk_scan(xh, Bm, Cm, dt, A, cfg.chunk, state)
-    y = (y + at_least_f32(params["D"])[:, None] * xh).reshape(R, w, di)
-    if grid is not None:
-        y = grid.gather(y)
+    y = layout.gather(
+        (y + at_least_f32(params["D"])[:, None] * xh).reshape(R, w, di))
     y = rmsnorm(y.to(x.dtype) * F.silu(z), params["norm_w"])
     out = linear(y, params["w_out"], role="w_row")
     return out, {"state": state, "conv": new_win}

@@ -54,11 +54,12 @@ from repro_torch import backend, spans
 from repro_torch.kernels.pack import PackedWeight
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.api import BlockDef, LMConfig
-from repro_torch.models.layers import (POS_SENTINEL, CellGrid, at_least_f32,
-                                       attention, gather_rows, is_int8_leaf,
-                                       linear, maybe_quant_act, merge_heads,
-                                       moe_ffn, paged_attention, rmsnorm,
-                                       rope, softcap, split_heads, swiglu)
+from repro_torch.models.layers import (POS_SENTINEL, StepLayout,
+                                       at_least_f32, attention, gather_rows,
+                                       is_int8_leaf, linear, maybe_quant_act,
+                                       merge_heads, moe_ffn, paged_attention,
+                                       rmsnorm, rope, softcap, split_heads,
+                                       swiglu)
 from repro_torch.quant.linear_quant import FULL_BITS
 from repro_torch.quant.policy import LayerInfo, QuantizableGraph
 from repro_torch.sharding.ctx import constrain, settle
@@ -77,11 +78,12 @@ TRASH_PAGE = 0
 
 
 def compact_rows(n_real: int) -> int:
-    """The rung of the compacted token-budget step's ladder that holds
-    ``n_real`` real cells: the least multiple of K2 / K3's 128-row tile
-    (``csrc/gemm_tiles.cuh`` ``CBM``) up to 1024, then of 512 (14 shapes
-    at 16 x 256).  Every rung is over ``SKINNY_M``, so a compacted product
-    takes the tensor-core route that the padded step's takes."""
+    """The rung of the token-budget step's ladder (``LM.step_layout``)
+    that holds ``n_real`` real cells: the least multiple of K2 / K3's
+    128-row tile (``csrc/gemm_tiles.cuh`` ``CBM``) up to 1024, then of 512
+    (14 shapes at 16 x 256).  Every rung is over ``SKINNY_M``, so a
+    compacted product takes the tensor-core route that the whole grid's
+    takes."""
     n = max(int(n_real), 1)
     return -(-n // 128) * 128 if n <= 1024 else -(-n // 512) * 512
 
@@ -324,14 +326,12 @@ class LM:
 
     def _attn_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                     write_pos=None, act_bits=None, attn_impl=None,
-                    block_tables=None, grid=None):
+                    layout=None):
         """Self-attention + residual over the dense cache, or, given
-        ``block_tables`` (B, nb), over the paged pool: each row's S tokens
-        (a decode token or a prompt chunk) are written through its table,
-        then attended with causal masking by each token's own position.
-        Given ``grid`` (a compacted step's :class:`layers.CellGrid`), x
-        holds its compact rows (B, 1, d), written through their own tables,
-        and the queries go to K4 on the grid and come back."""
+        ``layout`` (a paged step's :class:`layers.StepLayout`, x its rows),
+        over the paged pool: each row's tokens are written through its own
+        table, then the queries go to K4 on the layout's grid, causal by
+        each token's own position, and come back to the rows."""
         cfg = self.cfg
         B, S, _ = x.shape
         Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
@@ -349,19 +349,13 @@ class LM:
             q = q * self._q_scale
         v = split_heads(linear(h, bp["wv"]), Hkv, hd).contiguous()
         kv_pos = q_pos
-        if block_tables is not None:
-            wp = write_pos if write_pos.ndim == 2 else write_pos[:, None]
-            _kv_write_paged(cache, k, v, wp, block_tables)
-            if grid is not None:
-                q, block_tables, q_pos = (grid.scatter(q), grid.tables,
-                                          grid.pos)
-            out = paged_attention(
-                q, cache["k"], cache["v"], cache["pos"], block_tables,
-                q_pos=q_pos, window=window,
+        if layout is not None:
+            _kv_write_paged(cache, k, v, q_pos, layout.row_tables)
+            out = layout.gather(paged_attention(
+                layout.scatter(q), cache["k"], cache["v"], cache["pos"],
+                layout.tables, q_pos=layout.pos, window=window,
                 attn_cap=cfg.attn_softcap, k_scale_pages=cache.get("k_s"),
-                v_scale_pages=cache.get("v_s"), impl=attn_impl)
-            if grid is not None:
-                out = grid.gather(out)
+                v_scale_pages=cache.get("v_s"), impl=attn_impl))
             return x + self._branch(linear(merge_heads(out), bp["wo"],
                                            role="w_row"))
         if cache is not None:
@@ -422,49 +416,43 @@ class LM:
         return x + self._branch(swiglu(h, bp, act_bits=act_bits)), None
 
     def _mamba_block(self, bp, x, *, mode, cache, act_bits=None,
-                     widen_conv=None, q_pos=None, slot_map=None,
-                     paged=False, real_tokens=None, grid=None):
+                     widen_conv=None, layout=None):
         """Mamba2 block + residual: the full forward (``cache`` None), a
         prefill that fills ``cache``, one decode step (``mode`` "decode")
-        over it, or, given ``slot_map`` (R,), a token-budget step
-        (``ssm.mamba_step``): row r reads slot ``slot_map[r]``'s state and
-        window and writes them back there; given ``grid``, x holds that
-        step's compact rows (B, 1, d), and the conv and scan run on the
-        grid.  The cache's planes are written
-        in place: the prefill's state and its conv window cast to the
-        planes' dtypes, as the reference casts them; a decode or
-        token-budget step's window in the type it comes back in
-        (``ssm.mamba_decode_step``), as the reference's decode returns it:
-        where that is wider than the conv plane (a bf16 plane under fp32
-        activations), ``widen_conv(dtype)`` widens the stacked plane first
-        and gives this repeat's view of it.  Paged decode (``paged``) runs
+        over it, or, given a ``layout`` with a slot map (a token-budget
+        step, x its rows), ``ssm.mamba_step``: grid row r reads slot
+        ``slot_map[r]``'s state and window and writes them back there.
+        A layout without one (paged decode) takes the decode step over
         every lane of the batch; idle lanes update state that nothing
-        reads.
+        reads.  The cache's planes are written in place: the prefill's
+        state and its conv window cast to the planes' dtypes, as the
+        reference casts them; a decode or token-budget step's window in
+        the type it comes back in (``ssm.mamba_decode_step``), as the
+        reference's decode returns it: where that is wider than the conv
+        plane (a bf16 plane under fp32 activations), ``widen_conv(dtype)``
+        widens the stacked plane first and gives this repeat's view of
+        it.
 
         The span ``mamba`` (not annotated) encloses the block, with the
-        counts ``rows`` (the rows x columns the scan computes: the grid's
-        R x w in a compacted step) and
-        ``tokens`` (the real tokens among them whose state it advances:
-        every row outside the paged paths, ``real_tokens`` in a
-        token-budget step where the caller gives it; paged decode's idle
-        lanes only the device knows, so it gives none)."""
+        counts ``rows`` (the rows x columns the scan computes: a layout's
+        whole grid, R x w) and ``tokens`` (the real tokens among them whose
+        state it advances: every row without a layout, the layout's
+        ``real`` where the caller gives it; paged decode's idle lanes only
+        the device knows, so it gives none)."""
         cfg = self.cfg
         B, S = x.shape[:2]
-        tokens = real_tokens if slot_map is not None else (
-            None if paged else B * S)
-        counts = {"rows": B * S if grid is None else grid.pos.numel()}
-        if tokens is not None:
-            counts["tokens"] = int(tokens)
+        rows, real, slots = (B * S, B * S, None) if layout is None else (
+            layout.pos.numel(), layout.real, layout.slot_map)
+        counts = {"rows": rows} if real is None else {"rows": rows,
+                                                      "tokens": int(real)}
         with spans.span(ssm_mod.MAMBA, annotate=False, **counts):
             h = maybe_quant_act(rmsnorm(x, bp["norm"], cfg.norm_eps),
                                 act_bits)
-            if slot_map is not None:
-                rows = slot_map.long()
-                own = {key: cache[key].index_select(0, rows)
+            if slots is not None:
+                own = {key: cache[key].index_select(0, slots)
                        for key in ("state", "conv")}
-                out, new = ssm_mod.mamba_step(
-                    bp["mamba"], h, own, q_pos if grid is None else grid.pos,
-                    cfg.ssm, cfg.d_model, grid=grid)
+                out, new = ssm_mod.mamba_step(bp["mamba"], h, own, layout,
+                                              cfg.ssm, cfg.d_model)
             elif mode == "decode":
                 out, new = ssm_mod.mamba_decode_step(bp["mamba"], h, cache,
                                                      cfg.ssm, cfg.d_model)
@@ -476,28 +464,23 @@ class LM:
                         new["conv"].dtype != cache["conv"].dtype:
                     cache = widen_conv(new["conv"].dtype)
                 for key in ("state", "conv"):
-                    if slot_map is None:
+                    if slots is None:
                         cache[key].copy_(new[key])
                     else:
-                        cache[key].index_copy_(0, rows,
+                        cache[key].index_copy_(0, slots,
                                                new[key].to(cache[key].dtype))
         return x + self._branch(out)
 
     def _apply_block(self, bp, bdef: BlockDef, x, *, q_pos, mode, cache,
                      write_pos=None, act_bits=None, attn_impl=None,
-                     block_tables=None, img_embeds=None, widen_conv=None,
-                     slot_map=None, real_tokens=None, grid=None):
+                     img_embeds=None, widen_conv=None, layout=None):
         """One block; returns (x, aux) (aux None without an MoE FFN).  A
-        cross block reads its dense per-slot ``"memory"`` entry even under
-        block tables, as the reference's.  ``slot_map`` and
-        ``real_tokens`` (the token-budget step's) reach mamba blocks
-        only, ``grid`` (a compacted step's) mamba and attention blocks."""
+        cross block reads its dense per-slot ``"memory"`` entry even in a
+        paged step (``layout``), as the reference's."""
         if bdef.kind == "mamba":
             x = self._mamba_block(bp, x, mode=mode, cache=cache,
                                   act_bits=act_bits, widen_conv=widen_conv,
-                                  q_pos=q_pos, slot_map=slot_map,
-                                  paged=block_tables is not None,
-                                  real_tokens=real_tokens, grid=grid)
+                                  layout=layout)
         elif bdef.kind == "cross_attn":
             x = self._cross_block(bp, x, q_pos=q_pos, mode=mode, cache=cache,
                                   img_embeds=img_embeds, act_bits=act_bits,
@@ -506,7 +489,7 @@ class LM:
             x = self._attn_block(bp, bdef, x, q_pos=q_pos, mode=mode,
                                  cache=cache, write_pos=write_pos,
                                  act_bits=act_bits, attn_impl=attn_impl,
-                                 block_tables=block_tables, grid=grid)
+                                 layout=layout)
         if bdef.has_ffn:
             return self._ffn(bp, bdef, x, act_bits=act_bits)
         return x, None
@@ -828,66 +811,59 @@ class LM:
         idle lanes, whose writes land in the trash page).  Updates the
         pool in place; returns (logits (B, 1, V), cache)."""
         x = constrain(self._embed_tokens(params, tokens.long()), "hidden")
-        pos = pos.to(torch.int32)
-        x, _ = self._stack(params, x, cache, act_bits, q_pos=pos[:, None],
-                           mode="decode", write_pos=pos,
-                           block_tables=block_tables, attn_impl=attn_impl)
+        layout = StepLayout.of(pos[:, None], block_tables)
+        x, _ = self._stack(params, x, cache, act_bits, q_pos=layout.pos,
+                           mode="decode", layout=layout, attn_impl=attn_impl)
         return self.logits_of(params, x), cache
 
     # ------------------------------------------- unified token-budget step
-    def step_cells(self, positions: np.ndarray) -> Optional[np.ndarray]:
-        """The cells of an (R, k) token-budget step (``positions``, host
-        int32, ``POS_SENTINEL`` on padded cells) that its row-wise layers
-        compute, for :meth:`model_step`'s ``cells``: every real cell, then
-        the first sentinel cells up to the rung of :func:`compact_rows`
-        that holds them, as ascending flat int64 indices.  None (the padded
-        step) where that rung is not below R x k, and for a pattern with a
-        capacity-limited MoE: the reference's padded tokens count toward
-        its capacity."""
-        m = self.cfg.moe
-        if m is not None and m.capacity_factor > 0 and any(
-                b.has_ffn and b.use_moe for b in self.cfg.pattern):
-            return None
-        keep = np.asarray(positions).reshape(-1) != POS_SENTINEL
+    def step_layout(self, positions: np.ndarray, slot_map: np.ndarray,
+                    tables: np.ndarray) -> StepLayout:
+        """The :class:`layers.StepLayout` of an (R, w) token-budget step on
+        the host, for :meth:`model_step`: ``positions`` (int32,
+        ``POS_SENTINEL`` on padded cells), ``slot_map`` (R,) the rows'
+        slots, ``tables`` (n_slots, nb) the slots' block tables; ``real``
+        counts the real cells.  Its cells: every real cell, then the first
+        sentinel cells up to the rung of :func:`compact_rows` that holds
+        them; the whole grid where that rung is not below R x w, and for a
+        capacity-limited MoE, whose padded tokens count toward capacity in
+        the reference."""
+        pos = np.asarray(positions)
+        keep = pos.reshape(-1) != POS_SENTINEL
         n = int(keep.sum())
         rows = compact_rows(n)
-        if rows >= keep.size:
-            return None
-        keep[np.flatnonzero(~keep)[:rows - n]] = True
-        return np.flatnonzero(keep).astype(np.int64)
+        m = self.cfg.moe
+        capped = m is not None and m.capacity_factor > 0 and any(
+            b.has_ffn and b.use_moe for b in self.cfg.pattern)
+        cells = None
+        if rows < keep.size and not capped:
+            keep[np.flatnonzero(~keep)[:rows - n]] = True
+            cells = np.flatnonzero(keep).astype(np.int64)
+        slots = np.asarray(slot_map, np.int64)
+        return StepLayout(pos, np.asarray(tables)[slots], slots, cells, n)
 
-    def model_step(self, params, tokens, positions, slot_map, cache,
-                   block_tables, logit_cols, act_bits=None, attn_impl=None,
-                   real_tokens=None, cells=None):
+    def model_step(self, params, tokens, layout, cache, logit_cols,
+                   act_bits=None, attn_impl=None):
         """One token-budget step: prompt chunks and decode tokens together.
 
-        Row r of the (R, k) batch carries slot ``slot_map[r]``'s tokens
-        this step: a prompt chunk of up to k tokens, one decode token, or
-        nothing; real tokens are left-aligned in ascending position order
-        and padded columns carry ``POS_SENTINEL``.  K/V go straight into
-        block-table pages (in place); a mamba block's ``"state"`` entry
-        is read and written back at slot ``slot_map[r]`` (in place), its
-        scan advancing over the row's real tokens alone, from zeros where
-        the row's first column is position 0 (``ssm.mamba_step``).
-        tokens / positions: (R, k) int; slot_map: (R,) int; block_tables:
-        (n_slots, nb) int32; logit_cols: (R,) -- each row's last real
+        Row r of the (R, k) grid of ``layout`` (:meth:`step_layout`'s,
+        uploaded) carries slot ``slot_map[r]``'s tokens this step: a
+        prompt chunk of up to k tokens, one decode token, or nothing; real
+        tokens are left-aligned in ascending position order and padded
+        columns carry ``POS_SENTINEL``.  K/V go straight into block-table
+        pages (in place); a mamba block's ``"state"`` entry is read and
+        written back at slot ``slot_map[r]`` (in place), its scan
+        advancing over the row's real tokens alone, from zeros where the
+        row's first column is position 0 (``ssm.mamba_step``).
+        tokens: (R, k) int; logit_cols: (R,) -- each row's last real
         column, returns (R, 1, V) -- or (R, C), one logits row per listed
-        column, returns (R, C, V); ``real_tokens``: the batch's real
-        tokens, a host count for the ``mamba`` span (None: not counted).
-
-        ``cells`` (B,) int64 on the device (:meth:`step_cells`: every
-        real cell, padded with sentinel cells to a rung B, ascending flat
-        indices into R x k) compacts the step: the
-        residual stream holds those B rows alone, and every row-wise
-        operation (the embedding, the norms, the projections, RoPE,
-        mamba's gate, the router, the experts, the residual adds) runs on
-        them; K4 and mamba's conv and scan take the grid
-        (:class:`layers.CellGrid`), and the logits are read from the
-        compact rows.  On the CPU each real cell gets the bits it gets
-        without ``cells`` (the same products, each row on its own); on the
-        card K2 / K3 do too, while cuBLAS's dense products (the router,
-        mamba's ``w_dt``) round otherwise at another row count.  Without
-        ``cells`` the whole grid is computed.
+        column, returns (R, C, V).  Every row-wise operation (the
+        embedding, norms, projections, RoPE, mamba's gate, the router, the
+        experts, the residual adds) runs on the layout's rows, its cells
+        or its whole grid.  On the CPU a real cell gets the same bits
+        either way; on the card K2 / K3 do too, while cuBLAS's dense
+        products (the router, mamba's ``w_dt``) round otherwise at another
+        row count.
 
         Returns (logits, cache).  The pattern's cache kinds must be
         ``"paged"`` or ``"state"``: a cross-attention ``"memory"`` entry,
@@ -899,38 +875,11 @@ class LM:
                 f"beside them; got cache kinds {kinds} -- a cross-attention "
                 "memory is written at prefill: drive LM.prefill / "
                 "decode_step_paged")
-        R, k = tokens.shape
-        q_pos = positions.to(torch.int32)
-        bt_rows = block_tables.index_select(0, slot_map.long())
-        kw = dict(mode="decode", slot_map=slot_map, real_tokens=real_tokens,
-                  attn_impl=attn_impl)
-        if cells is None:
-            x = self._embed_tokens(params, tokens.long())
-            x, _ = self._stack(params, constrain(x, "hidden"), cache,
-                               act_bits, q_pos=q_pos, write_pos=q_pos,
-                               block_tables=bt_rows, **kw)
-        else:
-            cells = cells.long()
-            grid = CellGrid(cells, q_pos, bt_rows)
-            c_pos = q_pos.reshape(-1).index_select(0, cells)[:, None]
-            x = self._embed_tokens(
-                params, tokens.reshape(-1).index_select(0, cells)[:, None]
-                .long())
-            x, _ = self._stack(params, constrain(x, "hidden"), cache,
-                               act_bits, q_pos=c_pos, write_pos=c_pos,
-                               block_tables=bt_rows.index_select(
-                                   0, cells // k), grid=grid, **kw)
-        cols = logit_cols.long()
-        if cols.ndim == 1:
-            cols = cols[:, None]
-        if cells is None:
-            idx = cols[:, :, None].expand(-1, -1, x.shape[-1])
-            return self.logits_of(params, torch.gather(x, 1, idx)), cache
-        # a listed cell's compact row (a row with no real cell reads a
-        # neighbour: nothing samples it)
-        flat = cols + torch.arange(R, device=cols.device)[:, None] * k
-        rows = torch.searchsorted(cells, flat).clamp_(max=cells.shape[0] - 1)
-        return self.logits_of(params, x[:, 0][rows]), cache
+        x = self._embed_tokens(params, layout.gather(tokens).long())
+        x, _ = self._stack(params, constrain(x, "hidden"), cache, act_bits,
+                           q_pos=layout.gather(layout.pos), mode="decode",
+                           layout=layout, attn_impl=attn_impl)
+        return self.logits_of(params, layout.logit_rows(x, logit_cols)), cache
 
     # -------------------------------------------------- activation QBNs
     def block_act_bits(self, graph: QuantizableGraph, values,

@@ -56,7 +56,7 @@ import torch
 
 from repro_torch import backend
 from repro_torch.kernels.pack import PackedWeight
-from repro_torch.models.layers import ATTN_IMPLS, is_int8_leaf
+from repro_torch.models.layers import ATTN_IMPLS, StepLayout, is_int8_leaf
 from repro_torch.models.transformer import LM
 from repro_torch.quant.apply import apply_policy_packed, apply_policy_to_params
 from repro_torch.quant.linear_quant import FULL_BITS
@@ -152,8 +152,8 @@ class ServeEngine:
         # distinct input shapes seen per entry point: the port's analogue
         # of the reference's jit-variant counter.  The chunked loop keeps
         # trace_counts["model_step"] at two widths whatever the prompt
-        # lengths, and at the wide one a shape per rung of the compacted
-        # step's ladder (LM.step_cells) below R x w.
+        # lengths, and at the wide one a shape per rung of the step
+        # layout's ladder (LM.step_layout) below R x w.
         self.trace_counts: Dict[str, int] = collections.Counter()
         self.call_counts: Dict[str, int] = collections.Counter()
         self._shapes: Dict[str, set] = collections.defaultdict(set)
@@ -187,11 +187,14 @@ class ServeEngine:
     def _counted(self, name, fn):
         """``fn`` counting its calls (``call_counts``) and its distinct
         input shapes (``trace_counts``: its tensors', positional and
-        keyword, and a batch's tokens')."""
+        keyword, a step layout's and a batch's tokens')."""
         @functools.wraps(fn)
         def wrapped(*a, **kw):
             key = tuple(tuple(x.shape) for x in a
                         if isinstance(x, torch.Tensor))
+            key += tuple(tuple(t.shape) for x in a
+                         if isinstance(x, StepLayout) for t in x
+                         if isinstance(t, torch.Tensor))
             key += tuple(tuple(x["tokens"].shape) for x in a
                          if isinstance(x, dict) and "tokens" in x)
             key += tuple((k, tuple(x.shape)) for k, x in sorted(kw.items())
@@ -584,8 +587,9 @@ class ServeEngine:
         proposal stack reaches the host in one transfer."""
         dev = self.device
         n = plan["tokens"].shape[0]
-        tables = backend.upload(sched.tables.as_array(), dev)
-        slot_map = backend.upload(plan["slot_map"], dev)
+        tables = backend.upload(
+            sched.tables.as_array()[plan["slot_map"]], dev)
+        slot_map = backend.upload(plan["slot_map"].astype(np.int64), dev)
         frontier = spec["frontier"]
         dtok = np.zeros((n, w1), np.int64)
         dpos = np.full((n, w1), paged_kv.POS_SENTINEL, np.int32)
@@ -603,10 +607,11 @@ class ServeEngine:
             dtok[i, catch] = s.out[-1]
             dpos[i, catch] = s.pos
             lcols[i] = catch
+        # the draft passes compute their whole grids
         logits, spec["cache"] = self._draft_step(
             spec["params"], backend.upload(dtok, dev),
-            backend.upload(dpos, dev), slot_map, spec["cache"], tables,
-            backend.upload(lcols, dev), spec["act"],
+            StepLayout.of(backend.upload(dpos, dev), tables, slot_map),
+            spec["cache"], backend.upload(lcols, dev), spec["act"],
             attn_impl=self.attn_impl)
         for i, cols in plan["spec"].items():      # draft write cursors
             frontier[i] = sched.slot(i).pos + max(cols - 1, 1)
@@ -631,8 +636,9 @@ class ServeEngine:
                                   torch.full_like(pos0,
                                                   paged_kv.POS_SENTINEL))
                 logits, spec["cache"] = self._draft_tail(
-                    spec["params"], tok[:, None], pos[:, None], slot_map,
-                    spec["cache"], tables, zeros, spec["act"],
+                    spec["params"], tok[:, None],
+                    StepLayout.of(pos[:, None], tables, slot_map),
+                    spec["cache"], zeros, spec["act"],
                     attn_impl=self.attn_impl)
                 prop = torch.argmax(logits[:, -1], dim=-1)
                 tok = torch.where(active, prop, tok)

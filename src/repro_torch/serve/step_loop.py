@@ -40,18 +40,18 @@ chunk or a speculating lane runs at width ``max(chunk, k + 1)``, a pure
 decode step at width 1: still two ``model_step`` widths.  A verify step
 makes two host syncs: the draft's proposal stack and the verify tokens.
 
-A step whose real cells fit a rung of the model's ladder below R x w
-hands the model their flat index (``LM.step_cells``, built from the
-plan's positions on the host and uploaded with the step's other arrays):
-the model's row-wise layers then compute those rows alone.  Each rung is
-one more ``model_step`` shape (``trace_counts``) at the wide width.
+Each step's grid, block tables, slots and real count travel to the model
+as one layout (``LM.step_layout``, built from the plan on the host and
+uploaded with the step's other arrays): where the step's real cells fit a
+rung of the model's ladder below R x w, the model's row-wise layers
+compute those rows alone.  Each rung is one more ``model_step`` shape
+(``trace_counts``) at the wide width.
 
 Spans (``repro_torch.spans``, recorded while a profiler runs): each step
 is a ``step`` span with the counts ``rows`` (the rows the model call's
-row-wise layers compute: the rung on a compacted step, else R x w),
-``grid_rows`` (R x w, the cells that K4 and mamba's scan walk) and
-``real_rows`` (the plan's prompt-chunk tokens, decode lanes and
-speculative verify columns).  Its children: ``step.plan`` (admission,
+row-wise layers compute: the rung on a compacted step, else R x w) and
+``real_rows`` (the real cells: the plan's prompt-chunk tokens, decode
+lanes and speculative verify columns).  Its children: ``step.plan`` (admission,
 ``plan_step``, the page scrub), ``step.upload``, ``step.launch`` (the ``_model_step`` call: the host's
 enqueue of the model's kernels), ``step.sample`` (sampling and the
 bookkeeping of ``_finish_plain`` / ``_finish_spec``), ``step.wait`` (the
@@ -190,15 +190,11 @@ class StepLoop:
         spec_lanes = {i: c for i, c in plan["spec"].items() if c > 1}
         w = W if (plan["chunked"] or spec_lanes) else 1
         tokens = plan["tokens"]
-        real = sum(plan["chunked"].values()) + sum(
-            plan["spec"].get(i, 1) for i in plan["decode"])
-        # the row-wise layers take the real cells alone where a rung of
-        # the ladder holding them is below R x w
-        cells = eng.model.step_cells(plan["positions"][:, :w])
-        grid = tokens.shape[0] * w
+        layout = eng.model.step_layout(
+            plan["positions"][:, :w], plan["slot_map"],
+            sched.tables.as_array())
         if counts is not None:
-            counts.update(rows=grid if cells is None else len(cells),
-                          grid_rows=grid, real_rows=real)
+            counts.update(rows=layout.n_rows, real_rows=layout.real)
         if spec and (plan["chunked"] or plan["spec"]):
             # the draft pass fills each speculating lane's verify columns
             drafts = eng._draft_propose(spec, plan, sched, spec_lanes,
@@ -214,17 +210,12 @@ class StepLoop:
                 rows_d = backend.upload(np.asarray(plan["decode"], np.int64),
                                         dev)
                 tok_in[rows_d, 0] = self._last_tok[rows_d]
-            pos = backend.upload(plan["positions"][:, :w], dev)
-            slot_map = backend.upload(plan["slot_map"], dev)
-            tables = backend.upload(sched.tables.as_array(), dev)
+            layout = layout.upload(dev)
             logit_cols = backend.upload(plan["logit_cols"], dev)
-            if cells is not None:
-                cells = backend.upload(cells, dev)
         with spans.span("step.launch", annotate=False):
             logits, self.cache = eng._model_step(
-                eng.params, tok_in, pos, slot_map, self.cache, tables,
-                logit_cols, eng.act_bits, attn_impl=eng.attn_impl,
-                real_tokens=real, cells=cells)
+                eng.params, tok_in, layout, self.cache, logit_cols,
+                eng.act_bits, attn_impl=eng.attn_impl)
         stats.chunk_prefill_tokens += sum(plan["chunked"].values())
         retire = None
         with spans.span("step.sample"):

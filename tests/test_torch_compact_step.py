@@ -1,22 +1,23 @@
-"""The compacted token-budget step on the CPU: ``LM.model_step`` given the
-flat index of its real cells (``cells``) runs its row-wise layers on those
-rows alone, and every real cell gets the bits the padded step gives it --
-its logits, the K/V written into its pages and their positions, and the
-mamba state and conv window written back to its slot.
+"""The compacted token-budget step on the CPU: ``LM.model_step`` over a
+step layout whose cells are its real ones (``LM.step_layout``) runs its
+row-wise layers on those rows alone, and every real cell gets the bits
+the whole grid's layout gives it -- its logits, the K/V written into its
+pages and their positions, and the mamba state and conv window written
+back to its slot.
 
 * The ladder (``transformer.compact_rows``) and when a step compacts
-  (``LM.step_cells``): never at or above R x w, never with a
+  (``LM.step_layout``): never at or above R x w, never with a
   capacity-limited MoE.
 * One step of 4 x 128 cells holding 1, 127, 128, 129 or 400 real ones
   (a fresh prompt chunk, chunks that continue, a decode token, an empty
   row) on granite-moe (packed store, activation QBN 8), granite-4.0-h
-  (packed), mamba2 (conv over x alone) and gemma2 (dense GQA), with and
-  without ``cells``; the zeroed-state fault reaches the compacted
-  step's scan.
-* Served at 4 slots x 64 columns: overlap on == off == the padded loop
-  == speculative decode, ``trace_counts["model_step"]`` one shape per
-  width and rung, each compacted call's rows a rung; a capacity-limited
-  MoE serves padded.
+  (packed), mamba2 (conv over x alone) and gemma2 (dense GQA), over its
+  cells and over the whole grid; the zeroed-state fault reaches the
+  compacted step's scan.
+* Served at 4 slots x 64 columns: overlap on == off == the whole-grid
+  loop == speculative decode, ``trace_counts["model_step"]`` one shape
+  per width and rung, each compacted call's rows a rung; a
+  capacity-limited MoE serves the whole grid.
 """
 import copy
 import dataclasses
@@ -43,6 +44,13 @@ PRESETS = ("granite-moe-3b-a800m", "granite-4.0-h-small", "mamba2-780m",
            "gemma2-2b")
 PACKED = ("granite-moe-3b-a800m", "granite-4.0-h-small")
 _ENG = {}
+
+
+def _cells(m, pos):
+    """The cells of the step layout over ``pos`` (None: the whole
+    grid)."""
+    R = pos.shape[0]
+    return m.step_layout(pos, np.arange(R), np.zeros((R, 1), np.int32)).cells
 
 
 def _cfg(arch):
@@ -89,35 +97,41 @@ def test_ladder_rungs_and_when_a_step_compacts():
     def rows(n, R, w):
         pos = np.full((R, w), POS_SENTINEL, np.int32)
         pos.reshape(-1)[:n] = np.arange(n)
-        cells = m.step_cells(pos)
+        cells = _cells(m, pos)
         return None if cells is None else len(cells)
     assert rows(350, 16, 256) == 384
-    assert rows(16, 16, 1) is None                # pure decode: padded
-    assert rows(20, 3, 8) is None                 # a small grid: padded
+    assert rows(16, 16, 1) is None                # pure decode: whole grid
+    assert rows(20, 3, 8) is None                 # a small grid: whole
     assert rows(129, 4, 64) is None               # the rung reaches R x w
     cfg = m.cfg
     capped = LM(dataclasses.replace(
         cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.25)))
     pos = np.full((16, 256), POS_SENTINEL, np.int32)
     pos[:, 0] = 7
-    assert len(m.step_cells(pos)) == 128
-    assert capped.step_cells(pos) is None
+    assert len(_cells(m, pos)) == 128
+    assert _cells(capped, pos) is None
 
 
 def test_compact_cells_are_the_real_cells_then_the_first_sentinels():
-    """``step_cells``: every real cell, then the first sentinel cells up
-    to the rung, ascending; the host's positions are left as they are."""
+    """``step_layout``: every real cell, then the first sentinel cells up
+    to the rung, ascending; the real count, the rows' slots and tables;
+    the host's positions are left as they are."""
     m = LM(_cfg("mamba2-780m"))
     pos = np.full((3, 64), POS_SENTINEL, np.int32)
     pos[0, :2] = [5, 6]
     pos[2, :1] = [9]
     before = pos.copy()
-    cells = m.step_cells(pos)
+    tables = np.arange(12, dtype=np.int32).reshape(4, 3)
+    layout = m.step_layout(pos, np.array([3, 0, 2], np.int32), tables)
     np.testing.assert_array_equal(pos, before)
+    cells = layout.cells
     assert cells.dtype == np.int64 and len(cells) == 128
     np.testing.assert_array_equal(cells, np.r_[0:127, 128])
+    assert layout.real == 3 and layout.n_rows == 128
+    np.testing.assert_array_equal(layout.slot_map, [3, 0, 2])
+    np.testing.assert_array_equal(layout.tables, tables[[3, 0, 2]])
     pos[1, :] = np.arange(64)                     # 67 real of 192
-    np.testing.assert_array_equal(m.step_cells(pos), np.r_[0:63, 64:129])
+    np.testing.assert_array_equal(_cells(m, pos), np.r_[0:63, 64:129])
 
 
 # --------------------------------------------------------- one step, bits
@@ -167,20 +181,19 @@ def test_compact_step_equals_padded_step_bit_for_bit(arch, n):
     eng = _engine(arch)
     m = eng.model
     toks, pos, tables, cols, pool, lens = _step_inputs(m, n, seed=n)
-    cells = m.step_cells(pos)
-    if n == 400:                    # the rung reaches R x w: padded
-        assert cells is None
+    layout = m.step_layout(pos, np.arange(R), tables)
+    if n == 400:                    # the rung reaches R x w: whole grid
+        assert layout.cells is None
         return
     rows = compact_rows(n)
-    assert rows < R * W and cells.shape == (rows,)
-    args = (torch.tensor(toks), torch.tensor(pos), torch.arange(R))
-    tail = (torch.tensor(tables), torch.tensor(cols), eng.act_bits)
+    assert rows < R * W and layout.cells.shape == (rows,)
+    toks, cols = torch.tensor(toks), torch.tensor(cols)
     pool_c = copy.deepcopy(pool)
-    want, pool = m.model_step(eng.params, *args, pool, *tail,
-                              attn_impl="cuda", real_tokens=n)
-    got, pool_c = m.model_step(eng.params, *args, pool_c, *tail,
-                               attn_impl="cuda", real_tokens=n,
-                               cells=torch.tensor(cells))
+    want, pool = m.model_step(eng.params, toks,
+                              layout._replace(cells=None).upload("cpu"),
+                              pool, cols, eng.act_bits, attn_impl="cuda")
+    got, pool_c = m.model_step(eng.params, toks, layout.upload("cpu"),
+                               pool_c, cols, eng.act_bits, attn_impl="cuda")
     assert got.shape == want.shape
     for r in range(R):
         if lens[r]:
@@ -195,26 +208,25 @@ def test_compact_step_equals_padded_step_bit_for_bit(arch, n):
 
 def test_zeroed_state_reaches_the_compacted_step(monkeypatch):
     """The zeroed-state fault (``tests/test_torch_granite_hybrid.py``'s
-    control) wraps the one ``mamba_step`` call that both layouts make, so
-    it changes a compacted step's logits too."""
+    control) wraps the one ``mamba_step`` call that every layout makes,
+    so it changes a compacted step's logits too."""
     eng = _engine("granite-4.0-h-small")
     m = eng.model
     toks, pos, tables, cols, pool, lens = _step_inputs(m, 129, seed=3)
-    cells = torch.tensor(m.step_cells(pos))
-    args = (torch.tensor(toks), torch.tensor(pos), torch.arange(R))
-    tail = (torch.tensor(tables), torch.tensor(cols), eng.act_bits)
-    sound, _ = m.model_step(eng.params, *args, copy.deepcopy(pool), *tail,
-                            attn_impl="cuda", cells=cells)
-    step, grids = ssm_mod.mamba_step, []
+    layout = m.step_layout(pos, np.arange(R), tables).upload("cpu")
+    toks, cols = torch.tensor(toks), torch.tensor(cols)
+    sound, _ = m.model_step(eng.params, toks, layout, copy.deepcopy(pool),
+                            cols, eng.act_bits, attn_impl="cuda")
+    step, seen = ssm_mod.mamba_step, []
 
-    def forgetful(params, x, cache, q_pos, cfg, d_model, **kw):
-        grids.append(kw.get("grid"))
+    def forgetful(params, x, cache, layout, cfg, d_model):
+        seen.append(layout.cells)
         cache = {k: torch.zeros_like(v) for k, v in cache.items()}
-        return step(params, x, cache, q_pos, cfg, d_model, **kw)
+        return step(params, x, cache, layout, cfg, d_model)
     monkeypatch.setattr(ssm_mod, "mamba_step", forgetful)
-    faulty, _ = m.model_step(eng.params, *args, pool, *tail,
-                             attn_impl="cuda", cells=cells)
-    assert grids and all(g is not None for g in grids)
+    faulty, _ = m.model_step(eng.params, toks, layout, pool, cols,
+                             eng.act_bits, attn_impl="cuda")
+    assert seen and all(c is not None for c in seen)
     for r in range(R):
         if lens[r] and STARTS[r]:           # a row that carries state
             assert not torch.equal(faulty[r], sound[r]), r
@@ -233,8 +245,8 @@ def _serve(eng, **kw):
     step = eng._model_step
 
     def spy(*a, **kw):
-        cells = kw.get("cells")
-        calls.append((kw["real_tokens"], None if cells is None else
+        cells = a[2].cells
+        calls.append((a[2].real, None if cells is None else
                       int(cells.shape[0]), a[1].numel()))
         return step(*a, **kw)
 
@@ -269,7 +281,9 @@ def test_served_compacted_streams(arch, monkeypatch):
             assert compact_rows(real) >= grid
         else:
             assert rows == compact_rows(real) < grid
-    monkeypatch.setattr(LM, "step_cells", lambda self, positions: None)
+    build = LM.step_layout
+    monkeypatch.setattr(LM, "step_layout", lambda self, *a: build(
+        self, *a)._replace(cells=None))
     padded, calls_p = _serve(eng)
     assert all(c[1] is None for c in calls_p)
     for a, b, c in zip(on, off, padded):
@@ -278,8 +292,8 @@ def test_served_compacted_streams(arch, monkeypatch):
 
 
 def test_speculative_compacted_run_equals_plain_run():
-    """The verify steps compact (the draft passes stay padded) and emit
-    the plain streams."""
+    """The verify steps compact (the draft passes compute their whole
+    grids) and emit the plain streams."""
     eng = _engine("granite-moe-3b-a800m")
     plain, _ = _serve(eng)
     spec, calls = _serve(eng, speculative=True, draft_k=3, draft_layers=1)

@@ -381,10 +381,11 @@ def test_init_paged_cache_matches_reference():
                 assert str(tcp[key].dtype).split(".")[-1] == \
                     str(jcp[key].dtype)
     with pytest.raises(ValueError, match="all-paged|pure paged"):
-        z = torch.zeros((1, 2), dtype=torch.int64)
-        tm.model_step(tp, z, z.int(), z[:, 0].int(),
+        z = np.zeros((1, 2), np.int32)
+        tm.model_step(tp, torch.zeros((1, 2), dtype=torch.int64),
+                      tm.step_layout(z, z[:, 0], z[:, :1]).upload("cpu"),
                       tm.init_paged_cache(1, 3, 4, device="cpu"),
-                      torch.zeros((1, 1), dtype=torch.int32), z[:, 0])
+                      torch.zeros(1, dtype=torch.int32))
 
 
 def test_cross_block_is_noncausal_and_ignores_rope():

@@ -40,7 +40,8 @@ from repro_torch.configs.registry import get  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.api import Mamba2Cfg, SSMCfg  # noqa: E402
-from repro_torch.models.layers import POS_SENTINEL, moe_route  # noqa: E402
+from repro_torch.models.layers import (POS_SENTINEL, StepLayout,  # noqa: E402
+                                       moe_route)
 from repro_torch.quant.apply import apply_policy_to_params  # noqa: E402
 from repro_torch.serve import FrontEnd, ServeEngine  # noqa: E402
 
@@ -164,15 +165,13 @@ def _served_logits(eng, reqs, **kw):
         return out
     step = eng._model_step
 
-    def spy_step(params, tokens, positions, slot_map, cache, tables, cols,
-                 *a, **k):
-        logits, cache = step(params, tokens, positions, slot_map, cache,
-                             tables, cols, *a, **k)
-        pos = positions.numpy()
+    def spy_step(params, tokens, layout, cache, cols, *a, **k):
+        logits, cache = step(params, tokens, layout, cache, cols, *a, **k)
+        pos = layout.pos.numpy()
         for r, c in enumerate(cols.numpy()):
             if pos[r, 0] == POS_SENTINEL:
                 continue
-            rid = sched["s"].slot(int(slot_map[r])).req.rid
+            rid = sched["s"].slot(int(layout.slot_map[r])).req.rid
             rows.setdefault(rid, []).append((int(pos[r, c]),
                                              logits[r, 0].clone()))
         return logits, cache
@@ -236,9 +235,9 @@ def test_zeroed_state_control_fails(monkeypatch):
     comparison sees the state that chunks hand on."""
     step = ssm_mod.mamba_step
 
-    def forgetful(params, x, cache, q_pos, cfg, d_model, **kw):
+    def forgetful(params, x, cache, layout, cfg, d_model):
         cache = {k: torch.zeros_like(v) for k, v in cache.items()}
-        return step(params, x, cache, q_pos, cfg, d_model, **kw)
+        return step(params, x, cache, layout, cfg, d_model)
     monkeypatch.setattr(ssm_mod, "mamba_step", forgetful)
     eng = ServeEngine(MODEL, _weights(), max_len=32, device="cpu")
     reqs = _requests()
@@ -278,7 +277,8 @@ def test_mamba_step_matches_full_scan_and_decode(ssm_cfg):
         xs[0, :n] = x[0, p0:p0 + n]
         pos = torch.full((2, w), POS_SENTINEL, dtype=torch.int32)
         pos[0, :n] = torch.arange(p0, p0 + n)
-        y, cache = ssm_mod.mamba_step(params, xs, cache, pos, ssm_cfg, d)
+        y, cache = ssm_mod.mamba_step(params, xs, cache, StepLayout.of(pos),
+                                      ssm_cfg, d)
         ys.append(y[0, :n])
         p0 += n
     torch.testing.assert_close(torch.cat(ys)[None], y_full, rtol=1e-5,
@@ -290,7 +290,8 @@ def test_mamba_step_matches_full_scan_and_decode(ssm_cfg):
     tok = torch.randn(2, 1, d, generator=g)
     y_dec, dec = ssm_mod.mamba_decode_step(params, tok, cache, ssm_cfg, d)
     y_step, step = ssm_mod.mamba_step(
-        params, tok, cache, torch.tensor([[S], [S + 4]], dtype=torch.int32),
+        params, tok, cache,
+        StepLayout.of(torch.tensor([[S], [S + 4]], dtype=torch.int32)),
         ssm_cfg, d)
     torch.testing.assert_close(y_step, y_dec, rtol=1e-5, atol=1e-5)
     for key in ("state", "conv"):

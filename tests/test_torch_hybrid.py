@@ -119,9 +119,10 @@ def test_chunked_speculative_and_serve_reject_recurrent_state(arch):
     np.testing.assert_array_equal(
         eng.serve(fe, page_size=4, max_slots=1)["outputs"][rid], want)
     pool = eng.model.init_paged_cache(1, 3, 4, device="cpu")
-    z = torch.zeros((1, 2), dtype=torch.int64)
-    eng.model.model_step(eng.params, z, z.int(), z[:, 0].int(), pool,
-                         z.int(), z[:, 1].int())
+    z = np.zeros((1, 2), np.int32)
+    layout = eng.model.step_layout(z, z[:, 0], z).upload("cpu")
+    eng.model.model_step(eng.params, torch.zeros((1, 2), dtype=torch.int64),
+                         layout, pool, torch.zeros(1, dtype=torch.int32))
     state = pool[cfg.cache_kinds().index("state")]["state"]
     assert bool(state.abs().sum() > 0)
 

@@ -231,8 +231,9 @@ def test_model_step_and_decode_step_paged_match_reference(arch, kv_bits,
         jl, jc = jstep(jp, jnp.asarray(toks), jnp.asarray(pos),
                        jnp.asarray(slot_map), jc, jnp.asarray(bt),
                        jnp.asarray(lc), attn_impl="ref")
-        tl, tc = tm.model_step(tp, _t(toks), _t(pos), _t(slot_map), tc,
-                               _t(bt), _t(lc), attn_impl=impl)
+        layout = tm.step_layout(pos, slot_map, bt).upload("cpu")
+        tl, tc = tm.model_step(tp, _t(toks), layout, tc, _t(lc),
+                               attn_impl=impl)
         assert tuple(tl.shape) == jl.shape
         np.testing.assert_allclose(tl.numpy()[real], np.asarray(jl)[real],
                                    **LOGIT_TOL)
@@ -260,15 +261,16 @@ def test_model_step_chunks_match_prefill_logits():
                          tm.init_cache(1, 16, dtype=torch.float32,
                                        device="cpu"))
     pool = tm.init_paged_cache(1, 5, 4, dtype=torch.float32, device="cpu")
-    bt = _t(np.array([[4, 2, 1, 3]], np.int32))
+    bt = np.array([[4, 2, 1, 3]], np.int32)
     for c0 in range(0, S, 5):
         n = min(5, S - c0)
         t = np.zeros((1, 5), np.int64)
         p = np.full((1, 5), SENT, np.int32)
         t[0, :n] = toks[0, c0:c0 + n]
         p[0, :n] = np.arange(c0, c0 + n)
-        got, pool = tm.model_step(tp, _t(t), _t(p), _t(np.zeros(1, np.int32)),
-                                  pool, bt, _t(np.array([n - 1], np.int32)))
+        layout = tm.step_layout(p, np.zeros(1, np.int32), bt).upload("cpu")
+        got, pool = tm.model_step(tp, _t(t), layout, pool,
+                                  _t(np.array([n - 1], np.int32)))
     np.testing.assert_allclose(got.numpy(), want.numpy(), **LOGIT_TOL)
 
 

@@ -350,8 +350,9 @@ def test_mamba_span_counts_a_known_chunked_step():
     spans.clear()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        m.model_step(params, toks, pos, torch.arange(R), pool, tables,
-                     torch.tensor([4, 0, 0]), real_tokens=6)
+        layout = m.step_layout(pos.numpy(), np.arange(R), tables.numpy())
+        m.model_step(params, toks, layout.upload("cpu"), pool,
+                     torch.tensor([4, 0, 0]))
     recs = spans.records()
     spans.clear()
     mamba = [i for i, r in enumerate(recs) if r[0] == ssm.MAMBA]
@@ -398,10 +399,10 @@ def served_wide():
 
 def test_compacted_step_counts_its_rung(served_wide):
     """``step``'s ``rows`` is the rows the row-wise layers computed: the
-    rung that holds ``real_rows`` where it is below R x w, else R x w,
-    which ``grid_rows`` keeps;
+    rung that holds ``real_rows`` where it is below R x w, else R x w;
     each ``moe`` span inside routes that many rows, K pairs each; each
-    ``mamba`` span still counts the R x w cells its scan computes."""
+    ``mamba`` span counts the R x w cells its scan computes, the grid
+    the step's rows are held to."""
     from repro_torch.models import ssm
     from repro_torch.models.transformer import compact_rows
     m, recs = served_wide
@@ -411,17 +412,19 @@ def test_compacted_step_counts_its_rung(served_wide):
     compacted = 0
     for i in steps:
         c = recs[i][4]
-        real, rows, grid = c["real_rows"], c["rows"], c["grid_rows"]
-        assert grid in grids                  # R x w, w in {chunk, 1}
-        assert real <= rows <= grid
-        assert rows == min(compact_rows(real), grid)
-        compacted += rows < grid
+        assert set(c) == {"rows", "real_rows"}
+        real, rows = c["real_rows"], c["rows"]
         (launch,) = [j for j in _children(recs, i)
                      if recs[j][0] == "step.launch"]
         inner = _children(recs, launch)
         moe = [recs[j][4] for j in inner if recs[j][0] == "moe"]
         mamba = [recs[j][4] for j in inner if recs[j][0] == ssm.MAMBA]
+        assert mamba
+        (grid,) = {c["rows"] for c in mamba}
+        assert grid in grids                  # R x w, w in {chunk, 1}
+        assert real <= rows <= grid
+        assert rows == min(compact_rows(real), grid)
+        compacted += rows < grid
         assert moe and {c["pairs"] for c in moe} == {rows * K}
-        assert mamba and {c["rows"] for c in mamba} == {grid}
         assert {c["tokens"] for c in mamba} == {real}
     assert compacted and compacted < len(steps)
