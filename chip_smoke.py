@@ -51,7 +51,13 @@ run exits non-zero:
               library call torch.bmm on the dequantized stack), the
               grouped K2 / K3 over the routed pairs (the same sites at
               P = 32768 pairs, uniform and skewed, fp32 and bf16 x, bit
-              for bit against the capacity launch, timed beside it) and K2 on
+              for bit against the capacity launch, timed beside it), one
+              launch for a whole mixed-QBN PackedWeight (mixed_gemm_rows:
+              granite-4.0-h-small's w_out, shared.wg and grouped experts'
+              wg at a 384-row step, and shared.wg on a bf16 x, bit for
+              bit against the per-bucket launches and index copies,
+              within GEMM_TOL of the plain product, one device launch a
+              call, both timed) and K2 on
               the uniform int8 store's gemma2-2b wq; musicgen-large's K1
               prefill and decode at D 64, G 1, and llama-3.2-vision's
               cross-attention K1 rows, non-causal over the 1600-token
@@ -155,8 +161,9 @@ run exits non-zero:
               40 experts top-8, capacity factor 1.25), random fp32
               weights: generate (2 x 2048 + 16) on engine A (packed store,
               kernels) against engine B (fake store, plain versions) by
-              check_serve's rules, the expert GEMMs on one batched K2 / K3
-              launch per bucket of each site (exact counts), and the pair
+              check_serve's rules, K2 / K3 counted exactly (one launch a
+              site where it has over 8 rows, the expert stacks' grouped
+              launches included, else one a bucket), and the pair
               again with activation quantization off at a tight limit;
               run() on 8 requests at capacity factor 1.25 (0 host syncs,
               never compacted) and at 0 (each stream against its
@@ -333,20 +340,31 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # device-time groups of the profiled runs: kernel-name fragments
 # (attn_tc's K/V source and gemm_tc's weight source name their launches;
-# paged_combine merges the splits of both K4 walks)
+# paged_combine merges the splits of both K4 walks).  A kernel falls in the
+# first group that matches it: gemm_tc_mixed, whose name holds every
+# stage type, before K2's and K3's per-bucket tiles.
 KERNEL_GROUPS = {
     "k1_tc": ("DenseSlots",),
     "k1_split": ("flash_split", "split_combine"),
     "k4_chunk": ("PagedSlots",),
     "k4_decode": ("paged_split",),
     "k4_merge": ("paged_combine",),
+    "k23_mixed": ("gemm_tc_mixed",),
     "k2_tc": ("Int8Stage",),
     "k2_skinny": ("gemm_stream<8,",),
     "k3_tc": ("PackedStage",),
     "k3_skinny": ("gemm_stream<4,", "gemm_stream<2,"),
 }
-GEMM_GROUPS = {"quant_matmul": ("k2_tc", "k2_skinny"),
-               "packed_matmul": ("k3_tc", "k3_skinny")}
+# K2's and K3's wrapper launches by kind of route (gemm_route_kind) beside
+# the group that holds their device launches: (LaunchCount, kind, group).
+# One launch for every bucket of a PackedWeight counts under K3's
+# mixed_* / grouped_mixed_* routes.
+GEMM_ROUTES = (("quant_matmul", "tc", "k2_tc"),
+               ("quant_matmul", "skinny", "k2_skinny"),
+               ("packed_matmul", "tc", "k3_tc"),
+               ("packed_matmul", "skinny", "k3_skinny"),
+               ("packed_matmul", "mixed", "k23_mixed"))
+GEMM_MS_GROUPS = ("k23_mixed", "k2_tc", "k2_skinny", "k3_tc", "k3_skinny")
 # a pair of timing traces taken again when one came back empty
 TRACE_ATTEMPTS = 3
 
@@ -549,45 +567,58 @@ def _attn_tf32_equiv(torch, flops, q, k):
     return flops
 
 
+def kernel_group(name):
+    """The KERNEL_GROUPS group of kernel ``name``: the first that matches
+    it, or None."""
+    return next((g for g, frags in KERNEL_GROUPS.items()
+                 if any(f in name for f in frags)), None)
+
+
 def kernel_groups(keyed):
     """Device ms and launches of each KERNEL_GROUPS group from
     ``(kernel name, device ms, calls)`` triples."""
-    return {g: dict(ms=sum(ms for n, ms, _ in keyed
-                           if any(f in n for f in frags)),
-                    calls=sum(c for n, ms, c in keyed
-                              if any(f in n for f in frags) and ms > 0))
-            for g, frags in KERNEL_GROUPS.items()}
+    of = [(kernel_group(n), ms, c) for n, ms, c in keyed]
+    return {g: dict(ms=sum(ms for h, ms, _ in of if h == g),
+                    calls=sum(c for h, ms, c in of if h == g and ms > 0))
+            for g in KERNEL_GROUPS}
+
+
+def gemm_route_kind(route):
+    """``skinny``, ``mixed`` (one launch for a whole PackedWeight, dense
+    or grouped) or ``tc`` (a bucket's tensor-core launch) for a
+    ``LaunchCount`` route of K2 / K3."""
+    return route if route == "skinny" else \
+        "mixed" if "mixed" in route else "tc"
 
 
 def traced_gemm_launches(trace, what):
     """``trace()`` -> a profile with ``groups``: K2's and K3's device
     launches in it, route by route (the kernel-name groups of
-    GEMM_GROUPS: gemm_tc's and gemm_stream's), beside the wrappers'
-    launches of the same run on that route.  A CUPTI trace drops kernel
-    records now and then (cluster launches of gemm_stream among them) but
-    never adds one, so a route with more device launches than calls fails
-    at once, and one with fewer is reported, not failed (``missing``, the
-    records the trace lost).  One launch a call is held exactly where no
-    record can be lost: every GEMM kernel row counts the kernel nodes of a
-    CUDA graph that captures one call (graph_launches), at the paths'
-    shapes.  Returns the profile, with ``gemm_launches``, and the problems
-    found."""
+    GEMM_ROUTES: gemm_tc's, gemm_tc_mixed's and gemm_stream's), beside the
+    wrappers' launches of the same run on that route.  A CUPTI trace drops
+    kernel records now and then (cluster launches of gemm_stream among
+    them) but never adds one, so a route with more device launches than
+    calls fails at once, and one with fewer is reported, not failed
+    (``missing``, the records the trace lost).  One launch a call is held
+    exactly where no record can be lost: every GEMM kernel row counts the
+    kernel nodes of a CUDA graph that captures one call (graph_launches),
+    at the paths' shapes.  Returns the profile, with ``gemm_launches``,
+    and the problems found."""
     from repro_torch import kernels
     kernels.reset_launch_counts()
     prof = trace()
     routes = kernels.launch_routes()
     pairs, over = {}, []
-    for name, (tc_group, skinny_group) in GEMM_GROUPS.items():
-        for route, group in (("tc", tc_group), ("skinny", skinny_group)):
-            calls = sum(n for r, n in routes[name].items()
-                        if (r == "skinny") == (route == "skinny"))
-            dev = prof["groups"][group]["calls"]
-            pairs[f"{name}/{route}"] = dict(
-                calls=calls, device_launches=dev, missing=calls - dev,
-                kernel=KERNEL_GROUPS[group])
-            if dev > calls:
-                over.append(f"{what}: {name} made {dev} device launches on "
-                            f"its {route} route for {calls} calls")
+    for name, kind, group in GEMM_ROUTES:
+        calls = sum(n for r, n in routes[name].items()
+                    if gemm_route_kind(r) == kind)
+        dev = prof["groups"][group]["calls"]
+        pairs[f"{name}/{kind}"] = dict(
+            calls=calls, device_launches=dev, missing=calls - dev,
+            kernel=KERNEL_GROUPS[group])
+        if dev > calls:
+            over.append(f"{what}: {name} made {dev} device launches on "
+                        f"its {kind} route for {calls} calls")
     prof["gemm_launches"] = pairs
     return prof, over
 
@@ -1294,7 +1325,8 @@ def phase_kernels(torch, timer):
     rows = search_kernel_rows(torch, timer) + paged_rows(torch, timer, cap) \
         + flash_rows(torch, timer) + gemm_rows(torch, timer, GEMM_SHAPES)
     return rows + expert_gemm_rows(torch, timer) + \
-        grouped_gemm_rows(torch, timer) + bf16_gemm_rows(torch, timer) + \
+        grouped_gemm_rows(torch, timer) + mixed_gemm_rows(torch, timer) + \
+        bf16_gemm_rows(torch, timer) + \
         bf16_search_kernel_rows(torch, timer)
 
 
@@ -1566,6 +1598,111 @@ def grouped_gemm_rows(torch, timer):
                     emit({"phase": "kernel", **row})
                     rows.append(row)
                     del x, xc, got, again, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# one launch for a whole PackedWeight (mixed_gemm_rows): granite-4.0-h-
+# small's sites at the benchmark's 384-row step, (label, experts or None,
+# K, N, x and weight dtype); the experts' wg grouped over the 384 x 10
+# routed pairs; shared.wg once more on a bf16 x against a bf16 store
+MIXED_M, MIXED_PAIRS = 384, 3840
+MIXED_SHAPES = [("w_out", None, 8192, 4096, "float32"),
+                ("shared_wg", None, 4096, 1536, "float32"),
+                ("experts_wg", 72, 4096, 768, "float32"),
+                ("shared_wg_bf16", None, 4096, 1536, "bfloat16")]
+
+
+def bench_channel_bits(n, seed):
+    """The benchmark policy's split of an n-channel site: 64 channel groups
+    with the QBNs POLICY_QBNS in turn, in a seeded order."""
+    vals = np.asarray([POLICY_QBNS[i % len(POLICY_QBNS)] for i in range(64)])
+    return np.repeat(np.random.default_rng(seed).permutation(vals), n // 64)
+
+
+def mixed_gemm_rows(torch, timer):
+    """One launch for a whole mixed-QBN PackedWeight (``packed_matmul.
+    mixed_matmul``) against the per-bucket path (``ops.bucket_matmul``: a
+    zero fill, one K2 / K3 launch a bucket and an ``index_copy_`` a
+    bucket) at MIXED_SHAPES: w_out 384x8192x4096, shared.wg
+    384x4096x1536 (fp32 x, and bf16 x against a store packed from bf16
+    weights), and the experts' wg grouped over 3840 pairs of 72 experts
+    (4096 x 768 each; seeded counts).  Each store splits its channels as
+    the benchmark's policy does (bench_channel_bits); weights ~ N(0, 1 /
+    K), so outputs are ~1.  Each row: the fused output equal bit for bit
+    to the per-bucket path's and within GEMM_TOL (BF16_GEMM_TOL for a
+    bf16 x) of the plain product, x @ w.dequant() in fp32 (each group's
+    rows through grouped_ref for the experts), the same bits twice, one
+    device launch a call (graph_launches; the per-bucket path's count
+    beside it), both paths' event and device ms.  Bound: 2 M K N at the
+    TF32 peak (bf16's for a bf16 x), or the bytes (x and y once, the
+    stored weight once)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.packed_matmul import mixed_matmul
+    from repro_torch.kernels.quant_matmul import grouped_ref
+    from repro_torch.quant.linear_quant import quant_pack_sub8
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    rows = []
+    for label, E, K, N, dt in MIXED_SHAPES:
+        x_dtype = getattr(torch, dt)
+        bf16 = x_dtype == torch.bfloat16
+        bits = bench_channel_bits(N, SEED + len(rows))
+        lead = (E,) if E else ()
+        w = quant_pack_sub8((torch.randn(lead + (K, N), generator=g,
+                                         device="cuda") /
+                             math.sqrt(K)).to(x_dtype), bits)
+        off, cap = None, None
+        if E:
+            counts = np.random.default_rng(SEED).multinomial(
+                MIXED_PAIRS, np.full(E, 1.0 / E))
+            off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                               dtype=torch.int32, device="cuda")
+            cap, M = int(counts.max()), MIXED_PAIRS
+        else:
+            M = MIXED_M
+        x = torch.randn(M, K, generator=g, device="cuda").to(x_dtype)
+        fused = lambda: mixed_matmul(x, w, off)              # noqa: E731
+        per = lambda: ops.bucket_matmul(x, w, off, cap)      # noqa: E731
+        what = f"packed_matmul/mixed_{label}"
+        got, again, want = fused(), fused(), per()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two calls give different bits")
+        if not torch.equal(got, want):
+            bad = int((got != want).any(-1).sum())
+            raise AssertionError(f"{what}: {bad} rows differ from the "
+                                 "per-bucket launches'")
+        # the store's weight in fp32, as the kernels scale their sums
+        deq = dataclasses.replace(w, out_dtype="float32").dequant()
+        plain = lambda xb: xb.float() @ deq                  # noqa: E731
+        err, rel = compare(torch, got,
+                           grouped_ref(plain, x, off, cap) if E else
+                           plain(x), BF16_GEMM_TOL if bf16 else GEMM_TOL,
+                           what)
+        del deq
+        n_launch = graph_launches(torch, fused)
+        if n_launch != 1:
+            raise AssertionError(f"{what}: {n_launch} device launches a "
+                                 "call, want 1")
+        b_ms, b_by = bound_ms(x.element_size() * M * (K + N) +
+                              w.hbm_bytes(), 2.0 * M * K * N,
+                              "bf16" if bf16 else "tf32")
+        ms, per_ms = timer.pair(fused, per)
+        row = dict(
+            name="packed_matmul", case=f"mixed_{label}",
+            shape=[E or 1, M, K, N], x_dtype=dt,
+            buckets={name: len(idx) for name, idx in w.buckets},
+            bits_equal_per_bucket=True, max_abs_err=err, max_rel_err=rel,
+            launches_per_call=n_launch,
+            per_bucket_launches_per_call=graph_launches(torch, per), ms=ms,
+            device_ms=timer.device(fused), per_bucket_ms=per_ms,
+            per_bucket_device_ms=timer.device(per), bound_ms=b_ms,
+            bound_by=b_by)
+        emit({"phase": "kernel", **row})
+        rows.append(row)
+        del w, x, got, again, want
     torch.cuda.empty_cache()
     return rows
 
@@ -2284,27 +2421,44 @@ def phase_run(torch, cfg, model, params, policy):
 
 
 # ------------------------------------------------------------- phase moe
-def _moe_gemm_launches(graph, policy, n_repeat, calls, skip=()):
+def _moe_gemm_launches(graph, policy, cfg, calls, prefills=(), skip=()):
     """K2 and K3 launches of ``calls`` model calls on the packed store of
-    ``policy``: one launch per non-empty int8 bucket (K2) and per
-    non-empty int2 / int4 bucket (K3) of each GEMM site and repeat (an
-    expert site's buckets are shared by its E experts: one launch each,
-    not E), the unembedding once a call; the sites named in ``skip`` left
-    out.  Returns ({kernel: launches}, {site: [buckets]})."""
+    ``policy`` for a model of config ``cfg``.  ``prefills`` holds the
+    tokens T of each call among them that prefills; the others decode at
+    most SKINNY_M rows.  A site whose product has more rows than
+    SKINNY_M (T, or for an expert stack the capacity layout's rows
+    ``layers.moe_capacity``, grouped or not) is one mixed launch for all
+    its buckets (``packed_matmul.mixed_matmul``, K3's count) unless it has
+    a bf16 ``full`` bucket; otherwise one launch per non-empty int8 bucket
+    (K2) and per non-empty int2 / int4 bucket (K3) (an expert site's
+    buckets are shared by its E experts: one launch each, not E).  The
+    unembedding runs once a call on the last position of each batch row,
+    at most SKINNY_M rows here.  The sites named in ``skip`` are left out.
+    Returns ({kernel: launches}, {site: [buckets]})."""
     from repro_torch.kernels.pack import bucket_of_bits
+    from repro_torch.kernels.quant_matmul import SKINNY_M
+    from repro_torch.models.layers import moe_capacity
     k2 = k3 = 0
     sites = {}
     for l in graph.layers:
         if l.name in skip:
             continue
-        names = sorted({bucket_of_bits(b)
-                        for b in policy.expand_weight_bits(l)} -
-                       {"pruned", "full"})
+        buckets = {bucket_of_bits(b) for b in policy.expand_weight_bits(l)}
+        names = sorted(buckets - {"pruned", "full"})
         sites[l.name] = names
-        reps = 1 if l.kind == "unembed" else n_repeat
-        k2 += reps * ("int8" in names)
-        k3 += reps * sum(n in ("int2", "int4") for n in names)
-    return dict(quant_matmul=k2 * calls, packed_matmul=k3 * calls), sites
+        reps = 1 if l.kind == "unembed" else cfg.n_repeat
+        per_bucket = (reps * ("int8" in names),
+                      reps * sum(n in ("int2", "int4") for n in names))
+        for T in [None] * (calls - len(prefills)) + list(prefills):
+            rows = 0 if T is None or l.kind == "unembed" else \
+                moe_capacity(T, cfg.moe.n_experts, cfg.moe.top_k,
+                             cfg.moe.capacity_factor) \
+                if l.kind == "expert" else T
+            if rows > SKINNY_M and "full" not in buckets:
+                k3 += reps
+            else:
+                k2, k3 = k2 + per_bucket[0], k3 + per_bucket[1]
+    return dict(quant_matmul=k2, packed_matmul=k3), sites
 
 
 def _dispatch_bits(torch, eng, tokens, label):
@@ -2444,12 +2598,12 @@ def phase_moe(torch):
     check = check_serve(torch, a, b, MOE_LOGIT_ATOL, cfg.n_layers,
                         cfg.vocab)
     problems += check["problems"]
-    want, sites = _moe_gemm_launches(graph, policy, cfg.n_repeat,
-                                     1 + N_NEW)
+    want, sites = _moe_gemm_launches(graph, policy, cfg, 1 + N_NEW,
+                                     (tokens.size,))
     got = {k: a_rec["launches"][k] for k in want}
     if got != want:
         problems.append(f"moe generate: GEMM launches {got}, want {want} "
-                        "(one a bucket of each site)")
+                        "(one a site on the tensor cores, else a bucket)")
     emit({"phase": "moe-gemm-launches", "launches": got, "want": want,
           "buckets": {n: v for n, v in sites.items()
                       if n.split(".")[-1] in ("wg", "wu", "wd")}})
@@ -2572,14 +2726,16 @@ def _attn_layers(cfg) -> int:
     return cfg.n_repeat * sum(b.kind != "mamba" for b in cfg.pattern)
 
 
-def _gemm_check(problems, what, launches, graph, policy, n_repeat, calls):
-    """K2 / K3 launches of ``calls`` model calls against the exact count
-    of _moe_gemm_launches (one a bucket of each site and repeat)."""
-    want, _ = _moe_gemm_launches(graph, policy, n_repeat, calls)
+def _gemm_check(problems, what, launches, graph, policy, cfg, calls,
+                prefills):
+    """K2 / K3 launches of ``calls`` model calls, ``prefills`` the tokens
+    of those that prefill, against the exact count of _moe_gemm_launches
+    (one a site and repeat on the tensor-core route, else one a bucket)."""
+    want, _ = _moe_gemm_launches(graph, policy, cfg, calls, prefills)
     got = {k: launches[k] for k in want}
     if got != want:
         problems.append(f"{what}: GEMM launches {got}, want {want} (one a "
-                        "bucket of each site)")
+                        "site on the tensor cores, else one a bucket)")
     return want
 
 
@@ -2635,9 +2791,10 @@ def _state_run(torch, label, eng, reqs, graph, policy, problems,
     own ``generate`` by the gap rule (the chunked path, ``run()``'s
     default, is the benchmark's ``granite-h-chat``); K1 once per
     attention layer and admission (generate: and model call), K4 once
-    per attention layer and decode step, K2 / K3 exactly one launch per
-    bucket of each site and model call, in the run and in the
-    generates.  Returns the run record."""
+    per attention layer and decode step, K2 / K3 exactly as
+    _moe_gemm_launches counts them (one launch a site of a prefill, one a
+    bucket of a decode step's), in the run and in the generates.  Returns
+    the run record."""
     from repro_torch import kernels
     from repro_torch.serve import FrontEnd
     cfg = eng.model.cfg
@@ -2674,8 +2831,9 @@ def _state_run(torch, label, eng, reqs, graph, policy, problems,
             lr["paged_attention"] != na * st.steps:
         problems.append(f"{label}: attention launches {lr} over "
                         f"{len(reqs)} admissions and {st.steps} steps")
-    rec["gemm_want"] = _gemm_check(problems, label, lr, graph, policy,
-                                   cfg.n_repeat, len(reqs) + st.steps)
+    prefills = [len(t) for t, _ in reqs]
+    rec["gemm_want"] = _gemm_check(problems, label, lr, graph, policy, cfg,
+                                   len(reqs) + st.steps, prefills)
     kernels.reset_launch_counts()
     gens = []
     for toks, n_new in reqs:
@@ -2685,8 +2843,8 @@ def _state_run(torch, label, eng, reqs, graph, policy, problems,
     calls = sum(1 + n for _, n in reqs)
     if gl["flash_attention"] != na * calls or gl["paged_attention"]:
         problems.append(f"{label}: generate attention launches {gl}")
-    _gemm_check(problems, label + " generate", gl, graph, policy,
-                cfg.n_repeat, calls)
+    _gemm_check(problems, label + " generate", gl, graph, policy, cfg,
+                calls, prefills)
     rec["generate_launches"] = gl
     rec["first_differences"] = [
         f for i, (out, (want, gaps)) in enumerate(zip(res["outputs"], gens))
@@ -2754,8 +2912,8 @@ def phase_ssm(torch):
       1 ... 48 layers, with activation QBN 8 and with it off, reported.
     * generate (2 x 2048 prompt, 16 new) on engine A with the policy's
       activation QBN 8, the served configuration: finite, no K1 or K4 (no
-      attention layer) and K2 / K3 exactly one launch per bucket of w_xz,
-      w_bc, w_out and the unembedding a model call; then engine A against
+      attention layer) and K2 / K3 exactly as _moe_gemm_launches counts
+      w_xz, w_bc, w_out and the unembedding; then engine A against
       engine B (fake store, plain versions) with activation quantization
       off: prefill logits and streams by check_serve's rules at
       LOGIT_ATOL plus twice B's distance from F at the last position (two
@@ -2779,7 +2937,7 @@ def phase_ssm(torch):
       HYBRID_CUT: its own noise floor, engine A against engine B with
       activation quantization off by check_serve's rules at LOGIT_ATOL
       plus twice its B's fp64 distance (K1 once per attention layer and
-      model call, K2 / K3 exactly one launch per bucket of each site, the
+      model call, K2 / K3 exactly as _moe_gemm_launches counts them, the
       experts' included), then run on 4 requests at activation QBN 8 by
       _state_run's rules, with K1, K4 and the expert-batched K2 / K3
       launched.
@@ -2835,8 +2993,8 @@ def phase_ssm(torch):
                         "or range")
     if la["flash_attention"] or la["paged_attention"]:
         problems.append(f"ssm generate: attention launched {la}")
-    want = _gemm_check(problems, "ssm generate", la, graph, policy,
-                       cfg.n_repeat, 1 + N_NEW)
+    want = _gemm_check(problems, "ssm generate", la, graph, policy, cfg,
+                       1 + N_NEW, (tokens.size,))
     emit({"phase": "ssm-gemm-launches", "launches": la, "want": want})
     del a
     # A against B with activation quantization off, at the noise floor
@@ -2864,7 +3022,7 @@ def phase_ssm(torch):
     gate = check_serve(torch, ga, gb, ACT_LOGIT_ATOL, 0, cfg.vocab)
     problems += gate["problems"]
     _gemm_check(problems, "ssm-gate generate", ga["rec"]["launches"],
-                ggraph, gpolicy, gcfg.n_repeat, 1 + N_NEW)
+                ggraph, gpolicy, gcfg, 1 + N_NEW, (tokens.size,))
     del ga, gb
     reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), k)
             for n, k in zip(MOE_RUN_PROMPTS, MOE_RUN_NEW)]
@@ -2898,17 +3056,15 @@ def phase_ssm(torch):
         busy_share=prof["busy_share"],
         kernel_launches=prof["kernel_launches"],
         gemm_trace={n: dict(calls=calls[n], device_launches=sum(
-            g[k]["calls"] for k in grps)) for n, grps in GEMM_GROUPS.items()},
+            g[k]["calls"] for m, _, k in GEMM_ROUTES if m == n))
+            for n in ("quant_matmul", "packed_matmul")},
         prefill_device_ms=pre["device_ms"],
         prefill_launches=pre["kernel_launches"],
         prefill_gemm_launches=pre["gemm_launches"],
         ssd_ms=ssd["ms"], ssd_launches=ssd["calls"],
         ssd_share_of_prefill=ssd["ms"] / max(pre["device_ms"], 1e-9),
-        prefill_gemm_ms={k: pre["groups"][k]["ms"]
-                         for k in ("k2_tc", "k2_skinny", "k3_tc",
-                                   "k3_skinny")},
-        gemm_ms={k: g[k]["ms"] for k in ("k2_tc", "k2_skinny", "k3_tc",
-                                         "k3_skinny")},
+        prefill_gemm_ms={k: pre["groups"][k]["ms"] for k in GEMM_MS_GROUPS},
+        gemm_ms={k: g[k]["ms"] for k in GEMM_MS_GROUPS},
         launches_per_decode_step=(prof["kernel_launches"] -
                                   pre["kernel_launches"]) / N_NEW,
         decode_device_ms_per_step=(prof["device_ms"] - pre["device_ms"]) /
@@ -2967,7 +3123,7 @@ def phase_ssm(torch):
     problems += hcheck["problems"]
     hcheck["gemm_want"] = _gemm_check(
         problems, "hybrid generate", ha["rec"]["launches"], hgraph, hpolicy,
-        hcfg.n_repeat, 1 + N_NEW)
+        hcfg, 1 + N_NEW, (htokens.size,))
     del ha, hb
     heng = ServeEngine(hmodel, hparams, policy=hpolicy, max_len=SSM_MAX_LEN,
                        weight_store="packed", attn_impl="cuda",
@@ -3115,7 +3271,7 @@ def _audio_frontend(torch, problems):
     and 16 teacher-forced decode steps, every step's logits within the
     floor's tolerance of B's and of A's own full forward, the argmax
     streams by check_serve's rules (K1 once a layer a call), K2 / K3
-    exactly one launch per bucket of each site a call; activation QBN 8
+    exactly as _moe_gemm_launches counts them; activation QBN 8
     held on the first FE_GATE_LAYERS layers; weight bytes, one profiled
     prefill + decode step (busy share)."""
     import dataclasses
@@ -3173,7 +3329,7 @@ def _audio_frontend(torch, problems):
             problems.append(f"audio: {key} {check[key]} > {tol}")
     check["gemm_want"] = _gemm_check(problems, "audio generate",
                                      a["rec"]["launches"], graph, policy,
-                                     cfg.n_repeat, 1 + N_NEW)
+                                     cfg, 1 + N_NEW, (B * FE_PROMPT,))
     emit({"phase": "audio-check", **{k: check[k] for k in (
         "steps_max_abs_diff", "a_vs_own_apply_max_abs_diff", "gemm_want")}})
     a_rec = a["rec"]
@@ -3202,7 +3358,7 @@ def _audio_frontend(torch, problems):
                                 f"{gate['steps_max_abs_diff']} apart")
     problems += gate["problems"]
     _gemm_check(problems, "audio-gate generate", ga["rec"]["launches"],
-                ggraph, gpolicy, gcfg.n_repeat, 1 + N_NEW)
+                ggraph, gpolicy, gcfg, 1 + N_NEW, (B * FE_PROMPT,))
     del ga, gb, gparams
     gc.collect()
 
@@ -3322,8 +3478,8 @@ def _vision_frontend(torch, problems):
     engine A (packed store, kernels) against engine B (fake store, plain
     versions) with activation quantization off, by check_serve's rules
     at LOGIT_ATOL plus twice B's distance from F (K1 once a layer a call,
-    the cross block's included), K2 / K3 exactly one launch per bucket
-    of each site a call (the cross block's wk / wv at prefill only); run
+    the cross block's included), K2 / K3 exactly as _moe_gemm_launches
+    counts them (the cross block's wk / wv at prefill only); run
     2 through the paged pool (_vision_paged); run 3, engine A over a bf16
     cache, its streams against run 1's by the gap rule at BF16_GAP_TOL."""
     import dataclasses
@@ -3388,9 +3544,8 @@ def _vision_frontend(torch, problems):
                         f" apart, over {tol}")
     cross = {f"p{i}.{w}" for i, bd in enumerate(cfg.pattern)
              if bd.kind == "cross_attn" for w in ("wk", "wv")}
-    w1, _ = _moe_gemm_launches(graph, policy, cfg.n_repeat, 1)
-    wd, _ = _moe_gemm_launches(graph, policy, cfg.n_repeat, N_NEW,
-                               skip=cross)
+    w1, _ = _moe_gemm_launches(graph, policy, cfg, 1, (B * FE_PROMPT,))
+    wd, _ = _moe_gemm_launches(graph, policy, cfg, N_NEW, skip=cross)
     want = {k: w1[k] + wd[k] for k in w1}
     got = {k: a["rec"]["launches"][k] for k in want}
     if got != want:
@@ -3536,7 +3691,7 @@ def _bf16_mamba(torch, problems):
                                problems, 0)
             rec["gemm_want"] = _gemm_check(
                 problems, f"bf16 {name} generate", rec["launches"], gr, pol,
-                m.cfg.n_repeat, 1 + N_NEW)
+                m.cfg, 1 + N_NEW, (tokens.size,))
             rec.update(prefill_s=a["rec"]["prefill_s"],
                        decode_tok_per_s=a["rec"]["decode_tok_per_s"],
                        peak_mem_bytes=a["rec"]["peak_mem_bytes"],
@@ -3681,7 +3836,8 @@ def _bf16_audio(torch, problems):
         feed=lambda i, cur: frames[:, FE_PROMPT + i:FE_PROMPT + i + 1],
         twin_feed=lambda i, cur: f32[:, FE_PROMPT + i:FE_PROMPT + i + 1])
     rec["gemm_want"] = _gemm_check(problems, "bf16 audio", rec["launches"],
-                                   graph, policy, cfg.n_repeat, 1 + N_NEW)
+                                   graph, policy, cfg, 1 + N_NEW,
+                                   (B * FE_PROMPT,))
     del frames, f32, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -3728,9 +3884,8 @@ def _bf16_vision(torch, problems):
         prompt, twin_prompt, problems, after_a=paged)
     cross = {f"p{i}.{w}" for i, bd in enumerate(cfg.pattern)
              if bd.kind == "cross_attn" for w in ("wk", "wv")}
-    w1, _ = _moe_gemm_launches(graph, policy, cfg.n_repeat, 1)
-    wd, _ = _moe_gemm_launches(graph, policy, cfg.n_repeat, N_NEW,
-                               skip=cross)
+    w1, _ = _moe_gemm_launches(graph, policy, cfg, 1, (B * FE_PROMPT,))
+    wd, _ = _moe_gemm_launches(graph, policy, cfg, N_NEW, skip=cross)
     want = {k: w1[k] + wd[k] for k in w1}
     if {k: rec["launches"][k] for k in want} != want:
         problems.append(f"bf16 vision: GEMM launches {rec['launches']}, "

@@ -10,7 +10,8 @@
 // the card).  For BITS = 8 this is the plain (K, N) int8 matrix.  Fields
 // past the logical K are masked here, so the caller pads nothing.
 //
-// Two launch shapes, one launch per call either way:
+// Two launch shapes, one launch per call either way (and gemm_tc_mixed,
+// below, one gemm_tc launch for every bucket of a PackedWeight):
 //  * gemm_tc, for M > SKINNY_M (prefill, run()'s chunk steps): TF32 tensor
 //    cores (mma.sync m16n8k8) at fp32 accuracy; see its section below.
 //    The weight source stages the stored bytes and converts each value to
@@ -127,7 +128,9 @@ __host__ __device__ constexpr int x_cap() {
 }
 
 // Weight source of gemm_tc: int8 (K, N) rows staged as bytes.  VEC: 16-byte
-// cp.async copies (N % 16 == 0 and w 16-byte aligned), else byte loads.
+// cp.async copies (N % 16 == 0 and w 16-byte aligned), else byte loads,
+// read-only global loads (__ldg) whatever the compiler can tell of w's
+// address space: gemm_tc_mixed picks w from its MixedTable at run time.
 template <bool VEC>
 struct Int8Stage {
   static constexpr int F = 1;              // values per stored byte
@@ -148,7 +151,8 @@ struct Int8Stage {
       for (int i = tid; i < CBK * CBN; i += CNT) {
         const int r = i / CBN, c = i % CBN;
         const int gk = k0 + r, gn = n0 + c;
-        dst[r * RS + c] = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : 0;
+        dst[r * RS + c] = (gk < K && gn < N) ? __ldg(w + (size_t)gk * N + gn)
+                                             : 0;
       }
     }
   }
@@ -162,7 +166,8 @@ struct Int8Stage {
 // Weight source of gemm_tc for K3: int4 / int2 fields packed along K, a K
 // step's CBK / F packed rows staged as bytes (16 rows of int4, 8 of int2)
 // and unpacked by at() where the B fragment is built.  VEC: 16-byte
-// cp.async copies (N % 16 == 0 and w 16-byte aligned), else byte loads.
+// cp.async copies (N % 16 == 0 and w 16-byte aligned), else read-only byte
+// loads, as Int8Stage's.
 template <int BITS, bool VEC>
 struct PackedStage {
   static constexpr int F = 8 / BITS;
@@ -188,7 +193,8 @@ struct PackedStage {
       for (int i = tid; i < PR * CBN; i += CNT) {
         const int r = i / CBN, c = i % CBN;
         const int gr = r0 + r, gn = n0 + c;
-        dst[r * RS + c] = (gr < Kp && gn < N) ? w[(size_t)gr * N + gn] : 0;
+        dst[r * RS + c] =
+            (gr < Kp && gn < N) ? __ldg(w + (size_t)gr * N + gn) : 0;
       }
     }
   }
@@ -226,16 +232,34 @@ __host__ __device__ constexpr size_t tc_ring_bytes() {
   return CST * (sizeof(XT) * CBM * x_cap<XT>() + W::BYTES);
 }
 
+// Where gemm_tc_tile writes column n of its weight: into rows of `ld`
+// elements of y, at column n itself (Cols) or at the policy's output
+// channel col[n] (ChannelCols: one bucket of a PackedWeight, written in
+// channel order by gemm_tc_mixed).
+template <class XT>
+struct Cols {
+  XT* y;
+  int ld;
+  __device__ __forceinline__ XT* column(int n) const { return y + n; }
+};
+template <class XT>
+struct ChannelCols {
+  XT* y;
+  int ld;
+  const long long* col;
+  __device__ __forceinline__ XT* column(int n) const { return y + col[n]; }
+};
+
 // One CBM x CBN tile of gemm_tc, rows m0.. and columns n0.., of an operand
-// of M rows: x (M, K), y (M, N) and the weight source already point at the
-// tile's expert.  The caller's whole block calls it, with the ring as its
-// dynamic shared memory.  VA: x rows in 16-byte copies (K a multiple of 16
-// bytes of XT, x 16-byte aligned).  XT: x's and y's element type (float or
-// __nv_bfloat16).
-template <class W, bool VA, class XT>
+// of M rows: x (M, K), the output map `out` (Cols, ChannelCols) and the
+// weight source already point at the tile's expert.  The caller's whole
+// block calls it, with the ring as its dynamic shared memory.  VA: x rows
+// in 16-byte copies (K a multiple of 16 bytes of XT, x 16-byte aligned).
+// XT: x's and y's element type (float or __nv_bfloat16).
+template <class W, bool VA, class XT, class Out>
 __device__ __forceinline__ void gemm_tc_tile(const XT* __restrict__ x, W w,
-                                             XT* __restrict__ y, int M,
-                                             int K, int N, int m0, int n0) {
+                                             Out out, int M, int K, int N,
+                                             int m0, int n0) {
   constexpr bool XB = sizeof(XT) == 2;     // bf16 x
   constexpr int XC = x_cap<XT>();
   extern __shared__ float4 tc_smem[];
@@ -386,10 +410,11 @@ __device__ __forceinline__ void gemm_tc_tile(const XT* __restrict__ x, W w,
       const int n = gn + (e & 1);
       if (n >= N) continue;
       const float sc = w.col_scale(n);
+      XT* yc = out.column(n);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int m = m0 + wm + i * 16 + g + (e >> 1) * 8;
-        if (m < M) put(y + (size_t)m * N + n, acc[i][j][e] * sc);
+        if (m < M) put(yc + (size_t)m * out.ld, acc[i][j][e] * sc);
       }
     }
   }
@@ -403,8 +428,31 @@ gemm_tc(const XT* __restrict__ x, W wsrc, XT* __restrict__ y, int M,
   W w = wsrc;                              // this block's expert
   w.w += blockIdx.z * bs.w;
   w.scale += blockIdx.z * bs.s;
-  gemm_tc_tile<W, VA, XT>(x + blockIdx.z * bs.x, w, y + blockIdx.z * bs.y,
-                          M, K, N, blockIdx.y * CBM, blockIdx.x * CBN);
+  gemm_tc_tile<W, VA, XT>(x + blockIdx.z * bs.x, w,
+                          Cols<XT>{y + blockIdx.z * bs.y, N}, M, K, N,
+                          blockIdx.y * CBM, blockIdx.x * CBN);
+}
+
+// The group and row tile of gemm_tc_grouped's block blockIdx.y, from the G
+// + 1 offsets (copied into `so`, shared memory, by the whole block): group
+// e is rows [a, b) of x, the tile starts at row t * CBM of the group.
+// Offsets are clamped to [0, P] and each group's end to its start, so no
+// offsets make a block touch a row outside x or y.  Returns false past the
+// last tile (the same for the whole block).
+__device__ __forceinline__ bool group_tile(const int* __restrict__ off,
+                                           int* so, int G, int P, int& e,
+                                           int& a, int& b, int& t) {
+  for (int i = threadIdx.x; i <= G; i += CNT) so[i] = off[i];
+  __syncthreads();
+  t = blockIdx.y;
+  for (e = 0; e < G; ++e) {
+    a = min(max(so[e], 0), P);
+    b = min(max(so[e + 1], a), P);
+    const int tiles = (b - a + CBM - 1) / CBM;
+    if (t < tiles) return true;
+    t -= tiles;
+  }
+  return false;
 }
 
 // gemm_tc over G groups of rows of one (P, K) x, back to back: group e is
@@ -414,9 +462,8 @@ gemm_tc(const XT* __restrict__ x, W wsrc, XT* __restrict__ y, int M,
 // first row, so a row sits in its tile where the (E, M, K) layout of
 // gemm_tc puts it and gets the same bits.  The block copies the offsets
 // into shared memory past the ring and every thread walks them to its
-// tile; a block past the last tile exits.  Offsets are clamped to [0, P]
-// and each group's end to its start, so no offsets make a block touch a
-// row outside x or y; rows outside every group are not written.
+// tile (group_tile); a block past the last tile exits.  Rows outside every
+// group are not written.
 template <class W, bool VA, class XT>
 __global__ void __launch_bounds__(CNT, 1)
 gemm_tc_grouped(const XT* __restrict__ x, W wsrc, XT* __restrict__ y,
@@ -425,22 +472,134 @@ gemm_tc_grouped(const XT* __restrict__ x, W wsrc, XT* __restrict__ y,
   extern __shared__ float4 tc_smem[];
   int* so = reinterpret_cast<int*>(reinterpret_cast<char*>(tc_smem) +
                                    tc_ring_bytes<W, XT>());
-  for (int i = threadIdx.x; i <= G; i += CNT) so[i] = off[i];
-  __syncthreads();
-  int t = blockIdx.y, e = 0, a = 0, b = 0;
-  for (; e < G; ++e) {
-    a = min(max(so[e], 0), P);
-    b = min(max(so[e + 1], a), P);
-    const int tiles = (b - a + CBM - 1) / CBM;
-    if (t < tiles) break;
-    t -= tiles;
-  }
-  if (e == G) return;                      // the same for the whole block
+  int e, a, b, t;
+  if (!group_tile(off, so, G, P, e, a, b, t)) return;
   W w = wsrc;
   w.w += e * bs.w;
   w.scale += e * bs.s;
-  gemm_tc_tile<W, VA, XT>(x + (size_t)a * K, w, y + (size_t)a * N, b - a, K,
-                          N, t * CBM, blockIdx.x * CBN);
+  gemm_tc_tile<W, VA, XT>(x + (size_t)a * K, w,
+                          Cols<XT>{y + (size_t)a * N, N}, b - a, K, N,
+                          t * CBM, blockIdx.x * CBN);
+}
+
+// ------------------------------------------------- one launch per weight
+// gemm_tc_mixed: y = x @ dequant(W) for a whole mixed-QBN PackedWeight in
+// one launch (kernels/ops.py::packed_mixed_matmul on the tensor-core
+// route), in place of one gemm_tc launch per bucket, a zero fill and a
+// scatter of each bucket's columns into the policy's channel order.
+//
+// The grid's blockIdx.x covers the column tiles of every part of the
+// weight laid end to end: each int2, int4 and int8 bucket and the pruned
+// channels, in the order of the MixedTable that the host builds
+// (kernels/packed_matmul.py::mixed_table).  A block finds its part by its
+// first tile (tile0), then computes its tile exactly as gemm_tc does, with
+// the part's own weight source: the stage id picks one of the kernel's
+// template stage types S (Int8Stage<VEC>, PackedStage<4, VEC>,
+// PackedStage<2, VEC>, VEC chosen per bucket as with_stage chooses it), so
+// the K order, the hi / lo split, the step accumulators and the scale are
+// gemm_tc's and every output value has the bits of the per-bucket launch.
+// Its epilogue writes column n of the part to output channel col[n]
+// (ChannelCols); a pruned part (stage 0) writes zeros to its channels.  So
+// y needs no zero fill and no scatter.  One kernel serves the dense call,
+// the expert stack and the grouped form: blockIdx.y walks the row tiles of
+// uniform groups or, grouped, of the offsets' groups.
+constexpr int MIXED_PARTS = 4;   // pruned, int2, int4, int8
+
+// One part of a MixedTable: a bucket's stored weight (E or G experts of
+// ceil(K / F) x n bytes) and scales (n a expert), its output channels
+// (int64, on the card), its width, its first column tile and its stage id
+// (0: pruned, zeros; i > 0: the kernel's i-th stage type).
+struct MixedPart {
+  const int8_t* w;
+  const float* scale;
+  const long long* col;
+  int n, tile0, stage;
+};
+
+// The parts of one weight, passed by value as a kernel argument.
+struct MixedTable {
+  MixedPart p[MIXED_PARTS];
+  int parts;
+};
+
+// The part that holds column tile `tile` (the last whose tile0 is at or
+// below it; parts lie end to end from tile 0).
+__device__ __forceinline__ MixedPart part_of(const MixedTable& t, int tile) {
+  MixedPart p = t.p[0];
+#pragma unroll
+  for (int i = 1; i < MIXED_PARTS; ++i)
+    if (i < t.parts && t.p[i].tile0 <= tile) p = t.p[i];
+  return p;
+}
+
+// Zeros to rows m0.. and columns n0.. of a pruned part's tile.
+template <class XT>
+__device__ void zero_tile(const ChannelCols<XT>& out, int M, int N, int m0,
+                          int n0) {
+  for (int i = threadIdx.x; i < CBM * CBN; i += CNT) {
+    const int m = m0 + i / CBN, n = n0 + i % CBN;
+    if (m < M && n < N) put(out.column(n) + (size_t)m * out.ld, 0.f);
+  }
+}
+
+// gemm_tc_tile with stage type number `id` (from 0) of S0, Rest...:
+// expert z of part p.
+template <bool VA, class XT, class S0, class... Rest>
+__device__ __forceinline__ void mixed_tile(int id, const MixedPart& p,
+                                           size_t z, const XT* x,
+                                           const ChannelCols<XT>& out, int M,
+                                           int K, int m0, int n0) {
+  if (id == 0) {
+    const size_t rows = (K + S0::F - 1) / S0::F;
+    gemm_tc_tile<S0, VA, XT>(x, S0{p.w + z * rows * p.n, p.scale + z * p.n},
+                             out, M, K, p.n, m0, n0);
+  } else if constexpr (sizeof...(Rest) > 0) {
+    mixed_tile<VA, XT, Rest...>(id - 1, p, z, x, out, M, K, m0, n0);
+  }
+}
+
+// Dynamic shared memory of gemm_tc_mixed's ring: the largest stage's.
+template <class XT, class... S>
+__host__ __device__ constexpr size_t mixed_ring_bytes() {
+  size_t most = 0;
+  ((most = tc_ring_bytes<S, XT>() > most ? tc_ring_bytes<S, XT>() : most),
+   ...);
+  return most;
+}
+
+// G groups of rows of x and of y (.., ld) back to back, against expert e
+// of every part for group e, its row tiles in blockIdx.y.  off null: each
+// group M rows (x (G M, K): an expert stack, or one GEMM for G = 1), group
+// e's tile t at blockIdx.y = e tiles + t.  Else the groups of the P = M
+// rows by the G + 1 offsets, walked as gemm_tc_grouped walks them
+// (group_tile); rows outside every group are not written.  Either way a
+// row sits in its tile where the (G, M, K) layout of gemm_tc puts it.
+template <bool VA, class XT, class... S>
+__global__ void __launch_bounds__(CNT, 1)
+gemm_tc_mixed(const XT* __restrict__ x, const MixedTable tab,
+              XT* __restrict__ y, const int* __restrict__ off, int G, int M,
+              int K, int ld) {
+  int e, a, b, t;
+  if (off == nullptr) {
+    const int tiles = (M + CBM - 1) / CBM;
+    e = blockIdx.y / tiles;
+    t = blockIdx.y - e * tiles;
+    a = e * M;
+    b = a + M;
+  } else {
+    extern __shared__ float4 tc_smem[];
+    int* so = reinterpret_cast<int*>(reinterpret_cast<char*>(tc_smem) +
+                                     mixed_ring_bytes<XT, S...>());
+    if (!group_tile(off, so, G, M, e, a, b, t)) return;
+  }
+  const MixedPart p = part_of(tab, blockIdx.x);
+  const ChannelCols<XT> out{y + (size_t)a * ld, ld, p.col};
+  const int n0 = (blockIdx.x - p.tile0) * CBN;
+  if (p.stage == 0)
+    zero_tile(out, b - a, p.n, t * CBM, n0);
+  else
+    mixed_tile<VA, XT, S...>(p.stage - 1, p, e, x + (size_t)a * K, out,
+                             b - a, K, t * CBM, n0);
 }
 
 // The kernel `kern` with `smem` bytes of dynamic shared memory on a grid
@@ -504,6 +663,66 @@ int with_stage(const int8_t* w, const float* scale, int N, F&& f) {
     if (vec) return f(PackedStage<BITS, true>{w, scale});
     return f(PackedStage<BITS, false>{w, scale});
   }
+}
+
+// The stage types of gemm_tc_mixed: stage id i > 0 is the (i - 1)-th, in
+// the order of kernels/packed_matmul.py::MIXED_STAGES.
+template <class... S>
+struct StageList {
+  static constexpr int size = sizeof...(S);
+};
+using MixedStages =
+    StageList<Int8Stage<true>, Int8Stage<false>, PackedStage<4, true>,
+              PackedStage<4, false>, PackedStage<2, true>,
+              PackedStage<2, false>>;
+
+// Launch gemm_tc_mixed over `tiles` column tiles on `stream`: off null,
+// E experts of M rows; else the G + 1 = E + 1 offsets of the P = M rows.
+// Returns the first CUDA error of the setup or the launch.
+template <class XT, class... S>
+int launch_mixed(StageList<S...>, const XT* x, const MixedTable& tab,
+                 int tiles, XT* y, const int* off, int E, int M, int K,
+                 int ld, cudaStream_t stream) {
+  const long m_tiles = (M + CBM - 1) / CBM;
+  const long row_tiles = off ? m_tiles + E : m_tiles * E;
+  if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = x_vec(x, K) ? gemm_tc_mixed<true, XT, S...>
+                          : gemm_tc_mixed<false, XT, S...>;
+  const size_t smem =
+      mixed_ring_bytes<XT, S...>() + (off ? sizeof(int) * (E + 1) : 0);
+  return launch_with_smem(kern, smem, dim3(tiles, (unsigned)row_tiles, 1),
+                          stream, x, tab, y, off, E, M, K, ld);
+}
+
+// One gemm_tc_mixed launch for a whole PackedWeight of N output channels:
+// `parts` (n_parts of them) as the host's MixedTable lays them out, checked
+// here: tiles end to end from 0, widths summing to N, stage ids in range.
+// x (E, M, K) and y (E, M, N), or grouped (off non-null, G = E groups): x
+// (P, K) and y (P, N) with P = M.  Returns the first CUDA error of the
+// setup or the launch.
+template <class XT>
+int launch_gemm_mixed(const XT* x, const MixedPart* parts, int n_parts,
+                      XT* y, const int* off, int E, int M, int K, int N,
+                      cudaStream_t stream) {
+  constexpr int STAGES = MixedStages::size;
+  if (n_parts < 1 || n_parts > MIXED_PARTS || E < 1 || M < 1 || K < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MixedTable tab{};
+  int tiles = 0, cols = 0;
+  for (int i = 0; i < n_parts; ++i) {
+    const MixedPart& p = parts[i];
+    if (p.n < 1 || p.tile0 != tiles || p.stage < 0 || p.stage > STAGES ||
+        p.col == nullptr ||
+        (p.stage > 0 && (p.w == nullptr || p.scale == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    tab.p[i] = p;
+    tiles += (p.n + CBN - 1) / CBN;
+    cols += p.n;
+  }
+  tab.parts = n_parts;
+  if (cols != N) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mixed(MixedStages{}, x, tab, tiles, y, off, E, M, K, N,
+                      stream);
 }
 
 // --------------------------------------------------------------- skinny

@@ -28,7 +28,10 @@
 // kernel applies it.  An MoE expert stack's int4 and int2 buckets run as
 // one launch each for all the experts (the expert is blockIdx.z), or, in
 // the grouped form (packed_matmul_grouped_fwd), over only the rows routed
-// to each expert, back to back.
+// to each expert, back to back.  On the tensor-core route a whole mixed-QBN
+// weight, its int8 bucket included, is one launch (packed_mixed_fwd:
+// gemm_tc_mixed, each bucket's tiles in one grid, written in the policy's
+// channel order).
 #include "gemm_tiles.cuh"
 
 // E experts of M rows each (E = 1: one GEMM): x (E, M, K), pw (E,
@@ -98,5 +101,43 @@ extern "C" int packed_matmul_grouped_fwd(const void* x, const void* pw,
     return packed_grouped<4>(x, w, s, y, off, G, P, K, N, x_type, st);
   if (store_bits == 2)
     return packed_grouped<2>(x, w, s, y, off, G, P, K, N, x_type, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A whole mixed-QBN PackedWeight in one tensor-core launch
+// (gemm_tiles.cuh's gemm_tc_mixed): y (.., N) in the policy's channel
+// order, pruned channels zero.  Part i of n_parts: stored weight w_i,
+// scales s_i, output channels c_i (int64 on the card), width n_i, first
+// column tile t_i and stage id st_i, as kernels/packed_matmul.py::
+// mixed_table lays them out (unused parts: null and 0).  offsets null: x
+// (E, M, K), y (E, M, N); else grouped, E groups of the P = M rows of x
+// (P, K) with offsets int32 (E + 1) on the card, y (P, N), rows outside
+// every group not written.  x_type as above.
+extern "C" int packed_mixed_fwd(
+    const void* x, void* y, const void* offsets, const void* w0,
+    const void* s0, const void* c0, const void* w1, const void* s1,
+    const void* c1, const void* w2, const void* s2, const void* c2,
+    const void* w3, const void* s3, const void* c3, int n0, int t0, int st0,
+    int n1, int t1, int st1, int n2, int t2, int st2, int n3, int t3,
+    int st3, int n_parts, int E, int M, int K, int N, int x_type,
+    void* stream) {
+  using bf16 = __nv_bfloat16;
+  auto part = [](const void* w, const void* s, const void* c, int n, int t,
+                 int st) {
+    return rt::MixedPart{static_cast<const int8_t*>(w),
+                         static_cast<const float*>(s),
+                         static_cast<const long long*>(c), n, t, st};
+  };
+  const rt::MixedPart parts[rt::MIXED_PARTS] = {
+      part(w0, s0, c0, n0, t0, st0), part(w1, s1, c1, n1, t1, st1),
+      part(w2, s2, c2, n2, t2, st2), part(w3, s3, c3, n3, t3, st3)};
+  const int* off = static_cast<const int*>(offsets);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_type == 0)
+    return rt::launch_gemm_mixed(static_cast<const float*>(x), parts, n_parts,
+                                 static_cast<float*>(y), off, E, M, K, N, st);
+  if (x_type == 1)
+    return rt::launch_gemm_mixed(static_cast<const bf16*>(x), parts, n_parts,
+                                 static_cast<bf16*>(y), off, E, M, K, N, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,7 +8,9 @@ packed_matmul    (K3, csrc/packed_matmul.cu) -- int4 / int2 packed GEMM
                  (and packed_matmul_grouped)
 paged_prefill_attention (K4, csrc/paged_attention.cu) -- causal attention
                  over the paged KV pool (chunks and decode tokens)
-packed_mixed_matmul -- one K2/K3 launch per bucket of a PackedWeight
+packed_mixed_matmul -- a PackedWeight's product: on the tensor-core route
+                 one launch for every bucket (packed_matmul.mixed_matmul),
+                 else one K2/K3 launch per bucket
 fake_quant_channels (B5, csrc/fake_quant.cu) -- per-channel fake-quant
                  of the search's QUANT evaluations
 binary_matmul    (B6, csrc/binary_matmul.cu) -- bit-plane product of the

@@ -50,7 +50,8 @@ def is_int8_leaf(w) -> bool:
 def linear(x: torch.Tensor, w, role: Optional[str] = "w_col"
            ) -> torch.Tensor:
     """``x @ w`` over the last axis of x.  A PackedWeight goes to
-    ``ops.packed_mixed_matmul`` (one K2/K3 launch per bucket on the card),
+    ``ops.packed_mixed_matmul`` (on the card one launch for the whole
+    store at more than 8 rows, else one K2/K3 launch per bucket),
     an int8-store leaf to K2 with its per-channel scale (nothing
     dequantizes the weight); a dense weight is a plain matmul.  The
     result has the reference's dtype for ``x @ deq(w)``: the promotion of
@@ -82,9 +83,10 @@ def linear(x: torch.Tensor, w, role: Optional[str] = "w_col"
 def expert_linear(x: torch.Tensor, w) -> torch.Tensor:
     """Each expert's rows times its own weight: x (E, C, K) against an
     (E, K, N) stack -> (E, C, N), the reference's ``"ecd,edf->ecf"``.  A
-    PackedWeight stack and an int8-store stack take one batched K2 / K3
-    launch per bucket for all E experts; a dense stack is a plain batched
-    matmul (the reference computes it outside any Pallas kernel)."""
+    PackedWeight stack and an int8-store stack take K2 / K3 launches for
+    all E experts at once (``ops.packed_mixed_matmul``); a dense stack is
+    a plain batched matmul (the reference computes it outside any Pallas
+    kernel)."""
     if is_int8_leaf(w) and (ctx.is_dtensor(x) or ctx.is_dtensor(w["q"])):
         return _sharded_quant_matmul(x, w, batched=True)
     x = x.contiguous()
@@ -106,7 +108,8 @@ def grouped_expert_linear(x: torch.Tensor, w, offsets: torch.Tensor,
     (``offsets`` (E + 1,) int32 on x's device), at most ``cap`` of them,
     against an (E, K, N) stack that K2 / K3 contract as it is (a
     PackedWeight without a bf16 ``full`` bucket, or an int8-store leaf)
-    -> (P, N), one grouped launch per bucket.  Each row gets the bits it
+    -> (P, N), grouped launches (one for a whole PackedWeight,
+    ``packed_matmul.mixed_matmul``).  Each row gets the bits it
     gets in :func:`expert_linear`'s (E, cap, K) layout; rows outside every
     group are unspecified."""
     x = x.contiguous()

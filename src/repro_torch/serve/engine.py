@@ -8,9 +8,11 @@ two weight stores:
 * ``weight_store="fake"`` -- fake-quantized f32 tensors (search-time
   numerics, full-size footprint); their matmuls are plain ``x @ w``;
 * ``weight_store="packed"`` -- the bucketed sub-byte store
-  (``quant.apply.apply_policy_packed``), whose matmuls run one CUDA kernel
-  per bucket on the card (K3 for int2 / int4, K2 for int8; an MoE expert
-  stack one launch per bucket for all its experts).
+  (``quant.apply.apply_policy_packed``), whose matmuls run on the card as
+  one launch for every bucket of a weight at more than 8 rows
+  (``packed_matmul.mixed_matmul``), else one kernel per bucket (K3 for
+  int2 / int4, K2 for int8); an MoE expert stack's launches serve all its
+  experts.
 
 Params that arrive already in the uniform int8 store
 (``LM.quantize_params_int8``) are served as they are, every matmul on K2,
